@@ -1,0 +1,138 @@
+"""Gallery/query embedding extraction on one device.
+
+The step runs preprocessing, the encoder and flip-TTA on the device and
+leaves the features there for the retrieval tail. Multi-device meshes come
+with a later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable, Tuple
+
+import numpy as np
+import torch
+
+from tpu_reid_torch.data.transforms import DevicePreprocess
+from tpu_reid_torch.device import DeviceLike, resolve_device, to_device
+
+Tensor = torch.Tensor
+
+
+def _embed(embed_fn, pre, params, images_u8, flip_tta, dtype, cv=()):
+    x = pre(images_u8).to(dtype)
+    feats = embed_fn(params, x, *cv)
+    if flip_tta:
+        feats = (feats + embed_fn(params, x.flip(2), *cv)) * 0.5
+    return feats.float()
+
+
+def make_extractor(
+    embed_fn: Callable[..., Tensor],
+    preprocess: DevicePreprocess,
+    flip_tta: bool = True,
+    dtype: torch.dtype = torch.bfloat16,
+    with_cv_ids: bool = False,
+    fold=None,
+    device: DeviceLike = None,
+):
+    """Build a step: uint8 images -> (B, E) fp32 embeddings on `device`
+    (CUDA unless device="cpu").
+
+    embed_fn(params, images_normalized) -> (B, E); with flip_tta the plain
+    and flipped passes are averaged (the mean, not the sum: in mm mode the
+    two halves of the embedding have independent scales).
+
+    with_cv_ids=True: the step takes (params, images_u8, cv_ids) and
+    embed_fn takes (params, x, cv_ids) — the SIE camera-embedding path (the
+    flipped pass keeps the same camera ids).
+
+    fold: optional params -> params transform that folds the input
+    normalization into the patch-embed weights (e.g. a wrapper of
+    models.vit.fold_visual_input_norm). When given, the step applies it and
+    feeds RAW-scale images — the normalization pass disappears (exact)."""
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def step(params, images_u8, *cv):
+        if len(cv) != int(with_cv_ids):
+            raise TypeError(f"step takes {int(with_cv_ids)} camera-id argument(s), "
+                            f"got {len(cv)}")
+        images_u8 = torch.as_tensor(images_u8).to(dev)
+        cv = tuple(torch.as_tensor(c).to(dev) for c in cv)
+        pre = preprocess.eval_batch
+        if fold is not None:
+            params = fold(params)
+            pre = preprocess.eval_batch_raw
+        return _embed(embed_fn, pre, params, images_u8, flip_tta, dtype, cv)
+
+    return step
+
+
+def make_scan_extractor(
+    embed_fn: Callable[..., Tensor],
+    preprocess: DevicePreprocess,
+    flip_tta: bool = True,
+    dtype: torch.dtype = torch.bfloat16,
+    fold=None,
+    device: DeviceLike = None,
+):
+    """Multi-batch extractor: fn(params, images_u8) with images_u8
+    (K, B, H, W, 3) -> (K, B, E). A plain loop over the K batches with the
+    semantics of make_extractor's step; the fold is applied once."""
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def scan_fn(params, images_kb):
+        images_kb = torch.as_tensor(images_kb).to(dev)
+        pre = preprocess.eval_batch
+        if fold is not None:
+            params = fold(params)
+            pre = preprocess.eval_batch_raw
+        return torch.stack([
+            _embed(embed_fn, pre, params, images_kb[k], flip_tta, dtype)
+            for k in range(images_kb.shape[0])
+        ])
+
+    return scan_fn
+
+
+def extract_embeddings(
+    extractor,
+    params: dict,
+    batches: Iterable,
+    cv_ids_of=None,
+    device: DeviceLike = None,
+) -> Tuple[Tensor, np.ndarray, np.ndarray, np.ndarray]:
+    """Sweep batches; returns (features_on_device, pids, camids, seqids).
+
+    batches yield objects with .images (B, H, W, 3) uint8 (fixed B), .pids,
+    .camids, .seqids, .valid. Features stay on `device` (CUDA unless
+    device="cpu"); metadata stays on the host. cv_ids_of(batch) -> (B,) int
+    ids feeds the extractor's third argument (pair with
+    make_extractor(with_cv_ids=True))."""
+    dev = resolve_device(device)
+    params = to_device(params, dev)  # moved once, not per batch
+    feats, pids, camids, seqids = [], [], [], []
+    for b in batches:
+        extra = (
+            (torch.as_tensor(np.asarray(cv_ids_of(b), np.int64), device=dev),)
+            if cv_ids_of is not None else ()
+        )
+        f = extractor(params, torch.as_tensor(b.images).to(dev), *extra)
+        valid = np.asarray(b.valid, bool)
+        if valid.all():
+            feats.append(f)
+            pids.append(b.pids)
+            camids.append(b.camids)
+            seqids.append(b.seqids)
+        else:
+            feats.append(f[torch.from_numpy(valid).to(f.device)])
+            pids.append(b.pids[valid])
+            camids.append(b.camids[valid])
+            seqids.append(b.seqids[valid])
+    return (
+        torch.cat(feats, dim=0),
+        np.concatenate(pids),
+        np.concatenate(camids),
+        np.concatenate(seqids),
+    )
