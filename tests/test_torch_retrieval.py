@@ -82,5 +82,10 @@ def test_ties_rank_stably_like_jax():
 
 
 def test_reranking_names_its_slice():
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        TM.Evaluator(num_query=1, reranking=True)
+    """Re-ranking is ported for one device; a mesh of several devices is
+    refused with the slice that brings it."""
+    from types import SimpleNamespace
+
+    TM.Evaluator(num_query=1, reranking=True)
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        TM.Evaluator(num_query=1, reranking=True, mesh=SimpleNamespace(shape={"data": 4}))

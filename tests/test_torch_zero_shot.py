@@ -175,7 +175,8 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(setup, monkeypatch):
 
 
 def test_port_imports_neither_jax_nor_tpu_reid(tmp_path):
-    """Every tpu_reid_torch module and chip_smoke import with JAX made
+    """Every tpu_reid_torch module (the re-ranking modules, the data layer
+    and the zero-shot CLI included) and chip_smoke import with JAX made
     unimportable, and load no tpu_reid module; chip_smoke run on a machine
     without a card, or alone without the package, prints no result and
     exits non-zero."""
@@ -189,7 +190,10 @@ def test_port_imports_neither_jax_nor_tpu_reid(tmp_path):
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'tpu_reid' or m.startswith('tpu_reid.')]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 20, names\n"
+        "need = {'cli.zero_shot', 'ops.minsum', 'retrieval.rerank', 'retrieval.rerank_stream', "
+        "'runtime.observe', 'data.attributes', 'data.datasets', 'data.loader'}\n"
+        "assert {'tpu_reid_torch.' + m for m in need} <= set(names), names\n"
+        "assert len(names) >= 34, names\n"
         "print('imported', len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

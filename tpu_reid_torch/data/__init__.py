@@ -1,1 +1,1 @@
-"""Eval-path image preprocessing."""
+"""Eval-path image preprocessing, dataset parsers, attribute prompts and the batch loader."""

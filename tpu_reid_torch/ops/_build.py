@@ -30,7 +30,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 # library name -> source file in csrc/
-SOURCES = {"block": "block_kernels.cu", "tail": "tail_kernel.cu"}
+SOURCES = {"block": "block_kernels.cu", "tail": "tail_kernel.cu",
+           "minsum": "minsum_kernel.cu"}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,11 +54,16 @@ SIGNATURES = {
         # x, ln_g, ln_b, proj, y, p, B, D, E, dtype, stream
         "ln_proj_tail": [_P] * 6 + [_I] * 4 + [_P],
     },
+    "minsum": {
+        # a, a_scale, b, b_scale, out, Na, Nb, C, operand dtype, stream
+        "minsum": [_P] * 5 + [_I] * 4 + [_P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
-# the `dtype` argument of every entry point
+# the `dtype` argument of the block and tail entry points (minsum has its
+# own operand codes, ops/minsum.py::OPERAND_CODES)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

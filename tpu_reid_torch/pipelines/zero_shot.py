@@ -7,7 +7,7 @@
   * --mm multimodal mode — the retrieval embedding becomes
     cat(image_features, softmax(1/0.07 * norm(proj) @ zs_weights.T)),
   * evaluation through the Evaluator (CMC + mAP, optionally mINP, max_rank
-    50).
+    50, optionally k-reciprocal re-ranking).
 """
 
 from __future__ import annotations
@@ -102,12 +102,16 @@ def evaluate_zero_shot(
     multimodal: bool = False,
     max_rank: int = 50,
     reranking: bool = False,
+    mesh=None,
     with_minp: bool = False,
     device: DeviceLike = None,
+    log=None,
 ):
     """Final ranking on `device` (CUDA unless device="cpu"): optional mm
-    transform, then CMC/mAP. Returns (cmc, mAP), or (cmc, mAP, mINP) when
-    with_minp."""
+    transform, then CMC/mAP, with k-reciprocal re-ranking when `reranking`
+    (the Evaluator's "auto" route). Returns (cmc, mAP), or (cmc, mAP, mINP)
+    when with_minp. A `mesh` larger than one device raises (slice 7 of the
+    port); `log` is handed to the Evaluator."""
     dev = resolve_device(device)
     query_feats = torch.as_tensor(query_feats).to(dev)
     gallery_feats = torch.as_tensor(gallery_feats).to(dev)
@@ -118,7 +122,8 @@ def evaluate_zero_shot(
         query_feats = mm_embeddings(query_feats, proj_dim, zs_weights)
         gallery_feats = mm_embeddings(gallery_feats, proj_dim, zs_weights)
     ev = Evaluator(num_query=int(query_feats.shape[0]), max_rank=max_rank,
-                   feat_norm=True, reranking=reranking, with_minp=with_minp)
+                   feat_norm=True, reranking=reranking, mesh=mesh, with_minp=with_minp,
+                   log=log)
     ev.update(query_feats, q_pids, q_camids)
     ev.update(gallery_feats, g_pids, g_camids)
     return ev.compute()

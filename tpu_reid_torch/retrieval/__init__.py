@@ -1,1 +1,1 @@
-"""Distance matrices and CMC/mAP/mINP."""
+"""Distance matrices, CMC/mAP/mINP and k-reciprocal re-ranking."""

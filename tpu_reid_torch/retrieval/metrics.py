@@ -15,10 +15,18 @@ chunked over queries, on the distance matrix's device.
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
 from tpu_reid_torch.retrieval.distance import euclidean_distmat, l2_normalize
+from tpu_reid_torch.retrieval.rerank import k_reciprocal_rerank, k_reciprocal_rerank_sharded
+from tpu_reid_torch.retrieval.rerank_stream import (
+    k_reciprocal_rerank_streamed_rows,
+    require_single_device,
+)
+from tpu_reid_torch.runtime.observe import synced_phase
 
 Tensor = torch.Tensor
 
@@ -127,19 +135,36 @@ def cmc_map(distmat: Tensor, q_pids, g_pids, q_camids, g_camids, max_rank: int =
 
 class Evaluator:
     """Feature accumulator + metric computation: keeps the accumulated
-    features on their device and runs normalize -> distmat -> CMC/mAP there.
-    Re-ranking comes with a later slice."""
+    features on their device and runs the whole tail there (normalize ->
+    distmat -> CMC/mAP, optionally k-reciprocal re-ranking).
+
+    rerank_mode: "exact" (dense, `rerank.k_reciprocal_rerank`), "streamed"
+    (exact neighbourhoods with sparse V and quantized V_qe,
+    `rerank_stream.k_reciprocal_rerank_streamed_rows`, blended and scored
+    per query chunk), "sharded" (shard-local neighbourhoods, an
+    approximation) or "auto" (exact up to `rerank_exact_limit` = Q+G, then
+    streamed). A `mesh` whose "data" axis is larger than 1 raises (slice 7
+    of the port). `log`: an optional MetricLogger that gets the streamed
+    route's passes as device-synchronised phases."""
 
     def __init__(self, num_query: int, max_rank: int = 50, feat_norm: bool = True,
-                 reranking: bool = False, with_minp: bool = False):
-        if reranking:
-            raise NotImplementedError(
-                "k-reciprocal re-ranking is not ported yet (slice 3 of the port)"
-            )
+                 reranking: bool = False, rerank_params: tuple = (50, 15, 0.3),
+                 rerank_mode: str = "auto", mesh=None, with_minp: bool = False, log=None):
+        if rerank_mode not in ("auto", "exact", "streamed", "sharded"):
+            raise ValueError(f"rerank_mode must be auto, exact, streamed or sharded: "
+                             f"{rerank_mode!r}")
+        require_single_device(mesh)
         self.num_query = num_query
         self.max_rank = max_rank
         self.feat_norm = feat_norm
+        self.reranking = reranking
+        self.rerank_params = rerank_params
+        self.rerank_mode = rerank_mode
+        # the exact route holds about four dense (Q+G)^2 fp32 matrices
+        # (25.6 GB at 40,000); above this population "auto" streams
+        self.rerank_exact_limit = 40_000
         self.with_minp = with_minp
+        self.log = log
         self.reset()
 
     def reset(self) -> None:
@@ -160,10 +185,33 @@ class Evaluator:
             feats = l2_normalize(feats, axis=1)
         pids = np.concatenate(self._pids)
         camids = np.concatenate(self._camids)
-        qf, gf = feats[: self.num_query], feats[self.num_query:]
-        distmat = euclidean_distmat(qf, gf)
-        return cmc_map(
-            distmat, pids[: self.num_query], pids[self.num_query:],
-            camids[: self.num_query], camids[self.num_query:],
-            max_rank=self.max_rank, with_minp=self.with_minp,
-        )
+        nq = self.num_query
+        qf, gf = feats[:nq], feats[nq:]
+        ids = (pids[:nq], pids[nq:], camids[:nq], camids[nq:])
+        kw = dict(max_rank=self.max_rank, with_minp=self.with_minp)
+
+        if not self.reranking:
+            return cmc_map(euclidean_distmat(qf, gf), *ids, **kw)
+        k1, k2, lam = self.rerank_params
+        mode = self.rerank_mode
+        if mode == "auto":
+            n = int(qf.shape[0]) + int(gf.shape[0])
+            mode = "exact" if n <= self.rerank_exact_limit else "streamed"
+        if mode == "exact":
+            distmat = k_reciprocal_rerank(qf, gf, k1=k1, k2=k2, lambda_value=lam)
+        elif mode == "streamed":
+            row_fn, q_chunk = k_reciprocal_rerank_streamed_rows(
+                qf, gf, k1=k1, k2=k2, lambda_value=lam, log=self.log)
+            with synced_phase(self.log, "rerank.blend_metric", qf.device):
+                return cmc_map_from_rows(row_fn, q_chunk, *ids, **kw)
+        else:
+            warnings.warn(
+                "rerank_mode='sharded' uses shard-LOCAL k-reciprocal neighbourhoods, "
+                "which lowers mAP against the exact protocol (the JAX package records the "
+                "cost in docs/DIVERGENCES.md #15). The streamed mode runs the EXACT "
+                "protocol at any population whose sparse V fits the device; use "
+                "rerank_mode='streamed' (or 'auto') unless it cannot fit.",
+                stacklevel=2,
+            )
+            distmat = k_reciprocal_rerank_sharded(qf, gf, k1=k1, k2=k2, lambda_value=lam)
+        return cmc_map(distmat, *ids, **kw)

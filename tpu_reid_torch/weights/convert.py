@@ -11,6 +11,8 @@ load time (models/clip_model.resize_pos_embed).
 to the same dicts, so both packages can run one set of weights.
 `random_clip_state_dict` makes a random OpenAI-format ViT state dict from a
 seed, for smoke runs and tests at full width without a checkpoint.
+`overlay_clip_reid` lays a CLIP-ReID checkpoint over a CLIP state dict (the
+CLI's --clip_weights).
 """
 
 from __future__ import annotations
@@ -50,6 +52,30 @@ def load_state_dict(path: str) -> StateDict:
         sd = obj.state_dict() if hasattr(obj, "state_dict") else obj
     return {k: v.detach().float().cpu().numpy() for k, v in sd.items()
             if hasattr(v, "detach")}
+
+
+def strip_prefix(sd: StateDict, prefix: str) -> StateDict:
+    """Keep keys under `prefix`, with the prefix removed (an exact string
+    strip, not the reference's `lstrip` char-set)."""
+    plen = len(prefix)
+    return {k[plen:]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def drop_prefix(sd: StateDict, prefix: str = "module.") -> StateDict:
+    return {(k[len(prefix):] if k.startswith(prefix) else k): v for k, v in sd.items()}
+
+
+def overlay_clip_reid(base_sd: StateDict, reid_sd: StateDict) -> StateDict:
+    """Overlay a CLIP-ReID training checkpoint onto an OpenAI CLIP state
+    dict: `image_encoder.*` keys remap onto `visual.*`, `text_encoder.*`
+    onto the top-level text keys. Convert the result with convert_clip."""
+    out = dict(base_sd)
+    for k, v in reid_sd.items():
+        if k.startswith("image_encoder."):
+            out["visual." + k[len("image_encoder."):]] = v
+        elif k.startswith("text_encoder."):
+            out[k[len("text_encoder."):]] = v
+    return out
 
 
 # ---------------------------------------------------------------------------
