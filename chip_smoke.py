@@ -6,37 +6,49 @@
 1. Prints the card and sets fp32 matmuls and convolutions to full fp32.
 2. Builds the hand-written kernels from tpu_reid_torch/csrc/ into
    build/kernels/ (one nvcc per source, all at once).
-3. Holds every kernel against its plain PyTorch version on the card: each
-   block kernel alone at the main path's shapes (ViT-B/16, 256x128, stride
-   12: 211 tokens, 128 images per pass, bf16), timed with CUDA events beside
-   the plain version and a library yardstick; then whole blocks at B=64 for
-   S=211 and S=213 with the deep-prompt splice, exact and fast softmax,
-   bf16 and fp32, the causal text block (N=64, S=77, fp32 and bf16), and the
-   CLS tail at B=128 (timed) and B=512, bf16 and fp32. The minsum kernel at
-   awkward shapes in fp8, bf16 and fp32, then timed at the Market-1501
-   streamed shape (4096 x 16384 x 20480, fp8) beside its CUDA-core bound,
-   the cdist(p=1) yardstick and the plain version on a 64-row slab, and on
-   one 1024-row query slab of the MSMT17 shape.
-4. Drives the zero-shot main path at full width with random weights from a
-   seed: OpenAI-format state dict -> convert_clip -> zeroshot_classifier
-   (16 identities, 7 templates each) -> flip-TTA extraction of 128 query and
-   512 gallery images in bf16 -> evaluate_zero_shot (multimodal, mINP).
-5. Holds the slice: fp32 extraction and scoring of a subset through the
-   plain path and through the kernels must agree.
-6. Re-ranks at Market-1501 scale (3368 queries, 15913 gallery, D=1280,
-   synthetic features from numpy seed 0) through the Evaluator: without
-   re-ranking, the exact route and the streamed route (bf16/fp8), held
-   within JAX's bounds; the streamed route in fp32 against the exact
-   distances; the exact route through the kernel against the plain
-   min-sum.
-7. Runs the zero-shot CLI with --rerank --mm at full ViT-B/16 width on a
-   synthetic Market1501 directory and a random checkpoint, and checks that
-   it launched every kernel.
+3. kernels: holds every kernel against its plain PyTorch version on the
+   card: each block kernel alone at the main path's shapes (ViT-B/16,
+   256x128, stride 12: 211 tokens, 128 images per pass, bf16), timed with
+   CUDA events beside the plain version and a library yardstick, then
+   fused_mha (pre-LN and without, timed beside
+   F.multi_head_attention_forward), fused_mlp and the whole block composed
+   from them; fused_mha / fused_mlp / mha_core at B=64 for S=211, S=213 with
+   the deep-prompt splice and the causal text S=77, exact and fast, bf16
+   and fp32; whole blocks at B=64 for every variant the main paths take;
+   the CLS tail at B=128 (timed) and B=512.
+4. minsum: the minsum kernel at awkward shapes in fp8, bf16 and fp32, then
+   timed at the Market-1501 streamed shape (4096 x 16384 x 20480, fp8) and
+   on one 1024-row query slab of the MSMT17 shape.
+5. grad: the block and CLS-tail autograd Functions against plain autograd
+   at full width (B=16, S=213 with the splice, fp32).
+6. zero_shot: the zero-shot main path at full width with random weights
+   from a seed (convert_clip -> zeroshot_classifier -> flip-TTA extraction
+   of 128 query and 512 gallery images in bf16 -> evaluate_zero_shot), and
+   the same slice in fp32 through the plain path and the kernels.
+7. rerank: re-ranks at Market-1501 scale through the Evaluator, exact and
+   streamed routes, held within JAX's bounds.
+8. serve: eval_embed of the IVLP flagship (bench.py's model: 213 tokens,
+   751 classes, random weights from seed 0) at bench.py's profile (batch
+   512, bf16, fast softmax, folded input norm, no flip-TTA): emb/s, a
+   trace; every block and tail call of one timed batch against its plain
+   version on the run's own inputs, its embeddings against the plain path;
+   fp32 kernels against the plain path.
+9. train: three live IVLP stage-1 steps and three stage-2 steps of the
+   flagship at bs 64 in bf16 activations (ms per step, peak memory, traces,
+   launches), an fp32 stage-1 step's peak memory, and an fp32 stage-2 loss
+   and gradient through the kernels against the plain path.
+10. cli: the zero-shot CLI with --rerank --mm, then the prompt-learning CLI
+   (ivlp, one epoch of each stage, --rerank, bf16), at full ViT-B/16 width
+   on a synthetic Market1501 directory and a random checkpoint; both must
+   launch every kernel.
 
-Prints the kernels' JSON record on the line before the last, and as the
-last line {"ok": true, "device": {...}}. Any failed phase exits non-zero;
-with no CUDA device, or without the tpu_reid_torch package beside it, the
-script exits non-zero before printing a result.
+It prints the kernels' JSON record on the line before the last (each
+kernel's launches on this slice's main path, IVLP serving, or for minsum
+the re-ranking path, and its launches on every path), and as the last line
+{"ok": true, "device": {...}}.
+Any failed phase exits non-zero; with no CUDA device, or without the
+tpu_reid_torch package beside it, the script exits non-zero before printing
+a result.
 """
 
 from __future__ import annotations
@@ -100,7 +112,7 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     """(max|got - want|, that over max|want|)."""
-    got, want = got.float(), want.float()
+    got, want = got.detach().float(), want.detach().float()
     if not torch.isfinite(got).all():
         return float("inf"), float("inf")
     err = float((got - want).abs().max())
@@ -135,6 +147,7 @@ def block_params(rng, d, hid, dtype, dev):
 
 
 def kernel_phase(dev):
+    from tpu_reid_torch.ops import attention as TA
     from tpu_reid_torch.ops import fused_attention as FA
     from tpu_reid_torch.ops import fused_tail as FT
 
@@ -164,27 +177,30 @@ def kernel_phase(dev):
     say(f"kernels alone at B={b} S={s} D={d} hid={hid} bf16 "
         f"(times: median of 20 CUDA-event runs)")
 
-    def entry(name, source, replaces, parts):
-        """parts: [(label, kernel_fn, plain_fn, library_fn, flops, bytes)] —
-        the kernel's launches in one vision block, summed."""
+    def entry(name, source, replaces, parts, **extra):
+        """parts: [(label, kernel_fn, plain_fn, library_fn or None, flops,
+        bytes)] — the kernel's launches in one vision block, summed; the
+        library time is null unless every part has a library call."""
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
         errs = []
         for label, kfn, pfn, lfn, flops, nbytes in parts:
             errs.append(check(f"{name}[{label}]", kfn(), pfn(), bf))
-            k_ms, p_ms, l_ms = time_ms(kfn), time_ms(pfn), time_ms(lfn)
+            k_ms, p_ms = time_ms(kfn), time_ms(pfn)
+            l_ms = time_ms(lfn) if lfn is not None else None
             bnd, by = bound(flops, nbytes)
+            lib = f"library {l_ms:.4f} ms, " if l_ms is not None else ""
             say(f"    {name}[{label}]: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                f"library {l_ms:.4f} ms, bound {bnd:.4f} ms ({by}); "
-                f"{flops / k_ms / 1e9:.1f} TFLOP/s")
+                f"{lib}bound {bnd:.4f} ms ({by}); {flops / k_ms / 1e9:.1f} TFLOP/s")
             tot["ms"] += k_ms
             tot["plain_ms"] += p_ms
-            tot["library_ms"] += l_ms
+            tot["library_ms"] = None if l_ms is None or tot["library_ms"] is None \
+                else tot["library_ms"] + l_ms
             tot["flops"] += flops
             tot["bytes"] += nbytes
         bnd, by = bound(tot["flops"], tot["bytes"])
         record[name] = dict(name=name, route="cuda", source=source, replaces=replaces,
                             max_abs_err=max(errs), ms=tot["ms"], plain_ms=tot["plain_ms"],
-                            bound_ms=bnd, bound_by=by, library_ms=tot["library_ms"])
+                            bound_ms=bnd, bound_by=by, library_ms=tot["library_ms"], **extra)
 
     def ln_gemm_part(label, xin, g, gb, w, bias, gelu):
         k, n = w.shape
@@ -205,15 +221,16 @@ def kernel_phase(dev):
 
     q, kk, v = (t.reshape(b, s, heads, 64).transpose(1, 2).contiguous()
                 for t in qkv.split(d, dim=-1))
-    entry("attention", src_block, "tpu_reid/ops/fused_attention.py:144", [(
-        "exact",
-        lambda: FA.attention(qkv, heads),
-        lambda: FA.attention_reference(qkv, heads),
+    views = FA._qkv_views(qkv, heads)  # (B, S, H, 64) views, row stride 3D: no copy
+    entry("mha_core", src_block, "tpu_reid/ops/attention.py:37", [(
+        "exact, qkv views",
+        lambda: TA.mha_core(*views),
+        lambda: TA.mha_core_reference(*views),
         lambda: F.scaled_dot_product_attention(q, kk, v),
         4.0 * b * heads * s * s * 64, 2.0 * (b * s * 3 * d + b * s * d),
     )])
 
-    a = FA.attention(qkv, heads)
+    a = TA.mha_core(*views).reshape(b, s, d)
 
     def gemm_res_part(label, ain, w, bias, res):
         k, n = w.shape
@@ -228,6 +245,85 @@ def kernel_phase(dev):
         gemm_res_part("out_proj", a, p["w_out"], p["b_out"], x),
         gemm_res_part("c_proj", h, p["w_proj"], p["b_proj"], x),
     ])
+
+    # the composed kernels at the same shape: fused_mha (pre-LN: the
+    # block's half; without LN: timed beside F.multi_head_attention_forward),
+    # fused_mlp, and the whole block built from them
+    mha_w = (p["w_in"], p["b_in"], p["w_out"], p["b_out"], heads)
+    ln1 = (p["ln1_scale"], p["ln1_bias"])
+    mha_flops = 2.0 * b * s * d * (4 * d + 2 * s)
+    mha_bytes = 2.0 * (2 * b * s * d + 4 * d * d + 4 * d) + 8.0 * d
+    xt = x.transpose(0, 1).contiguous()  # (S, B, D) for the library call
+    w_in_t, w_out_t = p["w_in"].t().contiguous(), p["w_out"].t().contiguous()
+    no_ln = ("no LN",
+             lambda: FA.fused_mha(x, *mha_w),
+             lambda: FA.fused_mha_reference(x, *mha_w),
+             lambda: F.multi_head_attention_forward(
+                 xt, xt, xt, d, heads, w_in_t, p["b_in"], None, None, False, 0.0, w_out_t,
+                 p["b_out"], training=False, need_weights=False),
+             mha_flops, mha_bytes - 8.0 * d)
+    entry("fused_mha_no_ln", src_block, "tpu_reid/ops/fused_attention.py:212", [no_ln])
+    no_ln_rec = record.pop("fused_mha_no_ln")
+    entry("fused_mha", src_block, "tpu_reid/ops/fused_attention.py:212", [
+        ("pre-LN", lambda: FA.fused_mha(x, *mha_w, None, *ln1),
+         lambda: FA.fused_mha_reference(x, *mha_w, None, *ln1), None, mha_flops, mha_bytes)],
+        **{f"no_ln_{k}": no_ln_rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    mlp_args = (p["ln2_scale"], p["ln2_bias"], p["w_fc"], p["b_fc"], p["w_proj"], p["b_proj"])
+    mlp_flops = 4.0 * b * s * d * hid
+    mlp_bytes = 2.0 * (2 * b * s * d + 2 * d * hid + hid + d) + 8.0 * d
+    entry("fused_mlp", src_block, "tpu_reid/ops/fused_attention.py:341", [
+        ("ln_2 + MLP + residual", lambda: FA.fused_mlp(x, *mlp_args),
+         lambda: FA.fused_mlp_reference(x, *mlp_args), None, mlp_flops, mlp_bytes)])
+    entry("fused_block", src_block, "tpu_reid/ops/fused_attention.py:483", [
+        ("whole block", lambda: FA.fused_block(x, **p, n_heads=heads),
+         lambda: FA.fused_block_reference(x, **p, n_heads=heads), None,
+         mha_flops + mlp_flops, mha_bytes + mlp_bytes - 4.0 * b * s * d)])
+
+    # fused_mha (pre-LN and without, exact and fast, vision S=211 and S=213
+    # with the splice, text S=77 causal), fused_mlp and mha_core in both
+    # types, at B=64
+    say("fused_mha / fused_mlp / mha_core against their plain versions at B=64")
+    from tpu_reid_torch.models.layers import causal_mask as _causal
+
+    for dt in (torch.bfloat16, torch.float32):
+        for kind, seq, dd, hh, nh in (("vision", 211, 768, 3072, 12), ("vision", 213, 768, 3072, 12),
+                                      ("text", 77, 512, 2048, 8)):
+            pb = block_params(rng, dd, hh, dt, dev)
+            xb = torch.from_numpy(rng.standard_normal((64, seq, dd)).astype(np.float32)).to(dev, dt)
+            mask = _causal(seq, device=dev) if kind == "text" else None
+            kw = {}
+            if seq == 213:  # the 2 IVLP prompt rows at the end of the sequence
+                pm = torch.zeros(seq, 1, device=dev)
+                pm[seq - 2:] = 1.0
+                kw = dict(prompt_plane=torch.from_numpy(rng.standard_normal(
+                    (seq, dd)).astype(np.float32)).to(dev, dt), prompt_mask=pm)
+            w = (pb["w_in"], pb["b_in"], pb["w_out"], pb["b_out"], nh, mask)
+            tag = f"{kind} B=64 S={seq} {str(dt)[6:]}{' causal' if mask is not None else ''}"
+            for fast in (False, True):
+                mode = "fast" if fast else "exact"
+                check(f"fused_mha[{tag} pre-LN {mode}{' splice' if kw else ''}]",
+                      FA.fused_mha(xb, *w, pb["ln1_scale"], pb["ln1_bias"], fast, **kw),
+                      FA.fused_mha_reference(xb, *w, pb["ln1_scale"], pb["ln1_bias"], fast, **kw),
+                      dt)
+                if not kw:
+                    check(f"fused_mha[{tag} no LN {mode}]", FA.fused_mha(xb, *w, fast=fast),
+                          FA.fused_mha_reference(xb, *w, fast=fast), dt)
+            if not kw:
+                qkvb = torch.from_numpy(rng.standard_normal((64, seq, 3 * dd)).astype(
+                    np.float32)).to(dev, dt)
+                for fast in (False, True):
+                    vb = FA._qkv_views(qkvb, nh)
+                    check(f"mha_core[{tag} qkv views {'fast' if fast else 'exact'}]",
+                          TA.mha_core(*vb, mask, fast=fast),
+                          TA.mha_core_reference(*vb, mask, fast=fast), dt)
+                    cb = tuple(t.contiguous() for t in vb)
+                    check(f"mha_core[{tag} contiguous {'fast' if fast else 'exact'}]",
+                          TA.mha_core(*cb, mask, fast=fast),
+                          TA.mha_core_reference(*cb, mask, fast=fast), dt)
+                mlp = (pb["ln2_scale"], pb["ln2_bias"], pb["w_fc"], pb["b_fc"], pb["w_proj"],
+                       pb["b_proj"])
+                check(f"fused_mlp[{tag}]", FA.fused_mlp(xb, *mlp), FA.fused_mlp_reference(xb, *mlp),
+                      dt)
 
     # CLS tail: the main path's shape is one pass over a 128-image batch;
     # B=512 is checked too
@@ -295,7 +391,7 @@ def kernel_phase(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 3b: the minsum kernel against its plain version, and its times
+# phase 4: the minsum kernel against its plain version, and its times
 # ---------------------------------------------------------------------------
 
 
@@ -397,7 +493,7 @@ def minsum_phase(dev):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-5: the zero-shot main path
+# phase 6: the zero-shot main path
 # ---------------------------------------------------------------------------
 
 SENTENCE_TEMPLATES = (
@@ -477,8 +573,11 @@ def zero_shot_run(params, cfg, tokenizer, ids, templates, data, dtype, bs, dev):
 
 
 KERNEL_GROUPS = (("gemm_bf16_kernel<true>", "ln_gemm"),
-                 ("gemm_bf16_kernel<false>", "gemm_bias_residual"),
-                 ("attention_bf16_kernel", "attention"),
+                 ("gemm_bf16_kernel<false>", "gemm_bias_residual / no-LN ln_gemm"),
+                 ("gemm_f32_kernel<true>", "ln_gemm fp32"),
+                 ("gemm_f32_kernel<false>", "gemm_bias_residual fp32"),
+                 ("attention_bf16_kernel", "mha_core"),
+                 ("attention_f32_kernel", "mha_core fp32"),
                  ("ln_proj_tail_kernel", "ln_proj_tail"),
                  ("minsum_kernel", "minsum"))
 
@@ -586,7 +685,7 @@ def main_path_phase(dev, counters):
         raise PhaseFailed(f"mAP {res['mAP']:.4f} too close to 0 or 1 to hold anything")
     trace_step(params, cfg, data[3][:128], dev)
 
-    # --- phase 5: the same slice in fp32 on a subset, plain path vs kernels
+    # --- the same slice in fp32 on a subset, plain path vs kernels
     sub = (data[0][:32], data[1][:32], data[2][:32], data[3][:96], data[4][:96], data[5][:96])
     runs = {}
     for impl in ("plain", "auto"):
@@ -614,7 +713,7 @@ def main_path_phase(dev, counters):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: k-reciprocal re-ranking at Market-1501 scale
+# phase 7: k-reciprocal re-ranking at Market-1501 scale
 # ---------------------------------------------------------------------------
 
 
@@ -782,25 +881,31 @@ def rerank_phase(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the zero-shot CLI with --rerank at full ViT-B/16 width
+# phase 10: both CLIs at full ViT-B/16 width
 # ---------------------------------------------------------------------------
 
 
-def write_market_dir(root, n_ids=32, n_query=2, n_gallery=8, seed=2, mix=0.45):
+def write_market_dir(root, n_ids=32, n_query=2, n_gallery=8, n_train=8, seed=2, mix=0.45):
     """A Market1501-layout directory of 256x128 JPEGs: a blocky base image
-    per identity plus noise; queries on camera 1, gallery on cameras 2-6."""
+    per identity plus noise; n_ids test identities (queries on camera 1,
+    gallery on cameras 2-6) and n_ids other training identities of n_train
+    images each."""
     from PIL import Image
 
     base_dir = os.path.join(root, "Market1501")
     for sub in ("bounding_box_train", "query", "bounding_box_test"):
         os.makedirs(os.path.join(base_dir, sub))
     rng = np.random.default_rng(seed)
-    base = rng.uniform(0, 255, (n_ids, 16, 8, 3)).repeat(16, axis=1).repeat(16, axis=2)
-    for pid in range(n_ids):
-        for k in range(n_query + n_gallery):
+    base = rng.uniform(0, 255, (2 * n_ids, 16, 8, 3)).repeat(16, axis=1).repeat(16, axis=2)
+    for pid in range(2 * n_ids):
+        test = pid < n_ids
+        for k in range(n_query + n_gallery if test else n_train):
             noise = rng.uniform(0, 255, (256, 128, 3))
             img = np.clip(mix * base[pid] + (1 - mix) * noise, 0, 255).astype(np.uint8)
-            sub, cam = ("query", 1) if k < n_query else ("bounding_box_test", 2 + k % 5)
+            if test:
+                sub, cam = ("query", 1) if k < n_query else ("bounding_box_test", 2 + k % 5)
+            else:
+                sub, cam = "bounding_box_train", 1 + k % 6
             Image.fromarray(img).save(
                 os.path.join(base_dir, sub, f"{pid + 1:04d}_c{cam}s1_{k:06d}_00.jpg"),
                 quality=90)
@@ -808,12 +913,16 @@ def write_market_dir(root, n_ids=32, n_query=2, n_gallery=8, seed=2, mix=0.45):
 
 
 def cli_phase(counters):
+    """The zero-shot CLI, then the prompt-learning CLI, on one synthetic
+    directory and checkpoint; returns each run's launches."""
     import tempfile
 
+    from tpu_reid_torch.cli import prompt_learning as pl_cli
     from tpu_reid_torch.cli import zero_shot as cli
     from tpu_reid_torch.models.tokenizer import write_test_merges
     from tpu_reid_torch.weights.convert import random_clip_state_dict
 
+    runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         nq, ng = write_market_dir(tmp)
@@ -832,13 +941,395 @@ def cli_phase(counters):
                              "--rerank", "--mm", "--height", "256", "--ratio", "0.5",
                              "--stride", "12", "--bs", "128", "--test_dataset", "market1501"])
         torch.cuda.synchronize()
-        launches = {name: c.launches for name, c in counters.items()}
-    say(f"  CLI run {time.perf_counter() - t0:.1f} s; launches {launches}")
+        launches = runs["zero_shot_cli"] = {name: c.launches for name, c in counters.items()}
+        say(f"  CLI run {time.perf_counter() - t0:.1f} s; launches {launches}")
+        missing = [n for n, c in launches.items() if c == 0]
+        if missing:
+            raise PhaseFailed(f"the CLI never launched {missing}")
+        if len(cmc) != min(50, ng) or not np.isfinite(cmc).all() or not 0.0 < mAP <= 1.0:
+            raise PhaseFailed(f"CLI result out of range: cmc {len(cmc)} entries, mAP {mAP}")
+
+        argv = ["--root", tmp, "--model_path", ckpt, "--bpe_path", merges,
+                "--training_mode", "ivlp", "--epochs_stage1", "1", "--epochs_stage2", "1",
+                "--rerank", "--dtype", "bf16", "--height", "256", "--ratio", "0.5",
+                "--stride", "12", "--bs", "64", "--train_dataset", "market1501",
+                "--save_path", os.path.join(tmp, "checkpoints")]
+        say("prompt-learning CLI at full ViT-B/16 width: python -m "
+            "tpu_reid_torch.cli.prompt_learning " + " ".join(argv[6:]) + " (32 training "
+            "identities x 8 images, 64 query + 256 gallery)")
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        cmc, mAP = pl_cli.main(argv)
+        torch.cuda.synchronize()
+        launches = runs["prompt_learning_cli"] = {name: c.launches for name, c in counters.items()}
+        saved = [f for f in ("stage1.pt", "stage2.pt")
+                 if os.path.exists(os.path.join(tmp, "checkpoints", "ivlp", "market1501", f))]
+    say(f"  prompt-learning CLI run {time.perf_counter() - t0:.1f} s (phase seconds on the "
+        f"[phase] lines above); saved {saved}; launches {launches}")
     missing = [n for n, c in launches.items() if c == 0]
     if missing:
-        raise PhaseFailed(f"the CLI never launched {missing}")
-    if len(cmc) != min(50, ng) or not np.isfinite(cmc).all() or not 0.0 < mAP <= 1.0:
-        raise PhaseFailed(f"CLI result out of range: cmc {len(cmc)} entries, mAP {mAP}")
+        raise PhaseFailed(f"the prompt-learning CLI never launched {missing}")
+    if len(saved) != 2 or not np.isfinite(cmc).all() or not 0.0 < mAP <= 1.0:
+        raise PhaseFailed(f"prompt-learning CLI result out of range: saved {saved}, mAP {mAP}")
+    return runs
+
+
+
+# ---------------------------------------------------------------------------
+# phase 5: gradients through the kernels, the autograd Functions against plain
+# autograd
+# ---------------------------------------------------------------------------
+
+
+def gradient_phase(dev):
+    """The block Function (kernels forward, the plain block's recompute
+    backward) against plain autograd of _block_xla_impl after the splice,
+    at full width, B=16, S=213 with the splice, fp32, under one fixed
+    grad_outputs; then the CLS-tail Function against ln_proj_tail_reference."""
+    from tpu_reid_torch.models.layers import _apply_splice_plane, _block_xla_impl
+    from tpu_reid_torch.ops import fused_attention as FA
+    from tpu_reid_torch.ops import fused_tail as FT
+
+    rng = np.random.default_rng(5)
+    b, s, d, hid, heads = 16, 213, 768, 3072, 12
+    f32 = torch.float32
+
+    def t(*shape, std=1.0):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * std).to(dev)
+
+    w = [v.requires_grad_() for v in block_params(rng, d, hid, f32, dev).values()]
+    x, plane = t(b, s, d).requires_grad_(), t(s, d).requires_grad_()
+    pm = torch.zeros(s, 1, device=dev)
+    pm[s - 2:] = 1.0
+    g = t(b, s, d)
+    inputs = [x, plane, *w]
+    out_k = FA.fused_block_autograd(x, *w, heads, None, prompt_plane=plane, prompt_mask=pm)
+    grads_k = torch.autograd.grad(out_k, inputs, g)
+    out_p = _block_xla_impl(FA._block_params(w), _apply_splice_plane(x, plane, pm), heads, None)
+    grads_p = torch.autograd.grad(out_p, inputs, g)
+    names = ["x", "plane", "ln1_scale", "ln1_bias", "w_in", "b_in", "w_out", "b_out",
+             "ln2_scale", "ln2_bias", "w_fc", "b_fc", "w_proj", "b_proj"]
+    failures = []
+    _, rel = rel_err(out_k, out_p)
+    say(f"gradients: block Function vs plain autograd (B={b}, S={s} with the splice, fp32): "
+        f"outputs rel {rel:.3e} (tol {TOL[f32]:.0e}) {'ok' if rel <= TOL[f32] else 'FAIL'}")
+    if rel > TOL[f32]:
+        failures.append("block output")
+    worst = 0.0
+    for name, gk, gp in zip(names, grads_k, grads_p):
+        _, rel = rel_err(gk, gp)
+        worst = max(worst, rel)
+        if rel > 1e-5:
+            failures.append(f"d{name}")
+    say(f"  gradients of x, the plane and the 12 block tensors: worst rel {worst:.3e} "
+        f"(tol 1e-5 of max|plain grad|: both backwards are the same recompute) "
+        f"{'ok' if not failures else 'FAIL ' + str(failures)}")
+
+    xt = t(b, d).requires_grad_()
+    ln_s = (1 + t(d, std=0.05)).requires_grad_()
+    ln_b = t(d, std=0.05).requires_grad_()
+    proj = t(d, 512, std=d ** -0.5).requires_grad_()
+    gy, gp = t(b, d), t(b, 512)
+    yk, pk = FT._TailFn.apply(xt, ln_s, ln_b, proj)
+    yp, pp = FT.ln_proj_tail_reference(xt, ln_s, ln_b, proj)
+    tk = torch.autograd.grad((yk, pk), [xt, ln_s, ln_b, proj], (gy, gp))
+    tp = torch.autograd.grad((yp, pp), [xt, ln_s, ln_b, proj], (gy, gp))
+    out_rel = max(rel_err(yk, yp)[1], rel_err(pk, pp)[1])
+    grad_rel = max(rel_err(a, c)[1] for a, c in zip(tk, tp))
+    ok = out_rel <= TOL[f32] and grad_rel <= 1e-5
+    say(f"  tail Function vs plain autograd (B={b}, {d} -> 512, fp32): outputs rel "
+        f"{out_rel:.3e}, gradients worst rel {grad_rel:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("tail")
+    torch.cuda.synchronize()
+    if failures:
+        raise PhaseFailed(f"gradients through the kernels disagree: {failures}")
+
+
+# ---------------------------------------------------------------------------
+# phases 8-9: the IVLP flagship, serving (eval_embed) and training
+# ---------------------------------------------------------------------------
+
+
+def flagship(dev, n_cls=751):
+    """bench.py's model in the port: IVLP ViT-B/16 at 256x128, stride 12,
+    vision and language prompt depth 12 with 2 context tokens (213 vision
+    tokens), 751 classes; random weights from seed 0 (fp32)."""
+    from tpu_reid_torch.configs import PromptDesign
+    from tpu_reid_torch.models import prompts as P
+    from tpu_reid_torch.models import reid_clip as M
+    from tpu_reid_torch.weights.convert import convert_clip, init_vpt, random_clip_state_dict
+
+    design = PromptDesign(trainer="IVLP", vision_depth=12, vision_ctx=2, language_depth=12,
+                          language_ctx=2)
+    cfg, clip = convert_clip(random_clip_state_dict(0), image_hw=(256, 128), stride=12,
+                             design=design, device=dev)
+    clip = init_vpt(torch.Generator().manual_seed(0), cfg, clip)
+    vocab = cfg.text.vocab_size
+    tokens = np.zeros((1, cfg.text.context_length), np.int32)
+    tokens[0, 0] = vocab - 2
+    tokens[0, 1:10] = np.random.RandomState(0).randint(1, vocab - 2, 9)
+    tokens[0, 10] = vocab - 1
+    temb = clip["text"]["token_embedding"][torch.as_tensor(tokens, dtype=torch.long,
+                                                           device=dev)]
+    mcfg = M.ReidModelConfig(mode="ivlp", clip=cfg, prompt=P.PromptLearnerConfig.ivlp(n_cls))
+    params = M.init_reid_model(torch.Generator().manual_seed(0), mcfg, clip, temb, tokens)
+    if cfg.vision.seq_len != 213:
+        raise PhaseFailed(f"unexpected IVLP geometry {cfg.vision}")
+    return mcfg, params
+
+
+def _cast(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+@contextlib.contextmanager
+def held_against_plain(module, name, plain, errs):
+    """For the scope, `module.<name>` runs the kernel wrapper and then its
+    plain version on the same inputs, appending (max|d|, rel) of each output
+    to `errs`, and returns the kernel's result."""
+    kernel = getattr(module, name)
+
+    def both(*a, **kw):
+        got, want = kernel(*a, **kw), plain(*a, **kw)
+        pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
+        errs.extend(rel_err(g, w) for g, w in pairs)
+        return got
+
+    # a wrapper counts on its module-level name, so the scope's launches
+    # land here and not on the kernel's counter
+    both.launches = 0
+    setattr(module, name, both)
+    try:
+        yield
+    finally:
+        setattr(module, name, kernel)
+
+
+def ivlp_serving_phase(dev, counters, mcfg, params, k_batches=8, batch=512):
+    """eval_embed of the flagship at bench.py's profile (batch 512, bf16
+    weights and activations, fast softmax, input normalisation folded into
+    the patch embed, no flip-TTA) over 8 batches; a trace of one batch; the
+    first batch again with every block and tail call held against its plain
+    version, and its embeddings against the plain path; then an fp32 batch
+    through the kernels against the plain path."""
+    from tpu_reid_torch.data.transforms import DevicePreprocess
+    from tpu_reid_torch.models import reid_clip as M
+    from tpu_reid_torch.models.layers import kernel_impl
+    from tpu_reid_torch.ops import fused_attention as FA
+    from tpu_reid_torch.ops import fused_tail as FT
+    from tpu_reid_torch.ops.attention import set_fast_softmax
+    from tpu_reid_torch.parallel.extract import make_extractor
+
+    bf = torch.bfloat16
+    pbf = _cast(params, bf)
+    fold = lambda p: M.fold_input_norm(p, mcfg, "vit")  # noqa: E731
+    embed = lambda p, im: M.eval_embed(p, mcfg, im)  # noqa: E731
+    ext = make_extractor(embed, DevicePreprocess((256, 128), "vit", dtype=bf), flip_tta=False,
+                         dtype=bf, fold=fold, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    images = torch.randint(0, 255, (k_batches, batch, 256, 128, 3), dtype=torch.uint8,
+                           device=dev, generator=gen)
+    set_fast_softmax(True)
+    try:
+        ext(pbf, images[0])  # warm-up
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        outs = [ext(pbf, images[k]) for k in range(k_batches)]
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+        emb_s = k_batches * batch / sec
+        say(f"IVLP serving (eval_embed of the flagship, 213 tokens, batch {batch}, bf16, fast "
+            f"softmax, folded input norm, no flip-TTA): {k_batches} batches in {sec:.3f} s, "
+            f"{emb_s:.1f} emb/s, {1e3 * sec / k_batches:.2f} ms per batch")
+        say(f"  launches in the run: {launches}")
+        trace(lambda: ext(pbf, images[0]), f"one IVLP eval_embed batch ({batch} images, bf16)")
+        # the timed profile itself against plain, on the first timed batch:
+        # every fused block (S=213, spliced) and the CLS tail held against
+        # its plain version on the very inputs the run hands it, then the
+        # embeddings against the plain path
+        errs = {"fused_block": [], "ln_proj_tail": []}
+        with held_against_plain(FA, "fused_block", FA.fused_block_reference,
+                                errs["fused_block"]), \
+                held_against_plain(FT, "ln_proj_tail_kernel", FT.ln_proj_tail_reference,
+                                   errs["ln_proj_tail"]):
+            ek = ext(pbf, images[0])
+        with kernel_impl("plain"):
+            ep = ext(pbf, images[0])
+    finally:
+        set_fast_softmax(False)
+    tol = TOL[bf]
+    for name, es in errs.items():
+        worst = max((rel for _, rel in es), default=float("inf"))
+        say(f"  {name} at batch {batch}, bf16 fast, {len(es)} outputs of one batch, each against "
+            f"its plain version on the run's own inputs: worst rel {worst:.3e} (tol {tol:.0e}) "
+            f"{'ok' if worst <= tol else 'FAIL'}")
+        if not es or worst > tol:
+            raise PhaseFailed(f"IVLP serving: {name} disagrees with its plain version at "
+                              f"batch {batch}")
+    same = rel_err(ek, outs[0])[1]
+    say(f"  the held batch against the same batch of the timed run: rel {same:.3e}")
+    if same > 1e-3:
+        raise PhaseFailed("IVLP serving: the held run differs from the timed run")
+    err, rel = rel_err(ek, ep)
+    cos = float(F.cosine_similarity(ek.float(), ep.float(), dim=-1).min())
+    say(f"  bf16 IVLP embeddings ({batch} images, fast softmax), kernels vs plain path: max|d| "
+        f"{err:.3e}, rel {rel:.3e}, least cosine {cos:.6f} (tol 0.99: the plain path's softmax "
+        f"rounds its probabilities in bf16 where the kernels take exp2 in fp32, over 11 "
+        f"blocks) {'ok' if cos >= 0.99 else 'FAIL'}")
+    if cos < 0.99:
+        raise PhaseFailed("the bf16 IVLP kernel path disagrees with the plain path")
+    bad = [tuple(o.shape) for o in outs if o.shape != (batch, 768 + 512)
+           or not torch.isfinite(o).all()]
+    if bad:
+        raise PhaseFailed(f"IVLP embeddings not finite / of the expected shape: {bad[:3]}")
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise PhaseFailed(f"IVLP serving never launched {missing}")
+    del outs, images, ek, ep
+
+    # fp32, 32 images: the kernels against the plain path
+    ext32 = make_extractor(embed, DevicePreprocess((256, 128), "vit"), flip_tta=True,
+                           dtype=torch.float32, fold=fold, device=dev)
+    x = torch.randint(0, 255, (min(32, batch), 256, 128, 3), dtype=torch.uint8, device=dev,
+                      generator=gen)
+    ek = ext32(params, x)
+    with kernel_impl("plain"):
+        ep = ext32(params, x)
+    err, rel = rel_err(ek, ep)
+    say(f"  fp32 IVLP embeddings (32 images, flip-TTA), kernels vs plain: max|d| {err:.3e}, "
+        f"rel {rel:.3e} (tol 1e-3: fp32 sums in another order over 12 blocks) "
+        f"{'ok' if rel <= 1e-3 else 'FAIL'}")
+    if rel > 1e-3:
+        raise PhaseFailed("the IVLP kernel path disagrees with the plain path in fp32")
+    return launches, emb_s
+
+
+def training_phase(dev, counters, mcfg, params, bs=64):
+    """Three live IVLP stage-1 steps and three stage-2 steps of the flagship
+    at bs 64 (PK 16 x 4) in bf16 activations over fp32 master weights: ms
+    per step after the warm-up step, peak memory, a traced step, launches;
+    the peak memory of an fp32 stage-1 step; one fp32 stage-2 loss and
+    gradient through the kernels against kernel_impl("plain")."""
+    from tpu_reid_torch.data.transforms import DevicePreprocess
+    from tpu_reid_torch.models import reid_clip as M
+    from tpu_reid_torch.models.layers import kernel_impl
+    from tpu_reid_torch.train import optim as O
+    from tpu_reid_torch.train import trainer as TR
+
+    bf, f32 = torch.bfloat16, torch.float32
+    tcfg = TR.TrainConfig()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    images = torch.randint(0, 255, (bs, 256, 128, 3), dtype=torch.uint8, device=dev,
+                           generator=gen)
+    labels = torch.as_tensor(np.repeat(np.random.RandomState(1).choice(
+        mcfg.n_cls, bs // 4, replace=False), 4), device=dev)
+    valid = torch.ones(bs, dtype=torch.bool, device=dev)
+    pp, pp32 = DevicePreprocess((256, 128), "vit", dtype=bf), DevicePreprocess((256, 128), "vit")
+    losses = []
+    report = {}
+
+    def run(stage, step, n=3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        losses.append(step())  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n - 1):
+            losses.append(step())
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / (n - 1)
+        launches = {name: c.launches for name, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        say(f"  {stage}: {ms:.1f} ms per step after a warm-up step, peak memory {peak:.2f} GiB, "
+            f"launches in {n} steps {launches}")
+        missing = [k for k, c in launches.items() if c == 0]
+        if missing:
+            raise PhaseFailed(f"{stage} never launched {missing}")
+        trace(step, f"one {stage} step")
+        report[stage] = dict(ms=ms, peak_gib=peak, launches=launches)
+
+    say(f"training the flagship ({mcfg.n_cls} classes) at bs {bs} (PK {bs // 4}x4), bf16 "
+        f"activations, fp32 master weights")
+    tr1, fr1 = O.partition(params, lambda p: M.stage1_trainable(p, mcfg))
+    tr1 = TR._trainable_copy(tr1)
+    step1 = TR.make_stage1_step(mcfg, O.make_stage_optimizer(tr1, tcfg.lr_stage1,
+                                                             tcfg.weight_decay), cached=False)
+    batch1 = {"images": pp.eval_batch(images), "labels": labels, "valid": valid}
+    run("stage-1 live IVLP step", lambda: step1(tr1, fr1, batch1))
+
+    with torch.no_grad():
+        text = M.all_class_text_features(params, mcfg)
+    tr2, fr2 = O.partition(params, lambda p: M.stage2_trainable(p, mcfg))
+    frozen2 = fr2
+    tr2 = TR._trainable_copy(tr2)
+    step2 = TR.make_stage2_step(mcfg, tcfg, O.make_stage_optimizer(
+        tr2, tcfg.lr_stage2, tcfg.weight_decay, bias_lr_mult=2.0))
+    draws = pp.train_draws(gen, bs)
+    imgs2 = pp.train_batch(images, draws)
+    state = {"frozen": fr2}
+
+    def s2():
+        state["frozen"], loss = step2(tr2, state["frozen"], imgs2, labels, text, valid)
+        return loss
+
+    run("stage-2 step", s2)
+    vals = [float(v) for v in losses]
+    say(f"  losses: {', '.join(f'{v:.4f}' for v in vals)}")
+    if not np.isfinite(vals).all():
+        raise PhaseFailed(f"non-finite training losses {vals}")
+    del tr2, step2
+
+    # fp32 stage-1 step: both towers train prompts, the peak memory
+    tr1f = TR._trainable_copy(O.partition(params, lambda p: M.stage1_trainable(p, mcfg))[0])
+    step1f = TR.make_stage1_step(mcfg, O.make_stage_optimizer(tr1f, tcfg.lr_stage1,
+                                                              tcfg.weight_decay), cached=False)
+    batch1f = {"images": pp32.eval_batch(images), "labels": labels, "valid": valid}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = float(step1f(tr1f, fr1, batch1f))
+    torch.cuda.synchronize()
+    say(f"  fp32 stage-1 live step: {1e3 * (time.perf_counter() - t0):.1f} ms (first fp32 "
+        f"step), loss {loss:.4f}, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB")
+    del tr1f, step1f, batch1f
+
+    # fp32 stage-2 loss and gradients: kernels against the plain path
+    imgs32 = pp32.train_batch(images, draws)
+    res = {}
+    for impl in ("auto", "plain"):
+        with kernel_impl(impl):
+            trc = TR._trainable_copy(O.partition(params, lambda p: M.stage2_trainable(p, mcfg))[0])
+            loss, _ = TR.stage2_loss(mcfg, tcfg, O.combine(trc, frozen2), imgs32, labels, text,
+                                     valid)
+            named = [(p, t) for p, t in O.paths(trc) if t is not None]
+            grads = torch.autograd.grad(loss, [t for _, t in named])
+            res[impl] = (float(loss.detach()), [p for p, _ in named], grads)
+        del trc
+    lk, paths_, gk = res["auto"]
+    lp, _, gp = res["plain"]
+    loss_rel = abs(lk - lp) / abs(lp)
+    worst, worst_path = 0.0, None
+    for path, a, b in zip(paths_, gk, gp):
+        _, rel = rel_err(a, b)
+        if rel > worst:
+            worst, worst_path = rel, "/".join(path)
+    ok = loss_rel <= 1e-5 and worst <= 1e-3
+    say(f"  fp32 stage-2 loss through the kernels {lk:.6f} vs plain {lp:.6f} (rel "
+        f"{loss_rel:.2e}, tol 1e-5); gradients of {len(paths_)} leaves, worst rel {worst:.2e} "
+        f"at {worst_path} (tol 1e-3 of each leaf's max|grad|) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed("the fp32 stage-2 step through the kernels disagrees with the plain one")
+    return report
 
 
 def main() -> int:
@@ -848,6 +1339,7 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         from tpu_reid_torch.ops import _build
+        from tpu_reid_torch.ops import attention as TA
         from tpu_reid_torch.ops import fused_attention as FA
         from tpu_reid_torch.ops import fused_tail as FT
         from tpu_reid_torch.ops import minsum as MS
@@ -879,27 +1371,53 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     say(f"  ptxas[{name}]: {line.strip()}")
 
-    block_counters = {"ln_gemm": FA.ln_gemm, "attention": FA.attention,
-                      "gemm_bias_residual": FA.gemm_bias_residual,
+    block_counters = {"ln_gemm": FA.ln_gemm, "mha_core": TA.mha_core,
+                      "gemm_bias_residual": FA.gemm_bias_residual, "fused_mha": FA.fused_mha,
+                      "fused_mlp": FA.fused_mlp, "fused_block": FA.fused_block,
                       "ln_proj_tail": FT.ln_proj_tail_kernel}
     counters = dict(block_counters, minsum=MS.minsum_kernel)
+    record, by_path = {}, {}
+    timings = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        timings[name] = time.perf_counter() - t
+        return out
+
     try:
-        record = kernel_phase(dev)
-        record["minsum"] = minsum_phase(dev)
-        launches, emb_s = main_path_phase(dev, block_counters)
-        launches["minsum"] = rerank_phase(dev)
-        cli_phase(counters)
+        record.update(timed("kernels", kernel_phase, dev))
+        record["minsum"] = timed("minsum", minsum_phase, dev)
+        timed("grad", gradient_phase, dev)
+        by_path["zero_shot"], zs_emb_s = timed("zero_shot", main_path_phase, dev,
+                                               block_counters)
+        say(f"emb/s (bf16 zero-shot main path, flip-TTA): {zs_emb_s:.1f}")
+        by_path["rerank"] = {"minsum": timed("rerank", rerank_phase, dev)}
+        mcfg, params = flagship(dev)
+        by_path["ivlp_serve"], emb_s = timed("serve", ivlp_serving_phase, dev, block_counters,
+                                             mcfg, params)
+        say(f"emb/s (bf16 IVLP eval_embed at bench.py's profile): {emb_s:.1f}")
+        for stage, r in timed("train", training_phase, dev, block_counters, mcfg,
+                              params).items():
+            by_path[stage] = r["launches"]
+        del params
+        torch.cuda.empty_cache()
+        by_path.update(timed("cli", cli_phase, counters))
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     torch.cuda.synchronize()
+    say("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in timings.items()))
+    say(f"total {time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name in counters:
         r = dict(record[name])
-        r["launches"] = launches[name]
+        # launches: this slice's main path (IVLP serving) for the block
+        # kernels and the tail, the re-ranking path for minsum
+        main = "rerank" if name == "minsum" else "ivlp_serve"
+        r["launches"] = by_path[main][name]
+        r["launches_by_path"] = {p: c[name] for p, c in by_path.items() if name in c}
         kernels.append(r)
-    say(f"emb/s (bf16 main path, flip-TTA): {emb_s:.1f}")
-    say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

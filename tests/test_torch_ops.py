@@ -58,13 +58,13 @@ def test_fused_block_reference_matches_pallas_interpret(fast, causal, splice):
                                     fast=fast, **tkw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
     # the wrapper chain on CPU tensors is the plain version, and launches nothing
-    before = (TFA.ln_gemm.launches, TFA.attention.launches,
-              TFA.gemm_bias_residual.launches)
+    counters = (TFA.ln_gemm, TA.mha_core, TFA.gemm_bias_residual, TFA.fused_mha,
+                TFA.fused_mlp, TFA.fused_block)
+    before = [c.launches for c in counters]
     wrapped = TFA.fused_block(torch.from_numpy(x), **t, n_heads=4, mask=tmask, fast=fast,
                               **tkw)
     assert torch.equal(wrapped, got)
-    assert before == (TFA.ln_gemm.launches, TFA.attention.launches,
-                      TFA.gemm_bias_residual.launches)
+    assert before == [c.launches for c in counters]
 
 
 @pytest.mark.parametrize("fast", [False, True])

@@ -11,9 +11,9 @@ cuda; `--device cpu` runs the plain PyTorch versions on the host).
         --attributes market_attribute.mat --augmented_template --mm --rerank
 
 Not ported yet, and refused with the slice named: --devices/--tp > 1 and
---multihost (slice 7), ResNet checkpoints (slice 5), and --training_mode
-ivlp with a checkpoint that carries no IVLP prompt tokens (the IVLP
-`eval_embed` path, ROADMAP.md item 11).
+--multihost (slice 7) and ResNet checkpoints (slice 5). --training_mode ivlp
+with a checkpoint that carries no IVLP prompt tokens is refused too (the
+JAX CLI fails on it): such tokens come from the prompt-learning CLI.
 """
 
 from __future__ import annotations
@@ -109,8 +109,9 @@ def main(argv=None):
                                    device=dev)
         if design.has_vision_prompts and "vpt_shallow" not in params["visual"]:
             raise NotImplementedError(
-                "--training_mode ivlp with a checkpoint that carries no IVLP prompt tokens "
-                "needs the IVLP eval_embed path, not ported yet (ROADMAP.md item 11)"
+                "--training_mode ivlp with a checkpoint that carries no IVLP prompt tokens: "
+                "the zero-shot CLI evaluates trained tokens only; train them with "
+                "tpu_reid_torch.cli.prompt_learning (ROADMAP.md item 11)"
             )
 
     with log.phase("build_classifier"):

@@ -1,24 +1,38 @@
 // Hand-written Hopper (sm_90a) kernels for one pre-norm CLIP block.
 //
-// Replaces tpu_reid/ops/fused_attention.py::fused_block (Pallas kernel
-// _whole_block_kernel, attention core _attention_heads). The TPU kernel keeps
-// the whole block's weights (about 14 MB in bf16) resident in VMEM; an SM has
-// 227 KB of shared memory, so the block becomes five launches of three
-// kernels:
+// Replaces the four Pallas kernels of tpu_reid/ops/: fused_block
+// (fused_attention.py, _whole_block_kernel and its attention core
+// _attention_heads), fused_mha (fused_attention.py, _kernel), fused_mlp
+// (fused_attention.py, _mlp_kernel) and mha_core (attention.py,
+// _attn_kernel). The TPU kernels keep a whole block's (or half-block's)
+// weights, about 14 MB in bf16, resident in VMEM; an SM has 227 KB of shared
+// memory, so they become launches of three kernels:
 //
-//   ln_gemm             LN1 -> qkv GEMM + bias           (and LN2 -> c_fc +
-//                       bias + QuickGELU); LayerNorm statistics in fp32, fp32
-//                       affine, the normalised rows rounded to the working
-//                       type on the way into shared memory. With a deep-prompt
-//                       plane, spliced rows are read from the plane instead.
-//   attention           full-row softmax attention for S <= 256, dh = 64,
-//                       reading q, k and v straight from the (B, S, 3D) qkv
-//                       buffer and writing (B, S, D); exact or fast
-//                       (exp2 with a saturating clamp) softmax, both
-//                       normalised late by the row reciprocal.
-//   gemm_bias_residual  out-proj / c_proj GEMM, bias and residual added in
-//                       fp32, then the cast. The out-proj residual applies the
-//                       same deep-prompt splice as ln_gemm's row load.
+//   ln_gemm             [LN ->] GEMM + bias [+ QuickGELU]: LN1 -> qkv, LN2 ->
+//                       c_fc. LayerNorm statistics in fp32, fp32 affine, the
+//                       normalised rows rounded to the working type on the
+//                       way into shared memory; with a deep-prompt plane,
+//                       spliced rows are read from the plane instead. Without
+//                       LN parameters the rows are read as they are (fused_mha
+//                       without pre-LN).
+//   mha_core            full-row softmax attention for S <= 256, dh = 64 on
+//                       q, k and v given as three base pointers and one row
+//                       stride (elements between consecutive tokens): views
+//                       into a packed (B, S, 3D) qkv buffer (stride 3D) and
+//                       contiguous (B, S, H, 64) tensors (stride H*64) both
+//                       run without a copy. Writes (B, S, H*64); exact or
+//                       fast (exp2 with a saturating clamp) softmax, both
+//                       normalised late by the row reciprocal (the Pallas
+//                       _attn_kernel divides instead: the two differ by at
+//                       most an fp32 ulp before the cast).
+//   gemm_bias_residual  out-proj / c_proj GEMM, bias [+ residual] in fp32,
+//                       then the cast. The out-proj residual applies the same
+//                       deep-prompt splice as ln_gemm's row load; without a
+//                       residual it is fused_mha's no-LN out-projection.
+//
+// fused_block = fused_mlp(fused_mha(x)) is five launches: ln_gemm, mha_core,
+// gemm_bias_residual (fused_mha with pre-LN), ln_gemm(gelu),
+// gemm_bias_residual (fused_mlp).
 //
 // What bounds them on the H100: the four GEMMs are ~97% of the block's
 // operations (2*S*(4*D^2 + 2*D*hid) per image), so at ViT-B width the block
@@ -404,9 +418,10 @@ int launch_gemm(const GemmArgs& g, bool is_bf16, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// attention: one block per (query tile of 64 rows, head, batch row), four
+// mha_core: one block per (query tile of 64 rows, head, batch row), four
 // warps of 16 query rows each; K and V of the head for the whole sequence in
-// shared memory (S <= 256, dh = 64)
+// shared memory (S <= 256, dh = 64). q, k and v: element (b, s, h, d) at
+// base + (b*S + s)*ld + h*64 + d; out: (B, S, H*64) contiguous.
 // ---------------------------------------------------------------------------
 
 constexpr int QT = 64, DH = 64, ATT_THREADS = 128;
@@ -454,7 +469,8 @@ __host__ __device__ inline int attention_bf16_smem(int s_pad) {
 // NT_MAX: register tiles reserved for s_pad / 8 key tiles (s_pad <= 8*NT_MAX)
 template <int NT_MAX>
 __global__ void __launch_bounds__(ATT_THREADS)
-attention_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict__ mask,
+attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, int ld, const float* __restrict__ mask,
                       bf16* __restrict__ out, int S, int H, float scale, int fast) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int s_pad = round_up(S, 16), nt = s_pad / 8;
@@ -464,14 +480,13 @@ attention_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict__ ma
 
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
   const int D = H * DH;
-  const size_t ld = 3 * (size_t)D;
-  const bf16* base = qkv + (size_t)b * S * ld + h * DH;
+  const size_t head = (size_t)b * S * ld + h * DH;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
 
-  load_head_rows<bf16, true>(sQ, KV_STRIDE, base + (size_t)q0 * ld, ld, QT, S - q0);
-  load_head_rows<bf16, true>(sK, KV_STRIDE, base + D, ld, s_pad, S);
-  load_head_rows<bf16, true>(sV, KV_STRIDE, base + 2 * D, ld, s_pad, S);
+  load_head_rows<bf16, true>(sQ, KV_STRIDE, q + head + (size_t)q0 * ld, ld, QT, S - q0);
+  load_head_rows<bf16, true>(sK, KV_STRIDE, k + head, ld, s_pad, S);
+  load_head_rows<bf16, true>(sV, KV_STRIDE, v + head, ld, s_pad, S);
   __syncthreads();
 
   // this warp's 16 query rows as A fragments, k over dh in 4 steps of 16
@@ -533,7 +548,7 @@ attention_bf16_kernel(const bf16* __restrict__ qkv, const float* __restrict__ ma
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int hr = e >> 1, col = 8 * j + 2 * t + (e & 1);
-        float v = -1e30f;
+        float v = -3.402823466e38f;  // padded columns: exp(v - max) = 0
         if (col < S) {
           v = sc[j][e] * scale;
           if (mrow[hr] != nullptr) v += mrow[hr][col];
@@ -612,7 +627,8 @@ __host__ __device__ inline int attention_f32_smem(int s_pad) {
 }
 
 __global__ void __launch_bounds__(ATT_THREADS)
-attention_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ mask,
+attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, int ld, const float* __restrict__ mask,
                      float* __restrict__ out, int S, int H, float scale, int fast) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int s_pad = round_up(S, 16), ss = s_pad + 4;
@@ -624,13 +640,12 @@ attention_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ ma
 
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
   const int D = H * DH;
-  const size_t ld = 3 * (size_t)D;
-  const float* base = qkv + (size_t)b * S * ld + h * DH;
+  const size_t head = (size_t)b * S * ld + h * DH;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  load_head_rows<float, true>(sQ, DH, base + (size_t)q0 * ld, ld, QT, S - q0);
-  load_head_rows<float, false>(sK, DH + 1, base + D, ld, s_pad, S);
-  load_head_rows<float, true>(sV, DH, base + 2 * D, ld, s_pad, S);
+  load_head_rows<float, true>(sQ, DH, q + head + (size_t)q0 * ld, ld, QT, S - q0);
+  load_head_rows<float, false>(sK, DH + 1, k + head, ld, s_pad, S);
+  load_head_rows<float, true>(sV, DH, v + head, ld, s_pad, S);
   __syncthreads();
 
   for (int i = tid; i < QT * s_pad; i += ATT_THREADS) {
@@ -667,7 +682,7 @@ attention_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ ma
     } else {
       float mx = -3.402823466e38f;
       for (int c = lane; c < s_pad; c += 32) {
-        float v = -1e30f;
+        float v = -3.402823466e38f;  // padded columns: exp(v - max) = 0
         if (c < S) {
           v = srow[c] * scale;
           if (mrow != nullptr) v += mrow[c];
@@ -698,8 +713,9 @@ attention_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ ma
   }
 }
 
-int launch_attention(const void* qkv, const float* mask, void* out, int B, int S, int H,
-                     float scale, int fast, int is_bf16, cudaStream_t stream) {
+int launch_attention(const void* q, const void* k, const void* v, int ld, const float* mask,
+                     void* out, int B, int S, int H, float scale, int fast, int is_bf16,
+                     cudaStream_t stream) {
   const int s_pad = round_up(S, 16);
   dim3 grid((S + QT - 1) / QT, H, B);
   cudaError_t e;
@@ -709,18 +725,20 @@ int launch_attention(const void* qkv, const float* mask, void* out, int B, int S
                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return (int)e;
     attention_f32_kernel<<<grid, ATT_THREADS, bytes, stream>>>(
-        static_cast<const float*>(qkv), mask, static_cast<float*>(out), S, H, scale, fast);
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), ld, mask, static_cast<float*>(out), S, H, scale, fast);
     return (int)cudaGetLastError();
   }
   const int bytes = attention_bf16_smem(s_pad);
-  const bf16* q = static_cast<const bf16*>(qkv);
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v);
   bf16* o = static_cast<bf16*>(out);
 #define ATTN_BF16(NT)                                                                   \
   e = cudaFuncSetAttribute(attention_bf16_kernel<NT>,                                   \
                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);         \
   if (e != cudaSuccess) return (int)e;                                                  \
-  attention_bf16_kernel<NT><<<grid, ATT_THREADS, bytes, stream>>>(q, mask, o, S, H, scale, \
-                                                                   fast);
+  attention_bf16_kernel<NT><<<grid, ATT_THREADS, bytes, stream>>>(qb, kb, vb, ld, mask, o, \
+                                                                   S, H, scale, fast);
   if (s_pad <= 64) {
     ATTN_BF16(8)
   } else if (s_pad <= 128) {
@@ -744,7 +762,8 @@ extern "C" {
 
 // out = act(LN(splice(x)) @ w + bias); act = QuickGELU when gelu != 0.
 // x (M = B*S, K), w (K, N), bias (N,), out (M, N) in the working type;
-// ln_g/ln_b (K,) fp32; plane (S, K) and pmask (S,) fp32 or both null.
+// ln_g/ln_b (K,) fp32, or both null: no LN, the rows are read as they are
+// (and plane must be null); plane (S, K) and pmask (S,) fp32 or both null.
 int ln_gemm(const void* x, const void* plane, const void* pmask, const void* ln_g,
             const void* ln_b, const void* w, const void* bias, void* out, int M, int N,
             int K, int S, int gelu, int dtype, void* stream) {
@@ -752,27 +771,37 @@ int ln_gemm(const void* x, const void* plane, const void* pmask, const void* ln_
              static_cast<const float*>(ln_g), static_cast<const float*>(ln_b), out,
              M, N, K, S, gelu ? EPI_GELU : EPI_BIAS};
   if (dtype != DTYPE_BF16 && dtype != DTYPE_F32) return (int)cudaErrorInvalidValue;
+  if ((ln_g == nullptr) != (ln_b == nullptr)) return (int)cudaErrorInvalidValue;
+  if (ln_g == nullptr) {
+    if (plane != nullptr) return (int)cudaErrorInvalidValue;
+    return launch_gemm<false>(g, dtype == DTYPE_BF16, static_cast<cudaStream_t>(stream));
+  }
   return launch_gemm<true>(g, dtype == DTYPE_BF16, static_cast<cudaStream_t>(stream));
 }
 
-// out = a @ w + bias + splice(res). a (M, K), w (K, N), bias (N,), res and
-// out (M, N); plane (S, N) and pmask (S,) fp32 or both null.
+// out = a @ w + bias [+ splice(res)]. a (M, K), w (K, N), bias (N,), res and
+// out (M, N); res null: no residual (and plane must be null); plane (S, N)
+// and pmask (S,) fp32 or both null.
 int gemm_bias_residual(const void* a, const void* w, const void* bias, const void* res,
                        const void* plane, const void* pmask, void* out, int M, int N,
                        int K, int S, int dtype, void* stream) {
   GemmArgs g{a, w, bias, res, plane, static_cast<const float*>(pmask), nullptr, nullptr,
-             out, M, N, K, S, EPI_RESIDUAL};
+             out, M, N, K, S, res != nullptr ? EPI_RESIDUAL : EPI_BIAS};
   if (dtype != DTYPE_BF16 && dtype != DTYPE_F32) return (int)cudaErrorInvalidValue;
+  if (res == nullptr && plane != nullptr) return (int)cudaErrorInvalidValue;
   return launch_gemm<false>(g, dtype == DTYPE_BF16, static_cast<cudaStream_t>(stream));
 }
 
-// qkv (B, S, 3*H*64) -> out (B, S, H*64). mask: (S, S) fp32 additive mask
-// (clamped to >= -1e30; in log2e units when fast) or null.
-int attention(const void* qkv, const void* mask, void* out, int B, int S, int H,
-              float scale, int fast, int dtype, void* stream) {
+// q, k, v: (B, S, H, 64) with row stride ld (elements between consecutive
+// tokens; batch stride S*ld) -> out (B, S, H*64) contiguous. mask: (S, S)
+// fp32 additive mask (clamped to >= -1e30; in log2e units when fast) or null.
+int mha_core(const void* q, const void* k, const void* v, int ld, const void* mask,
+             void* out, int B, int S, int H, float scale, int fast, int dtype,
+             void* stream) {
   if (dtype != DTYPE_BF16 && dtype != DTYPE_F32) return (int)cudaErrorInvalidValue;
-  return launch_attention(qkv, static_cast<const float*>(mask), out, B, S, H, scale, fast,
-                          dtype == DTYPE_BF16, static_cast<cudaStream_t>(stream));
+  return launch_attention(q, k, v, ld, static_cast<const float*>(mask), out, B, S, H,
+                          scale, fast, dtype == DTYPE_BF16,
+                          static_cast<cudaStream_t>(stream));
 }
 
 const char* kernel_error_string(int code) {

@@ -1,8 +1,15 @@
-"""Eval-path image preprocessing on the device.
+"""Image preprocessing on the device: the eval path and the train
+augmentation.
 
 uint8 (B, H, W, 3) batches -> normalized float (B, h, w, 3): bicubic resize
 when the stored size differs, then normalization (or the raw 0..255 scale
-for models whose normalization is folded into the patch embed).
+for models whose normalization is folded into the patch embed). The train
+path (`train_batch`) adds a random flip, pad + random crop and random
+erasing, as tpu_reid/data/transforms.py's DevicePreprocess.train_batch. It
+is two functions: `train_draws` makes every random draw from a
+`torch.Generator` (flip bits, crop offsets, the erasing draws, the noise),
+and `train_batch` is a deterministic function of the images and those draws
+— so a test can feed the JAX function's own draws to the port.
 
 The resize reproduces `jax.image.resize(method="cubic")`, which is what the
 JAX package runs: the Keys cubic kernel with a = -0.5, and antialiasing when
@@ -17,7 +24,8 @@ towers use ImageNet stats.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import math
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -111,3 +119,78 @@ class DevicePreprocess:
         """Deterministic flip-TTA pass (horizontal flip, center-equivalent
         crop)."""
         return self.eval_batch(images_u8.flip(2))
+
+    def train_draws(self, gen: torch.Generator, b: int, pad_hw: Tuple[int, int] = (10, 10),
+                    erasing_prob: float = 0.5) -> Dict[str, Tensor]:
+        """The random draws of one `train_batch` of b images, on `gen`'s
+        device: flip bits, crop offsets, then `erasing_draws`."""
+        pv, ph = pad_hw
+        dev = gen.device
+        draws = {
+            "flip": torch.rand(b, generator=gen, device=dev) < 0.5,
+            "top": torch.randint(0, 2 * pv + 1, (b,), generator=gen, device=dev),
+            "left": torch.randint(0, 2 * ph + 1, (b,), generator=gen, device=dev),
+        }
+        draws.update(erasing_draws(gen, (b, *self.size_hw, 3), erasing_prob, self.dtype))
+        return draws
+
+    def train_batch(self, images_u8: Tensor, draws: Dict[str, Tensor],
+                    pad_hw: Tuple[int, int] = (10, 10)) -> Tensor:
+        """Train augmentation, deterministic given `draws` (from
+        `train_draws`): resize -> flip -> zero pad + crop -> normalize ->
+        random erasing."""
+        h, w = self.size_hw
+        b = images_u8.shape[0]
+        x = resize_cubic(images_u8, self.size_hw)
+        x = torch.where(draws["flip"].to(x.device)[:, None, None, None], x.flip(2), x)
+        pv, ph = pad_hw
+        x = torch.nn.functional.pad(x, (0, 0, ph, ph, pv, pv))
+        rows = draws["top"].to(x.device)[:, None] + torch.arange(h, device=x.device)
+        cols = draws["left"].to(x.device)[:, None] + torch.arange(w, device=x.device)
+        bidx = torch.arange(b, device=x.device)[:, None, None]
+        x = x[bidx, rows[:, :, None], cols[:, None, :]]
+        return random_erasing(self._normalize(x), draws)
+
+
+def erasing_draws(gen: torch.Generator, shape, prob: float = 0.5,
+                  dtype: torch.dtype = torch.float32,
+                  area_range=(0.02, 1 / 3),
+                  aspect_range=(0.3, 10 / 3)) -> Dict[str, Tensor]:
+    """The draws of `random_erasing` for a (B, h, w, C) batch: apply bits,
+    the area fraction and log aspect ratio, the rectangle's position as
+    uniforms in [0, 1), and the N(0, 1) noise in `dtype`."""
+    b = shape[0]
+    dev = gen.device
+
+    def uniform(lo, hi):
+        return torch.rand(b, generator=gen, device=dev) * (hi - lo) + lo
+
+    return {
+        "apply": torch.rand(b, generator=gen, device=dev) < prob,
+        "area": uniform(*area_range),
+        "log_ar": uniform(math.log(aspect_range[0]), math.log(aspect_range[1])),
+        "top_u": torch.rand(b, generator=gen, device=dev),
+        "left_u": torch.rand(b, generator=gen, device=dev),
+        "noise": torch.randn(shape, generator=gen, device=dev).to(dtype),
+    }
+
+
+def random_erasing(x: Tensor, draws: Dict[str, Tensor]) -> Tensor:
+    """Batched timm-style pixel-mode random erasing, deterministic given the
+    draws: one rectangle per image (max_count=1) from a single sampling
+    attempt with its sides clamped to the image, filled with the noise, as
+    tpu_reid/data/transforms.py's random_erasing."""
+    b, h, w, _ = x.shape
+    dev = x.device
+    target = draws["area"].to(dev).float() * (h * w)
+    ar = torch.exp(draws["log_ar"].to(dev).float())
+    eh = torch.round(torch.sqrt(target * ar)).clamp(1, h - 1).to(torch.int32)
+    ew = torch.round(torch.sqrt(target / ar)).clamp(1, w - 1).to(torch.int32)
+    top = (draws["top_u"].to(dev).float() * (h - eh + 1)).to(torch.int32)
+    left = (draws["left_u"].to(dev).float() * (w - ew + 1)).to(torch.int32)
+    rows = torch.arange(h, device=dev)[None, :, None]
+    cols = torch.arange(w, device=dev)[None, None, :]
+    in_rect = ((rows >= top[:, None, None]) & (rows < (top + eh)[:, None, None])
+               & (cols >= left[:, None, None]) & (cols < (left + ew)[:, None, None])
+               & draws["apply"].to(dev)[:, None, None])
+    return torch.where(in_rect[..., None], draws["noise"].to(dev, x.dtype), x)

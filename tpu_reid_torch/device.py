@@ -31,5 +31,7 @@ def to_device(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, np.ndarray):
+        if not tree.flags.writeable:  # e.g. a view of a JAX array: copy it
+            tree = np.array(tree)
         return torch.from_numpy(np.ascontiguousarray(tree)).to(device)
     return torch.as_tensor(tree).to(device)

@@ -11,6 +11,9 @@ under bf16 activations, QuickGELU activation, pre-norm residual blocks.
 hand-written CUDA kernels for CUDA tensors and the plain PyTorch block for
 CPU tensors; "kernel" always goes through the kernel wrappers (which take
 their plain versions on CPU tensors); "plain" always takes the plain block.
+The kernel path always goes through the blocks' autograd Function
+(ops/fused_attention.fused_block_autograd): kernels forward, the plain
+block's recompute backward.
 """
 
 from __future__ import annotations
@@ -85,6 +88,27 @@ def use_kernels(x: Tensor) -> bool:
     return _KERNEL_IMPL == "kernel"
 
 
+def multi_head_attention(p: dict, x: Tensor, n_heads: int,
+                         mask: Optional[Tensor] = None) -> Tensor:
+    """Self-attention over (B, S, D) with a fused qkv projection (p holds
+    "in_proj" and "out_proj"); `mask` additive (S, S) or None. Under
+    `use_kernels(x)` it runs as `fused_mha` without LN (three launches on CUDA
+    tensors), otherwise the plain einsum path with an fp32 softmax."""
+    if use_kernels(x):
+        from tpu_reid_torch.ops.fused_attention import fused_mha
+
+        dt = x.dtype
+        return fused_mha(x, p["in_proj"]["w"].to(dt), p["in_proj"]["b"].to(dt),
+                         p["out_proj"]["w"].to(dt), p["out_proj"]["b"].to(dt), n_heads, mask,
+                         fast=A.fast_softmax_enabled())
+    b, s, d = x.shape
+    dh = d // n_heads
+    q, k, v = linear(p["in_proj"], x).split(d, dim=-1)
+    out = A.xla_mha_core(q.reshape(b, s, n_heads, dh), k.reshape(b, s, n_heads, dh),
+                         v.reshape(b, s, n_heads, dh), mask)
+    return linear(p["out_proj"], out.reshape(b, s, d))
+
+
 def _block_xla_impl(p: dict, x: Tensor, n_heads: int,
                     mask: Optional[Tensor]) -> Tensor:
     """Plain pre-norm block body (the name keeps the JAX counterpart's)."""
@@ -118,26 +142,27 @@ def residual_block(
 
     Under `use_kernels(x)` the block runs as the three hand-written kernels
     (five launches), in fp32 and in bf16, with the deep-prompt splice fused
-    into them; otherwise the plain block runs after an out-of-kernel splice."""
+    into them, always through the blocks' autograd Function, whose backward
+    recomputes the plain block (with no input needing grad it builds no
+    graph and runs just the kernels). The weight casts to the activation dtype stay outside the Function, so the
+    gradients reach fp32 master weights through the cast (bf16-activation
+    training). Otherwise the plain block runs after an out-of-kernel
+    splice."""
     if use_kernels(x):
-        from tpu_reid_torch.ops.fused_attention import fused_block
+        from tpu_reid_torch.ops import fused_attention as FA
 
         dt = x.dtype
         a, m = p["attn"], p["mlp"]
-        return fused_block(
-            x,
+        tensors = (
             p["ln_1"]["scale"], p["ln_1"]["bias"],
             a["in_proj"]["w"].to(dt), a["in_proj"]["b"].to(dt),
             a["out_proj"]["w"].to(dt), a["out_proj"]["b"].to(dt),
             p["ln_2"]["scale"], p["ln_2"]["bias"],
             m["c_fc"]["w"].to(dt), m["c_fc"]["b"].to(dt),
             m["c_proj"]["w"].to(dt), m["c_proj"]["b"].to(dt),
-            n_heads,
-            mask,
-            prompt_plane=prompt_plane,
-            prompt_mask=prompt_mask,
-            fast=A.fast_softmax_enabled(),
         )
+        return FA.fused_block_autograd(x, *tensors, n_heads, mask, prompt_plane=prompt_plane,
+                                       prompt_mask=prompt_mask, fast=A.fast_softmax_enabled())
     if prompt_plane is not None:
         x = _apply_splice_plane(x, prompt_plane, prompt_mask)
     return _block_xla_impl(p, x, n_heads, mask)

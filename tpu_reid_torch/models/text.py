@@ -39,7 +39,7 @@ def _transform(params: dict, cfg: TextConfig, x: Tensor,
 
 def pool_eot(x: Tensor, eot_idx: Tensor, text_projection: Tensor) -> Tensor:
     """Take each sequence's EOT feature and project: (B, S, D) -> (B, E)."""
-    feats = x[torch.arange(x.shape[0], device=x.device), eot_idx]
+    feats = x[torch.arange(x.shape[0], device=x.device), eot_idx.long()]
     return feats @ text_projection.to(x.dtype)
 
 
@@ -58,6 +58,22 @@ def encode_text_embeddings(
     x = prompt_embeddings + params["positional_embedding"].to(prompt_embeddings.dtype)
     x = _transform(params, cfg, x, deep_prompts)
     return pool_eot(x, eot_idx, params["text_projection"])
+
+
+def encode_text_embeddings_augmented(
+    params: dict,
+    cfg: TextConfig,
+    prompt_embeddings: Tensor,
+    eot_idx: Tensor,
+    deep_prompts: Optional[Tensor] = None,
+) -> Tensor:
+    """Augmented-template path: (B, T, L, D) prompt embeddings (one row per
+    article-variant template) -> per-template encode -> mean over the
+    template axis. eot_idx: (B, T)."""
+    b, t, n, d = prompt_embeddings.shape
+    feats = encode_text_embeddings(params, cfg, prompt_embeddings.reshape(b * t, n, d),
+                                   eot_idx.reshape(b * t), deep_prompts)
+    return feats.reshape(b, t, -1).mean(dim=1)
 
 
 def encode_text_tokens(

@@ -47,8 +47,8 @@ SIGNATURES = {
         "ln_gemm": [_P] * 8 + [_I] * 6 + [_P],
         # a, w, bias, res, plane, pmask, out, M, N, K, S, dtype, stream
         "gemm_bias_residual": [_P] * 7 + [_I] * 5 + [_P],
-        # qkv, mask, out, B, S, H, scale, fast, dtype, stream
-        "attention": [_P] * 3 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
+        # q, k, v, ld, mask, out, B, S, H, scale, fast, dtype, stream
+        "mha_core": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
     },
     "tail": {
         # x, ln_g, ln_b, proj, y, p, B, D, E, dtype, stream
@@ -155,6 +155,21 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def stream(t: torch.Tensor) -> int:
     """The current CUDA stream of t's device, as the entry points take it."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_forward_only(*tensors: Optional[torch.Tensor]) -> None:
+    """The kernel wrappers refuse inputs that require grad: training reaches
+    the kernels only through the autograd Functions of ops/fused_attention.py
+    and ops/fused_tail.py, whose backward recomputes through the plain
+    block."""
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            "the block and tail kernels are forward-only: call them under "
+            "torch.no_grad(), or through residual_block / ln_proj_tail, whose "
+            "autograd Functions recompute the backward through the plain block"
+        )
 
 
 def require_cuda(dtype: torch.dtype, device: torch.device,

@@ -1,44 +1,60 @@
-"""One pre-norm CLIP block as three hand-written CUDA kernels.
+"""Pre-norm CLIP blocks and half-blocks as hand-written CUDA kernels.
 
-Replaces tpu_reid/ops/fused_attention.py::fused_block (the Pallas
-`_whole_block_kernel` with its attention core `_attention_heads`). That kernel
-keeps all of a block's weights resident in a TPU core's VMEM; they do not fit
-an SM's shared memory, so the block runs as five launches
+Replaces three Pallas kernels of tpu_reid/ops/fused_attention.py:
+
+  * `fused_mha` (`_kernel`): [LN ->] qkv projection -> softmax attention ->
+    out-projection [+ residual],
+  * `fused_mlp` (`_mlp_kernel`): x + c_proj(QuickGELU(c_fc(LN(x)))),
+  * `fused_block` (`_whole_block_kernel`, attention core `_attention_heads`):
+    fused_mlp(fused_mha(x)) with the optional deep-prompt splice.
+
+The TPU kernels keep the weights resident in a core's VMEM; they do not fit
+an SM's shared memory, so each is a few launches of three kernels
 (csrc/block_kernels.cu):
 
-    qkv = ln_gemm(x, ln_1, W_in, b_in)                 (deep-prompt splice on load)
-    a   = attention(qkv)                               (exact or fast softmax)
-    x1  = gemm_bias_residual(a, W_out, b_out, x)       (same splice on the residual)
+    qkv = ln_gemm(x, ln_1, W_in, b_in)               (deep-prompt splice on load)
+    a   = mha_core(q, k, v)                           (strided views of qkv, no copy)
+    x1  = gemm_bias_residual(a, W_out, b_out, x)      (same splice on the residual)
     h   = ln_gemm(x1, ln_2, W_fc, b_fc, gelu=True)
     out = gemm_bias_residual(h, W_proj, b_proj, x1)
 
+The first three lines are fused_mha with pre-LN, the last two fused_mlp, all
+five fused_block. fused_mha without LN reads the rows as they are and adds
+no residual, as the Pallas kernel with pre_ln=False does.
+
+What bounds them on the H100: their GEMMs, 2·B·S·D·(4D + 2S) operations for
+fused_mha and 4·B·S·D·hid for fused_mlp against the tensor-core rate; the
+attention alone is bound by its bytes. The design gives up the TPU kernels'
+one pass over fast memory: qkv, the head output, x1 and the MLP hidden
+activation round-trip device memory between launches, and the GEMMs run
+mma.sync tiles without TMA or wgmma (csrc/block_kernels.cu), so they run
+several times over the bound; PERF.md holds the measured times.
+
 Each kernel has a wrapper that launches it for CUDA tensors (or raises) and
 takes the plain PyTorch version beside it for CPU tensors; the plain versions
-repeat the kernels' arithmetic and bf16 rounding points. Each wrapper counts
-its launches in its `launches` attribute. The kernels are forward-only: an
-input that requires grad raises.
+repeat the kernels' arithmetic and bf16 rounding points. Each wrapper, and
+each of fused_mha / fused_mlp / fused_block, counts the calls in which it
+launched kernels in its `launches` attribute. The wrappers are forward-only:
+an input that requires grad raises. The model's blocks (serving and
+training) go through `fused_block_autograd`, the counterpart of the JAX package's custom VJPs
+(`_block_fused`, `_block_fused_spliced`): the forward runs the kernels, the
+backward recomputes the plain block and differentiates it.
 
 Layouts follow the JAX package: activations (B, S, D), linear weights
 (in, out). Weights and biases come in the activations' dtype (float32 or
 bfloat16); LayerNorm parameters are used in fp32 (the plain block's choice;
-the Pallas kernel rounds them to the working type first).
+the Pallas kernels round them to the working type first).
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 
 from tpu_reid_torch.ops import _build
+from tpu_reid_torch.ops.attention import mha_core, softmax_attention
 
-_LOG2E = 1.4426950408889634
-# fast softmax: unnormalised probabilities saturate at 2^120, so a row of at
-# most 256 of them sums below 2^128 (fp32 max): sound only for S <= 256
-_FAST_CLAMP = 120.0
-MAX_SEQ = 256
-HEAD_DIM = 64
 LN_MAX_WIDTH = 1024  # ln_gemm keeps LayerNorm's gamma/beta and a row in fast memory
 
 Tensor = torch.Tensor
@@ -47,16 +63,6 @@ Tensor = torch.Tensor
 # ---------------------------------------------------------------------------
 # shared helpers
 # ---------------------------------------------------------------------------
-
-
-def _check_forward_only(*tensors: Optional[Tensor]) -> None:
-    if torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors
-    ):
-        raise RuntimeError(
-            "the block and tail kernels are forward-only: call them under "
-            "torch.no_grad() (training recomputes through the plain block)"
-        )
 
 
 def _splice(x: Tensor, plane: Optional[Tensor], pmask: Optional[Tensor]) -> Tensor:
@@ -92,39 +98,57 @@ def _splice_args(plane: Optional[Tensor], pmask: Optional[Tensor], s: int, width
     return plane, pmask
 
 
+def _qkv_views(qkv: Tensor, n_heads: int) -> tuple[Tensor, Tensor, Tensor]:
+    """(B, S, 3D) -> q, k, v as (B, S, H, dh) views (row stride 3D)."""
+    d = qkv.shape[-1] // 3
+    return tuple(qkv[..., i * d:(i + 1) * d].unflatten(-1, (n_heads, d // n_heads))
+                 for i in range(3))
+
+
 # ---------------------------------------------------------------------------
-# kernel 1: LayerNorm prologue + GEMM + bias (+ QuickGELU)
+# kernel 1: [LayerNorm prologue +] GEMM + bias (+ QuickGELU)
 # ---------------------------------------------------------------------------
 
 
-def ln_gemm_reference(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, w: Tensor,
-                      b: Tensor, gelu: bool = False, plane: Optional[Tensor] = None,
+def ln_gemm_reference(x: Tensor, ln_scale: Optional[Tensor], ln_bias: Optional[Tensor],
+                      w: Tensor, b: Tensor, gelu: bool = False,
+                      plane: Optional[Tensor] = None,
                       pmask: Optional[Tensor] = None) -> Tensor:
     """act(LN(splice(x)) @ w + b): LN output cast to x.dtype, fp32 product,
-    bias and QuickGELU in fp32, then the cast."""
-    h = _layer_norm_f32(_splice(x, plane, pmask), ln_scale, ln_bias)
+    bias and QuickGELU in fp32, then the cast. ln_scale None: no LN (and no
+    splice), the rows as they are."""
+    if ln_scale is None:
+        if plane is not None:
+            raise ValueError("ln_gemm: the deep-prompt splice needs the LayerNorm prologue")
+        h = x
+    else:
+        h = _layer_norm_f32(_splice(x, plane, pmask), ln_scale, ln_bias)
     acc = h.float() @ w.float() + b.float()
     if gelu:
         acc = acc * torch.sigmoid(1.702 * acc)
     return acc.to(x.dtype)
 
 
-def ln_gemm(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, w: Tensor, b: Tensor,
-            gelu: bool = False, plane: Optional[Tensor] = None,
+def ln_gemm(x: Tensor, ln_scale: Optional[Tensor], ln_bias: Optional[Tensor], w: Tensor,
+            b: Tensor, gelu: bool = False, plane: Optional[Tensor] = None,
             pmask: Optional[Tensor] = None) -> Tensor:
-    """(B, S, K) -> (B, S, N). CUDA: csrc/block_kernels.cu::ln_gemm."""
-    _check_forward_only(x, ln_scale, ln_bias, w, b, plane)
+    """(B, S, K) -> (B, S, N). CUDA: csrc/block_kernels.cu::ln_gemm (with
+    ln_scale None: the same kernel without its LayerNorm prologue)."""
+    _build.check_forward_only(x, ln_scale, ln_bias, w, b, plane)
     if x.device.type == "cpu":
         return ln_gemm_reference(x, ln_scale, ln_bias, w, b, gelu, plane, pmask)
     bsz, s, k = x.shape
     n = w.shape[1]
-    if w.shape != (k, n) or b.shape != (n,) or k % 32 or n % 8 or k > LN_MAX_WIDTH:
+    has_ln = ln_scale is not None
+    if (w.shape != (k, n) or b.shape != (n,) or k % 32 or n % 8
+            or (has_ln and k > LN_MAX_WIDTH) or (has_ln != (ln_bias is not None))
+            or (plane is not None and not has_ln)):
         raise ValueError(f"ln_gemm: x {tuple(x.shape)}, w {tuple(w.shape)}, b "
-                         f"{tuple(b.shape)}; needs K % 32 == 0, K <= {LN_MAX_WIDTH} "
-                         "and N % 8 == 0")
+                         f"{tuple(b.shape)}; needs K % 32 == 0, N % 8 == 0, and with "
+                         f"LayerNorm K <= {LN_MAX_WIDTH}; the splice needs LayerNorm")
     plane, pmask = _splice_args(plane, pmask, s, k, x.dtype)
-    g = ln_scale.float().contiguous()
-    gb = ln_bias.float().contiguous()
+    g = ln_scale.float().contiguous() if has_ln else None
+    gb = ln_bias.float().contiguous() if has_ln else None
     _build.require_cuda(x.dtype, x.device, x=x, w=w, b=b, plane=plane)
     out = torch.empty(bsz, s, n, dtype=x.dtype, device=x.device)
     lib = _build.library("block")
@@ -141,109 +165,68 @@ ln_gemm.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# kernel 2: full-row softmax attention (S <= 256, dh = 64)
+# kernel 2: attention on the packed qkv buffer (the mha_core kernel)
 # ---------------------------------------------------------------------------
-
-
-def _attention_mask(mask: Optional[Tensor], fast: bool) -> Optional[Tensor]:
-    """Additive (S, S) mask as the kernel reads it: -inf clamped to -1e30,
-    pre-scaled by log2(e) for the fast softmax."""
-    if mask is None:
-        return None
-    m = mask.float().clamp_min(-1e30)
-    return m * _LOG2E if fast else m
-
-
-def _attention_scale(dh: int, fast: bool) -> float:
-    scale = 1.0 / math.sqrt(dh)
-    return scale * _LOG2E if fast else scale
 
 
 def attention_reference(qkv: Tensor, n_heads: int, mask: Optional[Tensor] = None,
                         fast: bool = False) -> Tensor:
-    """(B, S, 3D) qkv -> (B, S, D) per-head softmax attention, normalised late
-    by the row reciprocal. exact: max-subtracted exp; fast:
-    exp2(min(s + mask, 120)) in log2e units, denominator floored at 1e-30."""
+    """(B, S, 3D) qkv -> (B, S, D): the plain version of the fused kernels'
+    attention core `_attention_heads`, normalised late by the row
+    reciprocal. exact: max-subtracted exp; fast: exp2(min(s + mask, 120)) in
+    log2e units, denominator floored at 1e-30."""
     bsz, s, d3 = qkv.shape
-    d = d3 // 3
-    dh = d // n_heads
-    q, k, v = (t.reshape(bsz, s, n_heads, dh).transpose(1, 2)
-               for t in qkv.split(d, dim=-1))
-    scores = (q.float() @ k.float().transpose(-1, -2)) * _attention_scale(dh, fast)
-    m = _attention_mask(mask, fast)
-    if m is not None:
-        scores = scores + m
-    if fast:
-        p = torch.exp2(scores.clamp_max(_FAST_CLAMP))
-        denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    else:
-        p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
-        denom = p.sum(dim=-1, keepdim=True)
-    o = (p.to(qkv.dtype).float() @ v.float()) * (1.0 / denom)
-    return o.to(qkv.dtype).transpose(1, 2).reshape(bsz, s, d)
+    o = softmax_attention(*_qkv_views(qkv, n_heads), mask, fast, divide=False)
+    return o.reshape(bsz, s, d3 // 3)
 
 
-def attention(qkv: Tensor, n_heads: int, mask: Optional[Tensor] = None,
-              fast: bool = False) -> Tensor:
-    """(B, S, 3D) -> (B, S, D). CUDA: csrc/block_kernels.cu::attention."""
-    _check_forward_only(qkv)
+def _attention_kernel(qkv: Tensor, n_heads: int, mask: Optional[Tensor] = None,
+                      fast: bool = False) -> Tensor:
+    """The mha_core kernel on strided views of the qkv buffer -> (B, S, D);
+    CPU tensors take `attention_reference` (the block's plain version, which
+    normalises by the reciprocal as the kernel does)."""
     if qkv.device.type == "cpu":
         return attention_reference(qkv, n_heads, mask, fast)
     bsz, s, d3 = qkv.shape
-    d = d3 // 3
-    if s > MAX_SEQ or d3 != 3 * d or d != n_heads * HEAD_DIM:
-        raise ValueError(
-            f"attention kernel: S={s} must be <= {MAX_SEQ} and the head width "
-            f"{d3 // 3 // n_heads} must be {HEAD_DIM}"
-        )
-    m = _attention_mask(mask, fast)
-    if m is not None:
-        m = m.to(qkv.device).contiguous()
-        if m.shape != (s, s):
-            raise ValueError(f"mask {tuple(m.shape)} is not ({s}, {s})")
-    _build.require_cuda(qkv.dtype, qkv.device, qkv=qkv)
-    out = torch.empty(bsz, s, d, dtype=qkv.dtype, device=qkv.device)
-    lib = _build.library("block")
-    ptr = _build.ptr
-    rc = lib.attention(ptr(qkv), ptr(m), ptr(out), bsz, s, n_heads,
-                       _attention_scale(HEAD_DIM, fast), int(fast),
-                       _build.DTYPE_CODES[qkv.dtype], _build.stream(qkv))
-    _build.check(lib, rc, "attention")
-    attention.launches += 1
-    return out
-
-
-attention.launches = 0
+    return mha_core(*_qkv_views(qkv, n_heads), mask, fast=fast).reshape(bsz, s, d3 // 3)
 
 
 # ---------------------------------------------------------------------------
-# kernel 3: GEMM + bias + residual
+# kernel 3: GEMM + bias [+ residual]
 # ---------------------------------------------------------------------------
 
 
-def gemm_bias_residual_reference(a: Tensor, w: Tensor, b: Tensor, residual: Tensor,
+def gemm_bias_residual_reference(a: Tensor, w: Tensor, b: Tensor,
+                                 residual: Optional[Tensor] = None,
                                  plane: Optional[Tensor] = None,
                                  pmask: Optional[Tensor] = None) -> Tensor:
-    """a @ w + b + splice(residual) in fp32, then the cast."""
-    acc = a.float() @ w.float() + b.float() + _splice(residual, plane, pmask).float()
+    """a @ w + b [+ splice(residual)] in fp32, then the cast."""
+    acc = a.float() @ w.float() + b.float()
+    if residual is not None:
+        acc = acc + _splice(residual, plane, pmask).float()
+    elif plane is not None:
+        raise ValueError("gemm_bias_residual: the deep-prompt splice needs a residual")
     return acc.to(a.dtype)
 
 
-def gemm_bias_residual(a: Tensor, w: Tensor, b: Tensor, residual: Tensor,
+def gemm_bias_residual(a: Tensor, w: Tensor, b: Tensor, residual: Optional[Tensor] = None,
                        plane: Optional[Tensor] = None,
                        pmask: Optional[Tensor] = None) -> Tensor:
-    """(B, S, K) -> (B, S, N). CUDA: csrc/block_kernels.cu::gemm_bias_residual."""
-    _check_forward_only(a, w, b, residual, plane)
+    """(B, S, K) -> (B, S, N). CUDA: csrc/block_kernels.cu::gemm_bias_residual
+    (residual None: the same kernel with the bias epilogue alone)."""
+    _build.check_forward_only(a, w, b, residual, plane)
     if a.device.type == "cpu":
         return gemm_bias_residual_reference(a, w, b, residual, plane, pmask)
     bsz, s, k = a.shape
     n = w.shape[1]
-    if (w.shape != (k, n) or b.shape != (n,) or residual.shape != (bsz, s, n)
-            or k % 32 or n % 8):
+    if (w.shape != (k, n) or b.shape != (n,) or k % 32 or n % 8
+            or (residual is not None and residual.shape != (bsz, s, n))
+            or (residual is None and plane is not None)):
         raise ValueError(
             f"gemm_bias_residual: a {tuple(a.shape)}, w {tuple(w.shape)}, b "
-            f"{tuple(b.shape)}, residual {tuple(residual.shape)}; needs "
-            "K % 32 == 0 and N % 8 == 0"
+            f"{tuple(b.shape)}, residual "
+            f"{None if residual is None else tuple(residual.shape)}; needs K % 32 == 0 "
+            "and N % 8 == 0, and the splice needs a residual"
         )
     plane, pmask = _splice_args(plane, pmask, s, n, a.dtype)
     _build.require_cuda(a.dtype, a.device, a=a, w=w, b=b, residual=residual, plane=plane)
@@ -262,18 +245,86 @@ gemm_bias_residual.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# the whole block
+# fused_mha, fused_mlp and the whole block
 # ---------------------------------------------------------------------------
 
+_KERNELS = (ln_gemm, _attention_kernel, gemm_bias_residual)
+_PLAIN = (ln_gemm_reference, attention_reference, gemm_bias_residual_reference)
 
-def _block(x, ln1_scale, ln1_bias, w_in, b_in, w_out, b_out, ln2_scale, ln2_bias,
-           w_fc, b_fc, w_proj, b_proj, n_heads, mask, plane, pmask, fast, kernels):
-    ln_gemm_fn, attention_fn, gemm_res_fn = kernels
-    qkv = ln_gemm_fn(x, ln1_scale, ln1_bias, w_in, b_in, False, plane, pmask)
+
+def _mha(x, w_in, b_in, w_out, b_out, n_heads, mask, ln_scale, ln_bias, fast, plane, pmask,
+         pieces):
+    ln_gemm_fn, attention_fn, gemm_fn = pieces
+    if (ln_scale is None) != (ln_bias is None):
+        raise ValueError("fused_mha: pass both ln_scale and ln_bias, or neither")
+    if plane is not None and ln_scale is None:
+        raise ValueError("fused_mha: the deep-prompt splice needs the pre-LN mode")
+    qkv = ln_gemm_fn(x, ln_scale, ln_bias, w_in, b_in, False, plane, pmask)
     a = attention_fn(qkv, n_heads, mask, fast)
-    x1 = gemm_res_fn(a, w_out, b_out, x, plane, pmask)
-    h = ln_gemm_fn(x1, ln2_scale, ln2_bias, w_fc, b_fc, True)
-    return gemm_res_fn(h, w_proj, b_proj, x1)
+    return gemm_fn(a, w_out, b_out, x if ln_scale is not None else None, plane, pmask)
+
+
+def _mlp(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj, pieces):
+    ln_gemm_fn, _, gemm_fn = pieces
+    h = ln_gemm_fn(x, ln_scale, ln_bias, w_fc, b_fc, True)
+    return gemm_fn(h, w_proj, b_proj, x)
+
+
+def fused_mha_reference(
+    x: Tensor, w_in: Tensor, b_in: Tensor, w_out: Tensor, b_out: Tensor, n_heads: int,
+    mask: Optional[Tensor] = None, ln_scale: Optional[Tensor] = None,
+    ln_bias: Optional[Tensor] = None, fast: bool = False, *,
+    prompt_plane: Optional[Tensor] = None, prompt_mask: Optional[Tensor] = None,
+) -> Tensor:
+    """Plain version of `fused_mha`, rounding where the kernels do."""
+    return _mha(x, w_in, b_in, w_out, b_out, n_heads, mask, ln_scale, ln_bias, fast,
+                prompt_plane, prompt_mask, _PLAIN)
+
+
+def fused_mha(
+    x: Tensor, w_in: Tensor, b_in: Tensor, w_out: Tensor, b_out: Tensor, n_heads: int,
+    mask: Optional[Tensor] = None, ln_scale: Optional[Tensor] = None,
+    ln_bias: Optional[Tensor] = None, fast: bool = False, *,
+    prompt_plane: Optional[Tensor] = None, prompt_mask: Optional[Tensor] = None,
+) -> Tensor:
+    """Multi-head self-attention over (B, S, D), W_in (D, 3D), W_out (D, D).
+
+    With ln_scale/ln_bias: the pre-norm half-block x + attn(LN(x)), with the
+    optional deep-prompt splice (prompt_plane (S, D), prompt_mask (S, 1) or
+    (S,): rows where the mask is > 0 come from the plane, before the LN and
+    in the residual). Without them: attn(x), no residual. `mask` an optional
+    additive (S, S) mask. Three launches on CUDA tensors: ln_gemm, mha_core
+    on strided views of qkv, gemm_bias_residual; CPU tensors take the plain
+    versions."""
+    out = _mha(x, w_in, b_in, w_out, b_out, n_heads, mask, ln_scale, ln_bias, fast,
+               prompt_plane, prompt_mask, _KERNELS)
+    if x.is_cuda:
+        fused_mha.launches += 1
+    return out
+
+
+fused_mha.launches = 0
+
+
+def fused_mlp_reference(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, w_fc: Tensor,
+                        b_fc: Tensor, w_proj: Tensor, b_proj: Tensor) -> Tensor:
+    """Plain version of `fused_mlp`, rounding where the kernels do (the
+    hidden activation cast to x.dtype after QuickGELU)."""
+    return _mlp(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj, _PLAIN)
+
+
+def fused_mlp(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, w_fc: Tensor, b_fc: Tensor,
+              w_proj: Tensor, b_proj: Tensor) -> Tensor:
+    """x + c_proj(QuickGELU(c_fc(LN(x)))) over (B, S, D), W_fc (D, hid),
+    W_proj (hid, D). Two launches on CUDA tensors: ln_gemm(gelu),
+    gemm_bias_residual; CPU tensors take the plain versions."""
+    out = _mlp(x, ln_scale, ln_bias, w_fc, b_fc, w_proj, b_proj, _KERNELS)
+    if x.is_cuda:
+        fused_mlp.launches += 1
+    return out
+
+
+fused_mlp.launches = 0
 
 
 def fused_block_reference(
@@ -283,12 +334,11 @@ def fused_block_reference(
     mask: Optional[Tensor] = None, prompt_plane: Optional[Tensor] = None,
     prompt_mask: Optional[Tensor] = None, fast: bool = False,
 ) -> Tensor:
-    """Plain PyTorch version of `fused_block`, rounding where the kernels do."""
-    return _block(x, ln1_scale, ln1_bias, w_in, b_in, w_out, b_out, ln2_scale,
-                  ln2_bias, w_fc, b_fc, w_proj, b_proj, n_heads, mask,
-                  prompt_plane, prompt_mask, fast,
-                  (ln_gemm_reference, attention_reference,
-                   gemm_bias_residual_reference))
+    """Plain version of `fused_block`: fused_mlp_reference(fused_mha_reference(x))."""
+    x1 = fused_mha_reference(x, w_in, b_in, w_out, b_out, n_heads, mask, ln1_scale,
+                             ln1_bias, fast, prompt_plane=prompt_plane,
+                             prompt_mask=prompt_mask)
+    return fused_mlp_reference(x1, ln2_scale, ln2_bias, w_fc, b_fc, w_proj, b_proj)
 
 
 def fused_block(
@@ -298,13 +348,88 @@ def fused_block(
     mask: Optional[Tensor] = None, prompt_plane: Optional[Tensor] = None,
     prompt_mask: Optional[Tensor] = None, fast: bool = False,
 ) -> Tensor:
-    """One pre-norm transformer block, (B, S, D) -> (B, S, D).
+    """One pre-norm transformer block, (B, S, D) -> (B, S, D):
+    fused_mlp(fused_mha(x)), five launches on CUDA tensors.
 
     prompt_plane (S, D) / prompt_mask (S, 1) or (S,): optional deep-prompt
     splice — rows where prompt_mask > 0 are replaced by the plane BEFORE the
-    block, and the spliced rows are also the out-proj residual. CUDA tensors
-    go through the three kernels, CPU tensors through their plain versions."""
-    return _block(x, ln1_scale, ln1_bias, w_in, b_in, w_out, b_out, ln2_scale,
-                  ln2_bias, w_fc, b_fc, w_proj, b_proj, n_heads, mask,
-                  prompt_plane, prompt_mask, fast,
-                  (ln_gemm, attention, gemm_bias_residual))
+    block, and the spliced rows are also the out-proj residual. CPU tensors
+    go through the plain versions."""
+    x1 = fused_mha(x, w_in, b_in, w_out, b_out, n_heads, mask, ln1_scale, ln1_bias, fast,
+                   prompt_plane=prompt_plane, prompt_mask=prompt_mask)
+    out = fused_mlp(x1, ln2_scale, ln2_bias, w_fc, b_fc, w_proj, b_proj)
+    if x.is_cuda:
+        fused_block.launches += 1
+    return out
+
+
+fused_block.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# gradients: forward through the kernels, backward through the plain block
+# ---------------------------------------------------------------------------
+
+
+def _block_params(w) -> dict:
+    """The 12 positional block tensors as models.layers' parameter dict."""
+    return {
+        "ln_1": {"scale": w[0], "bias": w[1]},
+        "attn": {"in_proj": {"w": w[2], "b": w[3]}, "out_proj": {"w": w[4], "b": w[5]}},
+        "ln_2": {"scale": w[6], "bias": w[7]},
+        "mlp": {"c_fc": {"w": w[8], "b": w[9]}, "c_proj": {"w": w[10], "b": w[11]}},
+    }
+
+
+class _FusedBlockFn(torch.autograd.Function):
+    """The counterpart of the JAX package's `_block_fused` /
+    `_block_fused_spliced` custom VJPs (models/layers.py): the forward runs
+    `fused_block` (the kernels on CUDA tensors) and saves only x, the plane,
+    the prompt mask, the attention mask and the 12 tensors passed in — no
+    activation of the block. The backward recomputes
+    `_block_xla_impl(p, splice(x, plane, pmask), n_heads, mask)` under
+    autograd and returns its gradients for x, the plane and the 12 tensors.
+    Under the fast softmax the forward takes the kernels' exp2 form and the
+    recompute `xla_mha_core`'s bf16-probability form, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, x, plane, pmask, mask, n_heads, fast, *weights):
+        ctx.n_heads = n_heads
+        ctx.save_for_backward(x, plane, pmask, mask, *weights)
+        return fused_block(x, *weights, n_heads, mask, plane, pmask, fast)
+
+    @staticmethod
+    def backward(ctx, g):
+        from tpu_reid_torch.models.layers import _apply_splice_plane, _block_xla_impl
+
+        x, plane, pmask, mask, *weights = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = x.detach().requires_grad_()
+            ws = [w.detach().requires_grad_() for w in weights]
+            inputs = [xs] + ws
+            xin = xs
+            if plane is not None:
+                ps = plane.detach().requires_grad_()
+                inputs.append(ps)
+                xin = _apply_splice_plane(xs, ps, pmask)
+            out = _block_xla_impl(_block_params(ws), xin, ctx.n_heads, mask)
+            grads = torch.autograd.grad(out, inputs, g, allow_unused=True)
+        dx, dws = grads[0], grads[1:13]
+        dplane = grads[13] if plane is not None else None
+        return (dx, dplane, None, None, None, None, *dws)
+
+
+def fused_block_autograd(
+    x: Tensor, ln1_scale: Tensor, ln1_bias: Tensor, w_in: Tensor, b_in: Tensor,
+    w_out: Tensor, b_out: Tensor, ln2_scale: Tensor, ln2_bias: Tensor,
+    w_fc: Tensor, b_fc: Tensor, w_proj: Tensor, b_proj: Tensor, n_heads: int,
+    mask: Optional[Tensor] = None, prompt_plane: Optional[Tensor] = None,
+    prompt_mask: Optional[Tensor] = None, fast: bool = False,
+) -> Tensor:
+    """`fused_block` with gradients: forward through the kernels, backward
+    through the plain block's recompute; see `_FusedBlockFn`. With no input
+    requiring grad (serving) it builds no graph and is `fused_block`. Returns None gradients for the prompt mask and the
+    attention mask."""
+    return _FusedBlockFn.apply(x, prompt_plane, prompt_mask, mask, n_heads, fast,
+                               ln1_scale, ln1_bias, w_in, b_in, w_out, b_out,
+                               ln2_scale, ln2_bias, w_fc, b_fc, w_proj, b_proj)

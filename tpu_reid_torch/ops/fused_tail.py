@@ -5,7 +5,10 @@ for (B, D) CLS rows, y = LN(x) with fp32 statistics and an fp32 affine, cast
 to x.dtype, and p = y @ proj with fp32 accumulation — both from one load of
 x (csrc/tail_kernel.cu). The plain version `ln_proj_tail_reference` mirrors
 the JAX package's `_tail_xla`, the plain layer_norm + dot composition. The
-kernel is forward-only: an input that requires grad raises.
+kernel wrapper is forward-only: an input that requires grad raises; the
+model's tail goes through `_TailFn`, the counterpart of the JAX package's `_tail_fused`
+custom VJP (forward through the kernel, backward through the plain
+composition's recompute).
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from tpu_reid_torch.ops import _build
-from tpu_reid_torch.ops.fused_attention import _check_forward_only, _layer_norm_f32
+from tpu_reid_torch.ops.fused_attention import _layer_norm_f32
 
 Tensor = torch.Tensor
 
@@ -31,7 +34,7 @@ def ln_proj_tail_kernel(x: Tensor, ln_scale: Tensor, ln_bias: Tensor,
                         proj: Tensor) -> tuple[Tensor, Tensor]:
     """CUDA: csrc/tail_kernel.cu::ln_proj_tail; CPU tensors take the plain
     version."""
-    _check_forward_only(x, ln_scale, ln_bias, proj)
+    _build.check_forward_only(x, ln_scale, ln_bias, proj)
     if x.device.type == "cpu":
         return ln_proj_tail_reference(x, ln_scale, ln_bias, proj)
     b, d = x.shape
@@ -58,11 +61,31 @@ def ln_proj_tail_kernel(x: Tensor, ln_scale: Tensor, ln_bias: Tensor,
 ln_proj_tail_kernel.launches = 0
 
 
+class _TailFn(torch.autograd.Function):
+    """Forward: the kernel (saving only its four inputs); backward: the
+    gradients of `ln_proj_tail_reference` recomputed under autograd, as
+    `_tail_fused`'s VJP takes them from `_tail_xla`."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, proj):
+        ctx.save_for_backward(x, ln_scale, ln_bias, proj)
+        return ln_proj_tail_kernel(x, ln_scale, ln_bias, proj)
+
+    @staticmethod
+    def backward(ctx, gy, gp):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            y, p = ln_proj_tail_reference(*inputs)
+            return torch.autograd.grad((y, p), inputs, (gy, gp), allow_unused=True)
+
+
 def ln_proj_tail(x: Tensor, ln_params: dict, proj: Tensor) -> tuple[Tensor, Tensor]:
     """(B, D) CLS rows -> (ln(x), ln(x) @ proj): the kernel where
-    `layers.kernel_impl` selects kernels, else the plain composition."""
+    `layers.kernel_impl` selects kernels (always through `_TailFn`, which
+    builds no graph when no input needs grad), else the plain composition."""
     from tpu_reid_torch.models.layers import use_kernels
 
+    args = (x, ln_params["scale"], ln_params["bias"], proj)
     if use_kernels(x):
-        return ln_proj_tail_kernel(x, ln_params["scale"], ln_params["bias"], proj)
-    return ln_proj_tail_reference(x, ln_params["scale"], ln_params["bias"], proj)
+        return _TailFn.apply(*args)
+    return ln_proj_tail_reference(*args)

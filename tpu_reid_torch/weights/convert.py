@@ -8,7 +8,11 @@ pretrained positional grid is bicubic-resized to the rectangular ReID grid at
 load time (models/clip_model.resize_pos_embed).
 
 `from_jax_params` takes the JAX package's parameter pytree (as numpy arrays)
-to the same dicts, so both packages can run one set of weights.
+to the same dicts, so both packages can run one set of weights;
+`from_jax_reid_params` does so for a whole ReID model (towers with their VPT
+tokens, prompt learner, heads with BN running statistics, adapter, the
+promptsrc teacher), checked against the model config. `init_vpt` gives IVLP
+prompt tokens to a checkpoint that has none.
 `random_clip_state_dict` makes a random OpenAI-format ViT state dict from a
 seed, for smoke runs and tests at full width without a checkpoint.
 `overlay_clip_reid` lays a CLIP-ReID checkpoint over a CLIP state dict (the
@@ -246,13 +250,85 @@ def from_jax_params(params_np: dict, cfg: CLIPConfig, device: DeviceLike = None)
     """The JAX package's parameter pytree (nested dicts of numpy arrays, the
     same structure and layouts) -> the port's parameters on `device`. The
     config is checked against the shapes it must match."""
-    visual = params_np.get("visual", params_np)
+    _check_patch_embed(params_np.get("visual", params_np), cfg)
+    return to_device(params_np, resolve_device(device))
+
+
+def _check_patch_embed(visual: dict, cfg: CLIPConfig) -> None:
     if "conv" in visual:
         w = np.shape(visual["conv"]["w"])
         want = (cfg.vision.patch_size, cfg.vision.patch_size, 3, cfg.vision.width)
         if tuple(w) != want:
             raise ValueError(f"patch-embed weight {w} does not match the config {want}")
+
+
+def _check_shapes(tree, want: dict, where: str) -> None:
+    for key, shape in want.items():
+        got = tuple(np.shape(tree.get(key))) if key in tree else None
+        if got != tuple(shape):
+            raise ValueError(f"{where}[{key!r}] has shape {got}, the config needs {shape}")
+
+
+def from_jax_reid_params(params_np: dict, cfg, device: DeviceLike = None) -> dict:
+    """The JAX package's ReID parameter pytree (models/reid_clip.py layout,
+    leaves as numpy arrays) -> the port's on `device`, checked against the
+    ReidModelConfig `cfg`: the CLIP towers with their `vpt_*` tokens, the
+    prompt learner (its int32 `eot_idx` included), the BNNeck heads with
+    their running mean and variance, the adapter (adapter mode) and the
+    zero-shot teacher (promptsrc)."""
+    v, t = cfg.clip.vision, cfg.clip.text
+    clip = params_np["clip"]
+    _check_patch_embed(clip["visual"], cfg.clip)
+    d = v.design
+    if d.has_vision_prompts:
+        _check_shapes(clip["visual"], {"vpt_shallow": (d.vision_ctx, v.width)}, "visual")
+        if "vpt_deep" in clip["visual"]:
+            _check_shapes(clip["visual"], {"vpt_deep": (v.layers, d.vision_ctx, v.width)},
+                          "visual")
+    if t.design.has_language_prompts and "vpt_deep" in clip["text"]:
+        _check_shapes(clip["text"], {"vpt_deep": (t.layers, t.design.language_ctx, t.width)},
+                      "text")
+    pc = cfg.prompt
+    pl = params_np["prompt_learner"]
+    _check_shapes(pl, {"cls_ctx": (pc.n_cls, pc.n_cls_ctx, t.width)}, "prompt_learner")
+    if np.asarray(pl["eot_idx"]).dtype.kind not in "iu":
+        raise ValueError("prompt_learner['eot_idx'] must hold integers")
+    head = params_np["head"]
+    for name, dim in (("bn", v.width), ("bn_proj", cfg.clip.embed_dim)):
+        _check_shapes(head[name], {k: (dim,) for k in ("scale", "bias", "mean", "var")},
+                      f"head.{name}")
+    _check_shapes(head["cls"], {"w": (v.width, pc.n_cls)}, "head.cls")
+    _check_shapes(head["cls_proj"], {"w": (cfg.clip.embed_dim, pc.n_cls)}, "head.cls_proj")
+    if cfg.mode == "adapter" and "adapter" not in params_np:
+        raise ValueError("adapter mode needs an 'adapter' subtree")
+    if cfg.mode == "promptsrc" and "zs_visual" not in params_np:
+        raise ValueError("promptsrc needs a 'zs_visual' teacher subtree")
     return to_device(params_np, resolve_device(device))
+
+
+def init_vpt(gen: torch.Generator, cfg: CLIPConfig, clip_params: dict) -> dict:
+    """IVLP prompt tokens, N(0, 0.02) from `gen`, for the keys a checkpoint
+    lacks (those it has are kept): the vision tower's `vpt_shallow`
+    (ctx, width) and `vpt_deep` (layers, ctx, width), and the text tower's
+    `vpt_deep` — the keys the JAX package's init_vit / init_text make for
+    the design. Returns a new dict; new tokens land on the towers' device."""
+    out = dict(clip_params, visual=dict(clip_params["visual"]),
+               text=dict(clip_params["text"]))
+    v, t = cfg.vision, cfg.text
+
+    def fill(tower: dict, key: str, shape) -> None:
+        tok = torch.randn(*shape, generator=gen, dtype=torch.float32) * 0.02
+        tower.setdefault(key, tok.to(tower["blocks"]["ln_1"]["scale"].device))
+
+    d = v.design
+    if d.has_vision_prompts:
+        fill(out["visual"], "vpt_shallow", (d.vision_ctx, v.width))
+        if d.vision_depth > 1 and d.trainer in ("IVLP", "VPT"):
+            fill(out["visual"], "vpt_deep", (v.layers, d.vision_ctx, v.width))
+    d = t.design
+    if d.has_language_prompts and d.language_depth > 1 and d.trainer in ("IVLP", "VPT"):
+        fill(out["text"], "vpt_deep", (t.layers, d.language_ctx, t.width))
+    return out
 
 
 # ---------------------------------------------------------------------------
