@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (tpu_reid_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases kernels,serve,...]
+
+With `--phases` only the named phases run (kernels, minsum, grad, zero_shot,
+rerank, serve, train, cli); such a run is no pass: it prints
+{"ok": false, "partial": [...]} as its last line and exits with code 3.
 
 1. Prints the card and sets fp32 matmuls and convolutions to full fp32.
 2. Builds the hand-written kernels from tpu_reid_torch/csrc/ into
@@ -15,7 +19,14 @@
    from them; fused_mha / fused_mlp / mha_core at B=64 for S=211, S=213 with
    the deep-prompt splice and the causal text S=77, exact and fast, bf16
    and fp32; whole blocks at B=64 for every variant the main paths take;
-   the CLS tail at B=128 (timed) and B=512.
+   the CLS tail at B=128 (timed) and B=512. Then the bf16 GEMM and
+   attention kernels at edge shapes (B 1 to 512, S 77 / 211 / 213 spliced,
+   K 32 to 3072, N 512 to 3072 and tails; attention at S 1 to 256, 8 and 12
+   heads, qkv views and contiguous), LayerNorm in the kernel against
+   LayerNorm done beforehand bit for bit, 50 launches bit-equal, and the
+   host time of a wrapper call. The build's ptxas lines are printed; the
+   run fails if a wgmma kernel spills, or if the log does not show every
+   instantiation of the wgmma kernels.
 4. minsum: the minsum kernel at awkward shapes in fp8, bf16 and fp32, then
    timed at the Market-1501 streamed shape (4096 x 16384 x 20480, fp8) and
    on one 1024-row query slab of the MSMT17 shape.
@@ -56,6 +67,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -177,6 +189,11 @@ def kernel_phase(dev):
     say(f"kernels alone at B={b} S={s} D={d} hid={hid} bf16 "
         f"(times: median of 20 CUDA-event runs)")
 
+    # the times of the mma.sync kernels these three replaced, on the same card
+    # model and shapes (NVIDIA H100 80GB HBM3, 700 W): printed beside the new
+    # times, and kept out of the kernels' record, which holds this run's numbers
+    ms_before = {"ln_gemm": 1.7198, "gemm_bias_residual": 0.7187, "mha_core": 0.3133}
+
     def entry(name, source, replaces, parts, **extra):
         """parts: [(label, kernel_fn, plain_fn, library_fn or None, flops,
         bytes)] — the kernel's launches in one vision block, summed; the
@@ -198,6 +215,9 @@ def kernel_phase(dev):
             tot["flops"] += flops
             tot["bytes"] += nbytes
         bnd, by = bound(tot["flops"], tot["bytes"])
+        if name in ms_before:
+            say(f"    {name}: {tot['ms']:.4f} ms, {ms_before[name]:.4f} ms before the redesign "
+                f"({ms_before[name] / tot['ms']:.2f}x)")
         record[name] = dict(name=name, route="cuda", source=source, replaces=replaces,
                             max_abs_err=max(errs), ms=tot["ms"], plain_ms=tot["plain_ms"],
                             bound_ms=bnd, bound_by=by, library_ms=tot["library_ms"], **extra)
@@ -384,10 +404,150 @@ def kernel_phase(dev):
         check(f"{kind} block B={bb} S={seq} {str(dt)[6:]} "
               f"{'fast' if fast else 'exact'}{' splice' if splice else ''}"
               f"{' causal' if causal else ''}", got, want, dt)
+    edge_checks(dev, rng, check, failures)
     torch.cuda.synchronize()
     if failures:
         raise PhaseFailed(f"kernels disagree with their plain versions: {failures}")
     return record
+
+
+def edge_checks(dev, rng, check, failures):
+    """The bf16 GEMM and attention kernels at the shapes that break pipelines
+    and edges: ragged row tiles, N and K tails, rings that wrap many times,
+    one to many tiles per block, every S that changes the attention's tiling;
+    LayerNorm against precomputed LayerNorm bit for bit; 50 launches bit-equal;
+    the host cost of a wrapper call."""
+    from tpu_reid_torch.models.layers import causal_mask
+    from tpu_reid_torch.ops import attention as TA
+    from tpu_reid_torch.ops import fused_attention as FA
+
+    bf = torch.bfloat16
+
+    def t(*shape, std=1.0, dt=bf):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * std).to(dev, dt)
+
+    def splice(seq, width):
+        pm = torch.zeros(seq, 1, device=dev)
+        pm[seq - 2:] = 1.0
+        return t(seq, width), pm
+
+    say("ln_gemm / gemm_bias_residual (bf16) at edge shapes against their plain versions")
+    # (B, S, K, N, gelu, splice): K <= 768 takes the 128-row panel, K = 1024 the 64-row one
+    for b, s, k, n, gelu, sp in (
+            (1, 77, 512, 1536, False, False), (3, 77, 512, 2048, True, False),
+            (64, 77, 512, 512, False, False), (1, 211, 768, 2304, False, False),
+            (3, 213, 768, 3072, True, True), (64, 213, 768, 2304, False, True),
+            (128, 211, 768, 3072, True, False), (512, 213, 768, 2304, False, True),
+            (512, 213, 768, 3072, True, False), (3, 211, 768, 776, False, False),
+            (3, 50, 1024, 520, True, False), (64, 211, 1024, 768, False, False)):
+        x, w, bias = t(b, s, k), t(k, n, std=k ** -0.5), t(n, std=0.02)
+        g, gb = 1 + t(k, std=0.05, dt=torch.float32), t(k, std=0.05, dt=torch.float32)
+        plane, pm = splice(s, k) if sp else (None, None)
+        check(f"ln_gemm[B={b} S={s} K={k} N={n}{' gelu' if gelu else ''}{' splice' if sp else ''}]",
+              FA.ln_gemm(x, g, gb, w, bias, gelu, plane, pm),
+              FA.ln_gemm_reference(x, g, gb, w, bias, gelu, plane, pm), bf)
+        del x, w
+    for b, s, k, n, gelu in ((3, 77, 2048, 512, False), (64, 211, 3072, 768, True)):
+        x, w, bias = t(b, s, k), t(k, n, std=k ** -0.5), t(n, std=0.02)
+        check(f"ln_gemm[no LN B={b} S={s} K={k} N={n}{' gelu' if gelu else ''}]",
+              FA.ln_gemm(x, None, None, w, bias, gelu),
+              FA.ln_gemm_reference(x, None, None, w, bias, gelu), bf)
+    # (B, S, K, N, residual, splice)
+    for b, s, k, n, res, sp in (
+            (1, 77, 512, 512, True, False), (3, 77, 2048, 512, True, False),
+            (64, 213, 768, 768, True, True), (128, 211, 3072, 768, True, False),
+            (512, 213, 768, 768, True, True), (512, 213, 3072, 768, True, False),
+            (3, 211, 768, 776, True, False), (1, 211, 3072, 1536, False, False),
+            (64, 77, 512, 2304, False, False), (3, 213, 32, 3072, True, True)):
+        a, w, bias = t(b, s, k), t(k, n, std=k ** -0.5), t(n, std=0.02)
+        r = t(b, s, n) if res else None
+        plane, pm = splice(s, n) if sp else (None, None)
+        check(f"gemm_bias_residual[B={b} S={s} K={k} N={n}{' residual' if res else ''}"
+              f"{' splice' if sp else ''}]",
+              FA.gemm_bias_residual(a, w, bias, r, plane, pm),
+              FA.gemm_bias_residual_reference(a, w, bias, r, plane, pm), bf)
+        del a, w, r
+
+    say("mha_core (bf16) at every S that changes its tiling, qkv views and contiguous")
+    for s, causal in ((1, False), (8, False), (50, False), (77, True), (211, False),
+                      (213, False), (256, False), (200, True)):
+        for b, h in ((3, 8), (64, 12)):
+            qkv = t(b, s, 3 * h * 64)
+            views = FA._qkv_views(qkv, h)
+            contiguous = tuple(v.contiguous() for v in views)
+            mask = causal_mask(s, device=dev) if causal else None
+            for fast in (False, True):
+                for label, ops in (("qkv views", views), ("contiguous", contiguous)):
+                    check(f"mha_core[B={b} S={s} H={h}{' causal' if causal else ''} {label} "
+                          f"{'fast' if fast else 'exact'}]",
+                          TA.mha_core(*ops, mask, fast=fast),
+                          TA.mha_core_reference(*ops, mask, fast=fast), bf)
+
+    # LayerNorm in the kernel against LayerNorm done beforehand: with W = I and
+    # no bias the kernel hands out its own normalised panel exactly (a product
+    # with the identity adds only zeros); fed back without LN, the same
+    # mainloop runs on the same bf16 operands, so the outputs must be
+    # bit-equal. That panel is also held against the plain version's rule.
+    say("ln_gemm with LN against ln_gemm without LN on the precomputed LayerNorm output")
+    for b, s, k, n in ((128, 211, 768, 2304), (64, 77, 512, 1536), (16, 50, 1024, 1024)):
+        x, w, bias = t(b, s, k), t(k, n, std=k ** -0.5), t(n, std=0.02)
+        g, gb = 1 + t(k, std=0.05, dt=torch.float32), t(k, std=0.05, dt=torch.float32)
+        eye = torch.eye(k, device=dev, dtype=bf)
+        h_kernel = FA.ln_gemm(x, g, gb, eye, torch.zeros(k, device=dev, dtype=bf))
+        h_plain = FA._layer_norm_f32(x, g, gb)
+        with_ln = FA.ln_gemm(x, g, gb, w, bias)
+        same = torch.equal(with_ln, FA.ln_gemm(h_kernel, None, None, w, bias))
+        differ = int((h_kernel != h_plain).sum())
+        err, rel = rel_err(h_kernel, h_plain)
+        same_plain = torch.equal(with_ln, FA.ln_gemm(h_plain, None, None, w, bias))
+        ok = same and rel <= 2.0 ** -7 and (differ > 0 or same_plain)
+        say(f"  B={b} S={s} K={k} N={n}: LN in the kernel vs the kernel's own LN output fed back: "
+            f"{'bit-equal' if same else 'DIFFERENT'}; that output vs the plain rule: {differ} of "
+            f"{h_plain.numel()} elements differ (max|d| {err:.3e}: one bf16 rounding where the "
+            f"fp32 sums are taken in another order), outputs "
+            f"{'bit-equal' if same_plain else 'differ there'} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"LN vs precomputed LN at K={k}")
+        del x, w, eye
+
+    # 50 launches on one input: a wrong barrier phase or a race shows as a
+    # changed bit once the rings have wrapped
+    b, s, d, hid = 128, 211, 768, 3072
+    x, hh, qkv = t(b, s, d), t(b, s, hid), t(b, s, 3 * d)
+    g, gb = 1 + t(d, std=0.05, dt=torch.float32), t(d, std=0.05, dt=torch.float32)
+    w_fc, b_fc = t(d, hid, std=d ** -0.5), t(hid, std=0.02)
+    w_pr, b_pr = t(hid, d, std=hid ** -0.5), t(d, std=0.02)
+    views = FA._qkv_views(qkv, 12)
+    for label, fn in (("ln_gemm c_fc", lambda: FA.ln_gemm(x, g, gb, w_fc, b_fc, True)),
+                      ("gemm_bias_residual c_proj", lambda: FA.gemm_bias_residual(hh, w_pr, b_pr, x)),
+                      ("mha_core exact", lambda: TA.mha_core(*views)),
+                      ("mha_core fast", lambda: TA.mha_core(*views, fast=True))):
+        first = fn()
+        same = all(torch.equal(first, fn()) for _ in range(49))
+        say(f"  {label}: 50 launches on one input {'bit-equal' if same else 'DIFFER'}")
+        if not same:
+            failures.append(f"{label} repeat")
+
+    # host cost of a wrapper call, bf16 (two or three tensor maps encoded per
+    # launch) beside fp32 (no tensor map): small shapes, so the card keeps
+    # ahead of the host
+    for dt in (bf, torch.float32):
+        xs, ws, bs = t(1, 77, 512, dt=dt), t(512, 512, std=512 ** -0.5, dt=dt), t(512, std=0.02, dt=dt)
+        gs, gbs = 1 + t(512, std=0.05, dt=torch.float32), t(512, std=0.05, dt=torch.float32)
+        vs = FA._qkv_views(t(1, 77, 3 * 512, dt=dt), 8)
+        for label, fn in (("ln_gemm", lambda: FA.ln_gemm(xs, gs, gbs, ws, bs)),
+                          ("gemm_bias_residual", lambda: FA.gemm_bias_residual(xs, ws, bs, xs)),
+                          ("mha_core", lambda: TA.mha_core(*vs))):
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            host_us = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+            say(f"  host time of one {label} call at B=1 S=77 width 512, {str(dt)[6:]}: "
+                f"{host_us:.1f} us")
 
 
 # ---------------------------------------------------------------------------
@@ -572,8 +732,10 @@ def zero_shot_run(params, cfg, tokenizer, ids, templates, data, dtype, bs, dev):
     return dict(zs=zs, qf=qf, gf=gf, cmc=cmc, mAP=mAP, mINP=mINP, times=t)
 
 
-KERNEL_GROUPS = (("gemm_bf16_kernel<true>", "ln_gemm"),
-                 ("gemm_bf16_kernel<false>", "gemm_bias_residual / no-LN ln_gemm"),
+KERNEL_GROUPS = (("gemm_bf16_kernel<true", "ln_gemm"),
+                 ("gemm_bf16_kernel<(bool)1", "ln_gemm"),
+                 ("gemm_bf16_kernel<false", "gemm_bias_residual / no-LN ln_gemm"),
+                 ("gemm_bf16_kernel<(bool)0", "gemm_bias_residual / no-LN ln_gemm"),
                  ("gemm_f32_kernel<true>", "ln_gemm fp32"),
                  ("gemm_f32_kernel<false>", "gemm_bias_residual fp32"),
                  ("attention_bf16_kernel", "mha_core"),
@@ -1332,6 +1494,23 @@ def training_phase(dev, counters, mcfg, params, bs=64):
     return report
 
 
+# instantiations of the wgmma kernels that block_kernels.cu launches: the GEMM
+# as (LN, 128 or 64 rows, epilogue) = 3 without LN + 4 with; one attention
+WGMMA_ENTRIES = {"gemm_bf16_kernel": 7, "attention_bf16_kernel": 1}
+
+
+def mangled_kernel_name(line: str) -> str:
+    """`<name>_kernel` and its template arguments out of a mangled entry name
+    (`...16gemm_bf16_kernelILb1ELi2ELi0EEEv...` -> gemm_bf16_kernelILb1ELi2ELi0E)."""
+    for m in re.finditer("_kernel", line):
+        for n in range(7, 48):  # the identifier is preceded by its length
+            name = line[m.end() - n:m.end()]
+            if line[:m.end() - n].endswith(str(n)) and name[0].isalpha():
+                args = re.match(r"(I[A-Za-z0-9_]*?E)E?v", line[m.end():])
+                return name + (args.group(1) if args else "")
+    return ""
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1364,12 +1543,34 @@ def main() -> int:
     secs = _build.build()
     say(f"build: {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())} "
         f"(wall {time.perf_counter() - t0:.1f} s, into {_build.BUILD_DIR})")
+    # the wgmma kernels must not spill. An entry is recognised by its name in
+    # the raw ptxas line, and the run fails unless every instantiation that
+    # block_kernels.cu launches was seen, so a change in the log's format
+    # cannot switch the check off.
+    spilled, seen = [], dict.fromkeys(WGMMA_ENTRIES, 0)
     for name in _build.SOURCES:
         log = _build.library_path(name).with_suffix(".log")
         if log.exists():
+            kernel, gated = "", True
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    say(f"  ptxas[{name}]: {line.strip()}")
+                if "Compiling entry function" in line:
+                    kernel = mangled_kernel_name(line)
+                    hit = [k for k in WGMMA_ENTRIES if k in line]
+                    for k in hit:
+                        seen[k] += 1
+                    gated = bool(hit) or not kernel
+                if "Used" in line or "spill" in line:
+                    say(f"  ptxas[{name}] {kernel}: {line.replace('ptxas info    :', '').strip()}")
+                if ("spill" in line and gated
+                        and "0 bytes spill stores, 0 bytes spill loads" not in line):
+                    spilled.append(f"{kernel or 'unnamed entry'}: {line.strip()}")
+    if spilled:
+        print(f"chip_smoke: FAILED: a wgmma kernel spills registers: {spilled}", file=sys.stderr)
+        return 1
+    if any(seen[k] < n for k, n in WGMMA_ENTRIES.items()):
+        print(f"chip_smoke: FAILED: the ptxas log shows {seen} entries of the wgmma kernels, "
+              f"expected at least {WGMMA_ENTRIES}", file=sys.stderr)
+        return 1
 
     block_counters = {"ln_gemm": FA.ln_gemm, "mha_core": TA.mha_core,
                       "gemm_bias_residual": FA.gemm_bias_residual, "fused_mha": FA.fused_mha,
@@ -1379,36 +1580,67 @@ def main() -> int:
     record, by_path = {}, {}
     timings = {}
 
-    def timed(name, fn, *a):
-        t = time.perf_counter()
-        out = fn(*a)
-        timings[name] = time.perf_counter() - t
-        return out
+    state = {}
 
-    try:
-        record.update(timed("kernels", kernel_phase, dev))
-        record["minsum"] = timed("minsum", minsum_phase, dev)
-        timed("grad", gradient_phase, dev)
-        by_path["zero_shot"], zs_emb_s = timed("zero_shot", main_path_phase, dev,
-                                               block_counters)
-        say(f"emb/s (bf16 zero-shot main path, flip-TTA): {zs_emb_s:.1f}")
-        by_path["rerank"] = {"minsum": timed("rerank", rerank_phase, dev)}
-        mcfg, params = flagship(dev)
-        by_path["ivlp_serve"], emb_s = timed("serve", ivlp_serving_phase, dev, block_counters,
-                                             mcfg, params)
+    def flagship_once():
+        if "flagship" not in state:
+            state["flagship"] = flagship(dev)
+        return state["flagship"]
+
+    def run_kernels():
+        record.update(kernel_phase(dev))
+
+    def run_minsum():
+        record["minsum"] = minsum_phase(dev)
+
+    def run_zero_shot():
+        by_path["zero_shot"], emb_s = main_path_phase(dev, block_counters)
+        say(f"emb/s (bf16 zero-shot main path, flip-TTA): {emb_s:.1f}")
+
+    def run_rerank():
+        by_path["rerank"] = {"minsum": rerank_phase(dev)}
+
+    def run_serve():
+        by_path["ivlp_serve"], emb_s = ivlp_serving_phase(dev, block_counters, *flagship_once())
         say(f"emb/s (bf16 IVLP eval_embed at bench.py's profile): {emb_s:.1f}")
-        for stage, r in timed("train", training_phase, dev, block_counters, mcfg,
-                              params).items():
+
+    def run_train():
+        for stage, r in training_phase(dev, block_counters, *flagship_once()).items():
             by_path[stage] = r["launches"]
-        del params
+
+    def run_cli():
+        state.clear()  # the flagship's weights: the CLIs build their own models
         torch.cuda.empty_cache()
-        by_path.update(timed("cli", cli_phase, counters))
+        by_path.update(cli_phase(counters))
+
+    phases = (("kernels", run_kernels), ("minsum", run_minsum),
+              ("grad", lambda: gradient_phase(dev)), ("zero_shot", run_zero_shot),
+              ("rerank", run_rerank), ("serve", run_serve), ("train", run_train),
+              ("cli", run_cli))
+    # `--phases kernels,serve` runs only those phases (for work on one of
+    # them); such a run is no pass: it ends with {"ok": false, ...} and code 3
+    only = None
+    if len(sys.argv) > 1:
+        only = set(sys.argv[2].split(",")) if len(sys.argv) == 3 else set()
+        if sys.argv[1] != "--phases" or not only or only - {n for n, _ in phases}:
+            print(f"usage: chip_smoke.py [--phases {','.join(n for n, _ in phases)}]",
+                  file=sys.stderr)
+            return 2
+    try:
+        for name, fn in phases:
+            if only is None or name in only:
+                t = time.perf_counter()
+                fn()
+                timings[name] = time.perf_counter() - t
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     torch.cuda.synchronize()
     say("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in timings.items()))
     say(f"total {time.perf_counter() - t_start:.1f} s")
+    if only is not None:
+        say(json.dumps({"ok": False, "partial": sorted(only)}))
+        return 3
     kernels = []
     for name in counters:
         r = dict(record[name])

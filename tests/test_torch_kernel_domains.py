@@ -1,0 +1,151 @@
+"""What the bf16 TMA/wgmma kernels of the port take, decided without a card.
+
+The kernels read their operands through tensor maps and 16-byte vectors, so
+they need aligned bases and row strides, bounded boxes and fixed widths. Those
+rules live in plain functions of shapes, strides and addresses
+(`ops.attention.head_row_stride`, `ops.fused_attention.check_gemm_operands`),
+which the wrappers call before a launch. Here each rule refuses what the
+kernel does not take and accepts the main paths' shapes: vision 211 / 213
+tokens of width 768, text 77 tokens of width 512, views of a packed qkv buffer.
+"""
+
+import pytest
+import torch
+
+from tpu_reid_torch.ops import attention as TA
+from tpu_reid_torch.ops import fused_attention as FA
+
+BASE = 0x7F0000000000  # an allocation's base: 512-byte aligned
+
+
+def _layout(t):
+    return tuple(t.shape), tuple(t.stride())
+
+
+# ---------------------------------------------------------------------------
+# mha_core: head_row_stride
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,s,h,itemsize", [
+    (128, 211, 12, 2),   # zero-shot vision tower, bf16
+    (512, 213, 12, 2),   # IVLP serving
+    (64, 77, 8, 2),      # text tower
+    (64, 77, 8, 4),      # the fp32 text tower
+    (1, 1, 12, 2),       # one token of one image
+    (3, 256, 12, 2),     # the longest sequence
+])
+def test_head_layout_accepts_views_of_a_packed_qkv_buffer(b, s, h, itemsize):
+    d = h * 64
+    qkv = torch.empty(b, s, 3 * d, dtype=torch.bfloat16 if itemsize == 2 else torch.float32)
+    for i, view in enumerate(FA._qkv_views(qkv, h)):
+        shape, strides = _layout(view)
+        ld = TA.head_row_stride(shape, strides, BASE + i * d * itemsize, itemsize)
+        # one token of one image has no row stride to speak of: the kernel is given H * 64
+        assert ld == (3 * d if b * s > 1 else d)
+
+
+@pytest.mark.parametrize("b,s,h", [(128, 211, 12), (64, 77, 8), (2, 1, 8), (1, 50, 1)])
+def test_head_layout_accepts_contiguous_heads(b, s, h):
+    t = torch.empty(b, s, h, 64, dtype=torch.bfloat16)
+    assert TA.head_row_stride(*_layout(t), BASE, 2) == h * 64
+
+
+@pytest.mark.parametrize("shape,strides,address,itemsize,why", [
+    ((2, 257, 12, 64), (257 * 768, 768, 64, 1), BASE, 2, "S > 256: the score registers"),
+    ((2, 0, 12, 64), (0, 768, 64, 1), BASE, 2, "an empty sequence"),
+    ((2, 50, 12, 32), (50 * 384, 384, 32, 1), BASE, 2, "head width 32"),
+    ((2, 50, 12, 128), (50 * 1536, 1536, 128, 1), BASE, 2, "head width 128"),
+    ((2, 50, 12, 64), (50 * 768, 768, 64, 2), BASE, 2, "element stride 2"),
+    ((2, 50, 12, 64), (50 * 1536, 1536, 128, 1), BASE, 2, "heads 128 apart"),
+    ((2, 50, 12, 64), (60 * 768, 768, 64, 1), BASE, 2, "batch stride is not S * ld"),
+    ((2, 50, 12, 64), (50 * 768, 768, 64, 1), BASE + 2, 2, "base not 16-byte aligned"),
+    ((2, 50, 12, 64), (50 * 772, 772, 64, 1), BASE, 2, "row stride not a multiple of 16 bytes"),
+    ((2, 50, 12, 64), (50 * 770, 770, 64, 1), BASE, 4, "fp32 row stride not a multiple of 16 bytes"),
+    ((2, 50, 12, 64), (50 * 512, 512, 64, 1), BASE, 2, "rows overlap: ld < H * 64"),
+    ((4, 200, 12, 64), (200 * 2 ** 31, 2 ** 31, 64, 1), BASE, 2, "a stride past 2^40 bytes"),
+])
+def test_head_layout_refuses(shape, strides, address, itemsize, why):
+    with pytest.raises(ValueError):
+        TA.head_row_stride(shape, strides, address, itemsize)
+
+
+def test_head_layout_refuses_transposed_heads():
+    # (B, H, S, 64) viewed as (B, S, H, 64): the library layout, not the kernel's
+    t = torch.empty(2, 12, 50, 64, dtype=torch.bfloat16).transpose(1, 2)
+    with pytest.raises(ValueError):
+        TA.head_row_stride(*_layout(t), BASE, 2)
+
+
+def test_mha_core_on_the_cpu_takes_any_layout():
+    # the plain version has no such domain: only CUDA tensors are held to it
+    q = torch.randn(2, 12, 5, 64).transpose(1, 2)
+    out = TA.mha_core(q, q, q)
+    assert out.shape == (2, 5, 12, 64)
+
+
+# ---------------------------------------------------------------------------
+# ln_gemm / gemm_bias_residual: check_gemm_operands
+# ---------------------------------------------------------------------------
+
+ALIGNED = dict(x=BASE, w=BASE + 4096, b=BASE + 8192, out=BASE + 16384)
+
+
+@pytest.mark.parametrize("m,k,n,has_ln", [
+    (128 * 211, 768, 2304, True),    # vision qkv
+    (512 * 213, 768, 3072, True),    # IVLP serving c_fc
+    (64 * 77, 512, 1536, True),      # text qkv
+    (64 * 77, 512, 2048, True),      # text c_fc
+    (64 * 211, 3072, 768, False),    # vision c_proj
+    (64 * 77, 2048, 512, False),     # text c_proj
+    (1, 768, 768, False),            # one row: M is free
+    (13504, 1024, 776, True),        # the widest LayerNorm; N a multiple of 8, not of 128
+    (211, 32, 8, False),             # the smallest K and N
+])
+def test_gemm_domain_accepts(m, k, n, has_ln):
+    FA.check_gemm_operands("gemm", m, k, n, has_ln, ALIGNED)
+
+
+@pytest.mark.parametrize("m,k,n,has_ln,addresses,why", [
+    (100, 48, 768, False, ALIGNED, "K not a multiple of 32"),
+    (100, 0, 768, False, ALIGNED, "K = 0"),
+    (100, 768, 772, False, ALIGNED, "N not a multiple of 8"),
+    (100, 768, 0, False, ALIGNED, "N = 0"),
+    (100, 1056, 768, True, ALIGNED, "LayerNorm wider than the panel"),
+    (2 ** 31, 768, 768, False, ALIGNED, "M past a tensor map's extent"),
+    (100, 768, 768, False, dict(ALIGNED, x=BASE + 2), "x not 16-byte aligned"),
+    (100, 768, 768, False, dict(ALIGNED, w=BASE + 8), "w not 16-byte aligned"),
+    (100, 768, 768, False, dict(ALIGNED, b=BASE + 4), "bias not 16-byte aligned"),
+    (100, 768, 768, False, dict(ALIGNED, residual=BASE + 6), "residual not 16-byte aligned"),
+    (100, 768, 768, True, dict(ALIGNED, ln_scale=BASE + 4), "gamma not 16-byte aligned"),
+])
+def test_gemm_domain_refuses(m, k, n, has_ln, addresses, why):
+    with pytest.raises(ValueError):
+        FA.check_gemm_operands("gemm", m, k, n, has_ln, addresses)
+
+
+@pytest.mark.parametrize("name", sorted(FA.FP32_SCALAR_OPERANDS))
+def test_gemm_domain_fp32_reads_these_by_element(name):
+    # the fp32 kernel takes them at any address, the bf16 kernel does not
+    addresses = dict(ALIGNED, **{name: BASE + 4})
+    FA.check_gemm_operands("gemm", 100, 768, 768, True, addresses, fp32=True)
+    with pytest.raises(ValueError):
+        FA.check_gemm_operands("gemm", 100, 768, 768, True, addresses)
+
+
+@pytest.mark.parametrize("name", ["x", "a", "w", "plane"])
+def test_gemm_domain_fp32_still_needs_aligned_vectors(name):
+    with pytest.raises(ValueError):
+        FA.check_gemm_operands("gemm", 100, 768, 768, True,
+                               dict(ALIGNED, **{name: BASE + 4}), fp32=True)
+
+
+def test_gemm_domain_ignores_absent_operands():
+    FA.check_gemm_operands("gemm", 100, 768, 768, False, dict(ALIGNED, residual=None, plane=None))
+
+
+def test_wide_layernorm_without_ln_is_in_the_domain():
+    # K > LN_MAX_WIDTH is only refused with the LayerNorm prologue
+    FA.check_gemm_operands("gemm", 100, 3072, 768, False, ALIGNED)
+    with pytest.raises(ValueError):
+        FA.check_gemm_operands("gemm", 100, 3072, 768, True, ALIGNED)

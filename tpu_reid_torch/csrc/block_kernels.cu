@@ -37,53 +37,66 @@
 // What bounds them on the H100: the four GEMMs are ~97% of the block's
 // operations (2*S*(4*D^2 + 2*D*hid) per image), so at ViT-B width the block
 // is bound by tensor-core rate, not by the ~1 GB of activations it moves per
-// 64 images; attention alone is bound by its bytes (qkv in, heads out). The
-// design answers that only partly in this first version: bf16 GEMMs run
-// mma.sync m16n8k16 (fp32 accumulation) on ldmatrix fragments of 128x128x32
-// shared-memory tiles per 256-thread block, with the next tile's global loads
-// in flight in registers during the current tile's MMAs; bf16 attention keeps
-// scores and probabilities in registers so only q, k, v and the head output
-// touch memory; the fp32 paths are plain FMA. There is no TMA, wgmma or
-// persistent scheduling yet, so the kernels run below the bound; their
-// measured times stand in PERF.md.
+// 64 images; attention alone is bound by its bytes (qkv in, heads out). What
+// the bf16 kernels do about it (helpers in hopper.cuh):
+//
+//   * One GEMM kernel, gemm_bf16_kernel, behind ln_gemm and
+//     gemm_bias_residual: wgmma m64n128k16 with fp32 accumulators in
+//     registers, both operands read from 128-byte-swizzled shared tiles, W
+//     brought in by TMA as it is stored ((K, N) row-major: wgmma takes the
+//     transposed B operand) into a ring of four stages guarded by mbarriers,
+//     one producer thread and two consumer warpgroups (setmaxnreg hands the
+//     producer's registers over). TMA's zero fill covers the ragged M, N and
+//     K edges; stores are masked.
+//   * With LayerNorm a block keeps a panel of 128 rows over the whole K
+//     (64 rows where K > 768) in shared memory: its consumers read each row
+//     once, take the two-pass fp32 statistics once, normalise once, round to
+//     bf16 and write the panel in the swizzled layout wgmma reads; then the
+//     block walks N tiles while only W streams in. The K loop holds no
+//     LayerNorm arithmetic, and the normalised rows never reach device
+//     memory. The two consumer warpgroups take every other N tile over all
+//     the panel's rows, so one's epilogue runs under the other's mainloop.
+//     Blocks take equal contiguous ranges of the (row panel, N tile) list, so
+//     the last wave is not ragged; a range that enters a new panel
+//     normalises it.
+//   * Without LayerNorm the A tiles come by TMA too, 256 rows per block
+//     (each consumer warpgroup two 64-row accumulators of every stage), and
+//     blocks walk the output tiles, so the ring fills for the next tile
+//     under a tile's epilogue.
+//   * Epilogues add the bias, take QuickGELU or the spliced residual in
+//     fp32 with the row's source decided once per row, and exchange column
+//     pairs inside each quad so that bias, residual and output move as
+//     16-byte vectors.
+//   * attention_bf16_kernel: persistent blocks walk the (image, head)
+//     pairs. Q, K and V of a head arrive once by TMA from the strided views
+//     (a 3-D map over (B, S, row stride), box of 64 columns at column h*64,
+//     rows past S zero-filled) into one of two buffers, the next head under
+//     the work on this one; two warpgroups take the 64-row query tiles in
+//     turn. Both products are wgmma: Q K^T for all keys at once from shared
+//     operands, so a thread holds two whole score rows in registers; P V
+//     with the probabilities fed from registers and V as the transposed B
+//     operand. An additive mask of up to 32 KB (S <= 90: the text tower) is
+//     staged in shared memory once per block.
+//
+// The fp32 paths are plain FMA kernels (parity runs, the fp32 text tower).
+// Measured times stand in PERF.md.
 //
 // bf16 rounding points mirror the Pallas kernel: LN output cast back to the
 // working type, qkv cast after the bias, probabilities cast before p@v, the
 // head output cast after the reciprocal, x1 cast after the residual, the MLP
-// hidden activation cast after QuickGELU.
+// hidden activation cast after QuickGELU. In the bf16 kernels QuickGELU's and
+// the softmax's exponentials are ex2.approx (and QuickGELU's division
+// rcp.approx), about 2 ulp of fp32, far below a bf16 rounding.
 //
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError().
 
-#include "common.cuh"
+#include <type_traits>
+
+#include "hopper.cuh"
+
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// fragment helpers
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t ld_b32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a (16x16, row) * b (16x8, col); fragment layouts of the PTX ISA:
-// a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..);
-// b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g); d0,d1 (g, 2t..), d2,d3 (g+8, 2t..)
-// with g = lane / 4, t = lane % 4.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // ---------------------------------------------------------------------------
 // GEMM with LayerNorm prologue / bias, QuickGELU or residual epilogue
@@ -192,141 +205,397 @@ __device__ __forceinline__ float epi_value(const GemmArgs& g, int m, int n, floa
   return v;
 }
 
-// ---- bf16: mma.sync m16n8k16 from ldmatrix fragments, two shared stages ----
+// ---- bf16: TMA-fed wgmma; with LN, a normalised row panel resident in shared memory ----
 //
-// 8 warps as 2 (M) x 4 (N), each a 64x32 tile of 4x4 m16n8 accumulators.
-// The next K-tile's global loads are issued into registers before the
-// current tile's MMAs and stored (normalised, with LN) into the other stage
-// after them: one barrier per K-step. Row strides (40 and 136 elements) keep
-// every ldmatrix row in its own banks.
+// Threads: two consumer warpgroups, then one producer warpgroup of which one
+// thread issues TMA loads; all blocks are persistent, one per SM. Shared
+// memory (from a 1024-byte aligned base): with LN the panel, ceil(K / 64)
+// k-blocks of [ROWS rows][128 bytes]; the ring of four stages, each [A tile:
+// 256 rows x 128 bytes, without LN only][W tile: two [BK rows][128 bytes]
+// halves, columns n0.. and n0 + 64..]; then the barriers. With LN a stage is
+// 32 rows of W (8 KB): four stages are what fits beside a 192 KB panel, and
+// the W stream is bound by that ring's depth over the L2 latency. Without LN
+// a stage is 64 deep (48 KB).
 
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
+constexpr int TBN = 128;     // output tile width: one wgmma m64n128k16 per 64 rows
+constexpr int SMEM_MAX = 232448;
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-template <bool LN>
-__global__ void __launch_bounds__(GEMM_THREADS, 2)
-gemm_bf16_kernel(GemmArgs g) {
-  constexpr int VEC = 8, AS = BK + 8, BS = BN + 8;
-  constexpr int A_VECS = BM * BK / VEC / GEMM_THREADS, B_VECS = BK * BN / VEC / GEMM_THREADS;
-  __shared__ __align__(128) bf16 As[2][BM * AS];
-  __shared__ __align__(128) bf16 Bs[2][BK * BS];
-  __shared__ const bf16* row_src[BM];
-  __shared__ float row_mean[BM], row_rstd[BM];
-  __shared__ float ln_s[LN ? 2 * LN_MAX_K : 1];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const bf16* W = static_cast<const bf16*>(g.w);
-  gemm_rows<bf16, LN>(g, m0, row_src, row_mean, row_rstd, ln_s);
-
-  uint4 ra[A_VECS], rb[B_VECS];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < A_VECS; ++i) {
-      const int v = tid + i * GEMM_THREADS, r = v / (BK / VEC), c = (v % (BK / VEC)) * VEC;
-      const bf16* p = row_src[r];
-      ra[i] = p != nullptr ? *reinterpret_cast<const uint4*>(p + k0 + c)
-                           : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int i = 0; i < B_VECS; ++i) {
-      const int v = tid + i * GEMM_THREADS, r = v / (BN / VEC), c = (v % (BN / VEC)) * VEC;
-      rb[i] = n0 + c < g.N
-                  ? *reinterpret_cast<const uint4*>(W + (size_t)(k0 + r) * g.N + n0 + c)
-                  : make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
-  auto stash = [&](int buf, int k0) {
-#pragma unroll
-    for (int i = 0; i < A_VECS; ++i) {
-      const int v = tid + i * GEMM_THREADS, r = v / (BK / VEC), c = (v % (BK / VEC)) * VEC;
-      bf16* dst = &As[buf][r * AS + c];
-      if (LN && row_src[r] != nullptr) {
-        const bf16* e = reinterpret_cast<const bf16*>(&ra[i]);
-        const float mean = row_mean[r], rstd = row_rstd[r];
-        float f[VEC];
-#pragma unroll
-        for (int j = 0; j < VEC; ++j)
-          f[j] = (to_f(e[j]) - mean) * rstd * ln_s[k0 + c + j] + ln_s[LN_MAX_K + k0 + c + j];
-        store_vec<bf16>(dst, f);
-      } else {
-        *reinterpret_cast<uint4*>(dst) = ra[i];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < B_VECS; ++i) {
-      const int v = tid + i * GEMM_THREADS, r = v / (BN / VEC), c = (v % (BN / VEC)) * VEC;
-      *reinterpret_cast<uint4*>(&Bs[buf][r * BS + c]) = rb[i];
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
-  const int nk = g.K / BK;
-
-  fetch(0);
-  stash(0, 0);
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nk) fetch((kt + 1) * BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldsm_x4(af[i], &As[buf][(wm + i * 16 + (lane & 15)) * AS + kk + (lane >> 4) * 8]);
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        uint32_t r[4];
-        ldsm_x4_trans(r, &Bs[buf][(kk + (lane & 15)) * BS + wn + jj * 16 + (lane >> 4) * 8]);
-        bfr[2 * jj][0] = r[0];
-        bfr[2 * jj][1] = r[1];
-        bfr[2 * jj + 1][0] = r[2];
-        bfr[2 * jj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
-    }
-    if (kt + 1 < nk) stash(buf ^ 1, (kt + 1) * BK);
-    __syncthreads();
+// MT: 64-row accumulators per consumer warpgroup
+template <bool LN, int MT>
+struct GemmShape {
+  static constexpr int BK = LN ? 32 : 64;        // rows of W per stage
+  static constexpr int STAGES = 4;               // ring depth
+  static constexpr int ROWS = LN ? 64 * MT : 128 * MT;  // rows of the block's tile
+  static constexpr int A_STAGE = LN ? 0 : ROWS * 128;
+  static constexpr int W_HALF = BK * 128;
+  static constexpr int STAGE = A_STAGE + 2 * W_HALF;
+  static constexpr int THREADS = 384;            // two consumer warpgroups and the producer's
+  __host__ __device__ static int panel_bytes(int K) {
+    return LN ? (K + 63) / 64 * ROWS * 128 : 0;
   }
+  // 1024 for the alignment of the base, 256 for the barriers
+  __host__ __device__ static int smem_bytes(int K) {
+    return 1024 + panel_bytes(K) + STAGES * STAGE + 256;
+  }
+};
 
-  // accumulator (i, j): rows wm+16i+g (+8), columns wn+8j+2t, +1
-  const int gq = lane >> 2, tq = lane & 3;
-  bf16* out = static_cast<bf16*>(g.out);
+// The LN prologue: the 8 consumer warps share the panel's ROWS rows, RG rows
+// at a time per warp (their loads in flight together, and the next rows'
+// while these are normalised; one row at a time for the wide 64-row panel,
+// whose rows take more registers). A lane owns the
+// 16-byte chunks lane, lane + 32, ... of every row, so its gamma/beta stay in
+// registers. Statistics in two passes in fp32; rows past M are zero.
+template <int MT>
+__device__ __forceinline__ void ln_panel_rows(const GemmArgs& g, int m0, unsigned char* panel,
+                                              int warp, int lane) {
+    constexpr int ROWS = 64 * MT, PER_WARP = ROWS / 8, NV = MT == 2 ? 3 : 4, RG = MT;
+  const int nchunks = g.K / 8;
+  float gm[NV][8], bt[NV][8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < NV; ++i) {
+    const int c = lane + 32 * i;
+#pragma unroll
+    for (int e = 0; e < 8; e += 4) {
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+      if (c < nchunks) {
+        a = *reinterpret_cast<const float4*>(g.ln_g + 8 * c + e);
+        b = *reinterpret_cast<const float4*>(g.ln_b + 8 * c + e);
+      }
+      gm[i][e] = a.x, gm[i][e + 1] = a.y, gm[i][e + 2] = a.z, gm[i][e + 3] = a.w;
+      bt[i][e] = b.x, bt[i][e + 1] = b.y, bt[i][e + 2] = b.z, bt[i][e + 3] = b.w;
+    }
+  }
+  // the rows r0 .. r0 + RG - 1 of the panel, as loaded (zero past M or K)
+  auto load_rows = [&](int r0, uint4 (&u)[RG][NV], bool (&live)[RG]) {
+#pragma unroll
+    for (int rr = 0; rr < RG; ++rr) {
+      const int m = m0 + r0 + rr;
+      const bf16* p = nullptr;
+      if (m < g.M) {
+        p = static_cast<const bf16*>(g.a) + (size_t)m * g.K;
+        if (g.plane != nullptr) {
+          const int s = m % g.S;
+          if (g.pmask[s] > 0.f) p = static_cast<const bf16*>(g.plane) + (size_t)s * g.K;
+        }
+      }
+      live[rr] = p != nullptr;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int c = lane + 32 * i;
+        u[rr][i] = (p != nullptr && c < nchunks) ? *reinterpret_cast<const uint4*>(p + 8 * c)
+                                                 : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  };
+  const int r_end = (warp + 1) * PER_WARP;
+  uint4 u[RG][NV], u_next[RG][NV];
+  bool live[RG], live_next[RG];
+  load_rows(warp * PER_WARP, u, live);
+  for (int r0 = warp * PER_WARP; r0 < r_end; r0 += RG) {
+    // the next rows' loads fly while these rows are normalised
+    if (r0 + RG < r_end) load_rows(r0 + RG, u_next, live_next);
+#pragma unroll
+    for (int rr = 0; rr < RG; ++rr) {
+      float f[NV][8], s = 0.f;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        unpack_vec<bf16>(u[rr][i], f[i]);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s += f[i][e];
+      }
+      const float mean = warp_sum(s) / g.K;
+      float v = 0.f;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        if (lane + 32 * i >= nchunks) continue;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          f[i][e] -= mean;
+          v += f[i][e] * f[i][e];
+        }
+      }
+      const float rstd = rsqrtf(warp_sum(v) / g.K + 1e-5f);
+      const int r = r0 + rr;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const int c = lane + 32 * i;
+        if (c >= nchunks) continue;
+        unsigned char* dst = panel + (size_t)(c >> 3) * (ROWS * 128) + r * 128 +
+                             (((c & 7) ^ (r & 7)) << 4);
+        if (live[rr]) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) f[i][e] = f[i][e] * rstd * gm[i][e] + bt[i][e];
+          store_vec<bf16>(reinterpret_cast<bf16*>(dst), f[i]);
+        } else {
+          *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < RG; ++rr) {
+      live[rr] = live_next[rr];
+#pragma unroll
+      for (int i = 0; i < NV; ++i) u[rr][i] = u_next[rr][i];
+    }
+  }
+}
+
+// The bias of the 8 columns lane q stores in each of the epilogue's four
+// rounds: columns n0 + 8 * (4 * round + q) ..., zero past N. Without LN it is
+// loaded at the start of a tile so that the epilogue never waits for it.
+__device__ __forceinline__ void load_tile_bias(const GemmArgs& g, int n0, int q,
+                                               uint4 (&bias4)[4]) {
+#pragma unroll
+  for (int jq = 0; jq < 4; ++jq) {
+    const int n = n0 + 8 * (4 * jq + q);
+    bias4[jq] = n < g.N ? *reinterpret_cast<const uint4*>(static_cast<const bf16*>(g.bias) + n)
+                        : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Where the residual of output row m comes from: the prompt plane where the
+// row's position in its sequence is spliced, else the residual; null past M.
+__device__ __forceinline__ const bf16* residual_row(const GemmArgs& g, int m) {
+  if (m >= g.M) return nullptr;
+  const int s = m % g.S;
+  return (g.plane != nullptr && g.pmask[s] > 0.f)
+             ? static_cast<const bf16*>(g.plane) + (size_t)s * g.N
+             : static_cast<const bf16*>(g.res) + (size_t)m * g.N;
+}
+
+// MT 64 x 128 accumulators -> out: bias, then QuickGELU (fp32) or the spliced
+// residual, the cast, and 16-byte stores. row0: the first of this warp's 16
+// rows in accumulator 0 (accumulator mt: + 64 mt); res: the residual source
+// of the thread's rows g and g + 8 of each accumulator (residual_row, taken
+// once per row at the start of the tile). The four lanes of a quad exchange
+// their column pairs (in fp32, before any arithmetic) so that each owns 8
+// consecutive columns of a row: bias, residual and output then move as
+// 16-byte vectors.
+template <int EPI, int MT, bool BIAS_LOADED>
+__device__ __forceinline__ void gemm_epilogue(const GemmArgs& g, const float (&acc)[MT][64],
+                                              const uint4 (&bias4)[4],
+                                              const bf16* (&res)[MT][2], int row0, int n0,
+                                              int lane) {
+  const int gq = lane >> 2, q = lane & 3;
+  // the residual of (accumulator mt, row half hr) is asked for one such unit
+  // before it is used
+  auto load_residual = [&](int mt, int hr, uint4 (&r4)[4]) {
+#pragma unroll
+    for (int jq = 0; jq < 4; ++jq) {
+      const int n = n0 + 8 * (4 * jq + q);
+      r4[jq] = (res[mt][hr] != nullptr && n < g.N)
+                   ? *reinterpret_cast<const uint4*>(res[mt][hr] + n)
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  uint4 res_now[4] = {}, res_next[4] = {};
+  if (EPI == EPI_RESIDUAL) load_residual(0, 0, res_now);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int m = m0 + wm + i * 16 + gq + 8 * hr;
-      if (m >= g.M) continue;
+      if (EPI == EPI_RESIDUAL && 2 * mt + hr + 1 < 2 * MT)
+        load_residual((2 * mt + hr + 1) / 2, (2 * mt + hr + 1) % 2, res_next);
+      const int m = row0 + 64 * mt + gq + 8 * hr;
+      bf16* dst = static_cast<bf16*>(g.out) + (size_t)m * g.N;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + wn + j * 8 + 2 * tq;
-        if (n >= g.N) continue;
-        const float v0 = epi_value<bf16>(g, m, n, acc[i][j][2 * hr]);
-        const float v1 = epi_value<bf16>(g, m, n + 1, acc[i][j][2 * hr + 1]);
-        *reinterpret_cast<uint32_t*>(out + (size_t)m * g.N + n) = pack_bf16(v0, v1);
+      for (int jq = 0; jq < 4; ++jq) {
+        // x[2i], x[2i + 1]: columns n0 + 8 * (4 * jq + q) + 2i, + 1 of the row
+        float lo[4], hi[4], x[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          lo[i] = acc[mt][4 * (4 * jq + i) + 2 * hr];
+          hi[i] = acc[mt][4 * (4 * jq + i) + 2 * hr + 1];
+        }
+        quad_transpose(lo, q);
+        quad_transpose(hi, q);
+        const int n = n0 + 8 * (4 * jq + q);
+        uint4 b4 = bias4[jq];
+        if (!BIAS_LOADED)
+          b4 = n < g.N ? *reinterpret_cast<const uint4*>(static_cast<const bf16*>(g.bias) + n)
+                       : make_uint4(0u, 0u, 0u, 0u);
+        const uint32_t b[4] = {b4.x, b4.y, b4.z, b4.w};
+        const uint32_t r[4] = {res_now[jq].x, res_now[jq].y, res_now[jq].z, res_now[jq].w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 bb = unpack_bf16(b[i]);
+          x[2 * i] = lo[i] + bb.x;
+          x[2 * i + 1] = hi[i] + bb.y;
+          if (EPI == EPI_RESIDUAL) {
+            const float2 rr = unpack_bf16(r[i]);
+            x[2 * i] += rr.x;
+            x[2 * i + 1] += rr.y;
+          }
+        }
+        if (EPI == EPI_GELU) {
+          // x * sigmoid(1.702 x) = x / (1 + 2^(-1.702 log2(e) x)), a stage at a
+          // time over the 8 values so that their chains overlap
+          float e[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) e[i] = ex2_approx(x[i] * (-1.702f * 1.4426950408889634f));
+#pragma unroll
+          for (int i = 0; i < 8; ++i) e[i] = rcp_approx(1.f + e[i]);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) x[i] *= e[i];
+        }
+        if (m < g.M && n < g.N)
+          *reinterpret_cast<uint4*>(dst + n) =
+              make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]), pack_bf16(x[4], x[5]),
+                         pack_bf16(x[6], x[7]));
+      }
+#pragma unroll
+      for (int jq = 0; jq < 4; ++jq) res_now[jq] = res_next[jq];
+    }
+}
+
+template <bool LN, int MT, int EPI>
+__global__ void __launch_bounds__(GemmShape<LN, MT>::THREADS, 1)
+gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
+                 const __grid_constant__ CUtensorMap map_w, const GemmArgs g) {
+  using Sh = GemmShape<LN, MT>;
+  constexpr int BK = Sh::BK, ROWS = Sh::ROWS, STAGE = Sh::STAGE, G_STAGES = Sh::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023u) & ~1023u;
+  const uint32_t ring = base + Sh::panel_bytes(g.K);
+  const uint32_t full = ring + G_STAGES * STAGE, empty = full + 8 * G_STAGES;
+  // with LN: order + 8w lets warpgroup w into its next mainloop; panel_free:
+  // nobody reads the panel any more; panel_done: all its rows are written
+  const uint32_t order = empty + 8 * G_STAGES, panel_free = order + 16, panel_done = order + 24;
+
+  // Output tiles are numbered row tile by row tile, N fastest. With LN block c
+  // of G takes the contiguous range [c T / G, (c + 1) T / G) of the T tiles: a
+  // range spans a few row panels, each normalised when the range enters it,
+  // and every SM gets the same number of tiles (to within one). Without LN
+  // the block takes tiles c, c + G, ...
+  const int n_tiles = (g.N + TBN - 1) / TBN;
+  const long long all_tiles = (long long)((g.M + ROWS - 1) / ROWS) * n_tiles;
+  const long long first = LN ? all_tiles * blockIdx.x / gridDim.x : 0;
+  const int total = LN ? (int)(all_tiles * (blockIdx.x + 1) / gridDim.x - first) : (int)all_tiles;
+  auto tile = [&](int i, int& m0, int& n0) {
+    const long long t = LN ? first + i : (long long)blockIdx.x + (long long)i * gridDim.x;
+    if (LN ? i >= total : t >= total) return false;
+    m0 = (int)(t / n_tiles) * ROWS;
+    n0 = (int)(t % n_tiles) * TBN;
+    return true;
+  };
+  const int nk = (g.K + BK - 1) / BK;
+  if (total <= 0) return;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, LN ? 1 : 2);
+    }
+    mbar_init(order, 1);
+    mbar_init(order + 8, 1);
+    mbar_init(panel_free, 256);
+    mbar_init(panel_done, 256);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  int m0 = 0, n0 = 0;
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full --------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid != 0) return;
+    int s = 0;
+    uint32_t phase = 0;
+    for (int i = 0; tile(i, m0, n0); ++i) {
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(empty + 8 * s, phase ^ 1);
+        mbar_arrive_expect_tx(full + 8 * s, STAGE);
+        const uint32_t dst = ring + s * STAGE;
+        if (!LN) tma_load_2d(dst, &map_a, full + 8 * s, kt * BK, m0);
+        tma_load_2d(dst + Sh::A_STAGE, &map_w, full + 8 * s, n0, kt * BK);
+        tma_load_2d(dst + Sh::A_STAGE + Sh::W_HALF, &map_w, full + 8 * s, n0 + 64, kt * BK);
+        if (++s == G_STAGES) s = 0, phase ^= 1;
       }
     }
+  } else {
+    // ---- consumers: [LN panel,] wgmma over the ring, epilogue ---------------
+    // Without LN the two warpgroups share every stage (128 rows each). With
+    // LN each takes every other N tile over all the panel's rows, so one's
+    // epilogue runs under the other's mainloop and the W stream never stops.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = tid / 32, lane = tid % 32;
+    int it = 0;  // stages gone by since the kernel began: stage it % G_STAGES
+    int panels = 0;  // row panels normalised so far
+    for (int i = 0; tile(i, m0, n0); ++i) {
+      if (LN && (i == 0 || n0 == 0)) {
+        // a new row panel: once neither warpgroup reads the old one, both
+        // write their halves of the new one
+        if (i > 0) {
+          mbar_arrive(panel_free);
+          mbar_wait(panel_free, (panels - 1) & 1);
+        }
+        ln_panel_rows<MT>(g, m0, smem_raw + (base - raw), wg * 4 + warp, lane);
+        fence_proxy_async();
+        mbar_arrive(panel_done);
+        mbar_wait(panel_done, panels & 1);
+        ++panels;
+      }
+      if (LN && (i & 1) != wg) {
+        it += nk;
+        continue;
+      }
+      // a full barrier tells neighbouring fills apart, no more: wait for the
+      // other warpgroup to have drained its tile before looking at this one's
+      // (its tiles 0, 1, 2, ... of these waits end phases 0, 1, 0, ... of the barrier)
+      if (LN && i > 0) mbar_wait(order + 8 * wg, ((i - 1) >> 1) & 1);
+      // cleared, although the first wgmma of a tile overwrites it: the compiler
+      // then keeps no accumulator alive from one tile to the next
+      float acc[MT][64];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 64; ++e) acc[mt][e] = 0.f;
+      // without LN the epilogue is not hidden: its bias is asked for here; with
+      // LN it runs under the other warpgroup's mainloop and loads its own
+      uint4 bias4[4] = {};
+      if (!LN) load_tile_bias(g, n0, lane & 3, bias4);
+      const int row0 = m0 + (LN ? 0 : wg * MT * 64) + warp * 16;
+      const bf16* res[MT][2] = {};
+      if (EPI == EPI_RESIDUAL) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr)
+            res[mt][hr] = residual_row(g, row0 + 64 * mt + (lane >> 2) + 8 * hr);
+      }
+      int prev = 0;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % G_STAGES;
+        mbar_wait(full + 8 * s, (it / G_STAGES) & 1);
+        wgmma_fence();
+        const uint32_t stage = ring + s * STAGE;
+#pragma unroll
+        for (int j = 0; j < BK / 16; ++j) {
+          const uint64_t db = wgmma_desc(stage + Sh::A_STAGE + j * 2048, Sh::W_HALF, 1024);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            const uint32_t a = LN ? base + (kt >> 1) * (ROWS * 128) + mt * 8192 +
+                                        ((kt & 1) * 2 + j) * 32
+                                  : stage + (wg * MT + mt) * 8192 + j * 32;
+            wgmma_m64n128k16_tb(acc[mt], wgmma_desc(a, 16, 1024), db, (kt | j) != 0);
+          }
+        }
+        wgmma_commit();
+        if (kt > 0) {  // the stage before this one has been read
+          wgmma_wait<1>();
+          if (tid == 0) mbar_arrive(empty + 8 * prev);
+        }
+        prev = s;
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) wgmma_settle(acc[mt]);
+      if (tid == 0) mbar_arrive(empty + 8 * prev);
+      if (LN && i + 1 < total && tid == 0) mbar_arrive(order + 8 * (wg ^ 1));
+      gemm_epilogue<EPI, MT, !LN>(g, acc, bias4, res, row0, n0, lane);
+    }
+  }
 }
 
 // ---- fp32: plain FMA --------------------------------------------------------
@@ -407,21 +676,76 @@ gemm_f32_kernel(GemmArgs g) {
   }
 }
 
+// 2-D map of a row-major (rows, cols) bf16 matrix, box (box_rows, 64 columns)
+int matrix_map(CUtensorMap* map, const void* p, int rows, int cols, int box_rows) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
+  const uint64_t strides[1] = {(uint64_t)cols * sizeof(bf16)};
+  const uint32_t box[2] = {64u, (uint32_t)box_rows};
+  return encode_bf16_map(map, p, 2, dims, strides, box);
+}
+
+// SMs of the current device, cached per device
+int sm_count() {
+  constexpr int MAX_DEVICES = 64;
+  static int counts[MAX_DEVICES] = {0};
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < MAX_DEVICES && counts[dev] > 0) return counts[dev];
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  if (dev >= 0 && dev < MAX_DEVICES) counts[dev] = n;
+  return n;
+}
+
+template <bool LN, int MT, int EPI>
+int launch_gemm_bf16(const GemmArgs& g, cudaStream_t stream) {
+  using Sh = GemmShape<LN, MT>;
+  if (g.M == 0) return 0;
+  CUtensorMap map_a, map_w;
+  int rc = matrix_map(&map_w, g.w, g.K, g.N, Sh::BK);
+  if (rc != 0) return rc;
+  if (LN)
+    map_a = map_w;  // unused: the A panel is written by the block itself
+  else if ((rc = matrix_map(&map_a, g.a, g.M, g.K, Sh::ROWS)) != 0)
+    return rc;
+  const int smem = Sh::smem_bytes(g.K);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  auto kernel = gemm_bf16_kernel<LN, MT, EPI>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_tiles = (g.N + TBN - 1) / TBN, row_tiles = (g.M + Sh::ROWS - 1) / Sh::ROWS;
+  // persistent blocks: at most one per SM (shared memory allows no more)
+  const int grid = (int)min((long long)row_tiles * n_tiles, (long long)sm_count());
+  kernel<<<grid, Sh::THREADS, smem, stream>>>(map_a, map_w, g);
+  return (int)cudaGetLastError();
+}
+
 template <bool LN>
 int launch_gemm(const GemmArgs& g, bool is_bf16, cudaStream_t stream) {
+  if (is_bf16) {
+    if constexpr (!LN) {
+      if (g.epi == EPI_RESIDUAL) return launch_gemm_bf16<false, 2, EPI_RESIDUAL>(g, stream);
+      if (g.epi == EPI_GELU) return launch_gemm_bf16<false, 2, EPI_GELU>(g, stream);
+      return launch_gemm_bf16<false, 2, EPI_BIAS>(g, stream);
+    } else {
+      // a 128-row panel of K <= 768 fits beside the ring; wider rows take 64 rows
+      if (g.epi == EPI_GELU)
+        return g.K <= 768 ? launch_gemm_bf16<true, 2, EPI_GELU>(g, stream)
+                          : launch_gemm_bf16<true, 1, EPI_GELU>(g, stream);
+      return g.K <= 768 ? launch_gemm_bf16<true, 2, EPI_BIAS>(g, stream)
+                        : launch_gemm_bf16<true, 1, EPI_BIAS>(g, stream);
+    }
+  }
   dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM);
-  if (is_bf16)
-    gemm_bf16_kernel<LN><<<grid, GEMM_THREADS, 0, stream>>>(g);
-  else
-    gemm_f32_kernel<LN><<<grid, GEMM_THREADS, 0, stream>>>(g);
+  gemm_f32_kernel<LN><<<grid, GEMM_THREADS, 0, stream>>>(g);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// mha_core: one block per (query tile of 64 rows, head, batch row), four
-// warps of 16 query rows each; K and V of the head for the whole sequence in
-// shared memory (S <= 256, dh = 64). q, k and v: element (b, s, h, d) at
-// base + (b*S + s)*ld + h*64 + d; out: (B, S, H*64) contiguous.
+// mha_core: full-row softmax attention for S <= 256, dh = 64. q, k and v:
+// element (b, s, h, d) at base + (b*S + s)*ld + h*64 + d; out: (B, S, H*64)
+// contiguous. bf16: one block per (head, image) on TMA-staged tiles; fp32: one
+// block per (query tile of 64 rows, head, image), four warps of 16 query rows
+// each, K and V of the head for the whole sequence in shared memory.
 // ---------------------------------------------------------------------------
 
 constexpr int QT = 64, DH = 64, ATT_THREADS = 128;
@@ -450,168 +774,224 @@ __device__ __forceinline__ void load_head_rows(T* dst, int st, const T* src, siz
   }
 }
 
-// ---- bf16: scores and probabilities stay in registers ----------------------
+// ---- bf16: whole heads, TMA-staged operands, wgmma -----------------------------
 //
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate). Per warp, S = Q K^T is
-// 16 rows x s_pad keys held as s_pad/8 accumulator tiles; the row softmax
-// reduces across the four lanes of a quad; the probabilities, rounded to
-// bf16, are re-packed in registers as the A operand of O = P V, whose B
-// fragments come from V with ldmatrix.trans. Shared memory holds Q [64][72],
-// K [s_pad][72] and V [s_pad][72] (a 144-byte row stride keeps every
-// fragment load below bank-conflict free).
+// Persistent blocks of two warpgroups; a block walks the (image, head) pairs
+// blockIdx.x, + gridDim.x, ... Shared memory (1024-byte aligned base): two
+// buffers, each Q, K and V of one head as [rows64][128 bytes] swizzled tiles
+// (rows64 = S rounded up to 64; rows past S arrive as zeros); the additive
+// mask when it is staged; per buffer three barriers (Q and K landed; V
+// landed; both warpgroups done). Thread 0 asks for the next head before the
+// work on this one starts, so the load runs under it. Warpgroup w
+// takes the 64-row query tiles w, w + 2. Per tile: S = Q K^T for all keys at
+// once, in pieces of 64 keys (wgmma m64n64k16, both operands from shared
+// memory), so a thread holds the whole of rows g and g + 8 of its warp's 16
+// rows in up to 128 registers; the softmax there (reduced across the quad);
+// then O = P V (wgmma m64n64k16, P from registers in bf16, V as the
+// transposed B operand). Two waits on the tensor cores per tile.
 
-constexpr int KV_STRIDE = DH + 8;
+constexpr int ATT_THREADS_BF16 = 256, ATT_PIECE = 64;
+constexpr int ATT_MASK_SMEM = 32 * 1024;  // the largest mask staged beside the two buffers
 
-__host__ __device__ inline int attention_bf16_smem(int s_pad) {
-  return (QT + 2 * s_pad) * KV_STRIDE * (int)sizeof(bf16);
-}
+__host__ __device__ inline int attention_bf16_tile_bytes(int S) { return round_up(S, 64) * 128; }
 
-// NT_MAX: register tiles reserved for s_pad / 8 key tiles (s_pad <= 8*NT_MAX)
-template <int NT_MAX>
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, int ld, const float* __restrict__ mask,
-                      bf16* __restrict__ out, int S, int H, float scale, int fast) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int s_pad = round_up(S, 16), nt = s_pad / 8;
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + QT * KV_STRIDE;
-  bf16* sV = sK + s_pad * KV_STRIDE;
+__global__ void __launch_bounds__(ATT_THREADS_BF16, 1)
+attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const float* __restrict__ mask, bf16* __restrict__ out, int B, int S,
+                      int H, float scale, int fast, int stage_mask) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023u) & ~1023u;
+  const int tile_bytes = attention_bf16_tile_bytes(S);
+  const int mask_bytes = stage_mask ? round_up(S * S * 4, 16) : 0;
+  float* smask = reinterpret_cast<float*>(smem_raw + (base - raw) + 6 * tile_bytes);
+  // barriers of buffer u: bars + 8u (Q, K), + 16 + 8u (V), + 32 + 8u (drained)
+  const uint32_t bars = base + 6 * tile_bytes + mask_bytes;
+  const int D = H * DH, n_items = B * H;
 
-  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * DH;
-  const size_t head = (size_t)b * S * ld + h * DH;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-
-  load_head_rows<bf16, true>(sQ, KV_STRIDE, q + head + (size_t)q0 * ld, ld, QT, S - q0);
-  load_head_rows<bf16, true>(sK, KV_STRIDE, k + head, ld, s_pad, S);
-  load_head_rows<bf16, true>(sV, KV_STRIDE, v + head, ld, s_pad, S);
+  if (threadIdx.x == 0) {
+    for (int u = 0; u < 2; ++u) {
+      mbar_init(bars + 8 * u, 1);
+      mbar_init(bars + 16 + 8 * u, 1);
+      mbar_init(bars + 32 + 8 * u, 2);
+    }
+    mbar_init_fence();
+  }
+  if (stage_mask) {
+    for (int i = threadIdx.x; i < S * S; i += ATT_THREADS_BF16) smask[i] = mask[i];
+    mask = smask;
+  }
   __syncthreads();
 
-  // this warp's 16 query rows as A fragments, k over dh in 4 steps of 16
-  const bf16* qw = sQ + (warp * 16 + g) * KV_STRIDE + 2 * t;
-  uint32_t qa[DH / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < DH / 16; ++ks) {
-    qa[ks][0] = ld_b32(qw + ks * 16);
-    qa[ks][1] = ld_b32(qw + 8 * KV_STRIDE + ks * 16);
-    qa[ks][2] = ld_b32(qw + ks * 16 + 8);
-    qa[ks][3] = ld_b32(qw + 8 * KV_STRIDE + ks * 16 + 8);
-  }
+  // thread 0 asks for the block's head number i (pair w) once both warpgroups
+  // have left the buffer it goes into
+  auto request = [&](int i, int w) {
+    const int u = i & 1, h = w % H, b = w / H;
+    const uint32_t buf = base + u * 3 * tile_bytes;
+    mbar_wait(bars + 32 + 8 * u, ((i >> 1) & 1) ^ 1);
+    mbar_arrive_expect_tx(bars + 8 * u, 2 * tile_bytes);
+    tma_load_3d(buf, &map_q, bars + 8 * u, h * DH, 0, b);
+    tma_load_3d(buf + tile_bytes, &map_k, bars + 8 * u, h * DH, 0, b);
+    mbar_arrive_expect_tx(bars + 16 + 8 * u, tile_bytes);
+    tma_load_3d(buf + 2 * tile_bytes, &map_v, bars + 16 + 8 * u, h * DH, 0, b);
+  };
+  if (threadIdx.x == 0) request(0, blockIdx.x);
 
-  // raw scores: tile j covers keys 8j..8j+7
-  float sc[NT_MAX][4];
-#pragma unroll
-  for (int j = 0; j < NT_MAX; ++j) {
-    sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-    if (j < nt) {
-      const bf16* kp = sK + (8 * j + g) * KV_STRIDE + 2 * t;
-#pragma unroll
-      for (int ks = 0; ks < DH / 16; ++ks)
-        mma_bf16(sc[j], qa[ks], ld_b32(kp + ks * 16), ld_b32(kp + ks * 16 + 8));
-    }
-  }
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, q = lane & 3;
+  const int n_pieces = (S + ATT_PIECE - 1) / ATT_PIECE;
 
-  // softmax over the two rows this thread holds: rows[0] = g, rows[1] = g+8
-  const int qrow[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const float* mrow[2] = {nullptr, nullptr};
-  if (mask != nullptr) {
+  for (int it = 0, w = blockIdx.x; w < n_items; ++it, w += gridDim.x) {
+    const int u = it & 1, h = w % H, b = w / H;
+    const uint32_t phase = (it >> 1) & 1;
+    const uint32_t sQ = base + u * 3 * tile_bytes, sK = sQ + tile_bytes, sV = sK + tile_bytes;
+    // the next head loads under the work on this one
+    if (threadIdx.x == 0 && w + gridDim.x < n_items) request(it + 1, w + gridDim.x);
+    mbar_wait(bars + 8 * u, phase);
+    bool v_ready = false;
+
+    for (int qt = wg; qt * 64 < S; qt += 2) {
+      const int row[2] = {qt * 64 + warp * 16 + g, qt * 64 + warp * 16 + g + 8};
+      const float* mrow[2] = {nullptr, nullptr};
+      if (mask != nullptr) {
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) mrow[hr] = mask + (size_t)min(qrow[hr], S - 1) * S;
-  }
-  float denom[2] = {0.f, 0.f};
-  if (fast) {
-    // exp2(min(s*scale*log2e + mask*log2e, 120)): the caller passes scale
-    // and mask in log2e units; padded columns contribute 0
+        for (int hr = 0; hr < 2; ++hr) mrow[hr] = mask + (size_t)min(row[hr], S - 1) * S;
+      }
+
+      // raw scores: key 64p + 8j + 2q + (e & 1) of row[e >> 1] in sc[p][4j + e]
+      float sc[4][32];
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NT_MAX; ++j) {
-      if (j >= nt) continue;
+      for (int p = 0; p < 4; ++p) {
+        if (p >= n_pieces) continue;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1, col = 8 * j + 2 * t + (e & 1);
-        float p = 0.f;
-        if (col < S) {
-          float v = sc[j][e] * scale;
-          if (mrow[hr] != nullptr) v += mrow[hr][col];
-          p = exp2f(fminf(v, 120.f));
+        for (int ks = 0; ks < DH / 16; ++ks)
+          wgmma_m64n64k16(sc[p], wgmma_desc(sQ + qt * 8192 + 32 * ks, 16, 1024),
+                          wgmma_desc(sK + p * 8192 + 32 * ks, 16, 1024), ks != 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < 4; ++p) wgmma_settle(sc[p]);
+
+      // logits s * scale + mask in place (the caller passes both in log2e units
+      // when fast); padded columns hold -FLT_MAX: weight 0 below. Only the last
+      // piece has padded columns, only the text tower a mask: the common piece
+      // is one multiply per score.
+      auto logits = [&](int p, auto masked, auto ragged) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = ATT_PIECE * p + 8 * (i >> 2) + 2 * q + (i & 1);
+          float v = sc[p][i] * scale;
+          if (decltype(masked)::value) v += mrow[(i >> 1) & 1][col];
+          if (decltype(ragged)::value && col >= S) v = -3.402823466e38f;
+          sc[p][i] = v;
         }
-        sc[j][e] = p;
-        denom[hr] += p;
-      }
-    }
-  } else {
-    float mx[2] = {-3.402823466e38f, -3.402823466e38f};
+      };
 #pragma unroll
-    for (int j = 0; j < NT_MAX; ++j) {
-      if (j >= nt) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1, col = 8 * j + 2 * t + (e & 1);
-        float v = -3.402823466e38f;  // padded columns: exp(v - max) = 0
-        if (col < S) {
-          v = sc[j][e] * scale;
-          if (mrow[hr] != nullptr) v += mrow[hr][col];
+      for (int p = 0; p < 4; ++p) {
+        if (p >= n_pieces) continue;
+        const bool ragged = ATT_PIECE * (p + 1) > S;
+        if (mask != nullptr) {
+          if (ragged) logits(p, std::true_type{}, std::true_type{});
+          else logits(p, std::true_type{}, std::false_type{});
+        } else {
+          if (ragged) logits(p, std::false_type{}, std::true_type{});
+          else logits(p, std::false_type{}, std::false_type{});
         }
-        sc[j][e] = v;
-        mx[hr] = fmaxf(mx[hr], v);
+      }
+
+      // exact: the row max (two running maxima per row, then the quad), taken
+      // into the exponent in log2e units
+      float mx[2] = {0.f, 0.f};
+      if (!fast) {
+        float m2[2][2] = {{-3.402823466e38f, -3.402823466e38f},
+                          {-3.402823466e38f, -3.402823466e38f}};
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          if (p >= n_pieces) continue;
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            m2[(i >> 1) & 1][(i >> 2) & 1] = fmaxf(m2[(i >> 1) & 1][(i >> 2) & 1], sc[p][i]);
+        }
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          mx[hr] = fmaxf(m2[hr][0], m2[hr][1]);
+          mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+          mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+        }
+      }
+
+      // probabilities, 2^min(v, 120) when fast and e^(v - max) = 2^((v - max)
+      // log2(e)) when exact, their fp32 row sums (two running sums per row), and
+      // the bf16 pairs that are the A operand of P V
+      float d2[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+      uint32_t pk[4][16];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        if (p >= n_pieces) continue;
+        if (fast) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) sc[p][i] = ex2_approx(fminf(sc[p][i], 120.f));
+        } else {
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            sc[p][i] = ex2_approx((sc[p][i] - mx[(i >> 1) & 1]) * 1.4426950408889634f);
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) d2[(i >> 1) & 1][(i >> 2) & 1] += sc[p][i];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) pk[p][i] = pack_bf16(sc[p][2 * i], sc[p][2 * i + 1]);
+      }
+      float denom[2] = {d2[0][0] + d2[0][1], d2[1][0] + d2[1][1]};
+
+      // O = P V: 16 keys per step; step ks of piece p takes pk[p][4ks .. 4ks + 3]
+      if (!v_ready) {
+        mbar_wait(bars + 16 + 8 * u, phase);
+        v_ready = true;
+      }
+      float o[32];
+      wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        if (p >= n_pieces) continue;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const uint32_t pa[4] = {pk[p][4 * ks], pk[p][4 * ks + 1], pk[p][4 * ks + 2],
+                                  pk[p][4 * ks + 3]};
+          wgmma_m64n64k16_ra_tb(o, pa, wgmma_desc(sV + (ATT_PIECE * p + 16 * ks) * 128, 16, 1024),
+                                (p | ks) != 0);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      wgmma_settle(o);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) wgmma_settle(pk[p]);
+
+      // scale by the row reciprocal, cast, 16-byte stores into (B, S, D)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        denom[hr] += __shfl_xor_sync(0xffffffffu, denom[hr], 1);
+        denom[hr] += __shfl_xor_sync(0xffffffffu, denom[hr], 2);
+        if (fast) denom[hr] = fmaxf(denom[hr], 1e-30f);
+        const float rc = 1.f / denom[hr];
+#pragma unroll
+        for (int j0 = 0; j0 < DH / 8; j0 += 4) {
+          uint32_t v[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            v[i] = pack_bf16(o[4 * (j0 + i) + 2 * hr] * rc, o[4 * (j0 + i) + 2 * hr + 1] * rc);
+          quad_transpose(v, q);
+          if (row[hr] < S)
+            *reinterpret_cast<uint4*>(out + ((size_t)b * S + row[hr]) * D + h * DH +
+                                      8 * (j0 + q)) = make_uint4(v[0], v[1], v[2], v[3]);
+        }
       }
     }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
-      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
-    }
-#pragma unroll
-    for (int j = 0; j < NT_MAX; ++j) {
-      if (j >= nt) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(sc[j][e] - mx[e >> 1]);
-        sc[j][e] = p;
-        denom[e >> 1] += p;
-      }
-    }
-  }
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    denom[hr] += __shfl_xor_sync(0xffffffffu, denom[hr], 1);
-    denom[hr] += __shfl_xor_sync(0xffffffffu, denom[hr], 2);
-    if (fast) denom[hr] = fmaxf(denom[hr], 1e-30f);
-  }
-
-  // O = P V over key chunks of 16 (two score tiles), dh in 8 tiles of 8
-  float o[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < NT_MAX / 2; ++kc) {
-    if (2 * kc >= nt) continue;
-    uint32_t pa[4];
-    pa[0] = pack_bf16(sc[2 * kc][0], sc[2 * kc][1]);
-    pa[1] = pack_bf16(sc[2 * kc][2], sc[2 * kc][3]);
-    pa[2] = pack_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1]);
-    pa[3] = pack_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3]);
-#pragma unroll
-    for (int jj = 0; jj < DH / 16; ++jj) {
-      uint32_t r[4];
-      ldsm_x4_trans(r, sV + (16 * kc + (lane & 15)) * KV_STRIDE + jj * 16 + (lane >> 4) * 8);
-      mma_bf16(o[2 * jj], pa, r[0], r[1]);
-      mma_bf16(o[2 * jj + 1], pa, r[2], r[3]);
-    }
-  }
-
-  // scale by the row reciprocal, cast, store (B, S, D)
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    if (qrow[hr] >= S) continue;
-    const float rc = 1.f / denom[hr];
-    bf16* orow = out + ((size_t)b * S + qrow[hr]) * D + h * DH + 2 * t;
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
-      const uint32_t v = pack_bf16(o[n][2 * hr] * rc, o[n][2 * hr + 1] * rc);
-      *reinterpret_cast<uint32_t*>(orow + 8 * n) = v;
-    }
+    // this warpgroup has read the buffer for the last time
+    if (tid == 0) mbar_arrive(bars + 32 + 8 * u);
   }
 }
 
@@ -713,13 +1093,23 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// 3-D map of one of q, k, v: element (b, s, column) at base + (b*S + s)*ld +
+// column, H*64 columns; a box is one head (64 columns) of `rows` tokens of
+// one image, tokens past S read as zeros
+int head_map(CUtensorMap* map, const void* p, int B, int S, int H, int ld, int rows) {
+  const uint64_t dims[3] = {(uint64_t)H * DH, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides[2] = {(uint64_t)ld * sizeof(bf16), (uint64_t)S * ld * sizeof(bf16)};
+  const uint32_t box[3] = {(uint32_t)DH, (uint32_t)rows, 1u};
+  return encode_bf16_map(map, p, 3, dims, strides, box);
+}
+
 int launch_attention(const void* q, const void* k, const void* v, int ld, const float* mask,
                      void* out, int B, int S, int H, float scale, int fast, int is_bf16,
                      cudaStream_t stream) {
-  const int s_pad = round_up(S, 16);
-  dim3 grid((S + QT - 1) / QT, H, B);
   cudaError_t e;
   if (!is_bf16) {
+    const int s_pad = round_up(S, 16);
+    dim3 grid((S + QT - 1) / QT, H, B);
     const int bytes = attention_f32_smem(s_pad);
     e = cudaFuncSetAttribute(attention_f32_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -729,26 +1119,21 @@ int launch_attention(const void* q, const void* k, const void* v, int ld, const 
         static_cast<const float*>(v), ld, mask, static_cast<float*>(out), S, H, scale, fast);
     return (int)cudaGetLastError();
   }
-  const int bytes = attention_bf16_smem(s_pad);
-  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-             *vb = static_cast<const bf16*>(v);
-  bf16* o = static_cast<bf16*>(out);
-#define ATTN_BF16(NT)                                                                   \
-  e = cudaFuncSetAttribute(attention_bf16_kernel<NT>,                                   \
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);         \
-  if (e != cudaSuccess) return (int)e;                                                  \
-  attention_bf16_kernel<NT><<<grid, ATT_THREADS, bytes, stream>>>(qb, kb, vb, ld, mask, o, \
-                                                                   S, H, scale, fast);
-  if (s_pad <= 64) {
-    ATTN_BF16(8)
-  } else if (s_pad <= 128) {
-    ATTN_BF16(16)
-  } else if (s_pad <= 224) {
-    ATTN_BF16(28)
-  } else {
-    ATTN_BF16(32)
-  }
-#undef ATTN_BF16
+  if (B == 0 || S == 0) return 0;
+  const int tile_bytes = attention_bf16_tile_bytes(S), rows = tile_bytes / 128;
+  CUtensorMap mq, mk, mv;
+  int rc;
+  if ((rc = head_map(&mq, q, B, S, H, ld, rows)) != 0) return rc;
+  if ((rc = head_map(&mk, k, B, S, H, ld, rows)) != 0) return rc;
+  if ((rc = head_map(&mv, v, B, S, H, ld, rows)) != 0) return rc;
+  const int mask_bytes = round_up(S * S * 4, 16);
+  const int stage_mask = mask != nullptr && mask_bytes <= ATT_MASK_SMEM;
+  const int bytes = 1024 + 6 * tile_bytes + (stage_mask ? mask_bytes : 0) + 48;
+  e = cudaFuncSetAttribute(attention_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e != cudaSuccess) return (int)e;
+  attention_bf16_kernel<<<min(B * H, sm_count()), ATT_THREADS_BF16, bytes, stream>>>(
+      mq, mk, mv, mask, static_cast<bf16*>(out), B, S, H, scale, fast, stage_mask);
   return (int)cudaGetLastError();
 }
 
@@ -803,6 +1188,7 @@ int mha_core(const void* q, const void* k, const void* v, int ld, const void* ma
                           scale, fast, dtype == DTYPE_BF16,
                           static_cast<cudaStream_t>(stream));
 }
+
 
 const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

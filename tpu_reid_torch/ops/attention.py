@@ -9,7 +9,10 @@ and v as three base pointers and one row stride, so contiguous
 buffer that fused_mha hands it both run without a copy. What bounds it on
 the H100 is its bytes (q, k, v in, the heads out): scores and probabilities
 stay in registers (bf16) or shared memory (fp32) and never reach device
-memory.
+memory. In bf16 persistent blocks walk the (image, head) pairs: a head's Q, K
+and V arrive once by TMA from the strided view (`head_row_stride` holds what
+a tensor map needs of it), the next head under the work on this one, and
+both products run on wgmma.
 
 Normalisation: the kernel multiplies the (S, dh) output by the row-sum
 reciprocal, as the fused kernels' `_attention_heads` does; the Pallas
@@ -139,23 +142,39 @@ def mha_core_reference(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor] =
     return softmax_attention(q, k, v, mask, fast, divide=not fast)
 
 
-def _row_stride(t: Tensor, s: int, h: int) -> int:
-    """Elements between consecutive tokens of a (B, S, H, 64) view, checked
-    to be a layout the kernel reads (heads packed, batch stride S*ld,
-    16-byte aligned vectors); raises otherwise (no copy)."""
-    b = t.shape[0]
-    ld = t.stride(1)
-    vec = 16 // t.element_size()
-    ok = (t.stride(3) == 1 and t.stride(2) == HEAD_DIM and ld >= h * HEAD_DIM
-          and (b == 1 or t.stride(0) == s * ld) and ld % vec == 0
-          and t.data_ptr() % 16 == 0)
+def head_row_stride(shape, strides, address: int, itemsize: int) -> int:
+    """Elements between consecutive tokens (ld) of one (B, S, H, 64) operand
+    of the kernel, from its shape, strides (in elements) and base address
+    alone, or ValueError. The kernel reads element (b, s, h, d) at
+    base + (b*S + s)*ld + h*64 + d, through 16-byte vectors (fp32) or a TMA
+    tensor map over (B, S, ld) with a box of one head (bf16), so it needs:
+    S <= 256 and head width 64 (the score registers and the box limit); unit
+    element stride and heads packed 64 apart; ld >= H*64; batch stride S*ld;
+    ld a multiple of 16 bytes and a 16-byte aligned base (vector loads, and
+    TMA's rule for base address and strides); every stride below 2^40 bytes
+    (TMA's). No copy is made: what does not fit raises."""
+    b, s, h, dh = shape
+    if dh != HEAD_DIM or not 1 <= s <= MAX_SEQ:
+        raise ValueError(f"mha_core kernel: (B, S, H, dh) = {tuple(shape)}; needs "
+                         f"1 <= S <= {MAX_SEQ} and head width {HEAD_DIM}")
+    sb, ss, sh, sd = strides
+    # the stride of a dimension of size 1 says nothing
+    ld = ss if s > 1 else (sb if b > 1 else h * HEAD_DIM)
+    vec = 16 // itemsize
+    ok = (sd == 1 and (h == 1 or sh == HEAD_DIM) and ld >= h * HEAD_DIM
+          and (b == 1 or sb == s * ld) and ld % vec == 0 and address % 16 == 0
+          and b * s * ld * itemsize < 2 ** 40)
     if not ok:
         raise ValueError(
-            f"mha_core: a (B, S, H, 64) operand with strides {tuple(t.stride())} is not a "
-            "layout the kernel reads (unit element and head strides, batch stride S*ld, "
-            "16-byte aligned rows)"
+            f"mha_core: a (B, S, H, 64) operand {tuple(shape)} with strides {tuple(strides)} "
+            f"at address {address:#x} is not a layout the kernel reads (unit element and "
+            "head strides, batch stride S*ld, 16-byte aligned base and rows)"
         )
     return ld
+
+
+def _row_stride(t: Tensor) -> int:
+    return head_row_stride(tuple(t.shape), tuple(t.stride()), t.data_ptr(), t.element_size())
 
 
 def mha_core(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor] = None, *,
@@ -169,16 +188,16 @@ def mha_core(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor] = None, *,
     if q.device.type == "cpu":
         return mha_core_reference(q, k, v, mask, fast=fast)
     b, s, h, dh = q.shape
-    if s > MAX_SEQ or dh != HEAD_DIM or k.shape != q.shape or v.shape != q.shape:
+    if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             f"mha_core kernel: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}; "
-            f"needs equal shapes with S <= {MAX_SEQ} and head width {HEAD_DIM}"
+            "needs equal shapes"
         )
     if _build.DTYPE_CODES.get(q.dtype) is None or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"mha_core kernel: q {q.dtype}, k {k.dtype}, v {v.dtype}; needs one "
                         "of float32 or bfloat16")
-    ld = _row_stride(q, s, h)
-    if _row_stride(k, s, h) != ld or _row_stride(v, s, h) != ld:
+    ld = _row_stride(q)
+    if _row_stride(k) != ld or _row_stride(v) != ld:
         raise ValueError("mha_core kernel: q, k and v must share one row stride")
     if k.device != q.device or v.device != q.device:
         raise ValueError("mha_core kernel: q, k and v must be on one device")

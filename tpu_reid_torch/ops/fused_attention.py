@@ -26,9 +26,20 @@ What bounds them on the H100: their GEMMs, 2·B·S·D·(4D + 2S) operations for
 fused_mha and 4·B·S·D·hid for fused_mlp against the tensor-core rate; the
 attention alone is bound by its bytes. The design gives up the TPU kernels'
 one pass over fast memory: qkv, the head output, x1 and the MLP hidden
-activation round-trip device memory between launches, and the GEMMs run
-mma.sync tiles without TMA or wgmma (csrc/block_kernels.cu), so they run
-several times over the bound; PERF.md holds the measured times.
+activation round-trip device memory between launches. What it does about the
+bound, in bf16 (csrc/block_kernels.cu, csrc/hopper.cuh): one GEMM kernel
+behind `ln_gemm` and `gemm_bias_residual` runs wgmma on 128-byte-swizzled
+shared tiles that TMA fills through a ring of mbarrier-guarded stages (one
+producer thread, two consumer warpgroups, persistent blocks); with LayerNorm
+a block normalises a panel of 128 rows once (fp32 statistics and affine),
+keeps it in shared memory in the layout wgmma reads and walks N tiles while
+only W streams in, the two warpgroups on alternate tiles so that epilogues
+hide under mainloops; `mha_core` stages whole heads by TMA, double-buffered,
+and runs both products on wgmma with the score rows in registers. The
+wrappers hold the kernels' domain in plain functions of sizes, strides and
+addresses (`check_gemm_operands`, `attention.head_row_stride`): TMA needs
+16-byte aligned bases and rows. fp32 runs plain FMA kernels. PERF.md holds
+the measured times.
 
 Each kernel has a wrapper that launches it for CUDA tensors (or raises) and
 takes the plain PyTorch version beside it for CPU tensors; the plain versions
@@ -105,6 +116,37 @@ def _qkv_views(qkv: Tensor, n_heads: int) -> tuple[Tensor, Tensor, Tensor]:
                  for i in range(3))
 
 
+# operands the fp32 GEMM kernel reads element by element: any address will do
+FP32_SCALAR_OPERANDS = frozenset({"b", "pmask", "ln_scale", "ln_bias", "residual"})
+
+
+def check_gemm_operands(what: str, m: int, k: int, n: int, has_ln: bool,
+                        addresses: dict, fp32: bool = False) -> None:
+    """What the GEMM kernel behind `ln_gemm` and `gemm_bias_residual` takes,
+    from sizes and base addresses alone (ValueError otherwise): K a multiple
+    of 32 (a W stage of the LayerNorm mode; also keeps every row of A and W a
+    multiple of 16 bytes, which TMA and the 16-byte loads need), N a multiple
+    of 8 (16-byte rows of W, the bias, the residual and the output), with
+    LayerNorm K <= LN_MAX_WIDTH (the row panel a block keeps in shared
+    memory), sizes within a tensor map's 32-bit extents, and every operand's
+    base (`addresses`: name -> address or None) 16-byte aligned. `fp32`: the
+    fp32 kernel loads only the activation, the LayerNorm plane and W by
+    16-byte vectors, so the bases in FP32_SCALAR_OPERANDS are free there. M
+    is free: the ragged last row tile is zero-filled on load and masked on
+    store."""
+    if k <= 0 or n <= 0 or k % 32 or n % 8:
+        raise ValueError(f"{what}: K = {k}, N = {n}; needs K % 32 == 0 and N % 8 == 0")
+    if has_ln and k > LN_MAX_WIDTH:
+        raise ValueError(f"{what}: K = {k}; with LayerNorm the kernel takes K <= {LN_MAX_WIDTH}")
+    if max(m, k, n) >= 2 ** 31:
+        raise ValueError(f"{what}: M, K, N = {m}, {k}, {n} exceed a tensor map's extents")
+    for name, address in addresses.items():
+        if fp32 and name in FP32_SCALAR_OPERANDS:
+            continue
+        if address is not None and address % 16:
+            raise ValueError(f"{what}: {name} at address {address:#x} is not 16-byte aligned")
+
+
 # ---------------------------------------------------------------------------
 # kernel 1: [LayerNorm prologue +] GEMM + bias (+ QuickGELU)
 # ---------------------------------------------------------------------------
@@ -140,19 +182,22 @@ def ln_gemm(x: Tensor, ln_scale: Optional[Tensor], ln_bias: Optional[Tensor], w:
     bsz, s, k = x.shape
     n = w.shape[1]
     has_ln = ln_scale is not None
-    if (w.shape != (k, n) or b.shape != (n,) or k % 32 or n % 8
-            or (has_ln and k > LN_MAX_WIDTH) or (has_ln != (ln_bias is not None))
+    if (w.shape != (k, n) or b.shape != (n,) or (has_ln != (ln_bias is not None))
             or (plane is not None and not has_ln)):
         raise ValueError(f"ln_gemm: x {tuple(x.shape)}, w {tuple(w.shape)}, b "
-                         f"{tuple(b.shape)}; needs K % 32 == 0, N % 8 == 0, and with "
-                         f"LayerNorm K <= {LN_MAX_WIDTH}; the splice needs LayerNorm")
+                         f"{tuple(b.shape)}; w must be (K, N), b (N,), ln_scale and ln_bias "
+                         f"come together and the splice needs LayerNorm")
     plane, pmask = _splice_args(plane, pmask, s, k, x.dtype)
     g = ln_scale.float().contiguous() if has_ln else None
     gb = ln_bias.float().contiguous() if has_ln else None
     _build.require_cuda(x.dtype, x.device, x=x, w=w, b=b, plane=plane)
+    ptr = _build.ptr
+    check_gemm_operands("ln_gemm", bsz * s, k, n, has_ln,
+                        dict(x=ptr(x), w=ptr(w), b=ptr(b), plane=ptr(plane), pmask=ptr(pmask),
+                             ln_scale=ptr(g), ln_bias=ptr(gb)),
+                        fp32=x.dtype == torch.float32)
     out = torch.empty(bsz, s, n, dtype=x.dtype, device=x.device)
     lib = _build.library("block")
-    ptr = _build.ptr
     rc = lib.ln_gemm(ptr(x), ptr(plane), ptr(pmask), ptr(g), ptr(gb), ptr(w), ptr(b),
                      ptr(out), bsz * s, n, k, s, int(gelu), _build.DTYPE_CODES[x.dtype],
                      _build.stream(x))
@@ -219,20 +264,24 @@ def gemm_bias_residual(a: Tensor, w: Tensor, b: Tensor, residual: Optional[Tenso
         return gemm_bias_residual_reference(a, w, b, residual, plane, pmask)
     bsz, s, k = a.shape
     n = w.shape[1]
-    if (w.shape != (k, n) or b.shape != (n,) or k % 32 or n % 8
+    if (w.shape != (k, n) or b.shape != (n,)
             or (residual is not None and residual.shape != (bsz, s, n))
             or (residual is None and plane is not None)):
         raise ValueError(
             f"gemm_bias_residual: a {tuple(a.shape)}, w {tuple(w.shape)}, b "
             f"{tuple(b.shape)}, residual "
-            f"{None if residual is None else tuple(residual.shape)}; needs K % 32 == 0 "
-            "and N % 8 == 0, and the splice needs a residual"
+            f"{None if residual is None else tuple(residual.shape)}; w must be (K, N), "
+            "b (N,), the residual as the output, and the splice needs a residual"
         )
     plane, pmask = _splice_args(plane, pmask, s, n, a.dtype)
     _build.require_cuda(a.dtype, a.device, a=a, w=w, b=b, residual=residual, plane=plane)
+    ptr = _build.ptr
+    check_gemm_operands("gemm_bias_residual", bsz * s, k, n, False,
+                        dict(a=ptr(a), w=ptr(w), b=ptr(b), residual=ptr(residual),
+                             plane=ptr(plane), pmask=ptr(pmask)),
+                        fp32=a.dtype == torch.float32)
     out = torch.empty(bsz, s, n, dtype=a.dtype, device=a.device)
     lib = _build.library("block")
-    ptr = _build.ptr
     rc = lib.gemm_bias_residual(ptr(a), ptr(w), ptr(b), ptr(residual), ptr(plane),
                                 ptr(pmask), ptr(out), bsz * s, n, k, s,
                                 _build.DTYPE_CODES[a.dtype], _build.stream(a))
