@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases kernels,serve,...]
 
 With `--phases` only the named phases run (kernels, minsum, grad, zero_shot,
-rerank, serve, train, cli); such a run is no pass: it prints
+rerank, serve, vehicle, train, cli); such a run is no pass: it prints
 {"ok": false, "partial": [...]} as its last line and exits with code 3.
 
 1. Prints the card and sets fp32 matmuls and convolutions to full fp32.
@@ -19,7 +19,10 @@ rerank, serve, train, cli); such a run is no pass: it prints
    from them; fused_mha / fused_mlp / mha_core at B=64 for S=211, S=213 with
    the deep-prompt splice and the causal text S=77, exact and fast, bf16
    and fp32; whole blocks at B=64 for every variant the main paths take;
-   the CLS tail at B=128 (timed) and B=512. Then the bf16 GEMM and
+   the CLS tail at B=128 and B=512 (both timed, by CUDA events and by the
+   kernels' own durations in a profiler trace, beside the FMA kernel it
+   replaced in bf16, the library call and the design that lost) and at the
+   shapes that leave its fast lane. Then the bf16 GEMM and
    attention kernels at edge shapes (B 1 to 512, S 77 / 211 / 213 spliced,
    K 32 to 3072, N 512 to 3072 and tails; attention at S 1 to 256, 8 and 12
    heads, qkv views and contiguous), LayerNorm in the kernel against
@@ -44,18 +47,29 @@ rerank, serve, train, cli); such a run is no pass: it prints
    trace; every block and tail call of one timed batch against its plain
    version on the run's own inputs, its embeddings against the plain path;
    fp32 kernels against the plain path.
-9. train: three live IVLP stage-1 steps and three stage-2 steps of the
+9. vehicle: the vehicle geometry (256x256, stride 12: 442 tokens, 444 with
+   IVLP's prompts), where mha_core runs its key-tile kernel: mha_core at
+   S = 257, 300, 442, 444 against its plain version (8 and 12 heads, views
+   and contiguous, exact and fast, masked and not, bf16 and fp32), 50
+   launches bit-equal, whole blocks at 442 and 444 tokens with the splice,
+   the kernel timed at B=128, S=442 beside SDPA; eval_embed of the flagship
+   at 256x256 (batch 256, bf16, fast softmax) as in phase 8; then the
+   zero-shot CLI (--rerank --mm) and the prompt-learning CLI on a synthetic
+   VeRi directory at full width.
+10. train: three live IVLP stage-1 steps and three stage-2 steps of the
    flagship at bs 64 in bf16 activations (ms per step, peak memory, traces,
    launches), an fp32 stage-1 step's peak memory, and an fp32 stage-2 loss
    and gradient through the kernels against the plain path.
-10. cli: the zero-shot CLI with --rerank --mm, then the prompt-learning CLI
+11. cli: the zero-shot CLI with --rerank --mm, then the prompt-learning CLI
    (ivlp, one epoch of each stage, --rerank, bf16), at full ViT-B/16 width
    on a synthetic Market1501 directory and a random checkpoint; both must
    launch every kernel.
 
 It prints the kernels' JSON record on the line before the last (each
-kernel's launches on this slice's main path, IVLP serving, or for minsum
-the re-ranking path, and its launches on every path), and as the last line
+kernel's launches on the main path of the slice that brought it: IVLP
+serving, for minsum the re-ranking path, for the key-tile mha_core kernel
+IVLP serving at the vehicle geometry; and its launches on every path), and
+as the last line
 {"ok": true, "device": {...}}.
 Any failed phase exits non-zero; with no CUDA device, or without the
 tpu_reid_torch package beside it, the script exits non-zero before printing
@@ -120,6 +134,30 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         events.append((s, e))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def device_us(fn, reps: int = 20):
+    """Device time of one fn() call in microseconds: the durations of the
+    kernels the profiler records on the card over `reps` calls, summed and
+    divided by reps. No host time and no gap between kernels is in it, so it
+    is what a kernel far below a launch's host cost is held to; None if the
+    profiler recorded no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in device_events(prof)]
+    return sum(spans) / reps if spans else None
+
+
+def device_events(prof):
+    """The events of a torch.profiler run that ran on the card."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -346,7 +384,9 @@ def kernel_phase(dev):
                       dt)
 
     # CLS tail: the main path's shape is one pass over a 128-image batch;
-    # B=512 is checked too
+    # B=512 is checked and timed too, and the shapes that leave the wgmma
+    # kernel's fast lane (a ragged row tile, E off the 64-column tile, D =
+    # 1024 whose proj slice refills the ring, D off the 64-wide K block: FMA)
     e = 512
     gt = torch.from_numpy(1 + 0.05 * rng.standard_normal(d).astype(np.float32)).to(dev)
     bt_ = torch.from_numpy(0.05 * rng.standard_normal(d).astype(np.float32)).to(dev)
@@ -362,19 +402,80 @@ def kernel_phase(dev):
             tag = f"B={bt} {str(dt)[6:]}"
             tails[(bt, dt)] = max(check(f"ln_proj_tail[{tag} y]", yk, yr, dt),
                                   check(f"ln_proj_tail[{tag} p]", pk, pr, dt))
+        yk, pk = FT.ln_proj_tail_fma(xt, gt, bt_, proj)
+        yr, pr = FT.ln_proj_tail_reference(xt, gt, bt_, proj)
+        check(f"ln_proj_tail[B={bt} bfloat16, the FMA kernel y]", yk, yr, bf)
+        check(f"ln_proj_tail[B={bt} bfloat16, the FMA kernel p]", pk, pr, bf)
+    for bb, dd, ee in ((100, 768, 512), (1, 768, 512), (130, 768, 520), (70, 1024, 768),
+                       (64, 64, 8), (33, 96, 40)):
+        xe = torch.from_numpy(rng.standard_normal((bb, dd)).astype(np.float32)).to(dev, bf)
+        ge = torch.from_numpy(1 + 0.05 * rng.standard_normal(dd).astype(np.float32)).to(dev)
+        be = torch.from_numpy(0.05 * rng.standard_normal(dd).astype(np.float32)).to(dev)
+        pe = torch.from_numpy(rng.standard_normal((dd, ee)).astype(np.float32)
+                              * dd ** -0.5).to(dev, bf)
+        route = FT.tail_kernel_route(bb, dd, ee, True, {})
+        yk, pk = FT.ln_proj_tail_kernel(xe, ge, be, pe)
+        yr, pr = FT.ln_proj_tail_reference(xe, ge, be, pe)
+        check(f"ln_proj_tail[B={bb} {dd} -> {ee} bf16 ({route}) y]", yk, yr, bf)
+        check(f"ln_proj_tail[B={bb} {dd} -> {ee} bf16 ({route}) p]", pk, pr, bf)
+    first = FT.ln_proj_tail_kernel(xs[128], gt, bt_, proj)
+    same = all(all(torch.equal(a, c) for a, c in zip(first, FT.ln_proj_tail_kernel(
+        xs[128], gt, bt_, proj))) for _ in range(49))
+    say(f"  ln_proj_tail: 50 launches on one input {'bit-equal' if same else 'DIFFER'}")
+    if not same:
+        failures.append("ln_proj_tail repeat")
+
+    # Times. CUDA events around host-driven launches (`ms`) measure mostly the
+    # host at this size, so the kernels' own durations from the profiler stand
+    # beside them (`device_us`): the wgmma kernel, the FMA kernel it replaced
+    # in bf16, the library call (F.layer_norm + matmul: two kernels), and the
+    # design that lost: ln_gemm's LayerNorm mode with a zero bias, which gives
+    # p from the 128-row panel of the block GEMM (it would still have to store
+    # y, so its time is a lower bound of that design's)
+    zero_bias = torch.zeros(e, device=dev, dtype=bf)
+    tail_times = {}
+    for bt in (128, 512):
+        xt = xs[bt]
+        fns = {"kernel": lambda: FT.ln_proj_tail_kernel(xt, gt, bt_, proj),
+               "fma": lambda: FT.ln_proj_tail_fma(xt, gt, bt_, proj),
+               "library": lambda: F.layer_norm(xt, (d,), gt.to(bf), bt_.to(bf)) @ proj,
+               "ln_gemm_mode": lambda: FA.ln_gemm(xt[None], gt, bt_, proj, zero_bias),
+               "plain": lambda: FT.ln_proj_tail_reference(xt, gt, bt_, proj)}
+        # kernel, the others, kernel again: the two readings bracket the rest
+        order = ["kernel", "fma", "library", "ln_gemm_mode", "plain", "kernel"]
+        ms, us = {}, {}
+        for name in order:
+            ms.setdefault(name, []).append(time_ms(fns[name]))
+            if name != "plain":
+                us.setdefault(name, []).append(device_us(fns[name]))
+        tail_times[bt] = (ms, us)
+        bnd, by = bound(2.0 * bt * d * e, 2.0 * (bt * d + d * e + bt * d + bt * e) + 8.0 * d)
+        say(f"CLS tail alone at B={bt}, {d} -> {e}, bf16 (ms: median of 20 CUDA-event runs of "
+            f"a host-driven launch; device us: the kernels' durations in a profiler trace of "
+            f"20 calls), bound {bnd:.5f} ms ({by})")
+        for name in ("kernel", "fma", "library", "ln_gemm_mode", "plain"):
+            u = us.get(name)
+            dev_txt = "not measured" if not u or None in u else "/".join(f"{v:.2f}" for v in u)
+            say(f"    {name}: {'/'.join(f'{v:.4f}' for v in ms[name])} ms, device {dev_txt} us")
+        k_us, f_us, l_us = us["kernel"], us["fma"][0], us["library"][0]
+        if None not in k_us and f_us and l_us:
+            worst = max(k_us)
+            say(f"    targets at B={bt}: device time <= 1/5 of the FMA kernel's: {worst:.2f} us "
+                f"against {f_us / 5:.2f} us ({f_us / worst:.1f}x) "
+                f"{'met' if worst <= f_us / 5 else 'MISSED'}; no slower than the library "
+                f"call's {l_us:.2f} us ({worst / l_us:.2f}x) "
+                f"{'met' if worst <= l_us else 'MISSED'}")
     bt = 128
-    xt = xs[bt]
-    say(f"CLS tail alone at B={bt}, {d} -> {e}, bf16")
-    k_ms = time_ms(lambda: FT.ln_proj_tail_kernel(xt, gt, bt_, proj))
-    p_ms = time_ms(lambda: FT.ln_proj_tail_reference(xt, gt, bt_, proj))
-    l_ms = time_ms(lambda: F.layer_norm(xt, (d,), gt.to(bf), bt_.to(bf)) @ proj)
+    ms, us = tail_times[bt]
+    ms512, us512 = tail_times[512]
     bnd, by = bound(2.0 * bt * d * e, 2.0 * (bt * d + d * e + bt * d + bt * e) + 8.0 * d)
-    say(f"    ln_proj_tail: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-        f"library {l_ms:.4f} ms, bound {bnd:.4f} ms ({by})")
     record["ln_proj_tail"] = dict(
         name="ln_proj_tail", route="cuda", source="tpu_reid_torch/csrc/tail_kernel.cu",
-        replaces="tpu_reid/ops/fused_tail.py:31", max_abs_err=tails[(bt, bf)], ms=k_ms,
-        plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=l_ms)
+        replaces="tpu_reid/ops/fused_tail.py:31", max_abs_err=tails[(bt, bf)],
+        ms=min(ms["kernel"]), plain_ms=ms["plain"][0], bound_ms=bnd, bound_by=by,
+        library_ms=ms["library"][0], fma_ms=ms["fma"][0], ln_gemm_mode_ms=ms["ln_gemm_mode"][0],
+        device_us={k: v for k, v in us.items()},
+        b512=dict(ms={k: v for k, v in ms512.items()}, device_us={k: v for k, v in us512.items()}))
 
     # --- whole blocks at B=64: every variant the main paths take
     say("whole blocks: fused_block (kernels) against fused_block_reference")
@@ -732,7 +833,10 @@ def zero_shot_run(params, cfg, tokenizer, ids, templates, data, dtype, bs, dev):
     return dict(zs=zs, qf=qf, gf=gf, cmc=cmc, mAP=mAP, mINP=mINP, times=t)
 
 
-KERNEL_GROUPS = (("gemm_bf16_kernel<true", "ln_gemm"),
+KERNEL_GROUPS = (("attention_long_bf16_kernel", "mha_core (S > 256)"),
+                 ("attention_long_f32_kernel", "mha_core fp32 (S > 256)"),
+                 ("ln_proj_tail_bf16_kernel", "ln_proj_tail"),
+                 ("gemm_bf16_kernel<true", "ln_gemm"),
                  ("gemm_bf16_kernel<(bool)1", "ln_gemm"),
                  ("gemm_bf16_kernel<false", "gemm_bias_residual / no-LN ln_gemm"),
                  ("gemm_bf16_kernel<(bool)0", "gemm_bias_residual / no-LN ln_gemm"),
@@ -740,7 +844,7 @@ KERNEL_GROUPS = (("gemm_bf16_kernel<true", "ln_gemm"),
                  ("gemm_f32_kernel<false>", "gemm_bias_residual fp32"),
                  ("attention_bf16_kernel", "mha_core"),
                  ("attention_f32_kernel", "mha_core fp32"),
-                 ("ln_proj_tail_kernel", "ln_proj_tail"),
+                 ("ln_proj_tail_kernel", "ln_proj_tail (FMA)"),
                  ("minsum_kernel", "minsum"))
 
 
@@ -756,7 +860,7 @@ def trace(fn, label, top=12):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(prof)
     if not kernels:
         say(f"trace of {label}: the profiler recorded no kernel on the card "
             f"(device split not measured)")
@@ -1043,7 +1147,7 @@ def rerank_phase(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: both CLIs at full ViT-B/16 width
+# phase 11: both CLIs at full ViT-B/16 width
 # ---------------------------------------------------------------------------
 
 
@@ -1210,14 +1314,16 @@ def gradient_phase(dev):
 
 
 # ---------------------------------------------------------------------------
-# phases 8-9: the IVLP flagship, serving (eval_embed) and training
+# phases 8 and 10: the IVLP flagship, serving (eval_embed) and training
 # ---------------------------------------------------------------------------
 
 
-def flagship(dev, n_cls=751):
+def flagship(dev, n_cls=751, image_hw=(256, 128), seq_len=213):
     """bench.py's model in the port: IVLP ViT-B/16 at 256x128, stride 12,
     vision and language prompt depth 12 with 2 context tokens (213 vision
-    tokens), 751 classes; random weights from seed 0 (fp32)."""
+    tokens), 751 classes; random weights from seed 0 (fp32). With image_hw
+    (256, 256) the same model at the vehicle geometry: a 21x21 patch grid,
+    444 vision tokens."""
     from tpu_reid_torch.configs import PromptDesign
     from tpu_reid_torch.models import prompts as P
     from tpu_reid_torch.models import reid_clip as M
@@ -1225,7 +1331,7 @@ def flagship(dev, n_cls=751):
 
     design = PromptDesign(trainer="IVLP", vision_depth=12, vision_ctx=2, language_depth=12,
                           language_ctx=2)
-    cfg, clip = convert_clip(random_clip_state_dict(0), image_hw=(256, 128), stride=12,
+    cfg, clip = convert_clip(random_clip_state_dict(0), image_hw=image_hw, stride=12,
                              design=design, device=dev)
     clip = init_vpt(torch.Generator().manual_seed(0), cfg, clip)
     vocab = cfg.text.vocab_size
@@ -1237,7 +1343,7 @@ def flagship(dev, n_cls=751):
                                                            device=dev)]
     mcfg = M.ReidModelConfig(mode="ivlp", clip=cfg, prompt=P.PromptLearnerConfig.ivlp(n_cls))
     params = M.init_reid_model(torch.Generator().manual_seed(0), mcfg, clip, temb, tokens)
-    if cfg.vision.seq_len != 213:
+    if cfg.vision.seq_len != seq_len:
         raise PhaseFailed(f"unexpected IVLP geometry {cfg.vision}")
     return mcfg, params
 
@@ -1271,13 +1377,15 @@ def held_against_plain(module, name, plain, errs):
         setattr(module, name, kernel)
 
 
-def ivlp_serving_phase(dev, counters, mcfg, params, k_batches=8, batch=512):
+def ivlp_serving_phase(dev, counters, mcfg, params, k_batches=8, batch=512,
+                       hw=(256, 128)):
     """eval_embed of the flagship at bench.py's profile (batch 512, bf16
     weights and activations, fast softmax, input normalisation folded into
     the patch embed, no flip-TTA) over 8 batches; a trace of one batch; the
     first batch again with every block and tail call held against its plain
     version, and its embeddings against the plain path; then an fp32 batch
-    through the kernels against the plain path."""
+    through the kernels against the plain path. The input size and the token
+    count are the model's (`hw` 256x128 and 213, or 256x256 and 444)."""
     from tpu_reid_torch.data.transforms import DevicePreprocess
     from tpu_reid_torch.models import reid_clip as M
     from tpu_reid_torch.models.layers import kernel_impl
@@ -1287,13 +1395,14 @@ def ivlp_serving_phase(dev, counters, mcfg, params, k_batches=8, batch=512):
     from tpu_reid_torch.parallel.extract import make_extractor
 
     bf = torch.bfloat16
+    tokens = mcfg.clip.vision.seq_len
     pbf = _cast(params, bf)
     fold = lambda p: M.fold_input_norm(p, mcfg, "vit")  # noqa: E731
     embed = lambda p, im: M.eval_embed(p, mcfg, im)  # noqa: E731
-    ext = make_extractor(embed, DevicePreprocess((256, 128), "vit", dtype=bf), flip_tta=False,
+    ext = make_extractor(embed, DevicePreprocess(hw, "vit", dtype=bf), flip_tta=False,
                          dtype=bf, fold=fold, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    images = torch.randint(0, 255, (k_batches, batch, 256, 128, 3), dtype=torch.uint8,
+    images = torch.randint(0, 255, (k_batches, batch, *hw, 3), dtype=torch.uint8,
                            device=dev, generator=gen)
     set_fast_softmax(True)
     try:
@@ -1307,13 +1416,15 @@ def ivlp_serving_phase(dev, counters, mcfg, params, k_batches=8, batch=512):
         sec = time.perf_counter() - t0
         launches = {name: c.launches for name, c in counters.items()}
         emb_s = k_batches * batch / sec
-        say(f"IVLP serving (eval_embed of the flagship, 213 tokens, batch {batch}, bf16, fast "
+        say(f"IVLP serving (eval_embed of the flagship, {hw[0]}x{hw[1]}, {tokens} tokens, batch "
+            f"{batch}, bf16, fast "
             f"softmax, folded input norm, no flip-TTA): {k_batches} batches in {sec:.3f} s, "
             f"{emb_s:.1f} emb/s, {1e3 * sec / k_batches:.2f} ms per batch")
         say(f"  launches in the run: {launches}")
-        trace(lambda: ext(pbf, images[0]), f"one IVLP eval_embed batch ({batch} images, bf16)")
+        trace(lambda: ext(pbf, images[0]),
+              f"one IVLP eval_embed batch ({batch} images, {tokens} tokens, bf16)")
         # the timed profile itself against plain, on the first timed batch:
-        # every fused block (S=213, spliced) and the CLS tail held against
+        # every fused block (spliced) and the CLS tail held against
         # its plain version on the very inputs the run hands it, then the
         # embeddings against the plain path
         errs = {"fused_block": [], "ln_proj_tail": []}
@@ -1357,9 +1468,9 @@ def ivlp_serving_phase(dev, counters, mcfg, params, k_batches=8, batch=512):
     del outs, images, ek, ep
 
     # fp32, 32 images: the kernels against the plain path
-    ext32 = make_extractor(embed, DevicePreprocess((256, 128), "vit"), flip_tta=True,
+    ext32 = make_extractor(embed, DevicePreprocess(hw, "vit"), flip_tta=True,
                            dtype=torch.float32, fold=fold, device=dev)
-    x = torch.randint(0, 255, (min(32, batch), 256, 128, 3), dtype=torch.uint8, device=dev,
+    x = torch.randint(0, 255, (min(32, batch), *hw, 3), dtype=torch.uint8, device=dev,
                       generator=gen)
     ek = ext32(params, x)
     with kernel_impl("plain"):
@@ -1494,9 +1605,244 @@ def training_phase(dev, counters, mcfg, params, bs=64):
     return report
 
 
-# instantiations of the wgmma kernels that block_kernels.cu launches: the GEMM
-# as (LN, 128 or 64 rows, epilogue) = 3 without LN + 4 with; one attention
-WGMMA_ENTRIES = {"gemm_bf16_kernel": 7, "attention_bf16_kernel": 1}
+# ---------------------------------------------------------------------------
+# phase 9: the vehicle geometry (256x256, stride 12: 442 tokens, 444 with
+# IVLP's prompts), where mha_core runs its key-tile kernel
+# ---------------------------------------------------------------------------
+
+VERI_TYPES = ("sedan", "suv", "van", "hatchback", "mpv", "pickup", "bus", "truck", "estate")
+
+
+def write_veri_dir(root, n_ids=32, n_query=2, n_gallery=8, n_train=8, hw=(256, 256), seed=3,
+                   mix=0.45):
+    """A VeRi-776-layout directory of JPEGs of size hw: image_train /
+    image_query / image_test with `{pid:04d}_c{cam:03d}_{frame:08d}_0.jpg`
+    names, keypoint viewpoint files, gb2312 label XMLs with a car type per
+    image, and list_type.txt. A blocky base image per identity plus noise;
+    n_ids test identities (queries on camera 1, gallery on cameras 2-6) and
+    n_ids other training identities of n_train images each. Returns the
+    numbers of query and gallery images."""
+    from PIL import Image
+
+    base_dir = os.path.join(root, "VeRi")
+    for sub in ("image_train", "image_query", "image_test"):
+        os.makedirs(os.path.join(base_dir, sub))
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    base = rng.uniform(0, 255, (2 * n_ids, h // 16, w // 16, 3))
+    base = base.repeat(16, axis=1).repeat(16, axis=2)  # blocky; hw multiples of 16
+    car_type = 1 + rng.integers(0, len(VERI_TYPES), 2 * n_ids)
+    keypoints, labels = {"train": [], "test": []}, {"train": [], "test": []}
+    for pid in range(2 * n_ids):
+        test = pid < n_ids
+        for k in range(n_query + n_gallery if test else n_train):
+            noise = rng.uniform(0, 255, (h, w, 3))
+            img = np.clip(mix * base[pid] + (1 - mix) * noise, 0, 255).astype(np.uint8)
+            if test:
+                sub, cam = ("image_query", 1) if k < n_query else ("image_test", 2 + k % 5)
+            else:
+                sub, cam = "image_train", 1 + k % 20
+            name = f"{pid + 1:04d}_c{cam:03d}_{k:08d}_0.jpg"
+            Image.fromarray(img).save(os.path.join(base_dir, sub, name), quality=90)
+            split = "test" if test else "train"
+            keypoints[split].append(f"{sub}/{name} {int(rng.integers(0, 8))}")
+            labels[split].append((name, int(car_type[pid])))
+    for split in ("train", "test"):
+        with open(os.path.join(base_dir, f"keypoint_{split}.txt"), "w") as f:
+            f.write("\n".join(keypoints[split]) + "\n")
+        items = "\n".join(
+            f'  <Item imageName="{name}" vehicleID="{name[:4]}" cameraID="{name[5:9]}" '
+            f'colorID="1" typeID="{tid}"/>' for name, tid in labels[split])
+        xml = ('<?xml version="1.0" encoding="gb2312"?>\n<TrainingImages>\n'
+               f"<Items>\n{items}\n</Items>\n</TrainingImages>\n")
+        with open(os.path.join(base_dir, f"{split}_label.xml"), "wb") as f:
+            f.write(xml.encode("gb2312"))
+    with open(os.path.join(base_dir, "list_type.txt"), "w") as f:
+        for i, t in enumerate(VERI_TYPES, start=1):
+            f.write(f"{i} {t}\n")
+    return n_ids * n_query, n_ids * n_gallery
+
+
+def long_sequence_checks(dev, b=128, d=768, hid=3072, heads=12):
+    """mha_core beyond 256 tokens against mha_core_reference (8 and 12 heads,
+    views of a packed qkv buffer and contiguous tensors, exact and fast,
+    with an additive mask and without, bf16 and fp32), 50 launches
+    bit-equal, whole blocks at 442 and 444 tokens with the splice; then the
+    kernel timed at the vehicle geometry (B=128, S=442, 12 heads, bf16)
+    beside SDPA. Returns the kernels-line record of the key-tile kernel."""
+    from tpu_reid_torch.ops import attention as TA
+    from tpu_reid_torch.ops import fused_attention as FA
+
+    rng = np.random.default_rng(17)
+    bf = torch.bfloat16
+    failures = []
+
+    def t(*shape, std=1.0, dt=bf):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * std).to(dev, dt)
+
+    def check(label, got, want, dtype, quiet=False):
+        err, rel = rel_err(got, want)
+        ok = rel <= TOL[dtype]
+        if not ok or not quiet:
+            say(f"  {label}: max|d| {err:.3e}, rel {rel:.3e} (tol {TOL[dtype]:.0e}) "
+                f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(label)
+        return rel
+
+    say("mha_core beyond 256 tokens (the key-tile kernels) against mha_core_reference")
+    for dt in (bf, torch.float32):
+        for s in (257, 300, 442, 444):
+            # an additive mask with -inf entries off the diagonal: every row keeps a key
+            m = rng.standard_normal((s, s)).astype(np.float32)
+            m[rng.random((s, s)) < 0.3] = -np.inf
+            m[np.arange(s), np.arange(s)] = 0.0
+            mask = torch.from_numpy(m).to(dev)
+            worst, n = 0.0, 0
+            for bb, hh in ((3, 8), (16, 12)):
+                qkv = t(bb, s, 3 * hh * 64, dt=dt)
+                views = FA._qkv_views(qkv, hh)
+                contiguous = tuple(v.contiguous() for v in views)
+                for mk in (None, mask):
+                    for fast in (False, True):
+                        for label, ops in (("qkv views", views), ("contiguous", contiguous)):
+                            worst = max(worst, check(
+                                f"mha_core[{str(dt)[6:]} B={bb} S={s} H={hh}"
+                                f"{' masked' if mk is not None else ''} {label} "
+                                f"{'fast' if fast else 'exact'}]",
+                                TA.mha_core(*ops, mk, fast=fast),
+                                TA.mha_core_reference(*ops, mk, fast=fast), dt, quiet=True))
+                            n += 1
+            say(f"  mha_core {str(dt)[6:]} S={s}: {n} cases (B=3 H=8 and B=16 H=12, masked and "
+                f"not, exact and fast, qkv views and contiguous), worst rel {worst:.3e} "
+                f"(tol {TOL[dt]:.0e})")
+
+    s = 442
+    qkv = t(b, s, 3 * d)
+    views = FA._qkv_views(qkv, heads)
+    for label, fn in (("exact", lambda: TA.mha_core(*views)),
+                      ("fast", lambda: TA.mha_core(*views, fast=True))):
+        first = fn()
+        same = all(torch.equal(first, fn()) for _ in range(49))
+        say(f"  mha_core {label} at B={b} S={s}: 50 launches on one input "
+            f"{'bit-equal' if same else 'DIFFER'}")
+        if not same:
+            failures.append(f"mha_core long {label} repeat")
+
+    say("whole blocks at the vehicle geometry: fused_block (kernels) against "
+        "fused_block_reference")
+    for dt in (bf, torch.float32):
+        for seq, splice in ((442, False), (444, True)):
+            for fast in (False, True):
+                pb = block_params(rng, d, hid, dt, dev)
+                xb = t(32, seq, d, dt=dt)
+                kw = {}
+                if splice:  # the 2 IVLP prompt rows at the end of the sequence
+                    pm = torch.zeros(seq, 1, device=dev)
+                    pm[seq - 2:] = 1.0
+                    kw = dict(prompt_plane=t(seq, d, dt=dt), prompt_mask=pm)
+                check(f"vision block B=32 S={seq} {str(dt)[6:]} {'fast' if fast else 'exact'}"
+                      f"{' splice' if splice else ''}",
+                      FA.fused_block(xb, **pb, n_heads=heads, fast=fast, **kw),
+                      FA.fused_block_reference(xb, **pb, n_heads=heads, fast=fast, **kw), dt)
+                del pb, xb
+
+    # timed at the vehicle geometry, beside SDPA (timed only, never called by
+    # the port); bound as in the kernel phase: q, k, v read once and the heads
+    # written once, 4 B H S^2 64 operations
+    q, kk, v = (x.transpose(1, 2).contiguous() for x in views)
+    err, _ = rel_err(TA.mha_core(*views), TA.mha_core_reference(*views))
+    flops, nbytes = 4.0 * b * heads * s * s * 64, 2.0 * (b * s * 3 * d + b * s * d)
+    bnd, by = bound(flops, nbytes)
+    k_ms = time_ms(lambda: TA.mha_core(*views))
+    l_ms = time_ms(lambda: F.scaled_dot_product_attention(q, kk, v))
+    f_ms = time_ms(lambda: TA.mha_core(*views, fast=True))
+    k2_ms = time_ms(lambda: TA.mha_core(*views))
+    p_ms = time_ms(lambda: TA.mha_core_reference(*views), reps=5, warmup=1)
+    say(f"mha_core alone at B={b} S={s} H={heads} bf16 (median of 20 CUDA-event runs): exact "
+        f"{k_ms:.4f} / {k2_ms:.4f} ms, fast {f_ms:.4f} ms, plain {p_ms:.4f} ms, library (SDPA) "
+        f"{l_ms:.4f} ms, bound {bnd:.4f} ms ({by}); {flops / k_ms / 1e9:.1f} TFLOP/s, "
+        f"{k_ms / l_ms:.2f}x SDPA")
+    torch.cuda.synchronize()
+    if failures:
+        raise PhaseFailed(f"mha_core beyond 256 tokens disagrees with its plain version: "
+                          f"{failures}")
+    return dict(name="mha_core_long", route="cuda",
+                source="tpu_reid_torch/csrc/block_kernels.cu",
+                replaces="tpu_reid/ops/attention.py:37", max_abs_err=err, ms=min(k_ms, k2_ms),
+                fast_ms=f_ms, plain_ms=p_ms, bound_ms=bnd, bound_by=by, library_ms=l_ms)
+
+
+def vehicle_cli_phase(counters):
+    """Both CLIs at the vehicle geometry (--height 256 --ratio 1.0 --stride
+    12) on a synthetic VeRi directory and a random ViT-B/16 checkpoint;
+    returns each run's launches."""
+    import tempfile
+
+    from tpu_reid_torch.cli import prompt_learning as pl_cli
+    from tpu_reid_torch.cli import zero_shot as cli
+    from tpu_reid_torch.models.tokenizer import write_test_merges
+    from tpu_reid_torch.weights.convert import random_clip_state_dict
+
+    runs = {}
+    geometry = ["--height", "256", "--ratio", "1.0", "--stride", "12"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        nq, ng = write_veri_dir(tmp, n_ids=16, mix=0.2)
+        ckpt = os.path.join(tmp, "vit_b16_random.pth")
+        torch.save({k: torch.from_numpy(v) for k, v in random_clip_state_dict(0).items()}, ckpt)
+        merges = os.path.join(tmp, "merges.txt")
+        write_test_merges(merges, [("c", "a"), ("ca", "r</w>"), ("v", "a"), ("va", "n</w>")])
+        common = ["--root", tmp, "--model_path", ckpt, "--bpe_path", merges, *geometry]
+        argv = [*common, "--rerank", "--mm", "--bs", "64", "--test_dataset", "veri"]
+        say(f"vehicle CLIs: a VeRi directory of {nq} query + {ng} gallery + 128 training "
+            f"256x256 JPEGs (16 + 16 identities) and a random ViT-B/16 checkpoint written in "
+            f"{time.perf_counter() - t0:.1f} s; running python -m tpu_reid_torch.cli.zero_shot "
+            + " ".join(argv[6:]))
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        cmc, mAP = cli.main(argv)
+        torch.cuda.synchronize()
+        launches = runs["vehicle_zero_shot_cli"] = {n: c.launches for n, c in counters.items()}
+        say(f"  CLI run {time.perf_counter() - t0:.1f} s: Rank-1 {cmc[0]:.4f}, mAP {mAP:.4f}; "
+            f"launches {launches}")
+        missing = [n for n, c in launches.items() if c == 0]
+        if missing:
+            raise PhaseFailed(f"the zero-shot CLI at 256x256 never launched {missing}")
+        if len(cmc) != min(50, ng) or not np.isfinite(cmc).all() or not 0.0 < mAP <= 1.0:
+            raise PhaseFailed(f"vehicle CLI result out of range: cmc {len(cmc)} entries, "
+                              f"mAP {mAP}")
+
+        argv = [*common, "--training_mode", "ivlp", "--epochs_stage1", "1",
+                "--epochs_stage2", "1", "--dtype", "bf16", "--bs", "32",
+                "--train_dataset", "veri", "--save_path", os.path.join(tmp, "checkpoints")]
+        say("prompt-learning CLI at the vehicle geometry: python -m "
+            "tpu_reid_torch.cli.prompt_learning " + " ".join(argv[6:]))
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        cmc, mAP = pl_cli.main(argv)
+        torch.cuda.synchronize()
+        launches = runs["vehicle_prompt_cli"] = {n: c.launches for n, c in counters.items()}
+        saved = [f for f in ("stage1.pt", "stage2.pt")
+                 if os.path.exists(os.path.join(tmp, "checkpoints", "ivlp", "veri", f))]
+    say(f"  prompt-learning CLI run {time.perf_counter() - t0:.1f} s: Rank-1 {cmc[0]:.4f}, mAP "
+        f"{mAP:.4f}; saved {saved}; launches {launches}")
+    missing = [n for n, c in launches.items() if c == 0 and n != "minsum"]
+    if missing:
+        raise PhaseFailed(f"the prompt-learning CLI at 256x256 never launched {missing}")
+    if len(saved) != 2 or not np.isfinite(cmc).all() or not 0.0 < mAP <= 1.0:
+        raise PhaseFailed(f"vehicle prompt-learning CLI result out of range: saved {saved}, "
+                          f"mAP {mAP}")
+    return runs
+
+
+# instantiations of the wgmma kernels that the sources launch: the GEMM as
+# (LN, 128 or 64 rows, epilogue) = 3 without LN + 4 with; the two attention
+# kernels; the CLS tail
+WGMMA_ENTRIES = {"gemm_bf16_kernel": 7, "attention_bf16_kernel": 1,
+                 "attention_long_bf16_kernel": 1, "ln_proj_tail_bf16_kernel": 1}
 
 
 def mangled_kernel_name(line: str) -> str:
@@ -1577,6 +1923,8 @@ def main() -> int:
                       "fused_mlp": FA.fused_mlp, "fused_block": FA.fused_block,
                       "ln_proj_tail": FT.ln_proj_tail_kernel}
     counters = dict(block_counters, minsum=MS.minsum_kernel)
+    # the vehicle geometry also counts the launches that ran the key-tile kernel
+    vehicle_counters = dict(block_counters, mha_core_long=TA.mha_core_long)
     record, by_path = {}, {}
     timings = {}
 
@@ -1604,6 +1952,16 @@ def main() -> int:
         by_path["ivlp_serve"], emb_s = ivlp_serving_phase(dev, block_counters, *flagship_once())
         say(f"emb/s (bf16 IVLP eval_embed at bench.py's profile): {emb_s:.1f}")
 
+    def run_vehicle():
+        record["mha_core_long"] = long_sequence_checks(dev)
+        mcfg, params = flagship(dev, image_hw=(256, 256), seq_len=444)
+        by_path["vehicle_serve"], emb_s = ivlp_serving_phase(
+            dev, vehicle_counters, mcfg, params, k_batches=4, batch=256, hw=(256, 256))
+        say(f"emb/s (bf16 IVLP eval_embed at the vehicle geometry, 444 tokens): {emb_s:.1f}")
+        del mcfg, params
+        torch.cuda.empty_cache()
+        by_path.update(vehicle_cli_phase(dict(vehicle_counters, minsum=MS.minsum_kernel)))
+
     def run_train():
         for stage, r in training_phase(dev, block_counters, *flagship_once()).items():
             by_path[stage] = r["launches"]
@@ -1615,8 +1973,8 @@ def main() -> int:
 
     phases = (("kernels", run_kernels), ("minsum", run_minsum),
               ("grad", lambda: gradient_phase(dev)), ("zero_shot", run_zero_shot),
-              ("rerank", run_rerank), ("serve", run_serve), ("train", run_train),
-              ("cli", run_cli))
+              ("rerank", run_rerank), ("serve", run_serve), ("vehicle", run_vehicle),
+              ("train", run_train), ("cli", run_cli))
     # `--phases kernels,serve` runs only those phases (for work on one of
     # them); such a run is no pass: it ends with {"ok": false, ...} and code 3
     only = None
@@ -1642,11 +2000,12 @@ def main() -> int:
         say(json.dumps({"ok": False, "partial": sorted(only)}))
         return 3
     kernels = []
-    for name in counters:
+    for name in dict(counters, mha_core_long=TA.mha_core_long):
         r = dict(record[name])
-        # launches: this slice's main path (IVLP serving) for the block
-        # kernels and the tail, the re-ranking path for minsum
-        main = "rerank" if name == "minsum" else "ivlp_serve"
+        # launches: the main path of the slice that brought the kernel: IVLP
+        # serving for the block kernels and the tail, the re-ranking path for
+        # minsum, IVLP serving at the vehicle geometry for the key-tile kernel
+        main = {"minsum": "rerank", "mha_core_long": "vehicle_serve"}.get(name, "ivlp_serve")
         r["launches"] = by_path[main][name]
         r["launches_by_path"] = {p: c[name] for p, c in by_path.items() if name in c}
         kernels.append(r)

@@ -6,7 +6,9 @@ rules live in plain functions of shapes, strides and addresses
 (`ops.attention.head_row_stride`, `ops.fused_attention.check_gemm_operands`),
 which the wrappers call before a launch. Here each rule refuses what the
 kernel does not take and accepts the main paths' shapes: vision 211 / 213
-tokens of width 768, text 77 tokens of width 512, views of a packed qkv buffer.
+tokens of width 768 (442 / 444 at the vehicle geometry, where mha_core runs
+its key-tile kernel), text 77 tokens of width 512, views of a packed qkv
+buffer; and `ops.fused_tail.tail_kernel_route` picks the CLS tail's kernel.
 """
 
 import pytest
@@ -14,6 +16,7 @@ import torch
 
 from tpu_reid_torch.ops import attention as TA
 from tpu_reid_torch.ops import fused_attention as FA
+from tpu_reid_torch.ops import fused_tail as FT
 
 BASE = 0x7F0000000000  # an allocation's base: 512-byte aligned
 
@@ -33,7 +36,11 @@ def _layout(t):
     (64, 77, 8, 2),      # text tower
     (64, 77, 8, 4),      # the fp32 text tower
     (1, 1, 12, 2),       # one token of one image
-    (3, 256, 12, 2),     # the longest sequence
+    (3, 256, 12, 2),     # the longest sequence of the whole-row kernels
+    (2, 257, 12, 2),     # one past it: the key-tile kernel
+    (128, 442, 12, 2),   # the vehicle geometry, 256x256 at stride 12
+    (256, 444, 12, 2),   # the same with IVLP's two vision prompts
+    (4, 300, 8, 4),      # fp32, 8 heads
 ])
 def test_head_layout_accepts_views_of_a_packed_qkv_buffer(b, s, h, itemsize):
     d = h * 64
@@ -52,7 +59,8 @@ def test_head_layout_accepts_contiguous_heads(b, s, h):
 
 
 @pytest.mark.parametrize("shape,strides,address,itemsize,why", [
-    ((2, 257, 12, 64), (257 * 768, 768, 64, 1), BASE, 2, "S > 256: the score registers"),
+    ((1, 2 ** 31, 1, 64), (2 ** 37, 64, 64, 1), BASE, 2, "S past the kernels' 32-bit sizes"),
+    ((2 ** 31, 1, 1, 64), (64, 64, 64, 1), BASE, 2, "B past the kernels' 32-bit sizes"),
     ((2, 0, 12, 64), (0, 768, 64, 1), BASE, 2, "an empty sequence"),
     ((2, 50, 12, 32), (50 * 384, 384, 32, 1), BASE, 2, "head width 32"),
     ((2, 50, 12, 128), (50 * 1536, 1536, 128, 1), BASE, 2, "head width 128"),
@@ -149,3 +157,91 @@ def test_wide_layernorm_without_ln_is_in_the_domain():
     FA.check_gemm_operands("gemm", 100, 3072, 768, False, ALIGNED)
     with pytest.raises(ValueError):
         FA.check_gemm_operands("gemm", 100, 3072, 768, True, ALIGNED)
+
+
+# ---------------------------------------------------------------------------
+# mha_core: which kernel a sequence length runs
+# ---------------------------------------------------------------------------
+
+
+def test_long_sequences_share_the_layout_rules():
+    # beyond 256 tokens everything but the length limit still holds
+    ok = ((2, 442, 12, 64), (442 * 768, 768, 64, 1))
+    assert TA.head_row_stride(*ok, BASE, 2) == 768
+    for shape, strides, address in [
+            ((2, 442, 12, 32), (442 * 384, 384, 32, 1), BASE),         # head width 32
+            ((2, 442, 12, 64), (442 * 772, 772, 64, 1), BASE),         # rows not 16-byte multiples
+            ((2, 442, 12, 64), (442 * 768, 768, 64, 1), BASE + 8),     # base not aligned
+            ((2, 12, 442, 64), (442 * 768, 64, 442 * 64, 1), BASE)]:   # transposed heads
+        with pytest.raises(ValueError):
+            TA.head_row_stride(shape, strides, address, 2)
+
+
+def test_whole_row_limit_matches_the_kernel_source():
+    import os
+    import re
+
+    src = os.path.join(os.path.dirname(TA.__file__), "..", "csrc", "block_kernels.cu")
+    m = re.search(r"ATT_WHOLE_ROW_MAX_S = (\d+);", open(src).read())
+    assert m and int(m.group(1)) == TA.WHOLE_ROW_MAX_SEQ == 256
+
+
+# ---------------------------------------------------------------------------
+# ln_proj_tail: tail_kernel_route
+# ---------------------------------------------------------------------------
+
+TAIL_ALIGNED = dict(x=BASE, proj=BASE + 2 ** 20, ln_scale=BASE + 2 ** 21,
+                    ln_bias=BASE + 2 ** 21 + 4096, y=BASE + 2 ** 22, p=BASE + 2 ** 23)
+
+
+@pytest.mark.parametrize("b,d,e,bf16,route", [
+    (128, 768, 512, True, "wgmma"),    # ViT-B/16, one extraction pass
+    (512, 768, 512, True, "wgmma"),    # IVLP serving
+    (1, 768, 512, True, "wgmma"),      # one row: B is free
+    (70, 1024, 768, True, "wgmma"),    # the widest tail: ViT-L/14
+    (64, 64, 8, True, "wgmma"),        # the smallest D and E
+    (130, 768, 520, True, "wgmma"),    # E a multiple of 8, not of the 64-column tile
+    (128, 768, 512, False, "fma"),     # fp32: the parity runs
+    (33, 96, 40, True, "fma"),         # D off the 64-wide K block
+    (33, 768, 516, True, "fma"),       # E not a multiple of 8
+    (5, 32, 16, False, "fma"),         # a narrow fp32 tail
+])
+def test_tail_route(b, d, e, bf16, route):
+    assert FT.tail_kernel_route(b, d, e, bf16, TAIL_ALIGNED) == route
+
+
+@pytest.mark.parametrize("name", sorted(TAIL_ALIGNED))
+def test_tail_route_takes_the_fma_kernel_for_an_unaligned_base(name):
+    # the wgmma kernel moves every operand as 16-byte vectors or by TMA
+    addresses = dict(TAIL_ALIGNED, **{name: TAIL_ALIGNED[name] + 4})
+    assert FT.tail_kernel_route(128, 768, 512, True, addresses) == "fma"
+    assert FT.tail_kernel_route(128, 768, 512, False, addresses) == "fma"
+
+
+@pytest.mark.parametrize("b,d,e,why", [
+    (128, 1088, 512, "D wider than the rows a block keeps"),
+    (128, 0, 512, "D = 0"),
+    (128, 768, 0, "E = 0"),
+    (2 ** 31, 768, 512, "B past 32 bits"),
+])
+def test_tail_route_refuses(b, d, e, why):
+    for bf16 in (True, False):
+        with pytest.raises(ValueError):
+            FT.tail_kernel_route(b, d, e, bf16, TAIL_ALIGNED)
+
+
+def test_tail_smem_fits_the_widest_row():
+    """The wgmma kernel's shared memory at D = MAX_WIDTH, from the constants
+    of its source: the panel, the ring and the barriers stay under the
+    232448 bytes a block can ask for."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(FT.__file__), "..", "csrc", "tail_kernel.cu")).read()
+    stages = int(re.search(r"TW_STAGES = (\d+);", src).group(1))
+    max_d = int(re.search(r"TW_MAX_D = (\d+);", src).group(1))
+    assert max_d == FT.MAX_WIDTH and stages % 2 == 0
+    kb = 64 * 128
+    assert 1024 + max_d // 64 * kb + stages * kb + 8 * stages <= 232448
+    # and the FMA kernel's 16 fp32 rows
+    assert 16 * FT.MAX_WIDTH * 4 <= 232448

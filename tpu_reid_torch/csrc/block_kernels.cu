@@ -15,7 +15,8 @@
 //                       spliced rows are read from the plane instead. Without
 //                       LN parameters the rows are read as they are (fused_mha
 //                       without pre-LN).
-//   mha_core            full-row softmax attention for S <= 256, dh = 64 on
+//   mha_core            softmax attention for any S, dh = 64 (whole score rows
+//                       for S <= 256, a loop over key tiles beyond) on
 //                       q, k and v given as three base pointers and one row
 //                       stride (elements between consecutive tokens): views
 //                       into a packed (B, S, 3D) qkv buffer (stride 3D) and
@@ -77,6 +78,9 @@
 //     with the probabilities fed from registers and V as the transposed B
 //     operand. An additive mask of up to 32 KB (S <= 90: the text tower) is
 //     staged in shared memory once per block.
+//   * attention_long_bf16_kernel (S > 256): one block per (128 query rows,
+//     head, image); K and V tiles of 64 keys stream through a TMA ring, the
+//     softmax runs online over the tiles; its notes stand above it.
 //
 // The fp32 paths are plain FMA kernels (parity runs, the fp32 text tower).
 // Measured times stand in PERF.md.
@@ -741,7 +745,7 @@ int launch_gemm(const GemmArgs& g, bool is_bf16, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// mha_core: full-row softmax attention for S <= 256, dh = 64. q, k and v:
+// mha_core for S <= 256: whole-row softmax attention, dh = 64. q, k and v:
 // element (b, s, h, d) at base + (b*S + s)*ld + h*64 + d; out: (B, S, H*64)
 // contiguous. bf16: one block per (head, image) on TMA-staged tiles; fp32: one
 // block per (query tile of 64 rows, head, image), four warps of 16 query rows
@@ -1103,10 +1107,407 @@ int head_map(CUtensorMap* map, const void* p, int B, int S, int H, int ld, int r
   return encode_bf16_map(map, p, 3, dims, strides, box);
 }
 
+// ---------------------------------------------------------------------------
+// mha_core for S > 256 (the vehicle geometry: 442 to 444 tokens): a loop over
+// key tiles of 64, so that no whole row of scores lives in registers or shared
+// memory. Same operands, same arithmetic and rounding points as the whole-row
+// kernels above, which keep every S <= 256.
+//
+// Exact softmax: an online maximum. Each key tile raises the running row
+// maximum m, and the output accumulator and the row sum are rescaled by
+// e^(m_old - m_new) before the tile is added. The other way, a first pass over
+// Q K^T for the maximum and a second for the probabilities, costs half again
+// as many tensor-core operations and reads K twice; the rescale costs one
+// multiply per accumulator element and tile. The probabilities of a tile are
+// rounded to bf16 against the running maximum rather than the final one: a
+// relative rounding, so the result stays within one bf16 rounding of the
+// plain version's.
+// Fast softmax: 2^min(s + mask, 120) needs no maximum, so the row sum and P V
+// just accumulate over the tiles.
+// Padded key columns (the last tile is ragged: 442 = 6 x 64 + 58; TMA fills
+// the rows past S with zeros, which would score 0, not weigh 0) are set to
+// -FLT_MAX and weigh 0. An additive mask is read tile by tile from device
+// memory: a (444, 444) fp32 mask does not fit in shared memory.
+// ---------------------------------------------------------------------------
+
+// ---- bf16: TMA ring of K/V tiles, wgmma, two query tiles per block ---------
+//
+// One block per (128 query rows, head, image), the query tiles of a head
+// adjacent in the grid so that its K and V stay in L2. Two warpgroups, each
+// 64 query rows (a warpgroup whose rows all lie past S exits). Shared memory
+// (1024-byte aligned base): Q, two [64 rows][128 bytes] swizzled tiles; a ring
+// of ATL_STAGES stages, each the K tile and the V tile of 64 keys; the
+// barriers (Q landed; per stage: filled, drained by every warpgroup). Thread 0
+// fills the ring at the start and refills a stage once both warpgroups have
+// left it. Per key tile and warpgroup: S = Q K^T (wgmma m64n64k16, operands
+// from shared memory), the softmax step on the 2 x 16 scores a thread holds,
+// O += P V (P from registers in bf16, V as the transposed B operand). About
+// 83 KB of shared memory and 127 registers (ptxas, under a launch bound that
+// asks for one block per SM), so two blocks share an SM and one block's waits
+// hide under the other's work.
+
+constexpr int ATL_THREADS = 256, ATL_STAGES = 4, ATL_TILE = 64 * 128;
+
+__host__ __device__ constexpr int attention_long_bf16_smem() {
+  return 1024 + 2 * ATL_TILE + ATL_STAGES * 2 * ATL_TILE + 8 * (1 + 2 * ATL_STAGES);
+}
+
+__global__ void __launch_bounds__(ATL_THREADS, 1)
+attention_long_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                           const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v,
+                           const float* __restrict__ mask, bf16* __restrict__ out, int B,
+                           int S, int H, float scale, int fast) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023u) & ~1023u;
+  const uint32_t sQ = base, ring = base + 2 * ATL_TILE;
+  const uint32_t qbar = ring + ATL_STAGES * 2 * ATL_TILE, full = qbar + 8,
+                 empty = full + 8 * ATL_STAGES;
+  const int nq = (S + 127) / 128, D = H * DH;
+  const int q0 = (int)(blockIdx.x % nq) * 128, h = (int)(blockIdx.x / nq) % H,
+            b = (int)(blockIdx.x / nq) / H;
+  const int n_tiles = (S + 63) / 64;
+  const int active = q0 + 64 < S ? 2 : 1;  // warpgroups with a query row below S
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int st = 0; st < ATL_STAGES; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, active);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // thread 0: key tile t (keys 64t ..; rows past S arrive as zeros) into its stage
+  auto fill = [&](int t) {
+    const int st = t % ATL_STAGES;
+    const uint32_t dst = ring + st * 2 * ATL_TILE;
+    mbar_arrive_expect_tx(full + 8 * st, 2 * ATL_TILE);
+    tma_load_3d(dst, &map_k, full + 8 * st, h * DH, 64 * t, b);
+    tma_load_3d(dst + ATL_TILE, &map_v, full + 8 * st, h * DH, 64 * t, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(qbar, active * ATL_TILE);
+    for (int w = 0; w < active; ++w)
+      tma_load_3d(sQ + w * ATL_TILE, &map_q, qbar, h * DH, q0 + 64 * w, b);
+    for (int t = 0; t < n_tiles && t < ATL_STAGES; ++t) fill(t);
+  }
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  if (wg >= active) return;  // no block-wide barrier follows
+  const int g = lane >> 2, q = lane & 3;
+  const int row[2] = {q0 + 64 * wg + 16 * warp + g, q0 + 64 * wg + 16 * warp + g + 8};
+  const float* mrow[2] = {nullptr, nullptr};
+  if (mask != nullptr) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) mrow[hr] = mask + (size_t)min(row[hr], S - 1) * S;
+  }
+  const uint32_t sQw = sQ + wg * ATL_TILE;
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m_run[2] = {-3.402823466e38f, -3.402823466e38f}, denom[2] = {0.f, 0.f};
+
+  mbar_wait(qbar, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % ATL_STAGES;
+    const uint32_t phase = (t / ATL_STAGES) & 1;
+    const uint32_t sK = ring + st * 2 * ATL_TILE, sV = sK + ATL_TILE;
+    mbar_wait(full + 8 * st, phase);
+
+    // raw scores: key 64t + 8j + 2q + (e & 1) of row[e >> 1] in sc[4j + e]
+    float sc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks)
+      wgmma_m64n64k16(sc, wgmma_desc(sQw + 32 * ks, 16, 1024),
+                      wgmma_desc(sK + 32 * ks, 16, 1024), ks != 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_settle(sc);
+
+    // logits s * scale + mask in place (both in log2e units when fast); padded
+    // columns hold -FLT_MAX: weight 0 below
+    auto logits = [&](auto masked, auto ragged) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 64 * t + 8 * (i >> 2) + 2 * q + (i & 1);
+        float v = sc[i] * scale;
+        if (decltype(ragged)::value && col >= S) v = -3.402823466e38f;
+        else if (decltype(masked)::value) v += mrow[(i >> 1) & 1][col];
+        sc[i] = v;
+      }
+    };
+    const bool ragged = 64 * (t + 1) > S;
+    if (mask != nullptr) {
+      if (ragged) logits(std::true_type{}, std::true_type{});
+      else logits(std::true_type{}, std::false_type{});
+    } else {
+      if (ragged) logits(std::false_type{}, std::true_type{});
+      else logits(std::false_type{}, std::false_type{});
+    }
+
+    if (fast) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = ex2_approx(fminf(sc[i], 120.f));
+    } else {
+      // the running maximum (two partial maxima per row, then the quad), and
+      // what the earlier tiles' sums shrink by
+      float m2[2][2] = {{-3.402823466e38f, -3.402823466e38f},
+                        {-3.402823466e38f, -3.402823466e38f}};
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        m2[(i >> 1) & 1][(i >> 2) & 1] = fmaxf(m2[(i >> 1) & 1][(i >> 2) & 1], sc[i]);
+      float alpha[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mx = fmaxf(m2[hr][0], m2[hr][1]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = fmaxf(mx, m_run[hr]);
+        alpha[hr] = ex2_approx((m_run[hr] - mx) * 1.4426950408889634f);
+        m_run[hr] = mx;
+        denom[hr] *= alpha[hr];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        o[i] *= alpha[(i >> 1) & 1];
+        sc[i] = ex2_approx((sc[i] - m_run[(i >> 1) & 1]) * 1.4426950408889634f);
+      }
+    }
+    // fp32 row sums (two partial sums per row) and the bf16 pairs that are the
+    // A operand of P V
+    float d2[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    uint32_t pk[16];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d2[(i >> 1) & 1][(i >> 2) & 1] += sc[i];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) pk[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+    denom[0] += d2[0][0] + d2[0][1];
+    denom[1] += d2[1][0] + d2[1][1];
+
+    // O += P V: 16 keys per step, step ks takes pk[4ks .. 4ks + 3]
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint32_t pa[4] = {pk[4 * ks], pk[4 * ks + 1], pk[4 * ks + 2], pk[4 * ks + 3]};
+      wgmma_m64n64k16_ra_tb(o, pa, wgmma_desc(sV + 16 * ks * 128, 16, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_settle(o);
+    wgmma_settle(pk);
+
+    // this warpgroup has left the stage; thread 0 refills it once all have
+    if (tid == 0) mbar_arrive(empty + 8 * st);
+    if (threadIdx.x == 0 && t + ATL_STAGES < n_tiles) {
+      mbar_wait(empty + 8 * st, phase);
+      fill(t + ATL_STAGES);
+    }
+  }
+
+  // scale by the row reciprocal, cast, 16-byte stores into (B, S, D)
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    denom[hr] += __shfl_xor_sync(0xffffffffu, denom[hr], 1);
+    denom[hr] += __shfl_xor_sync(0xffffffffu, denom[hr], 2);
+    if (fast) denom[hr] = fmaxf(denom[hr], 1e-30f);
+    const float rc = 1.f / denom[hr];
+#pragma unroll
+    for (int j0 = 0; j0 < DH / 8; j0 += 4) {
+      uint32_t v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        v[i] = pack_bf16(o[4 * (j0 + i) + 2 * hr] * rc, o[4 * (j0 + i) + 2 * hr + 1] * rc);
+      quad_transpose(v, q);
+      if (row[hr] < S)
+        *reinterpret_cast<uint4*>(out + ((size_t)b * S + row[hr]) * D + h * DH +
+                                  8 * (j0 + q)) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+}
+
+// ---- fp32, S > 256: plain FMA over key tiles (the fp32 parity runs) --------
+//
+// One block of four warps per (64 query rows, head, image). Shared memory: Q
+// [64][64], the K tile [64][65] (odd stride: the score loop reads K rows
+// across lanes), the V tile [64][64], the tile's scores [64][68] overwritten
+// by its probabilities, and per query row the running maximum, the running
+// sum and the factor the earlier tiles shrink by. A thread owns one head
+// column of 32 query rows: its 32 output sums stay in registers over the loop.
+
+constexpr int ATLF_SS = QT + 4;
+
+__host__ __device__ constexpr int attention_long_f32_smem() {
+  return (QT * DH + QT * (DH + 1) + QT * DH + QT * ATLF_SS + 3 * QT) * (int)sizeof(float);
+}
+
+__global__ void __launch_bounds__(ATT_THREADS)
+attention_long_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, int ld, const float* __restrict__ mask,
+                          float* __restrict__ out, int S, int H, float scale, int fast) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sK = sQ + QT * DH;
+  float* sV = sK + QT * (DH + 1);
+  float* sS = sV + QT * DH;
+  float* sM = sS + QT * ATLF_SS;  // running maximum (exact)
+  float* sL = sM + QT;            // running sum
+  float* sA = sL + QT;            // e^(m_old - m_new) of this tile (exact)
+
+  const int nq = (S + QT - 1) / QT, D = H * DH;
+  const int q0 = (int)(blockIdx.x % nq) * QT, h = (int)(blockIdx.x / nq) % H,
+            b = (int)(blockIdx.x / nq) / H;
+  const size_t head = (size_t)b * S * ld + h * DH;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  load_head_rows<float, true>(sQ, DH, q + head + (size_t)q0 * ld, ld, QT, S - q0);
+  if (tid < QT) {
+    sM[tid] = -3.402823466e38f;
+    sL[tid] = 0.f;
+    sA[tid] = 1.f;
+  }
+  // output (row (tid >> 6) + 2n, head column tid & 63) in oacc[n]
+  float oacc[QT / 2];
+#pragma unroll
+  for (int n = 0; n < QT / 2; ++n) oacc[n] = 0.f;
+
+  for (int k0 = 0; k0 < S; k0 += QT) {
+    __syncthreads();  // the tile before this one has been read
+    load_head_rows<float, false>(sK, DH + 1, k + head + (size_t)k0 * ld, ld, QT, S - k0);
+    load_head_rows<float, true>(sV, DH, v + head + (size_t)k0 * ld, ld, QT, S - k0);
+    __syncthreads();
+
+    for (int i = tid; i < QT * QT; i += ATT_THREADS) {
+      const int r = i / QT, c = i % QT;
+      float acc = 0.f;
+#pragma unroll 16
+      for (int kk = 0; kk < DH; ++kk) acc = fmaf(sQ[r * DH + kk], sK[c * (DH + 1) + kk], acc);
+      sS[r * ATLF_SS + c] = acc;
+    }
+    __syncthreads();
+
+    for (int r = warp; r < QT; r += ATT_THREADS / 32) {
+      const int qr = q0 + r;
+      float* srow = sS + r * ATLF_SS;
+      if (qr >= S) {
+        for (int c = lane; c < QT; c += 32) srow[c] = 0.f;
+        continue;
+      }
+      const float* mrow = mask != nullptr ? mask + (size_t)qr * S : nullptr;
+      float lg[QT / 32], sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < QT / 32; ++j) {
+        const int c = lane + 32 * j;
+        lg[j] = -3.402823466e38f;  // padded columns: weight 0
+        if (k0 + c < S) {
+          lg[j] = srow[c] * scale;
+          if (mrow != nullptr) lg[j] += mrow[k0 + c];
+        }
+      }
+      if (fast) {
+#pragma unroll
+        for (int j = 0; j < QT / 32; ++j) {
+          const float p = k0 + lane + 32 * j < S ? exp2f(fminf(lg[j], 120.f)) : 0.f;
+          srow[lane + 32 * j] = p;
+          sum += p;
+        }
+        sum = warp_sum(sum);
+        if (lane == 0) sL[r] += sum;
+      } else {
+        float mx = lg[0];
+#pragma unroll
+        for (int j = 1; j < QT / 32; ++j) mx = fmaxf(mx, lg[j]);
+        const float m_old = sM[r];
+        mx = fmaxf(warp_max(mx), m_old);
+#pragma unroll
+        for (int j = 0; j < QT / 32; ++j) {
+          const float p = expf(lg[j] - mx);
+          srow[lane + 32 * j] = p;
+          sum += p;
+        }
+        sum = warp_sum(sum);
+        __syncwarp();  // every lane has read sM[r]
+        if (lane == 0) {
+          const float a = expf(m_old - mx);
+          sA[r] = a;
+          sM[r] = mx;
+          sL[r] = sL[r] * a + sum;
+        }
+      }
+    }
+    __syncthreads();
+
+    const int d = tid & (DH - 1);
+#pragma unroll
+    for (int n = 0; n < QT / 2; ++n) {
+      const int r = (tid >> 6) + 2 * n;
+      const float* prow = sS + r * ATLF_SS;
+      float acc = 0.f;
+#pragma unroll 16
+      for (int c = 0; c < QT; ++c) acc = fmaf(prow[c], sV[c * DH + d], acc);
+      oacc[n] = oacc[n] * sA[r] + acc;
+    }
+  }
+
+  const int d = tid & (DH - 1);
+#pragma unroll
+  for (int n = 0; n < QT / 2; ++n) {
+    const int r = (tid >> 6) + 2 * n;
+    if (q0 + r >= S) continue;
+    float denom = sL[r];
+    if (fast) denom = fmaxf(denom, 1e-30f);
+    out[((size_t)b * S + q0 + r) * D + h * DH + d] = oacc[n] * (1.f / denom);
+  }
+}
+
+int launch_attention_long(const void* q, const void* k, const void* v, int ld,
+                          const float* mask, void* out, int B, int S, int H, float scale,
+                          int fast, int is_bf16, cudaStream_t stream) {
+  cudaError_t e;
+  if (B == 0) return 0;
+  if (!is_bf16) {
+    const long long blocks = (long long)((S + QT - 1) / QT) * H * B;
+    if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+    e = cudaFuncSetAttribute(attention_long_f32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             attention_long_f32_smem());
+    if (e != cudaSuccess) return (int)e;
+    attention_long_f32_kernel<<<(unsigned)blocks, ATT_THREADS, attention_long_f32_smem(),
+                                stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), ld, mask, static_cast<float*>(out), S, H, scale, fast);
+    return (int)cudaGetLastError();
+  }
+  const long long blocks = (long long)((S + 127) / 128) * H * B;
+  if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  int rc;
+  if ((rc = head_map(&mq, q, B, S, H, ld, 64)) != 0) return rc;
+  if ((rc = head_map(&mk, k, B, S, H, ld, 64)) != 0) return rc;
+  if ((rc = head_map(&mv, v, B, S, H, ld, 64)) != 0) return rc;
+  e = cudaFuncSetAttribute(attention_long_bf16_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           attention_long_bf16_smem());
+  if (e != cudaSuccess) return (int)e;
+  attention_long_bf16_kernel<<<(unsigned)blocks, ATL_THREADS, attention_long_bf16_smem(),
+                               stream>>>(mq, mk, mv, mask, static_cast<bf16*>(out), B, S, H,
+                                         scale, fast);
+  return (int)cudaGetLastError();
+}
+
+// The whole-row kernels take S <= 256 (a row of scores in registers or shared
+// memory), the key-tile kernels every longer sequence.
+constexpr int ATT_WHOLE_ROW_MAX_S = 256;
+
 int launch_attention(const void* q, const void* k, const void* v, int ld, const float* mask,
                      void* out, int B, int S, int H, float scale, int fast, int is_bf16,
                      cudaStream_t stream) {
   cudaError_t e;
+  if (S > ATT_WHOLE_ROW_MAX_S)
+    return launch_attention_long(q, k, v, ld, mask, out, B, S, H, scale, fast, is_bf16, stream);
   if (!is_bf16) {
     const int s_pad = round_up(S, 16);
     dim3 grid((S + QT - 1) / QT, H, B);
@@ -1180,6 +1581,7 @@ int gemm_bias_residual(const void* a, const void* w, const void* bias, const voi
 // q, k, v: (B, S, H, 64) with row stride ld (elements between consecutive
 // tokens; batch stride S*ld) -> out (B, S, H*64) contiguous. mask: (S, S)
 // fp32 additive mask (clamped to >= -1e30; in log2e units when fast) or null.
+// S <= 256 runs the whole-row kernels, a longer sequence the key-tile kernels.
 int mha_core(const void* q, const void* k, const void* v, int ld, const void* mask,
              void* out, int B, int S, int H, float scale, int fast, int dtype,
              void* stream) {

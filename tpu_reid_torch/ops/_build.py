@@ -51,8 +51,8 @@ SIGNATURES = {
         "mha_core": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
     },
     "tail": {
-        # x, ln_g, ln_b, proj, y, p, B, D, E, dtype, stream
-        "ln_proj_tail": [_P] * 6 + [_I] * 4 + [_P],
+        # x, ln_g, ln_b, proj, y, p, B, D, E, dtype, fma, stream
+        "ln_proj_tail": [_P] * 6 + [_I] * 5 + [_P],
     },
     "minsum": {
         # a, a_scale, b, b_scale, out, Na, Nb, C, operand dtype, stream

@@ -2,17 +2,23 @@
 softmax-profile switch and the plain core of the plain block.
 
 `mha_core` replaces tpu_reid/ops/attention.py::mha_core (the Pallas
-`_attn_kernel`): softmax attention over (B, S, H, dh) q, k and v for
-S <= 256 and dh = 64 (csrc/block_kernels.cu::mha_core). The kernel takes q, k
+`_attn_kernel`): softmax attention over (B, S, H, dh) q, k and v for any
+S and dh = 64 (csrc/block_kernels.cu::mha_core). The kernel takes q, k
 and v as three base pointers and one row stride, so contiguous
 (B, S, H, 64) tensors and the strided views into a packed (B, S, 3D) qkv
 buffer that fused_mha hands it both run without a copy. What bounds it on
 the H100 is its bytes (q, k, v in, the heads out): scores and probabilities
 stay in registers (bf16) or shared memory (fp32) and never reach device
-memory. In bf16 persistent blocks walk the (image, head) pairs: a head's Q, K
-and V arrive once by TMA from the strided view (`head_row_stride` holds what
-a tensor map needs of it), the next head under the work on this one, and
-both products run on wgmma.
+memory. In bf16, for S <= 256, persistent blocks walk the (image, head)
+pairs: a head's Q, K and V arrive once by TMA from the strided view
+(`head_row_stride` holds what a tensor map needs of it), the next head under
+the work on this one, both products run on wgmma and a thread holds whole
+rows of scores. A longer sequence (the vehicle geometry: 256x256 gives 442
+tokens, 444 with IVLP's prompts) takes a second kernel of the same entry
+point: one block per 128 query rows of a head, K and V tiles of 64 keys
+streaming through a TMA ring, the softmax taken online over the tiles (a
+running row maximum, the accumulator rescaled when it rises; the fast
+softmax needs no maximum and just accumulates).
 
 Normalisation: the kernel multiplies the (S, dh) output by the row-sum
 reciprocal, as the fused kernels' `_attention_heads` does; the Pallas
@@ -30,6 +36,7 @@ fast-softmax profile.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
@@ -41,11 +48,18 @@ Tensor = torch.Tensor
 _FAST_SOFTMAX = False
 
 _LOG2E = 1.4426950408889634
-# fast softmax: unnormalised probabilities saturate at 2^120, so a row of at
-# most 256 of them sums below 2^128 (fp32 max): sound only for S <= 256
+# fast softmax: unnormalised probabilities saturate at 2^120, so the fp32 row
+# sum stays finite (below 2^128) unless 256 or more scores of one row sit at
+# the clamp. A shorter row cannot get there. A longer one (444 keys at the
+# vehicle geometry) would need logits above 120 / log2(e) ~ 83 on hundreds of
+# its keys, which no softmax input of these towers comes near; the JAX
+# package runs the same clamp at 448 padded columns, and both compute one
+# function.
 _FAST_CLAMP = 120.0
-MAX_SEQ = 256
 HEAD_DIM = 64
+# the longest sequence of the whole-row kernels (csrc/block_kernels.cu,
+# ATT_WHOLE_ROW_MAX_S); a longer one runs the key-tile kernels
+WHOLE_ROW_MAX_SEQ = 256
 
 
 def set_fast_softmax(enabled: bool) -> None:
@@ -148,15 +162,19 @@ def head_row_stride(shape, strides, address: int, itemsize: int) -> int:
     alone, or ValueError. The kernel reads element (b, s, h, d) at
     base + (b*S + s)*ld + h*64 + d, through 16-byte vectors (fp32) or a TMA
     tensor map over (B, S, ld) with a box of one head (bf16), so it needs:
-    S <= 256 and head width 64 (the score registers and the box limit); unit
+    head width 64 (the box, and the wgmma shapes); S >= 1, and B, S and H
+    below 2^31 (the kernels' 32-bit sizes and a tensor map's extents; a
+    sequence longer than 256 runs the key-tile kernel, whose grid of
+    ceil(S / 64) * H * B blocks at most must stay below 2^31 too); unit
     element stride and heads packed 64 apart; ld >= H*64; batch stride S*ld;
     ld a multiple of 16 bytes and a 16-byte aligned base (vector loads, and
     TMA's rule for base address and strides); every stride below 2^40 bytes
     (TMA's). No copy is made: what does not fit raises."""
     b, s, h, dh = shape
-    if dh != HEAD_DIM or not 1 <= s <= MAX_SEQ:
-        raise ValueError(f"mha_core kernel: (B, S, H, dh) = {tuple(shape)}; needs "
-                         f"1 <= S <= {MAX_SEQ} and head width {HEAD_DIM}")
+    if dh != HEAD_DIM or s < 1 or max(b, s, h) >= 2 ** 31 or -(-s // 64) * h * b >= 2 ** 31:
+        raise ValueError(f"mha_core kernel: (B, S, H, dh) = {tuple(shape)}; needs S >= 1, "
+                         f"head width {HEAD_DIM} and B, S, H and ceil(S / 64) * H * B "
+                         "below 2^31")
     sb, ss, sh, sd = strides
     # the stride of a dimension of size 1 says nothing
     ld = ss if s > 1 else (sb if b > 1 else h * HEAD_DIM)
@@ -181,9 +199,10 @@ def mha_core(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor] = None, *,
              fast: bool = False) -> Tensor:
     """(B, S, H, dh) q, k, v -> (B, S, H, dh) softmax attention; `mask` an
     optional additive (S, S) mask. CUDA: csrc/block_kernels.cu::mha_core, for
-    S <= 256 and dh = 64, q, k and v of one dtype sharing one row stride
-    (contiguous tensors, or views into one packed qkv buffer); anything else
-    raises. CPU tensors take `mha_core_reference`."""
+    any S and dh = 64 (whole score rows for S <= 256, key tiles beyond), q, k
+    and v of one dtype sharing one row stride (contiguous tensors, or views
+    into one packed qkv buffer); anything else raises. CPU tensors take
+    `mha_core_reference`."""
     _build.check_forward_only(q, k, v)
     if q.device.type == "cpu":
         return mha_core_reference(q, k, v, mask, fast=fast)
@@ -214,10 +233,14 @@ def mha_core(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor] = None, *,
                       _build.stream(q))
     _build.check(lib, rc, "mha_core")
     mha_core.launches += 1
+    if s > WHOLE_ROW_MAX_SEQ:
+        mha_core_long.launches += 1
     return out
 
 
 mha_core.launches = 0
+# the launches among them that ran the key-tile kernel (S > WHOLE_ROW_MAX_SEQ)
+mha_core_long = SimpleNamespace(launches=0)
 
 
 def attention_core(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor] = None) -> Tensor:

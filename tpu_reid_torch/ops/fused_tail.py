@@ -2,13 +2,20 @@
 
 Replaces tpu_reid/ops/fused_tail.py::_tail_pallas (the Pallas `_tail_kernel`):
 for (B, D) CLS rows, y = LN(x) with fp32 statistics and an fp32 affine, cast
-to x.dtype, and p = y @ proj with fp32 accumulation — both from one load of
-x (csrc/tail_kernel.cu). The plain version `ln_proj_tail_reference` mirrors
-the JAX package's `_tail_xla`, the plain layer_norm + dot composition. The
-kernel wrapper is forward-only: an input that requires grad raises; the
-model's tail goes through `_TailFn`, the counterpart of the JAX package's `_tail_fused`
-custom VJP (forward through the kernel, backward through the plain
-composition's recompute).
+to x.dtype, and p = y @ proj with fp32 accumulation from the rounded y — both
+from one load of x (csrc/tail_kernel.cu). What bounds it on the H100 is
+latency, not bytes or operations (0.1 GFLOP over 1.3 MB at the main path's
+shape), so the bf16 kernel is built to be short: blocks of (64 rows, 64
+columns) normalise their rows into a swizzled bf16 panel in shared memory
+while TMA brings their (D, 64) slice of proj in bulk, and two warpgroups run
+the product on wgmma, splitting K. fp32 inputs (and bf16 shapes the wgmma
+kernel does not take) run an FMA kernel; `tail_kernel_route` holds both
+domains as a plain function of sizes and addresses. The plain version
+`ln_proj_tail_reference` mirrors the JAX package's `_tail_xla`, the plain
+layer_norm + dot composition. The kernel wrapper is forward-only: an input
+that requires grad raises; the model's tail goes through `_TailFn`, the
+counterpart of the JAX package's `_tail_fused` custom VJP (forward through the
+kernel, backward through the plain composition's recompute).
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ from tpu_reid_torch.ops.fused_attention import _layer_norm_f32
 
 Tensor = torch.Tensor
 
-MAX_WIDTH = 1024  # the kernel keeps 16 rows of D fp32 values in shared memory
+MAX_WIDTH = 1024  # both kernels keep whole rows of D values in shared memory
 
 
 def ln_proj_tail_reference(x: Tensor, ln_scale: Tensor, ln_bias: Tensor,
@@ -30,18 +37,31 @@ def ln_proj_tail_reference(x: Tensor, ln_scale: Tensor, ln_bias: Tensor,
     return y, (y.float() @ proj.to(y.dtype).float()).to(y.dtype)
 
 
-def ln_proj_tail_kernel(x: Tensor, ln_scale: Tensor, ln_bias: Tensor,
-                        proj: Tensor) -> tuple[Tensor, Tensor]:
-    """CUDA: csrc/tail_kernel.cu::ln_proj_tail; CPU tensors take the plain
-    version."""
-    _build.check_forward_only(x, ln_scale, ln_bias, proj)
-    if x.device.type == "cpu":
-        return ln_proj_tail_reference(x, ln_scale, ln_bias, proj)
+def tail_kernel_route(b: int, d: int, e: int, bf16: bool, addresses: dict) -> str:
+    """Which kernel of csrc/tail_kernel.cu takes x (B, D) and proj (D, E), from
+    sizes and base addresses (`addresses`: name -> address) alone: "wgmma" or
+    "fma", or ValueError where neither does. Both need 1 <= D <= MAX_WIDTH (a
+    block keeps its rows over the whole of D in shared memory) and sizes
+    within 32 bits. The wgmma kernel takes bf16 with D a multiple of 64 (one
+    128-byte swizzled row of a K block), E a multiple of 8 (16-byte rows of
+    proj for its tensor map, 16-byte stores of p) and every base 16-byte
+    aligned (vector loads of x, gamma and beta, TMA's rule for proj, vector
+    stores of y and p). The FMA kernel reads and writes element by element:
+    it takes fp32, and bf16 outside that domain."""
+    if not 1 <= d <= MAX_WIDTH or e < 1 or max(b, d, e) >= 2 ** 31:
+        raise ValueError(f"ln_proj_tail: x ({b}, {d}), proj ({d}, {e}); needs "
+                         f"1 <= D <= {MAX_WIDTH}, E >= 1 and sizes below 2^31")
+    aligned = all(a % 16 == 0 for a in addresses.values())
+    return "wgmma" if bf16 and d % 64 == 0 and e % 8 == 0 and aligned else "fma"
+
+
+def _launch_tail(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, proj: Tensor,
+                 fma: bool) -> tuple[Tensor, Tensor]:
     b, d = x.shape
-    e = proj.shape[1]
-    if proj.shape != (d, e) or d > MAX_WIDTH:
+    if proj.dim() != 2 or proj.shape[0] != d:
         raise ValueError(f"ln_proj_tail: x {tuple(x.shape)}, proj {tuple(proj.shape)}; "
-                         f"needs D <= {MAX_WIDTH}")
+                         "proj must be (D, E)")
+    e = proj.shape[1]
     x = x.contiguous()
     proj = proj.to(x.dtype).contiguous()
     g = ln_scale.float().contiguous()
@@ -49,16 +69,41 @@ def ln_proj_tail_kernel(x: Tensor, ln_scale: Tensor, ln_bias: Tensor,
     _build.require_cuda(x.dtype, x.device, x=x, proj=proj)
     y = torch.empty(b, d, dtype=x.dtype, device=x.device)
     p = torch.empty(b, e, dtype=x.dtype, device=x.device)
-    lib = _build.library("tail")
     ptr = _build.ptr
+    route = tail_kernel_route(b, d, e, x.dtype == torch.bfloat16,
+                              dict(x=ptr(x), proj=ptr(proj), ln_scale=ptr(g), ln_bias=ptr(gb),
+                                   y=ptr(y), p=ptr(p)))
+    lib = _build.library("tail")
     rc = lib.ln_proj_tail(ptr(x), ptr(g), ptr(gb), ptr(proj), ptr(y), ptr(p), b, d, e,
-                          _build.DTYPE_CODES[x.dtype], _build.stream(x))
+                          _build.DTYPE_CODES[x.dtype], int(fma or route == "fma"),
+                          _build.stream(x))
     _build.check(lib, rc, "ln_proj_tail")
-    ln_proj_tail_kernel.launches += 1
     return y, p
 
 
+def ln_proj_tail_kernel(x: Tensor, ln_scale: Tensor, ln_bias: Tensor,
+                        proj: Tensor) -> tuple[Tensor, Tensor]:
+    """CUDA: csrc/tail_kernel.cu::ln_proj_tail (the wgmma kernel in bf16, the
+    FMA kernel in fp32: `tail_kernel_route`); CPU tensors take the plain
+    version."""
+    _build.check_forward_only(x, ln_scale, ln_bias, proj)
+    if x.device.type == "cpu":
+        return ln_proj_tail_reference(x, ln_scale, ln_bias, proj)
+    out = _launch_tail(x, ln_scale, ln_bias, proj, fma=False)
+    ln_proj_tail_kernel.launches += 1
+    return out
+
+
 ln_proj_tail_kernel.launches = 0
+
+
+def ln_proj_tail_fma(x: Tensor, ln_scale: Tensor, ln_bias: Tensor,
+                     proj: Tensor) -> tuple[Tensor, Tensor]:
+    """The FMA kernel on CUDA tensors of either type: the bf16 tail before
+    the wgmma kernel, kept callable so that a run can time the two designs
+    side by side. No path of the package calls it."""
+    _build.check_forward_only(x, ln_scale, ln_bias, proj)
+    return _launch_tail(x, ln_scale, ln_bias, proj, fma=True)
 
 
 class _TailFn(torch.autograd.Function):
