@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases kernels,serve,...]
 
 With `--phases` only the named phases run (kernels, minsum, grad, zero_shot,
-rerank, serve, vehicle, train, cli); such a run is no pass: it prints
+rerank, serve, vehicle, train, cli, multitask); such a run is no pass: it prints
 {"ok": false, "partial": [...]} as its last line and exits with code 3.
 
 1. Prints the card and sets fp32 matmuls and convolutions to full fp32.
@@ -14,10 +14,12 @@ rerank, serve, vehicle, train, cli); such a run is no pass: it prints
    card: each block kernel alone at the main path's shapes (ViT-B/16,
    256x128, stride 12: 211 tokens, 128 images per pass, bf16), timed with
    CUDA events beside the plain version and a library yardstick, then
-   fused_mha (pre-LN and without, timed beside
-   F.multi_head_attention_forward), fused_mlp and the whole block composed
-   from them; fused_mha / fused_mlp / mha_core at B=64 for S=211, S=213 with
-   the deep-prompt splice and the causal text S=77, exact and fast, bf16
+   fused_mha (pre-LN and without, timed beside F.layer_norm +
+   F.multi_head_attention_forward), fused_mlp (beside F.layer_norm +
+   F.linear + QuickGELU + F.linear) and the whole block composed from them
+   (beside nn.TransformerEncoderLayer(norm_first=True) with QuickGELU);
+   fused_mha / fused_mlp / mha_core at B=64 for S=211, S=213 with the
+   deep-prompt splice and the causal text S=77, exact and fast, bf16
    and fp32; whole blocks at B=64 for every variant the main paths take;
    the CLS tail at B=128 and B=512 (both timed, by CUDA events and by the
    kernels' own durations in a profiler trace, beside the FMA kernel it
@@ -37,8 +39,10 @@ rerank, serve, vehicle, train, cli); such a run is no pass: it prints
    at full width (B=16, S=213 with the splice, fp32).
 6. zero_shot: the zero-shot main path at full width with random weights
    from a seed (convert_clip -> zeroshot_classifier -> flip-TTA extraction
-   of 128 query and 512 gallery images in bf16 -> evaluate_zero_shot), and
-   the same slice in fp32 through the plain path and the kernels.
+   of 128 query and 512 gallery images in bf16 -> evaluate_zero_shot), the
+   extraction watchdog's cost (extract_embeddings against a bare loop of the
+   same extractor calls), and the same slice in fp32 through the plain path
+   and the kernels.
 7. rerank: re-ranks at Market-1501 scale through the Evaluator, exact and
    streamed routes, held within JAX's bounds.
 8. serve: eval_embed of the IVLP flagship (bench.py's model: 213 tokens,
@@ -63,7 +67,16 @@ rerank, serve, vehicle, train, cli); such a run is no pass: it prints
 11. cli: the zero-shot CLI with --rerank --mm, then the prompt-learning CLI
    (ivlp, one epoch of each stage, --rerank, bf16), at full ViT-B/16 width
    on a synthetic Market1501 directory and a random checkpoint; both must
-   launch every kernel.
+   launch every kernel; the prompt-learning command again with --resume
+   skips both stages and gives the same mAP within 1e-5.
+12. multitask: the hard_ivlp multitask model at full width (task 0 256x128,
+   213 tokens, 751 classes; task 1 256x256, 444 tokens, 576 classes), two
+   stage-1 and two stage-2 steps per task at bs 64 in bf16 activations (ms
+   per step per task, peak memory, launches: the key-tile mha_core from
+   task 1); run_mt_stage2 straight against a run resumed from its
+   checkpoint files (save and restore seconds, bytes on disk); then the
+   multitask CLI (hard_ivlp, Market1501 + VeRi, --rerank) and the same
+   command with --resume.
 
 It prints the kernels' JSON record on the line before the last (each
 kernel's launches on the main path of the slice that brought it: IVLP
@@ -79,6 +92,7 @@ a result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -322,20 +336,68 @@ def kernel_phase(dev):
              mha_flops, mha_bytes - 8.0 * d)
     entry("fused_mha_no_ln", src_block, "tpu_reid/ops/fused_attention.py:212", [no_ln])
     no_ln_rec = record.pop("fused_mha_no_ln")
+    ln1_bf = (p["ln1_scale"].to(bf), p["ln1_bias"].to(bf))
+    ln2_bf = (p["ln2_scale"].to(bf), p["ln2_bias"].to(bf))
+
+    def library_mha():  # F.layer_norm + F.multi_head_attention_forward + residual
+        xn = F.layer_norm(xt, (d,), *ln1_bf)
+        return xt + F.multi_head_attention_forward(
+            xn, xn, xn, d, heads, w_in_t, p["b_in"], None, None, False, 0.0, w_out_t,
+            p["b_out"], training=False, need_weights=False)[0]
+
     entry("fused_mha", src_block, "tpu_reid/ops/fused_attention.py:212", [
         ("pre-LN", lambda: FA.fused_mha(x, *mha_w, None, *ln1),
-         lambda: FA.fused_mha_reference(x, *mha_w, None, *ln1), None, mha_flops, mha_bytes)],
+         lambda: FA.fused_mha_reference(x, *mha_w, None, *ln1), library_mha, mha_flops,
+         mha_bytes)],
         **{f"no_ln_{k}": no_ln_rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
     mlp_args = (p["ln2_scale"], p["ln2_bias"], p["w_fc"], p["b_fc"], p["w_proj"], p["b_proj"])
     mlp_flops = 4.0 * b * s * d * hid
     mlp_bytes = 2.0 * (2 * b * s * d + 2 * d * hid + hid + d) + 8.0 * d
+    w_fc_t, w_proj_t = p["w_fc"].t().contiguous(), p["w_proj"].t().contiguous()
+
+    def library_mlp():  # F.layer_norm + F.linear + QuickGELU + F.linear + add
+        hh = F.linear(F.layer_norm(x, (d,), *ln2_bf), w_fc_t, p["b_fc"])
+        return x + F.linear(hh * torch.sigmoid(1.702 * hh), w_proj_t, p["b_proj"])
+
     entry("fused_mlp", src_block, "tpu_reid/ops/fused_attention.py:341", [
         ("ln_2 + MLP + residual", lambda: FA.fused_mlp(x, *mlp_args),
-         lambda: FA.fused_mlp_reference(x, *mlp_args), None, mlp_flops, mlp_bytes)])
+         lambda: FA.fused_mlp_reference(x, *mlp_args), library_mlp, mlp_flops, mlp_bytes)])
+    # the library's whole pre-norm block: nn.TransformerEncoderLayer with
+    # QuickGELU, carrying the same weights
+    layer = torch.nn.TransformerEncoderLayer(
+        d, heads, hid, dropout=0.0, activation=lambda t: t * torch.sigmoid(1.702 * t),
+        batch_first=True, norm_first=True, device=dev, dtype=bf).eval()
+    with torch.no_grad():
+        for dst, src in ((layer.self_attn.in_proj_weight, w_in_t),
+                         (layer.self_attn.in_proj_bias, p["b_in"]),
+                         (layer.self_attn.out_proj.weight, w_out_t),
+                         (layer.self_attn.out_proj.bias, p["b_out"]),
+                         (layer.linear1.weight, w_fc_t), (layer.linear1.bias, p["b_fc"]),
+                         (layer.linear2.weight, w_proj_t), (layer.linear2.bias, p["b_proj"]),
+                         (layer.norm1.weight, ln1_bf[0]), (layer.norm1.bias, ln1_bf[1]),
+                         (layer.norm2.weight, ln2_bf[0]), (layer.norm2.bias, ln2_bf[1])):
+            dst.copy_(src)
+
+    def library_block():
+        with torch.no_grad():
+            return layer(x)
+
     entry("fused_block", src_block, "tpu_reid/ops/fused_attention.py:483", [
         ("whole block", lambda: FA.fused_block(x, **p, n_heads=heads),
-         lambda: FA.fused_block_reference(x, **p, n_heads=heads), None,
+         lambda: FA.fused_block_reference(x, **p, n_heads=heads), library_block,
          mha_flops + mlp_flops, mha_bytes + mlp_bytes - 4.0 * b * s * d)])
+    # the yardsticks compute the same functions (printed, not gated: they are
+    # no code of the port)
+    for name, lib, plain in (
+            ("fused_mha", lambda: library_mha().transpose(0, 1),
+             lambda: FA.fused_mha_reference(x, *mha_w, None, *ln1)),
+            ("fused_mlp", library_mlp, lambda: FA.fused_mlp_reference(x, *mlp_args)),
+            ("fused_block", library_block,
+             lambda: FA.fused_block_reference(x, **p, n_heads=heads))):
+        err, rel = rel_err(lib(), plain())
+        say(f"  {name}'s library yardstick against its plain version: max|d| {err:.3e}, "
+            f"rel {rel:.3e}")
+    del layer
 
     # fused_mha (pre-LN and without, exact and fast, vision S=211 and S=213
     # with the splice, text S=77 causal), fused_mlp and mha_core in both
@@ -894,6 +956,39 @@ def trace_step(params, cfg, images, dev):
           f"one extraction step ({len(images)} images, bf16, flip-TTA)")
 
 
+def watchdog_cost(params, cfg, data, dev, rounds=2):
+    """The extraction watchdog's cost: extract_embeddings (a CUDA event per
+    batch, a StepWatchdog armed around the wait on the previous batch's)
+    against a bare loop of the same extractor calls on the same 512 gallery
+    images in batches of 128, in turns (bare, guarded, guarded, bare) for
+    `rounds` rounds; the best time of each."""
+    from tpu_reid_torch.parallel.extract import extract_embeddings
+
+    extractor = make_zero_shot_extractor(params, cfg, torch.bfloat16, dev)
+    gallery = list(batches(data[3], data[4], data[5], 128))
+
+    def bare():
+        return torch.cat([extractor(params, torch.as_tensor(b.images).to(dev))
+                          for b in gallery])
+
+    def watched():
+        return extract_embeddings(extractor, params, gallery, device=dev)[0]
+
+    times = {"bare": [], "watched": []}
+    for name in ("bare", "watched", "watched", "bare") * rounds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (bare if name == "bare" else watched)()
+        torch.cuda.synchronize()
+        times[name].append(1e3 * (time.perf_counter() - t0))
+    cost = min(times["watched"]) / min(times["bare"]) - 1.0
+    say(f"  extraction watchdog: extract_embeddings {min(times['watched']):.3f} ms against a "
+        f"bare loop of the same extractor calls {min(times['bare']):.3f} ms per "
+        f"{len(data[3])}-image sweep, best of {2 * rounds} each (all: "
+        + "; ".join(f"{k} {', '.join(f'{v:.3f}' for v in vs)}" for k, vs in times.items())
+        + f"): cost {100 * cost:+.2f}%")
+
+
 def main_path_phase(dev, counters):
     from tpu_reid_torch.models.layers import kernel_impl
     from tpu_reid_torch.models.tokenizer import ClipTokenizer, write_test_merges
@@ -949,6 +1044,7 @@ def main_path_phase(dev, counters):
         raise PhaseFailed(f"the main path never launched {missing}")
     if not 0.02 < res["mAP"] < 0.98:
         raise PhaseFailed(f"mAP {res['mAP']:.4f} too close to 0 or 1 to hold anything")
+    watchdog_cost(params, cfg, data, dev)
     trace_step(params, cfg, data[3][:128], dev)
 
     # --- the same slice in fp32 on a subset, plain path vs kernels
@@ -1229,16 +1325,42 @@ def cli_phase(counters):
         cmc, mAP = pl_cli.main(argv)
         torch.cuda.synchronize()
         launches = runs["prompt_learning_cli"] = {name: c.launches for name, c in counters.items()}
-        saved = [f for f in ("stage1.pt", "stage2.pt")
-                 if os.path.exists(os.path.join(tmp, "checkpoints", "ivlp", "market1501", f))]
-    say(f"  prompt-learning CLI run {time.perf_counter() - t0:.1f} s (phase seconds on the "
-        f"[phase] lines above); saved {saved}; launches {launches}")
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise PhaseFailed(f"the prompt-learning CLI never launched {missing}")
-    if len(saved) != 2 or not np.isfinite(cmc).all() or not 0.0 < mAP <= 1.0:
-        raise PhaseFailed(f"prompt-learning CLI result out of range: saved {saved}, mAP {mAP}")
+        say(f"  prompt-learning CLI run {time.perf_counter() - t0:.1f} s (phase seconds on the "
+            f"[phase] lines above); launches {launches}")
+        missing = [n for n, c in launches.items() if c == 0]
+        if missing:
+            raise PhaseFailed(f"the prompt-learning CLI never launched {missing}")
+        if not np.isfinite(cmc).all() or not 0.0 < mAP <= 1.0:
+            raise PhaseFailed(f"prompt-learning CLI result out of range: mAP {mAP}")
+        resume_cli(pl_cli, argv, os.path.join(tmp, "checkpoints", "ivlp", "market1501"), 2,
+                   mAP)
     return runs
+
+
+def resume_cli(cli, argv, ckpt_dir, last_epoch, mAP):
+    """After a finished CLI run: its final checkpoint is there (stage 2 done
+    at epoch `last_epoch`), and the same command with --resume skips both
+    stages and gives the mAP again within 1e-5."""
+    from tpu_reid_torch.runtime.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(ckpt_dir)
+    epochs, latest = mgr.epochs(), mgr.latest_epoch()
+    size = sum(os.path.getsize(os.path.join(ckpt_dir, f)) for f in os.listdir(ckpt_dir)
+               if f.endswith(".pt"))
+    stage = mgr.restore(latest)["stage"] if latest is not None else None
+    mgr.close()
+    if latest != last_epoch or stage != 2:
+        raise PhaseFailed(f"{ckpt_dir}: checkpoints {epochs}, the newest stage {stage}; "
+                          f"expected stage 2 at epoch {last_epoch}")
+    t0 = time.perf_counter()
+    cmc, mAP2 = cli.main(argv + ["--resume"])
+    torch.cuda.synchronize()
+    ok = abs(mAP2 - mAP) <= 1e-5
+    say(f"  --resume: checkpoints {epochs} ({size / 2**20:.1f} MiB), both stages skipped, "
+        f"{time.perf_counter() - t0:.1f} s; mAP {mAP2:.6f} against {mAP:.6f} (|d| "
+        f"{abs(mAP2 - mAP):.1e}, tol 1e-5) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed("the resumed CLI run does not reproduce the finished run's mAP")
 
 
 
@@ -1334,18 +1456,24 @@ def flagship(dev, n_cls=751, image_hw=(256, 128), seq_len=213):
     cfg, clip = convert_clip(random_clip_state_dict(0), image_hw=image_hw, stride=12,
                              design=design, device=dev)
     clip = init_vpt(torch.Generator().manual_seed(0), cfg, clip)
+    mcfg = M.ReidModelConfig(mode="ivlp", clip=cfg, prompt=P.PromptLearnerConfig.ivlp(n_cls))
+    params = M.init_reid_model(torch.Generator().manual_seed(0), mcfg, clip,
+                               *random_template(cfg, clip, dev))
+    if cfg.vision.seq_len != seq_len:
+        raise PhaseFailed(f"unexpected IVLP geometry {cfg.vision}")
+    return mcfg, params
+
+
+def random_template(cfg, clip, dev):
+    """(embedded, token ids) of a prompt template of random tokens between
+    the start and end tokens."""
     vocab = cfg.text.vocab_size
     tokens = np.zeros((1, cfg.text.context_length), np.int32)
     tokens[0, 0] = vocab - 2
     tokens[0, 1:10] = np.random.RandomState(0).randint(1, vocab - 2, 9)
     tokens[0, 10] = vocab - 1
-    temb = clip["text"]["token_embedding"][torch.as_tensor(tokens, dtype=torch.long,
-                                                           device=dev)]
-    mcfg = M.ReidModelConfig(mode="ivlp", clip=cfg, prompt=P.PromptLearnerConfig.ivlp(n_cls))
-    params = M.init_reid_model(torch.Generator().manual_seed(0), mcfg, clip, temb, tokens)
-    if cfg.vision.seq_len != seq_len:
-        raise PhaseFailed(f"unexpected IVLP geometry {cfg.vision}")
-    return mcfg, params
+    table = clip["text"]["token_embedding"]
+    return table[torch.as_tensor(tokens, dtype=torch.long, device=dev)], tokens
 
 
 def _cast(tree, dtype):
@@ -1825,17 +1953,293 @@ def vehicle_cli_phase(counters):
         cmc, mAP = pl_cli.main(argv)
         torch.cuda.synchronize()
         launches = runs["vehicle_prompt_cli"] = {n: c.launches for n, c in counters.items()}
-        saved = [f for f in ("stage1.pt", "stage2.pt")
-                 if os.path.exists(os.path.join(tmp, "checkpoints", "ivlp", "veri", f))]
+        saved = sorted(os.listdir(os.path.join(tmp, "checkpoints", "ivlp", "veri")))
     say(f"  prompt-learning CLI run {time.perf_counter() - t0:.1f} s: Rank-1 {cmc[0]:.4f}, mAP "
         f"{mAP:.4f}; saved {saved}; launches {launches}")
     missing = [n for n, c in launches.items() if c == 0 and n != "minsum"]
     if missing:
         raise PhaseFailed(f"the prompt-learning CLI at 256x256 never launched {missing}")
-    if len(saved) != 2 or not np.isfinite(cmc).all() or not 0.0 < mAP <= 1.0:
+    if "2.pt" not in saved or not np.isfinite(cmc).all() or not 0.0 < mAP <= 1.0:
         raise PhaseFailed(f"vehicle prompt-learning CLI result out of range: saved {saved}, "
                           f"mAP {mAP}")
     return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 12: multitask hard_ivlp (person 256x128 + vehicle 256x256) at full
+# ViT-B/16 width: training steps, a stage-2 resume through files, the CLI
+# ---------------------------------------------------------------------------
+
+MT_CLASSES = (751, 576)  # Market-1501's and VeRi-776's training identities
+
+
+def multitask_model(dev):
+    """The hard_ivlp multitask model: IVLP ViT-B/16 (prompt depth 12, 2
+    context tokens) shared by task 0 at 256x128 (213 tokens, 751 classes)
+    and task 1 at 256x256 (444 tokens, 576 classes), a second text tower,
+    random weights from seed 0 (fp32)."""
+    from tpu_reid_torch.configs import PromptDesign
+    from tpu_reid_torch.models import prompts as P
+    from tpu_reid_torch.train import multitask as MT
+    from tpu_reid_torch.weights.convert import convert_clip, init_vpt, random_clip_state_dict
+
+    design = PromptDesign(trainer="IVLP", vision_depth=12, vision_ctx=2, language_depth=12,
+                          language_ctx=2)
+    cfg, clip = convert_clip(random_clip_state_dict(0), image_hw=(256, 128), stride=12,
+                             design=design, device=dev)
+    clip = init_vpt(torch.Generator().manual_seed(0), cfg, clip)
+    hg, wg = cfg.vision.grid_for((256, 256), cfg.vision.patch_size, 12)
+    cfg2 = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, h_grid=hg, w_grid=wg))
+    mcfg = MT.MultitaskModelConfig("hard_ivlp", cfg, cfg2, *(
+        P.PromptLearnerConfig.ivlp(n) for n in MT_CLASSES))
+    template = random_template(cfg, clip, dev)
+    params = MT.init_multitask_model(torch.Generator().manual_seed(0), mcfg, clip, *template,
+                                     *template)
+    if (cfg.vision.seq_len, cfg2.vision.seq_len) != (213, 444):
+        raise PhaseFailed(f"unexpected multitask geometry {cfg.vision}, {cfg2.vision}")
+    return mcfg, params
+
+
+def multitask_phase(dev, counters, bs=64):
+    """hard_ivlp at bs 64 (PK 16 x 4), bf16 activations over fp32 master
+    weights: two stage-1 and two stage-2 steps per task, in turns (ms per
+    step per task, peak memory, launches); then run_mt_stage2 for 2 epochs
+    of 2 steps per task straight, against 1 epoch saved through a
+    CheckpointManager, restored from the files and run to the end."""
+    from tpu_reid_torch.data.transforms import DevicePreprocess
+    from tpu_reid_torch.train import multitask as MT
+    from tpu_reid_torch.train import optim as O
+    from tpu_reid_torch.train import trainer as TR
+    from tpu_reid_torch.train import xbm as X
+
+    bf = torch.bfloat16
+    t0 = time.perf_counter()
+    mcfg, params = multitask_model(dev)
+    say(f"multitask hard_ivlp: task 0 256x128 (213 tokens, {MT_CLASSES[0]} classes), task 1 "
+        f"256x256 (444 tokens, {MT_CLASSES[1]} classes), built in "
+        f"{time.perf_counter() - t0:.1f} s; bs {bs} (PK {bs // 4}x4), bf16 activations, fp32 "
+        f"master weights")
+    tcfg = TR.TrainConfig()
+    hws = ((256, 128), (256, 256))
+    pps = [DevicePreprocess(hw, "vit", dtype=bf) for hw in hws]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    rng = np.random.RandomState(2)
+    valid = torch.ones(bs, dtype=torch.bool, device=dev)
+
+    def task_batches(task, n):
+        return [(torch.randint(0, 255, (bs, *hws[task], 3), dtype=torch.uint8, device=dev,
+                               generator=gen),
+                 torch.as_tensor(np.repeat(rng.choice(MT_CLASSES[task], bs // 4,
+                                                      replace=False), 4), device=dev))
+                for _ in range(n)]
+
+    data = [task_batches(t, 2) for t in (0, 1)]
+    ms, losses = {}, []
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.setdefault(key, []).append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    tr1, fr1 = O.partition(params, lambda p: MT.mt_stage1_trainable(p, mcfg))
+    tr1 = TR._trainable_copy(tr1)
+    opt1 = O.make_stage_optimizer(tr1, tcfg.lr_stage1, tcfg.weight_decay)
+    steps1 = [MT.make_mt_stage1_step(mcfg, opt1, t) for t in (0, 1)]
+    for i in range(2):
+        for t in (0, 1):
+            images, labels = data[t][i]
+            losses.append(timed(("stage-1", t), lambda: steps1[t](
+                tr1, fr1, pps[t].eval_batch(images), labels, valid)))
+    peak1 = torch.cuda.max_memory_allocated() / 2**30
+    del tr1, opt1, steps1
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        text = [MT.all_class_text_features_mt(params, mcfg, t) for t in (0, 1)]
+    tr2, fr2 = O.partition(params, lambda p: MT.mt_stage2_trainable(p, mcfg))
+    tr2 = TR._trainable_copy(tr2)
+    opt2 = O.make_stage_optimizer(tr2, tcfg.lr_stage2, tcfg.weight_decay, bias_lr_mult=2.0)
+    steps2 = [MT.make_mt_stage2_step(mcfg, tcfg, opt2, t) for t in (0, 1)]
+    state = {"frozen": fr2, "xbms": [X.init_xbm(2 * bs, mcfg.clip.embed_dim, device=dev)
+                                     for _ in (0, 1)]}
+    for i in range(2):
+        for t in (0, 1):
+            images, labels = data[t][i]
+            x = pps[t].train_batch(images, pps[t].train_draws(gen, bs))
+
+            def s2(t=t, x=x, labels=labels):
+                state["frozen"], state["xbms"][t], loss = steps2[t](
+                    tr2, state["frozen"], x, labels, text[t], state["xbms"][t], True, valid)
+                return loss
+
+            losses.append(timed(("stage-2", t), s2))
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    peak2 = torch.cuda.max_memory_allocated() / 2**30
+    del tr2, opt2, steps2, state
+    for (stage, t), v in ms.items():
+        say(f"  {stage} task {t} ({(213, 444)[t]} tokens): {v[1]:.1f} ms per step after a "
+            f"{v[0]:.1f} ms first step")
+    say(f"  peak memory: stage 1 {peak1:.2f} GiB, stage 2 {peak2:.2f} GiB; launches in the "
+        f"8 steps {launches}")
+    vals = [float(v) for v in losses]
+    say(f"  losses: {', '.join(f'{v:.4f}' for v in vals)}")
+    if not np.isfinite(vals).all():
+        raise PhaseFailed(f"non-finite multitask losses {vals}")
+    missing = [k for k, c in launches.items() if c == 0]
+    if missing:
+        raise PhaseFailed(f"the multitask steps never launched {missing}")
+    multitask_resume(dev, mcfg, params, pps, data, gen, bs)
+    return launches
+
+
+def multitask_resume(dev, mcfg, params, pps, data, gen, bs):
+    """run_mt_stage2, 2 epochs x 2 steps per task (memory triplet from epoch
+    0), straight and resumed from files after epoch 1; the trained leaves
+    within the Adam bound of the steps of both runs (each run's plain
+    backward may sum in its own order: cuDNN's and the atomics' choices),
+    the rest and the banks' labels, pointers and fill counts equal."""
+    import tempfile
+
+    from tpu_reid_torch.runtime import checkpoint as C
+    from tpu_reid_torch.train import multitask as MT
+    from tpu_reid_torch.train import optim as O
+    from tpu_reid_torch.train import schedules as S
+    from tpu_reid_torch.train import trainer as TR
+
+    valid = torch.ones(bs, dtype=torch.bool, device=dev)
+    epochs = {e: [(t, (pps[t].train_batch(images, pps[t].train_draws(gen, bs)), labels, valid))
+                  for i in range(2) for t in (0, 1) for images, labels in [data[t][i]]]
+              for e in range(2)}
+    tcfg = TR.TrainConfig()
+
+    class Interrupt(Exception):
+        pass
+
+    def run(p, cb=None, **kw):
+        banks = {}
+
+        def keep(e, q, state):
+            banks["xbms"] = state["xbms"]
+            if cb is not None:
+                cb(e, q, state)
+
+        out = MT.run_mt_stage2(p, mcfg, tcfg, lambda e: iter(epochs[e]), epochs=2,
+                               xbm_capacity=2 * bs, xbm_start_epoch=0, log=lambda s: None,
+                               checkpoint_cb=keep, **kw)
+        return out, banks["xbms"]
+
+    want, want_xbms = run(params)
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = C.CheckpointManager(tmp, save_interval=1, max_to_keep=1)
+        save = C.two_stage_cb(mgr, 1, lambda e: e)
+        times = {}
+
+        def stop(e, q, state):
+            t0 = time.perf_counter()
+            save(e, q, state)
+            times["save"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            mgr.latest_epoch()  # waits for the writes
+            times["write"] = time.perf_counter() - t0
+            raise Interrupt
+
+        try:
+            run(params, stop)
+        except Interrupt:
+            pass
+        size = {f: os.path.getsize(os.path.join(tmp, f)) for f in sorted(os.listdir(tmp))}
+        t0 = time.perf_counter()
+        restored, done, _, kw2 = C.two_stage_resume(
+            mgr, params, lambda p: MT.mt_stage1_leaf_order(p, mcfg),
+            lambda p: MT.mt_stage2_leaf_order(p, mcfg), True, True, xbms_used=True)
+        torch.cuda.synchronize()
+        times["restore"] = time.perf_counter() - t0
+        mgr.close()
+    got, got_xbms = run(restored, **kw2)
+    say(f"  stage-2 checkpoint after epoch 1: save() returned after {times['save']:.2f} s "
+        f"(host snapshot), the writes ended {times['write']:.2f} s later; "
+        f"{sum(size.values()) / 2**20:.1f} MiB on disk "
+        f"({', '.join(f'{k} {v / 2**20:.1f} MiB' for k, v in size.items())}); restore "
+        f"{times['restore']:.2f} s; resumed at epoch {kw2['start_epoch'] + 1} of 2")
+    trained = {path for path, leaf in O.paths(O.partition(
+        want, lambda q: MT.mt_stage2_trainable(q, mcfg))[0]) if leaf is not None}
+    lrs = [S.warmup_multistep_lr(e, tcfg.lr_stage2) for e in range(2) for _ in range(4)]
+    bound = 2.0 * 2.0 * sum(lrs)  # the bias group runs at 2x lr
+    worst, bn_rel, equal, frozen_bad = 0.0, 0.0, True, []
+    for (path, a), (_, b) in zip(O.paths(got), O.paths(want), strict=True):
+        same = torch.equal(a, b)
+        equal &= same
+        if path in trained:
+            worst = max(worst, float((a.float() - b.float()).abs().max()))
+        elif path[-1] in ("mean", "var"):  # BN statistics: state of the forward
+            bn_rel = max(bn_rel, rel_err(a, b)[1])
+        elif not same:
+            frozen_bad.append("/".join(path))
+    banks_ok = all(torch.equal(g["labels"], w["labels"]) and (g["ptr"], g["filled"]) ==
+                   (w["ptr"], w["filled"]) for g, w in zip(got_xbms, want_xbms))
+    feat_d = max(float((g["feats"] - w["feats"]).abs().max())
+                 for g, w in zip(got_xbms, want_xbms))
+    ok = done == 1 and worst <= bound and bn_rel <= 1e-2 and not frozen_bad and banks_ok
+    say(f"  resumed against straight: {'bit-equal' if equal else 'not bit-equal'}; trained "
+        f"leaves max|d| {worst:.3e} (Adam bound {bound:.1e}), BN statistics rel {bn_rel:.2e} "
+        f"(tol 1e-2), other leaves "
+        f"{'equal' if not frozen_bad else 'DIFFER ' + str(frozen_bad[:3])}; XBM banks labels, "
+        f"pointers, fill counts {'equal' if banks_ok else 'DIFFER'}, features max|d| "
+        f"{feat_d:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed("the resumed multitask stage 2 does not follow the straight run")
+
+
+def multitask_cli_phase(counters):
+    """python -m tpu_reid_torch.cli.multitask --variant hard_ivlp on a
+    synthetic Market1501 and a synthetic VeRi directory at full width, then
+    the same command with --resume."""
+    import tempfile
+
+    from tpu_reid_torch.cli import multitask as mt_cli
+    from tpu_reid_torch.models.tokenizer import write_test_merges
+    from tpu_reid_torch.weights.convert import random_clip_state_dict
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        nq, ng = write_market_dir(tmp)
+        write_veri_dir(tmp, n_ids=16, mix=0.2)
+        ckpt = os.path.join(tmp, "vit_b16_random.pth")
+        torch.save({k: torch.from_numpy(v) for k, v in random_clip_state_dict(0).items()}, ckpt)
+        merges = os.path.join(tmp, "merges.txt")
+        write_test_merges(merges, [("p", "e"), ("r", "s"), ("c", "a"), ("ca", "r</w>")])
+        argv = ["--root", tmp, "--model_path", ckpt, "--bpe_path", merges,
+                "--variant", "hard_ivlp", "--train_dataset", "market1501",
+                "--train_dataset_multitask", "veri", "--height", "256", "--ratio", "0.5",
+                "--height_multitask", "256", "--ratio_multitask", "1.0", "--stride", "12",
+                "--dtype", "bf16", "--bs", "64", "--epochs_stage1", "1", "--epochs_stage2", "1",
+                "--rerank", "--save_path", os.path.join(tmp, "checkpoints")]
+        say(f"multitask CLI: Market1501 (256 training, {nq} query, {ng} gallery 256x128 JPEGs) "
+            f"and VeRi (128 training 256x256 JPEGs) written in {time.perf_counter() - t0:.1f} "
+            f"s; python -m tpu_reid_torch.cli.multitask " + " ".join(argv[6:]))
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        cmc, mAP = mt_cli.main(argv)
+        torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters.items()}
+        say(f"  multitask CLI run {time.perf_counter() - t0:.1f} s: Rank-1 {cmc[0]:.4f}, mAP "
+            f"{mAP:.4f}; launches {launches}")
+        missing = [n for n, c in launches.items() if c == 0]
+        if missing:
+            raise PhaseFailed(f"the multitask CLI never launched {missing}")
+        if not np.isfinite(cmc).all() or not 0.0 < mAP <= 1.0:
+            raise PhaseFailed(f"multitask CLI result out of range: mAP {mAP}")
+        resume_cli(mt_cli, argv, os.path.join(tmp, "checkpoints", "hard_ivlp", "coop",
+                                              "market1501_veri"), 2, mAP)
+    return launches
 
 
 # instantiations of the wgmma kernels that the sources launch: the GEMM as
@@ -1971,10 +2375,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         by_path.update(cli_phase(counters))
 
+    def run_multitask():
+        state.clear()
+        torch.cuda.empty_cache()
+        by_path["multitask"] = multitask_phase(dev, vehicle_counters)
+        torch.cuda.empty_cache()
+        by_path["multitask_cli"] = multitask_cli_phase(
+            dict(vehicle_counters, minsum=MS.minsum_kernel))
+
     phases = (("kernels", run_kernels), ("minsum", run_minsum),
               ("grad", lambda: gradient_phase(dev)), ("zero_shot", run_zero_shot),
               ("rerank", run_rerank), ("serve", run_serve), ("vehicle", run_vehicle),
-              ("train", run_train), ("cli", run_cli))
+              ("train", run_train), ("cli", run_cli), ("multitask", run_multitask))
     # `--phases kernels,serve` runs only those phases (for work on one of
     # them); such a run is no pass: it ends with {"ok": false, ...} and code 3
     only = None

@@ -124,7 +124,7 @@ def test_cli_defaults_to_the_card(assets, monkeypatch):
     (("--devices", "2"), "slice 7"),
     (("--tp", "2"), "slice 7"),
     (("--multihost", "localhost:1234"), "slice 7"),
-    (("--training_mode", "ivlp"), "ROADMAP.md item 11"),
+    (("--training_mode", "ivlp"), "train them with tpu_reid_torch.cli.prompt_learning"),
 ])
 def test_cli_refuses_what_is_not_ported(assets, extra, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -4,7 +4,6 @@ ivlp with --epochs_stage2 0 from the same initial parameters gives equal
 metrics in fp32. `assets` and `_argv` are shared with
 tests/test_torch_prompt_cli_run.py."""
 
-import os
 import sys
 
 import jax
@@ -17,6 +16,7 @@ import tests.torch_oracle as oracle
 from tpu_reid.tools import synth_market as SM
 from tpu_reid_torch.cli import prompt_learning as TCLI
 from tpu_reid_torch.models.tokenizer import write_test_merges
+from tpu_reid_torch.runtime.checkpoint import CheckpointManager
 from tpu_reid_torch.weights import convert as TW
 
 
@@ -92,6 +92,10 @@ def test_cli_matches_jax_from_the_same_initial_parameters(assets, monkeypatch, c
     assert abs(tmap - float(jmap)) < 1e-4
     assert 0.05 < tmap < 0.999  # the metrics hold something
     assert tline.startswith("Rank@1: ") and tline == jline
-    saved = torch.load(tmp_path / "t" / "ivlp" / "market1501" / "stage1.pt", weights_only=False)
-    assert saved["stage"] == 1 and "vpt_deep" in saved["params"]["clip"]["visual"]
-    assert os.path.exists(tmp_path / "t" / "ivlp" / "market1501" / "stage2.pt")
+    # the end-of-stage checkpoint: epoch 1 + 0, stage 2 done
+    mgr = CheckpointManager(str(tmp_path / "t" / "ivlp" / "market1501"))
+    assert mgr.latest_epoch() == 1
+    saved = mgr.restore()
+    mgr.close()
+    assert saved["stage"] == 2 and saved["epoch_in_stage"] == -1
+    assert "vpt_deep" in saved["params"]["clip"]["visual"]

@@ -1,7 +1,9 @@
 """The port's prompt-learning CLI on its own (--device cpu): a run of both
 stages (bf16, fast softmax, --rerank, --eval_every) ends with finite losses
-and metrics; without --device it wants the card; the flags the port does
-not take yet are refused with their ROADMAP item."""
+and metrics; --resume after a finished run skips both stages and gives the
+same metrics; --keep_best keeps the best evaluated parameters; without
+--device it wants the card; the flags the port does not take yet are
+refused with their ROADMAP item."""
 
 import numpy as np
 import pytest
@@ -10,6 +12,7 @@ import torch
 from tests.test_torch_prompt_cli import _argv, assets  # noqa: F401  (fixture)
 from tpu_reid_torch.cli import prompt_learning as TCLI
 from tpu_reid_torch.ops.attention import set_fast_softmax
+from tpu_reid_torch.runtime.checkpoint import CheckpointManager
 
 
 def test_cli_trains_both_stages(assets, capsys, tmp_path):
@@ -62,17 +65,51 @@ def test_cli_defaults_to_the_card(assets, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (("--resume",), "item 21"),
-    (("--keep_best",), "item 21"),
-    (("--training_mode", "maple"), "item 22"),
-    (("--jpm",), "item 23"),
-    (("--sie_camera",), "item 23"),
-    (("--augmented_prompts",), "item 24"),
-    (("--captions_file", "captions.txt"), "item 24"),
-    (("--cache_device",), "slice 6"),
-    (("--devices", "2"), "slice 7"),
-    (("--multihost", "localhost:1234"), "slice 7"),
+    (("--training_mode", "maple"), "queue 1 item 5"),
+    (("--jpm",), "queue 1 item 5"),
+    (("--sie_camera",), "queue 1 item 5"),
+    (("--augmented_prompts",), "queue 1 item 5"),
+    (("--captions_file", "captions.txt"), "queue 1 item 5"),
+    (("--cache_device",), "queue 1 item 6"),
+    (("--devices", "2"), "queue 1 item 7"),
+    (("--multihost", "localhost:1234"), "queue 1 item 7"),
 ])
 def test_cli_refuses_what_is_not_ported(assets, tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         TCLI.main(_argv(assets, tmp_path, *extra, "--device", "cpu"))
+
+
+@pytest.mark.parametrize("flag", ["--resume", "--keep_best"])
+def test_cli_runs_what_was_refused(assets, capsys, tmp_path, flag):
+    """--resume: a second call on a finished run (1 + 1 epochs) restores
+    the final checkpoint, runs no epoch and reproduces the metrics.
+    --keep_best with --eval_every 1 (1 + 2 epochs):
+    <save_path>/ivlp/market1501/best holds the parameters of the best mAP
+    among the evaluated epochs and the final test."""
+    argv = _argv(assets, tmp_path, "--training_mode", "ivlp", "--epochs_stage1", "1",
+                 "--device", "cpu")
+    if flag == "--keep_best":
+        argv += ["--epochs_stage2", "2", "--eval_every", "1", flag]
+    else:
+        argv += ["--epochs_stage2", "1"]
+    cmc, mAP = TCLI.main(argv)
+    out = capsys.readouterr().out
+    if flag == "--resume":
+        cmc2, mAP2 = TCLI.main(argv + [flag])
+        out = capsys.readouterr().out
+        assert "[resume] stage=2 epoch=2" in out
+        assert "[stage1] epoch" not in out and "[stage2] epoch" not in out
+        assert abs(mAP2 - mAP) < 1e-5
+        np.testing.assert_allclose(cmc2, cmc, atol=1e-5)
+        return
+    mgr = CheckpointManager(str(tmp_path / "ivlp" / "market1501" / "best"))
+    best = mgr.restore()
+    mgr.close()
+    evals = [float(line.split("mAP=")[1].split()[0]) for line in out.splitlines()
+             if line.startswith("[eval]")]
+    kept = [int(line.split("epoch=")[1].split()[0]) for line in out.splitlines()
+            if line.startswith("[best]")]
+    assert len(evals) == 1 and kept and kept[-1] == best["epoch"]
+    # the logged mAP has 4 significant digits
+    assert best["mAP"] >= mAP and best["mAP"] >= evals[0] - 1e-4
+    assert set(best["params"]) >= {"clip", "head", "prompt_learner"}

@@ -243,9 +243,9 @@ def test_converter_checks_and_vpt_init():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mode="maple"), "item 22"),
-    (dict(mode="coop", use_jpm=True), "item 23"),
-    (dict(mode="coop", sie_ids=3), "item 23"),
+    (dict(mode="maple"), "queue 1 item 5"),
+    (dict(mode="coop", use_jpm=True), "queue 1 item 5"),
+    (dict(mode="coop", sie_ids=3), "queue 1 item 5"),
 ])
 def test_unported_model_options_name_their_item(kw, match):
     _, _, tcfg, _ = tiny_models("coop")

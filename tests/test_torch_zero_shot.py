@@ -176,8 +176,9 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(setup, monkeypatch):
 
 def test_port_imports_neither_jax_nor_tpu_reid(tmp_path):
     """Every tpu_reid_torch module (the re-ranking modules, the data layer,
-    the zero-shot and prompt-learning CLIs, the ReID model and the trainers
-    included) and chip_smoke import with JAX made
+    the zero-shot, prompt-learning and multitask CLIs, the ReID model, the
+    trainers, the multitask trainers and XBM, and the checkpoints included)
+    and chip_smoke import with JAX made
     unimportable, and load no tpu_reid module; chip_smoke run on a machine
     without a card, or alone without the package, prints no result and
     exits non-zero."""
@@ -195,9 +196,10 @@ def test_port_imports_neither_jax_nor_tpu_reid(tmp_path):
         "'runtime.observe', 'data.attributes', 'data.datasets', 'data.loader', "
         "'cli.prompt_learning', 'models.heads', 'models.prompts', 'models.reid_clip', "
         "'train.losses', 'train.optim', 'train.schedules', 'train.trainer', "
-        "'data.sampler', 'runtime.guard'}\n"
+        "'data.sampler', 'runtime.guard', 'runtime.checkpoint', 'train.xbm', "
+        "'train.multitask', 'cli.multitask'}\n"
         "assert {'tpu_reid_torch.' + m for m in need} <= set(names), names\n"
-        "assert len(names) >= 45, names\n"
+        "assert len(names) >= 49, names\n"
         "print('imported', len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -10,13 +10,18 @@ The flags of tpu_reid/cli/prompt_learning.py, plus --device (default cuda;
         --training_mode ivlp --train_dataset market1501 \\
         --epochs_stage1 120 --epochs_stage2 60 --save_path ./out [--dtype bf16]
 
-The final parameters of each stage are saved with torch.save under
-<save_path>/<mode>/<train_dataset>/stage{1,2}.pt. Not ported yet, and
-refused with their ROADMAP item: --resume and --keep_best (item 21),
---training_mode maple (item 22), --jpm and --sie_camera/--sie_view
-(item 23), --augmented_prompts and --captions_file (item 24),
---cache_device (item 18, slice 6), --devices > 1 and --multihost (item 19,
-slice 7).
+Checkpoints (runtime/checkpoint.py, torch.save files) go under
+<save_path>/<mode>/<train_dataset>: the parameters with their stage markers
+every 20 epochs and at the end of each stage, the optimizer state and the
+GPA sum beside them. --resume continues from the newest one, mid-stage
+included; --keep_best keeps the best-mAP parameters among the evaluated
+ones (--eval_every, and the final test) under .../best. The port cannot
+read the JAX package's orbax checkpoints.
+
+Not ported yet, and refused with their ROADMAP.md queue-1 item:
+--training_mode maple, --jpm, --sie_camera/--sie_view, --augmented_prompts
+and --captions_file (item 5), --cache_device (item 6), --devices > 1 and
+--multihost (item 7).
 """
 
 from __future__ import annotations
@@ -68,12 +73,16 @@ def params_parser(argv=None):
                         "weights (bf16 engages the bf16 kernels)")
     p.add_argument("--eval_every", default=0, type=int,
                    help="evaluate retrieval every N stage-2 epochs (0: only at the end)")
-    p.add_argument("--keep_best", action="store_true")
+    p.add_argument("--keep_best", action="store_true",
+                   help="keep the best-mAP parameters among the evaluated ones under "
+                        "<save_path>/<mode>/<dataset>/best")
     p.add_argument("--multihost", default=None, type=str, metavar="HOST:PORT")
     p.add_argument("--num_hosts", default=1, type=int)
     p.add_argument("--host_id", default=0, type=int)
     p.add_argument("--cache_device", action="store_true")
-    p.add_argument("--resume", action="store_true")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the newest checkpoint under "
+                        "<save_path>/<mode>/<dataset> (same epoch counts)")
     p.add_argument("--rerank", action="store_true")
     p.add_argument("--fast_softmax", action="store_true",
                    help="throughput profile for the attention softmax "
@@ -88,18 +97,16 @@ def params_parser(argv=None):
 def refuse_unported(args) -> None:
     """Raise for the flags whose code is not ported yet, naming its item."""
     refused = [
-        (args.resume or args.keep_best, "--resume and --keep_best need "
-         "runtime/checkpoint.py (ROADMAP.md item 21)"),
         (args.training_mode == "maple", "--training_mode maple needs "
-         "models/maple_prompts.py (ROADMAP.md item 22)"),
+         "models/maple_prompts.py (ROADMAP.md queue 1 item 5)"),
         (args.jpm or args.sie_camera or args.sie_view, "--jpm and --sie_camera/--sie_view "
-         "need the JPM branch and SIE (ROADMAP.md item 23)"),
+         "need the JPM branch and SIE (ROADMAP.md queue 1 item 5)"),
         (args.augmented_prompts or args.captions_file, "--augmented_prompts and "
-         "--captions_file are not wired into the port's CLI (ROADMAP.md item 24)"),
-        (args.cache_device, "--cache_device needs data/device_cache.py (ROADMAP.md item 18, "
-         "slice 6)"),
+         "--captions_file are not wired into the port's CLI (ROADMAP.md queue 1 item 5)"),
+        (args.cache_device, "--cache_device needs data/device_cache.py (ROADMAP.md queue 1 "
+         "item 6)"),
         (args.devices > 1 or args.multihost, "--devices > 1 and --multihost need the "
-         "multi-device slice (ROADMAP.md item 19, slice 7)"),
+         "multi-device slice (ROADMAP.md queue 1 item 7)"),
     ]
     for hit, msg in refused:
         if hit:
@@ -110,6 +117,7 @@ def build_model(args, n_cls: int, car_types=None, device=None):
     """Load + convert CLIP and assemble the ReID model for the chosen mode:
     (ReidModelConfig, params on `device`, (h, w))."""
     from tpu_reid_torch.configs import PromptDesign
+    from tpu_reid_torch.device import clone
     from tpu_reid_torch.models import prompts as P
     from tpu_reid_torch.models import reid_clip as M
     from tpu_reid_torch.models.tokenizer import ClipTokenizer
@@ -178,16 +186,10 @@ def build_model(args, n_cls: int, car_types=None, device=None):
         else:
             # the teacher is a copy of the pretrained tower
             zs = {k: v for k, v in clip_params["visual"].items() if not k.startswith("vpt_")}
-            zs = _clone(zs)
+            zs = clone(zs)
     params = M.init_reid_model(torch.Generator().manual_seed(args.seed), mcfg, clip_params,
                                temb, tokens, zs_visual_params=zs)
     return mcfg, params, (h, w)
-
-
-def _clone(tree):
-    if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
-    return tree.clone()
 
 
 def main(argv=None):
@@ -204,6 +206,9 @@ def main(argv=None):
     from tpu_reid_torch.ops.attention import set_fast_softmax
     from tpu_reid_torch.parallel.extract import extract_embeddings, make_extractor
     from tpu_reid_torch.retrieval.metrics import Evaluator
+    from tpu_reid_torch.runtime.checkpoint import (
+        BestKeeper, CheckpointManager, fresh_start, two_stage_cb, two_stage_resume,
+    )
     from tpu_reid_torch.runtime.guard import TrainGuard
     from tpu_reid_torch.runtime.observe import MetricLogger, synced_phase
     from tpu_reid_torch.train import trainer as TR
@@ -245,13 +250,34 @@ def main(argv=None):
 
     tcfg = TR.TrainConfig(epochs_stage1=args.epochs_stage1, epochs_stage2=args.epochs_stage2)
     ckpt_dir = os.path.join(args.save_path, args.training_mode, args.train_dataset)
-    os.makedirs(ckpt_dir, exist_ok=True)
+    mgr = CheckpointManager(ckpt_dir, save_interval=20)
+
+    # --resume: the newest checkpoint's parameters, and mid-stage its
+    # optimizer state and (promptsrc) GPA sum: the run goes on where it
+    # stopped
+    (kw1, kw2), done_stage = fresh_start(), 0
+    if args.resume:
+        params, done_stage, kw1, kw2 = two_stage_resume(
+            mgr, params, lambda p: TR.stage1_leaf_order(p, mcfg),
+            lambda p: TR.stage2_leaf_order(p, mcfg),
+            gpa1_used=args.training_mode == "promptsrc",
+            gpa2_used=args.training_mode == "promptsrc",
+            log=lambda s: log.log("resume", msg=s))
+        log.log("resume", stage=done_stage, epoch=mgr.latest_epoch())
 
     def make_guard():
         # divergence rollback, always on: snapshots every 50 steps, rolls
         # back and skips the batch on a non-finite loss
         return TrainGuard(snapshot_every=50, max_restores=3,
                           log=lambda s: log.log("guard", msg=s))
+
+    # best among the evaluated parameters: every --eval_every epochs and the
+    # final test (without --eval_every, the final parameters)
+    best = BestKeeper(os.path.join(ckpt_dir, "best"), log.log) if args.keep_best else None
+
+    def maybe_keep_best(epoch: int, p, m: float):
+        if best is not None:
+            best.offer(epoch, p, m)
 
     eval_state: dict = {}
 
@@ -274,26 +300,43 @@ def main(argv=None):
         ev.update(g_feats, g_pids, g_cams)
         return ev.compute()
 
-    def stage2_cb(epoch, p, _state):
+    save_stage2 = two_stage_cb(mgr, 1, lambda e: args.epochs_stage1 + e)
+
+    def stage2_cb(epoch, p, state):
+        save_stage2(epoch, p, state)
         done = epoch + 1  # run_stage2 epochs are 0-based
         if args.eval_every and done % args.eval_every == 0 and done < args.epochs_stage2:
             with synced_phase(log, "eval", dev):
                 c, m, i_ = evaluate(p)
             log.log("eval", stage2_epoch=done, mAP=float(m), rank1=float(c[0]),
                     mINP=float(i_))
+            maybe_keep_best(done, p, float(m))
 
-    with synced_phase(log, "stage1", dev):
-        params = TR.run_stage1(params, mcfg, tcfg, stage1_batches, epochs=args.epochs_stage1,
-                               seed=args.seed, batch_size=args.bs, guard=make_guard(),
-                               log=lambda s: log.log("train", msg=s))
-        torch.save({"params": params, "stage": 1}, os.path.join(ckpt_dir, "stage1.pt"))
-    with synced_phase(log, "stage2", dev):
-        params = TR.run_stage2(params, mcfg, tcfg, stage2_batches, epochs=args.epochs_stage2,
-                               guard=make_guard(), log=lambda s: log.log("train", msg=s),
-                               checkpoint_cb=stage2_cb)
-        torch.save({"params": params, "stage": 2}, os.path.join(ckpt_dir, "stage2.pt"))
+    try:  # a write in flight is finished even when training raises
+        if done_stage < 1:
+            with synced_phase(log, "stage1", dev):
+                params = TR.run_stage1(params, mcfg, tcfg, stage1_batches,
+                                       epochs=args.epochs_stage1, seed=args.seed,
+                                       batch_size=args.bs, guard=make_guard(),
+                                       log=lambda s: log.log("train", msg=s),
+                                       checkpoint_cb=two_stage_cb(mgr, 0, lambda e: e), **kw1)
+                mgr.save(args.epochs_stage1,
+                         {"params": params, "stage": 1, "epoch_in_stage": -1})
+        if done_stage < 2:
+            with synced_phase(log, "stage2", dev):
+                params = TR.run_stage2(params, mcfg, tcfg, stage2_batches,
+                                       epochs=args.epochs_stage2, guard=make_guard(),
+                                       log=lambda s: log.log("train", msg=s),
+                                       checkpoint_cb=stage2_cb, **kw2)
+                mgr.save(args.epochs_stage1 + args.epochs_stage2,
+                         {"params": params, "stage": 2, "epoch_in_stage": -1})
+    finally:
+        mgr.close()
     with synced_phase(log, "test", dev):
         cmc, mAP, mINP = evaluate(params)
+    maybe_keep_best(args.epochs_stage2, params, float(mAP))
+    if best is not None:
+        best.close()
 
     def rank(k):  # the gallery may be smaller than max_rank
         return float(cmc[min(k - 1, len(cmc) - 1)])

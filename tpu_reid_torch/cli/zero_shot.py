@@ -111,7 +111,7 @@ def main(argv=None):
             raise NotImplementedError(
                 "--training_mode ivlp with a checkpoint that carries no IVLP prompt tokens: "
                 "the zero-shot CLI evaluates trained tokens only; train them with "
-                "tpu_reid_torch.cli.prompt_learning (ROADMAP.md item 11)"
+                "tpu_reid_torch.cli.prompt_learning"
             )
 
     with log.phase("build_classifier"):

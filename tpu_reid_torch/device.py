@@ -35,3 +35,10 @@ def to_device(tree, device: torch.device):
             tree = np.array(tree)
         return torch.from_numpy(np.ascontiguousarray(tree)).to(device)
     return torch.as_tensor(tree).to(device)
+
+
+def clone(tree):
+    """A copy of a nested dict of tensors that shares no storage with it."""
+    if isinstance(tree, dict):
+        return {k: clone(v) for k, v in tree.items()}
+    return tree.clone()

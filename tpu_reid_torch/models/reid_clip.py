@@ -54,13 +54,14 @@ class ReidModelConfig:
     def __post_init__(self):
         if self.mode == "maple":
             raise NotImplementedError(
-                "mode 'maple' is not ported yet (ROADMAP.md item 22: models/maple_prompts.py)")
+                "mode 'maple' is not ported yet (ROADMAP.md queue 1 item 5: "
+                "models/maple_prompts.py)")
         if self.mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}: {self.mode!r}")
         if self.use_jpm or self.sie_ids > 0:
             raise NotImplementedError(
                 "the JPM branch and SIE camera embeddings are not ported yet "
-                "(ROADMAP.md item 23: the JPM of vit.py:269-305, SIE)")
+                "(ROADMAP.md queue 1 item 5: the JPM of vit.py:269-305, SIE)")
 
     @property
     def n_cls(self) -> int:
@@ -108,7 +109,8 @@ def encode_image_features(params: dict, cfg: ReidModelConfig, images: Tensor,
     """CLS features at the three levels; adapter mode blends the non-proj
     level. cv_ids (SIE) is not ported and must be None."""
     if cv_ids is not None:
-        raise NotImplementedError("camera ids feed SIE, not ported yet (ROADMAP.md item 23)")
+        raise NotImplementedError(
+            "camera ids feed SIE, not ported yet (ROADMAP.md queue 1 item 5)")
     last, non_proj, proj = _cls_triple(params, cfg, images)
     if cfg.mode == "adapter":
         non_proj = H.apply_adapter(params["adapter"], non_proj, cfg.adapter_ratio)

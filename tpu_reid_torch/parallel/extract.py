@@ -7,6 +7,7 @@ with a later slice.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Iterable, Tuple
 
 import numpy as np
@@ -14,6 +15,7 @@ import torch
 
 from tpu_reid_torch.data.transforms import DevicePreprocess
 from tpu_reid_torch.device import DeviceLike, resolve_device, to_device
+from tpu_reid_torch.runtime.guard import StepWatchdog
 
 Tensor = torch.Tensor
 
@@ -102,6 +104,8 @@ def extract_embeddings(
     batches: Iterable,
     cv_ids_of=None,
     device: DeviceLike = None,
+    hang_timeout_s: float = 600.0,
+    on_hang=None,
 ) -> Tuple[Tensor, np.ndarray, np.ndarray, np.ndarray]:
     """Sweep batches; returns (features_on_device, pids, camids, seqids).
 
@@ -109,16 +113,36 @@ def extract_embeddings(
     .camids, .seqids, .valid. Features stay on `device` (CUDA unless
     device="cpu"); metadata stays on the host. cv_ids_of(batch) -> (B,) int
     ids feeds the extractor's third argument (pair with
-    make_extractor(with_cv_ids=True))."""
+    make_extractor(with_cv_ids=True)).
+
+    hang_timeout_s / on_hang: a runtime.guard.StepWatchdog guards the wait
+    for each batch's device work. A CUDA launch returns before the device
+    has run it, so a CUDA event is recorded after each batch and the
+    watchdog is armed around the wait on the previous batch's event (and
+    the last one's at the end): the device time is covered while one batch
+    stays queued behind the one being waited for. On the CPU the
+    extractor call itself is the device work and is what is guarded. One
+    watchdog is re-armed for every wait (no thread per batch)."""
     dev = resolve_device(device)
     params = to_device(params, dev)  # moved once, not per batch
+    cuda = dev.type == "cuda"
+    watchdog = StepWatchdog(hang_timeout_s, on_hang=on_hang)
     feats, pids, camids, seqids = [], [], [], []
+    queued = None  # the previous batch's CUDA event
     for b in batches:
         extra = (
             (torch.as_tensor(np.asarray(cv_ids_of(b), np.int64), device=dev),)
             if cv_ids_of is not None else ()
         )
-        f = extractor(params, torch.as_tensor(b.images).to(dev), *extra)
+        with contextlib.nullcontext() if cuda else watchdog:
+            f = extractor(params, torch.as_tensor(b.images).to(dev), *extra)
+        if cuda:
+            done = torch.cuda.Event()
+            done.record()
+            if queued is not None:
+                with watchdog:
+                    queued.synchronize()
+            queued = done
         valid = np.asarray(b.valid, bool)
         if valid.all():
             feats.append(f)
@@ -130,6 +154,9 @@ def extract_embeddings(
             pids.append(b.pids[valid])
             camids.append(b.camids[valid])
             seqids.append(b.seqids[valid])
+    if queued is not None:
+        with watchdog:
+            queued.synchronize()
     return (
         torch.cat(feats, dim=0),
         np.concatenate(pids),

@@ -1,5 +1,5 @@
-"""Divergence rollback for long training runs (the TrainGuard of
-tpu_reid/runtime/guard.py).
+"""Failure detection for long runs (the port of tpu_reid/runtime/guard.py):
+divergence rollback (TrainGuard) and hang detection (StepWatchdog).
 
 TrainGuard keeps a periodic host snapshot of the training state and, when a
 step produces a non-finite loss, hands back the last good snapshot so the
@@ -12,11 +12,17 @@ State is any tuple of nested dicts / lists / tuples of tensors (for example
 (trainable leaves, BN statistics, optimizer.state_dict())); snapshots are
 CPU copies, and a restore returns them on the devices of the live state they
 replace. Host-side logic only: the trainer already reads each loss.
+
+StepWatchdog fires a callback once when a guarded wait outlasts its
+budget: a wedged device presents as a host thread blocked in a
+synchronise, and the watchdog turns that silence into a recorded event.
 """
 
 from __future__ import annotations
 
 import math
+import threading
+import time
 from typing import Any, Callable, Optional
 
 import torch
@@ -106,3 +112,69 @@ class TrainGuard:
             raise RuntimeError("check() before any maybe_snapshot()")
         _, host_state = self._snap
         return tuple(_to_device(s, live) for s, live in zip(host_state, state)), False
+
+
+class StepWatchdog:
+    """Wall-clock hang detector for device work.
+
+        with StepWatchdog(timeout_s=300, on_hang=cb) as wd:
+            event.synchronize()     # if this blocks > timeout, cb fires once
+
+    The callback runs on a daemon monitor thread with the elapsed seconds;
+    it cannot unblock the wait, but it records the hang (and can write a
+    marker file, emit metrics, or end the process if the caller chooses).
+    On CUDA, guard a wait for the device (an event's synchronize), not a
+    launch: launches return before the device has run them.
+
+    One watchdog may guard many waits in turn (`with wd:` around each): it
+    fires at most once per wait. Arming and disarming only set a deadline
+    under a lock; the monitor thread starts at the first arming and ends
+    when it wakes at a deadline to find the watchdog disarmed, so a sweep
+    of short waits starts no thread per wait."""
+
+    def __init__(self, timeout_s: float, on_hang: Optional[Callable[[float], None]] = None,
+                 log: Callable[[str], None] = print):
+        self.timeout_s = timeout_s
+        self.on_hang = on_hang
+        self.log = log
+        self.hung = False
+        self._cond = threading.Condition()
+        self._deadline: Optional[float] = None  # None: disarmed, or fired
+        self._t0 = 0.0
+        self._thread: Optional[threading.Thread] = None
+
+    def _watch(self):
+        while True:
+            with self._cond:
+                if self._deadline is None:
+                    self._thread = None
+                    return
+                remaining = self._deadline - time.monotonic()
+                if remaining > 0:
+                    self._cond.wait(remaining)
+                    continue
+                self._deadline = None
+                elapsed = time.monotonic() - self._t0
+            self._fire(elapsed)
+
+    def _fire(self, elapsed: float):
+        self.hung = True
+        self.log(f"[watchdog] step exceeded {self.timeout_s:.0f}s (elapsed {elapsed:.0f}s) — "
+                 f"device hang suspected")
+        if self.on_hang is not None:
+            self.on_hang(elapsed)
+
+    def __enter__(self):
+        with self._cond:
+            self._t0 = time.monotonic()
+            self._deadline = self._t0 + self.timeout_s
+            if self._thread is None:
+                self._thread = threading.Thread(target=self._watch, daemon=True,
+                                                name="step-watchdog")
+                self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        with self._cond:
+            self._deadline = None
+        return False

@@ -18,8 +18,9 @@ denominator max(Σvalid, 1) as in JAX. Hard mining uses `amax`/`amin`, which
 split the gradient of a tie evenly among the tied entries, as JAX's max and
 min do (`max(dim=)` would hand all of it to one index).
 
-The cross-batch-memory triplet (`triplet_loss_xbm`) comes with the
-multitask slice.
+  * triplet_loss_xbm — the same mining of a batch's anchors against a
+    cross-batch memory bank (train/xbm.py), without each anchor's own slot
+    and without the bank's unfilled or padded slots.
 """
 
 from __future__ import annotations
@@ -79,6 +80,29 @@ def triplet_loss(feat: Tensor, labels: Tensor, margin: Optional[float] = 0.3,
         # padded rows are neither anchors (masked mean) nor candidates
         exclude = (~valid.bool())[None, :].expand_as(dist)
     d_ap, d_an = batch_hard_mining(dist, labels, exclude_cols=exclude)
+    return _ranking_loss(d_ap, d_an, margin, valid)
+
+
+def triplet_loss_xbm(feat: Tensor, labels: Tensor, feat_xbm: Tensor, labels_xbm: Tensor,
+                     margin: Optional[float] = None, self_cols: Optional[Tensor] = None,
+                     valid_cols: Optional[Tensor] = None, normalize_feature: bool = False,
+                     valid: Optional[Tensor] = None) -> Tensor:
+    """Anchors (N, D) against a memory bank (M, D). self_cols: (N,) column
+    of each anchor's own slot in the bank (excluded from the mining).
+    valid_cols: (M,) bool mask of the usable bank slots. valid: (N,) anchor
+    mask (padded anchors stay out of the mean)."""
+    if normalize_feature:
+        feat = feat / torch.linalg.norm(feat, dim=-1, keepdim=True)
+        feat_xbm = feat_xbm / torch.linalg.norm(feat_xbm, dim=-1, keepdim=True)
+    dist = euclidean_dist(feat, feat_xbm)
+    m = feat_xbm.shape[0]
+    exclude = None
+    if self_cols is not None:
+        exclude = self_cols[:, None] == torch.arange(m, device=dist.device)[None, :]
+    if valid_cols is not None:
+        invalid = (~valid_cols.bool())[None, :].expand_as(dist)
+        exclude = invalid if exclude is None else exclude | invalid
+    d_ap, d_an = batch_hard_mining(dist, labels, labels_xbm, exclude)
     return _ranking_loss(d_ap, d_an, margin, valid)
 
 

@@ -68,21 +68,33 @@ def is_bias(path: Path) -> bool:
     return any(p in ("b", "bias") for p in path)
 
 
+def _groups(trainable: dict, bias_lr_mult: float) -> list:
+    """[(lr_mult, [(path, leaf)])]: one group, or with bias_lr_mult != 1 the
+    non-bias leaves then the bias leaves (empty groups dropped)."""
+    leaves = [(p, t) for p, t in paths(trainable) if t is not None]
+    if bias_lr_mult == 1.0:
+        return [(1.0, leaves)]
+    groups = [(1.0, [(p, t) for p, t in leaves if not is_bias(p)]),
+              (bias_lr_mult, [(p, t) for p, t in leaves if is_bias(p)])]
+    return [g for g in groups if g[1]]
+
+
+def leaf_order(trainable: dict, bias_lr_mult: float = 1.0) -> list:
+    """The "/"-joined paths of the trainable leaves in the order
+    make_stage_optimizer hands them to Adam, whose state dict keys the
+    moments by that position: saved beside it by the checkpoints and
+    checked on restore."""
+    return ["/".join(p) for _, leaves in _groups(trainable, bias_lr_mult) for p, _ in leaves]
+
+
 def make_stage_optimizer(trainable: dict, base_lr: float, weight_decay: float = 1e-4,
                          bias_lr_mult: float = 1.0) -> torch.optim.Adam:
     """torch.optim.Adam over the trainable leaves (each must require grad):
     one group at base_lr and, with bias_lr_mult != 1, a second group of the
     bias leaves at base_lr * bias_lr_mult. Each group records its
     multiplier as "lr_mult" for `set_lr`."""
-    leaves = [(p, t) for p, t in paths(trainable) if t is not None]
-    groups = []
-    if bias_lr_mult != 1.0:
-        main = [t for p, t in leaves if not is_bias(p)]
-        bias = [t for p, t in leaves if is_bias(p)]
-        groups = [g for g in ({"params": main, "lr_mult": 1.0},
-                              {"params": bias, "lr_mult": bias_lr_mult}) if g["params"]]
-    else:
-        groups = [{"params": [t for _, t in leaves], "lr_mult": 1.0}]
+    groups = [{"params": [t for _, t in leaves], "lr_mult": mult}
+              for mult, leaves in _groups(trainable, bias_lr_mult)]
     for g in groups:
         g["lr"] = base_lr * g["lr_mult"]
     return torch.optim.Adam(groups, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,

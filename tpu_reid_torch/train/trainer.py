@@ -27,9 +27,18 @@ plain block's recompute (models/layers.residual_block). Epoch loops read the
 loss on the host one step late (`LossPipeline`), so the card is not
 synchronised every step.
 
+Mid-stage resume: both runners take start_epoch / init_opt_state (the
+optimizer's saved state dict) / init_gpa, and their checkpoint_cb hands over
+{"optimizer", "opt_paths", "gpa"} after every epoch
+(runtime/checkpoint.two_stage_cb). The live paths and stage 2 draw each
+epoch's batches on their own, so a resumed run follows the uninterrupted
+one exactly; the cached coop/adapter path draws every epoch's permutation
+from one generator seeded at the start of run_stage1, so a resumed run
+starts that stream again, as in the JAX package.
+
 Later slices: the multi-device paths (`sharded_encoder`, the `mesh=`
-arguments), the device-resident chunked epochs (`run_stage2_cached`,
-`run_stage1_live_cached`) and mid-stage resume (optimizer-state templates).
+arguments) and the device-resident chunked epochs (`run_stage2_cached`,
+`run_stage1_live_cached`).
 """
 
 from __future__ import annotations
@@ -160,6 +169,18 @@ class LossPipeline:
         return out
 
 
+def stage1_leaf_order(params: dict, cfg: M.ReidModelConfig) -> list:
+    """The leaf order of run_stage1's optimizer (its saved state dict keys
+    the moments by position; runtime/checkpoint checks it on restore)."""
+    return O.leaf_order(O.partition(params, lambda p: M.stage1_trainable(p, cfg))[0])
+
+
+def stage2_leaf_order(params: dict, cfg: M.ReidModelConfig) -> list:
+    """The leaf order of run_stage2's optimizer."""
+    return O.leaf_order(O.partition(params, lambda p: M.stage2_trainable(p, cfg))[0],
+                        bias_lr_mult=2.0)
+
+
 def _restore_into(live: dict, saved: dict) -> None:
     """Copy a snapshot's values into the live leaves in place (the optimizer
     holds references to them)."""
@@ -216,7 +237,8 @@ def precompute_image_features(params: dict, cfg: M.ReidModelConfig,
     feats, labels = [], []
     for images, lab, valid, *rest in batches:
         if rest:
-            raise NotImplementedError("camera ids feed SIE, not ported yet (ROADMAP.md item 23)")
+            raise NotImplementedError(
+                "camera ids feed SIE, not ported yet (ROADMAP.md queue 1 item 5)")
         v = _as_tensor(valid, dev).bool()
         f = M.encode_image_features(params, cfg, _as_tensor(images, dev))["proj"]
         feats.append(f[v])
@@ -234,20 +256,32 @@ def run_stage1(
     batch_size: int = 64,
     log: Callable[[str], None] = print,
     checkpoint_cb: Optional[Callable[[int, dict, dict], None]] = None,
+    cached_order: Optional[Callable[[int, np.ndarray], Iterable]] = None,
     guard=None,
+    start_epoch: int = 1,
+    init_opt_state: Optional[dict] = None,
+    init_gpa: Optional[dict] = None,
 ) -> dict:
     """epoch_batches(epoch) yields (images, labels, valid) batches
     (epoch 0 is the coop/adapter feature precompute's sequential pass).
     batch_size drives the cached-feature path's step size. Returns the
     trained parameters (GPA-averaged for promptsrc). checkpoint_cb(epoch,
     params, state) fires after every epoch with state = {"optimizer":
-    optimizer state dict, "gpa": the GPA sum}."""
+    optimizer state dict, "opt_paths": its leaf order, "gpa": the GPA sum}.
+
+    cached_order(epoch, labels) -> iterable of index arrays overrides the
+    cached path's batch order (the soft-multitask per-dataset alternation);
+    tail batches shorter than batch_size are padded and masked.
+    start_epoch / init_opt_state / init_gpa resume a run mid-stage."""
     epochs = epochs or tcfg.epochs_stage1
     dev = _device_of(params)
     cached = cfg.mode in ("coop", "adapter")
     trainable, frozen = O.partition(params, lambda path: M.stage1_trainable(path, cfg))
     trainable = _trainable_copy(trainable)
     optimizer = O.make_stage_optimizer(trainable, tcfg.lr_stage1, tcfg.weight_decay)
+    if init_opt_state is not None:
+        optimizer.load_state_dict(init_opt_state)
+    opt_paths = O.leaf_order(trainable)
     step = make_stage1_step(cfg, optimizer, cached)
 
     if cached:
@@ -256,10 +290,14 @@ def run_stage1(
         bs = min(batch_size, n)
         rng = np.random.default_rng(seed)
 
-        def cached_batches():
-            order = rng.permutation(n)
-            for i in range(0, n, bs):
-                sel = order[i:i + bs]
+        def cached_batches(epoch):
+            if cached_order is not None:
+                sels = cached_order(epoch, labels.cpu().numpy())
+            else:
+                order = rng.permutation(n)
+                sels = (order[i:i + bs] for i in range(0, n, bs))
+            for sel in sels:
+                sel = np.asarray(sel)
                 valid = np.ones((bs,), bool)
                 if len(sel) < bs:  # padded tail, masked out of the loss
                     valid[len(sel):] = False
@@ -272,7 +310,7 @@ def run_stage1(
         for images, lab, valid, *rest in epoch_batches(epoch):
             if rest:
                 raise NotImplementedError(
-                    "camera ids feed SIE, not ported yet (ROADMAP.md item 23)")
+                    "camera ids feed SIE, not ported yet (ROADMAP.md queue 1 item 5)")
             yield {"images": _as_tensor(images, dev), "labels": _as_tensor(lab, dev),
                    "valid": _as_tensor(valid, dev).bool()}
 
@@ -285,12 +323,12 @@ def run_stage1(
 
     pipe = LossPipeline(guard, get_state, set_state)
     gw = O.gauss_weights(*tcfg.gpa_stage1, epochs)
-    gpa = None
+    gpa = init_gpa
     gstep = 0
-    for epoch in range(1, epochs + 1):
+    for epoch in range(start_epoch, epochs + 1):
         lr = S.cosine_warmup_lr(epoch, tcfg.lr_stage1, epochs)
         O.set_lr(optimizer, lr)
-        for batch in (cached_batches() if cached else live_batches(epoch)):
+        for batch in (cached_batches(epoch) if cached else live_batches(epoch)):
             pipe.before_step(gstep)
             gstep += 1
             pipe.after_step(step(trainable, frozen, batch),
@@ -302,7 +340,8 @@ def run_stage1(
             log(f"[stage1] epoch {epoch}/{epochs} loss {np.mean(losses):.4f} lr {lr:.2e}")
         if checkpoint_cb is not None:
             checkpoint_cb(epoch, O.combine(_detached(trainable), frozen),
-                          {"optimizer": optimizer.state_dict(), "gpa": gpa})
+                          {"optimizer": optimizer.state_dict(), "opt_paths": opt_paths,
+                           "gpa": gpa})
     if cfg.mode == "promptsrc" and gpa is not None:
         return gpa
     return O.combine(_detached(trainable), frozen)
@@ -370,11 +409,16 @@ def run_stage2(
     log: Callable[[str], None] = print,
     checkpoint_cb: Optional[Callable[[int, dict, dict], None]] = None,
     guard=None,
+    start_epoch: int = 0,
+    init_opt_state: Optional[dict] = None,
+    init_gpa: Optional[dict] = None,
 ) -> dict:
     """epoch_batches(epoch) yields (images, labels, valid) batches (epochs
     0-based). guard: optional runtime.guard.TrainGuard — snapshots the
     trainable leaves, the BNNeck statistics and the optimizer state, and
-    rolls all three back when a step yields a non-finite loss."""
+    rolls all three back when a step yields a non-finite loss.
+    checkpoint_cb and start_epoch / init_opt_state / init_gpa: as in
+    run_stage1."""
     epochs = epochs or tcfg.epochs_stage2
     dev = _device_of(params)
     with torch.no_grad():
@@ -383,6 +427,9 @@ def run_stage2(
     trainable = _trainable_copy(trainable)
     optimizer = O.make_stage_optimizer(trainable, tcfg.lr_stage2, tcfg.weight_decay,
                                        bias_lr_mult=2.0)
+    if init_opt_state is not None:
+        optimizer.load_state_dict(init_opt_state)
+    opt_paths = O.leaf_order(trainable, bias_lr_mult=2.0)
     step = make_stage2_step(cfg, tcfg, optimizer)
 
     def get_state():
@@ -396,15 +443,15 @@ def run_stage2(
 
     pipe = LossPipeline(guard, get_state, set_state)
     gw = O.gauss_weights(*tcfg.gpa_stage2, epochs)
-    gpa = None
+    gpa = init_gpa
     gstep = 0
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         lr = S.warmup_multistep_lr(epoch, tcfg.lr_stage2)
         O.set_lr(optimizer, lr)
         for images, labels, valid, *rest in epoch_batches(epoch):
             if rest:
                 raise NotImplementedError(
-                    "camera ids feed SIE, not ported yet (ROADMAP.md item 23)")
+                    "camera ids feed SIE, not ported yet (ROADMAP.md queue 1 item 5)")
             batch = (_as_tensor(images, dev), _as_tensor(labels, dev),
                      _as_tensor(valid, dev).bool())
             pipe.before_step(gstep)
@@ -423,7 +470,8 @@ def run_stage2(
             log(f"[stage2] epoch {epoch + 1}/{epochs} loss {np.mean(losses):.4f} lr {lr:.2e}")
         if checkpoint_cb is not None:
             checkpoint_cb(epoch, O.combine(_detached(trainable), frozen),
-                          {"optimizer": optimizer.state_dict(), "gpa": gpa})
+                          {"optimizer": optimizer.state_dict(), "opt_paths": opt_paths,
+                           "gpa": gpa})
     if cfg.mode == "promptsrc" and gpa is not None:
         return gpa
     return O.combine(_detached(trainable), frozen)

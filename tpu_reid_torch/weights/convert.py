@@ -306,6 +306,40 @@ def from_jax_reid_params(params_np: dict, cfg, device: DeviceLike = None) -> dic
     return to_device(params_np, resolve_device(device))
 
 
+def from_jax_multitask_params(params_np: dict, cfg, device: DeviceLike = None) -> dict:
+    """The JAX package's multitask parameter pytree (train/multitask.py
+    layout: `clip`, `prompt1/2`, `head1/2`, and `text2` / `pos_embed2` where
+    the variant and the second geometry have them; leaves as numpy arrays)
+    -> the port's on `device`, checked against the MultitaskModelConfig
+    `cfg` as from_jax_reid_params checks a ReID tree."""
+    v, t = cfg.clip.vision, cfg.clip.text
+    clip = params_np["clip"]
+    _check_patch_embed(clip["visual"], cfg.clip)
+    _check_shapes(clip["visual"], {"positional_embedding": (1 + v.h_grid * v.w_grid, v.width)},
+                  "visual")
+    for i, pc in ((1, cfg.prompt1), (2, cfg.prompt2)):
+        pl = params_np[f"prompt{i}"]
+        _check_shapes(pl, {"cls_ctx": (pc.n_cls, pc.n_cls_ctx, t.width)}, f"prompt{i}")
+        if np.asarray(pl["eot_idx"]).dtype.kind not in "iu":
+            raise ValueError(f"prompt{i}['eot_idx'] must hold integers")
+        head = params_np[f"head{i}"]
+        for name, dim in (("bn", v.width), ("bn_proj", cfg.clip.embed_dim)):
+            _check_shapes(head[name], {k: (dim,) for k in ("scale", "bias", "mean", "var")},
+                          f"head{i}.{name}")
+        _check_shapes(head["cls"], {"w": (v.width, pc.n_cls)}, f"head{i}.cls")
+        _check_shapes(head["cls_proj"], {"w": (cfg.clip.embed_dim, pc.n_cls)},
+                      f"head{i}.cls_proj")
+    if cfg.dual_text != ("text2" in params_np):
+        raise ValueError(f"variant {cfg.variant!r} {'needs' if cfg.dual_text else 'has no'} "
+                         f"a 'text2' tower")
+    v2 = cfg.clip2.vision
+    if (v2.h_grid, v2.w_grid) != (v.h_grid, v.w_grid):
+        _check_shapes(params_np, {"pos_embed2": (1 + v2.h_grid * v2.w_grid, v.width)}, "params")
+    elif "pos_embed2" in params_np:
+        raise ValueError("both tasks share one grid: the tree must have no 'pos_embed2'")
+    return to_device(params_np, resolve_device(device))
+
+
 def init_vpt(gen: torch.Generator, cfg: CLIPConfig, clip_params: dict) -> dict:
     """IVLP prompt tokens, N(0, 0.02) from `gen`, for the keys a checkpoint
     lacks (those it has are kept): the vision tower's `vpt_shallow`
