@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--phases kernels,serve,...]
 
 With `--phases` only the named phases run (kernels, minsum, grad, zero_shot,
-rerank, serve, vehicle, train, cli, multitask); such a run is no pass: it prints
-{"ok": false, "partial": [...]} as its last line and exits with code 3.
+rerank, serve, vehicle, train, cli, multitask, resnet, variants); such a run
+is no pass: it prints {"ok": false, "partial": [...]} as its last line and
+exits with code 3.
 
 1. Prints the card and sets fp32 matmuls and convolutions to full fp32.
 2. Builds the hand-written kernels from tpu_reid_torch/csrc/ into
@@ -77,6 +78,22 @@ rerank, serve, vehicle, train, cli, multitask); such a run is no pass: it prints
    checkpoint files (save and restore seconds, bytes on disk); then the
    multitask CLI (hard_ivlp, Market1501 + VeRi, --rerank) and the same
    command with --resume.
+13. resnet: the RN50 zero-shot tower at full width (random weights from a
+   seed, 256x128: a 16x8 layer-4 map, 129 tokens in the attention pool) on
+   the zero-shot main path's sizes (emb/s, peak memory, a trace), the text
+   classifier's blocks against their plain version, the tower in fp32 on
+   the card against the CPU (TF32 off), then the zero-shot CLI with an RN50
+   checkpoint and --rerank. The convolutions are cuDNN's and the attention
+   pool plain PyTorch, as both are plain XLA in the JAX package.
+14. variants: MaPLe (213 tokens): three live stage-1 and three stage-2
+   steps at bs 64, its spliced blocks forward on the computed prompts
+   against their plain version, the gradient of a computed prompt plane
+   through the block Function against plain autograd; coop with JPM and SIE
+   (211 tokens, 6 cameras): three stage-2 steps, eval_embed (2048 wide) at
+   batch 512 in bf16 with the fast softmax, every block of a batch (the
+   full-sequence 12th and the JPM block) against its plain version; then
+   the prompt-learning CLI with --training_mode maple and with coop --jpm
+   --sie_camera --augmented_prompts, one epoch per stage, --rerank.
 
 It prints the kernels' JSON record on the line before the last (each
 kernel's launches on the main path of the slice that brought it: IVLP
@@ -853,15 +870,19 @@ def batches(images, pids, camids, bs):
 
 
 def make_zero_shot_extractor(params, cfg, dtype, dev):
-    """The main path's step: normalization folded into the patch embed,
-    flip-TTA, 256x128 input."""
+    """The main path's step at 256x128 with flip-TTA: for a ViT the
+    normalization folded into the patch embed, for a ResNet ImageNet
+    statistics and no fold (as the zero-shot CLI does)."""
     from tpu_reid_torch.data.transforms import DevicePreprocess
     from tpu_reid_torch.models.vit import fold_visual_input_norm
     from tpu_reid_torch.parallel.extract import make_extractor
     from tpu_reid_torch.pipelines import zero_shot as Z
 
-    pp = DevicePreprocess((256, 128), "vit", dtype=dtype)
-    fold = lambda p: dict(p, visual=fold_visual_input_norm(p["visual"], "vit"))  # noqa: E731
+    vit = cfg.vision is not None
+    pp = DevicePreprocess((256, 128), "vit" if vit else "rn", dtype=dtype)
+    fold = None
+    if vit:
+        fold = lambda p: dict(p, visual=fold_visual_input_norm(p["visual"], "vit"))  # noqa: E731
     return make_extractor(Z.make_zeroshot_embed(params, cfg), pp, flip_tta=True,
                           dtype=dtype, fold=fold, device=dev)
 
@@ -989,9 +1010,23 @@ def watchdog_cost(params, cfg, data, dev, rounds=2):
         + f"): cost {100 * cost:+.2f}%")
 
 
+def zero_shot_prompts(n_ids=16):
+    """(tokenizer, identity names, augmented templates) of the zero-shot
+    phases: a BPE table of a few merges, 7 sentence templates per identity."""
+    from tpu_reid_torch.models.tokenizer import ClipTokenizer, write_test_merges
+
+    merges_dir = os.path.join(REPO, "build", "smoke")
+    os.makedirs(merges_dir, exist_ok=True)
+    merges = os.path.join(merges_dir, "merges.txt")
+    write_test_merges(merges, [("p", "h"), ("ph", "o"), ("t", "o</w>"), ("pho", "to</w>"),
+                               ("p", "e"), ("r", "s"), ("o", "n</w>"), ("a", "r")])
+    ids = [str(i) for i in range(n_ids)]
+    templates = {i: [st.format(f"person no.{i}") for st in SENTENCE_TEMPLATES] for i in ids}
+    return ClipTokenizer(merges), ids, templates
+
+
 def main_path_phase(dev, counters):
     from tpu_reid_torch.models.layers import kernel_impl
-    from tpu_reid_torch.models.tokenizer import ClipTokenizer, write_test_merges
     from tpu_reid_torch.weights.convert import convert_clip, random_clip_state_dict
 
     t0 = time.perf_counter()
@@ -1004,15 +1039,8 @@ def main_path_phase(dev, counters):
     if cfg.vision.seq_len != 211 or cfg.vision.width != 768 or cfg.vision.layers != 12:
         raise PhaseFailed(f"unexpected geometry {cfg.vision}")
 
-    merges_dir = os.path.join(REPO, "build", "smoke")
-    os.makedirs(merges_dir, exist_ok=True)
-    merges = os.path.join(merges_dir, "merges.txt")
-    write_test_merges(merges, [("p", "h"), ("ph", "o"), ("t", "o</w>"), ("pho", "to</w>"),
-                               ("p", "e"), ("r", "s"), ("o", "n</w>"), ("a", "r")])
-    tokenizer = ClipTokenizer(merges)
-    n_ids = 16
-    ids = [str(i) for i in range(n_ids)]
-    templates = {i: [st.format(f"person no.{i}") for st in SENTENCE_TEMPLATES] for i in ids}
+    tokenizer, ids, templates = zero_shot_prompts()
+    n_ids = len(ids)
     data = make_images(n_ids, 128, 512, seed=1)
 
     # warm-up (library loads, allocator), outside the counted run
@@ -1612,6 +1640,32 @@ def ivlp_serving_phase(dev, counters, mcfg, params, k_batches=8, batch=512,
     return launches, emb_s
 
 
+def timed_steps(stage, step, counters, losses, n=3):
+    """n calls of step() (the first a warm-up), their losses appended to
+    `losses`: ms per step after the warm-up, peak memory, launches in the n
+    steps (each counter must have moved), then a traced step."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    losses.append(step())  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n - 1):
+        losses.append(step())
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / (n - 1)
+    launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"  {stage}: {ms:.1f} ms per step after a warm-up step, peak memory {peak:.2f} GiB, "
+        f"launches in {n} steps {launches}")
+    missing = [k for k, c in launches.items() if c == 0]
+    if missing:
+        raise PhaseFailed(f"{stage} never launched {missing}")
+    trace(step, f"one {stage} step")
+    return dict(ms=ms, peak_gib=peak, launches=launches)
+
+
 def training_phase(dev, counters, mcfg, params, bs=64):
     """Three live IVLP stage-1 steps and three stage-2 steps of the flagship
     at bs 64 (PK 16 x 4) in bf16 activations over fp32 master weights: ms
@@ -1636,27 +1690,8 @@ def training_phase(dev, counters, mcfg, params, bs=64):
     losses = []
     report = {}
 
-    def run(stage, step, n=3):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for c in counters.values():
-            c.launches = 0
-        losses.append(step())  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n - 1):
-            losses.append(step())
-        torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0) / (n - 1)
-        launches = {name: c.launches for name, c in counters.items()}
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        say(f"  {stage}: {ms:.1f} ms per step after a warm-up step, peak memory {peak:.2f} GiB, "
-            f"launches in {n} steps {launches}")
-        missing = [k for k, c in launches.items() if c == 0]
-        if missing:
-            raise PhaseFailed(f"{stage} never launched {missing}")
-        trace(step, f"one {stage} step")
-        report[stage] = dict(ms=ms, peak_gib=peak, launches=launches)
+    def run(stage, step):
+        report[stage] = timed_steps(stage, step, counters, losses)
 
     say(f"training the flagship ({mcfg.n_cls} classes) at bs {bs} (PK {bs // 4}x4), bf16 "
         f"activations, fp32 master weights")
@@ -2242,6 +2277,466 @@ def multitask_cli_phase(counters):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the RN50 zero-shot tower (convs and the attention pool are plain
+# PyTorch, as they are plain XLA in the JAX package; the text classifier runs
+# the block kernels, --rerank the minsum kernel)
+# ---------------------------------------------------------------------------
+
+# the kernels of a text tower: every block kernel, no CLS tail
+BLOCK_KERNELS = ("ln_gemm", "mha_core", "gemm_bias_residual", "fused_mha", "fused_mlp",
+                 "fused_block")
+
+
+def launched(counters):
+    return {name: c.launches for name, c in counters.items()}
+
+
+def require(what, launches, names):
+    missing = [n for n in names if launches.get(n, 0) == 0]
+    if missing:
+        raise PhaseFailed(f"{what} never launched {missing}")
+
+
+RN_MIX = 0.1
+
+
+def resnet_phase(dev, counters):
+    """RN50 zero-shot at full width from random_clip_state_dict(vision="rn50")
+    at 256x128 (a 16x8 layer-4 map, 129 tokens in the attention pool): the
+    main path at the zero-shot phase's sizes (16 identities, 128 query and 512
+    gallery images, bf16, flip-TTA, batches of 128) with emb/s, peak memory and
+    a traced step; the text classifier's blocks held against their plain
+    version; the tower in fp32 on the card against the same function on the
+    CPU (4 images, TF32 off); then the zero-shot CLI with an RN50 checkpoint
+    and --rerank. Returns ({path: launches}, emb/s)."""
+    from tpu_reid_torch.data.transforms import DevicePreprocess
+    from tpu_reid_torch.device import to_device
+    from tpu_reid_torch.models import resnet as R
+    from tpu_reid_torch.ops import fused_attention as FA
+    from tpu_reid_torch.pipelines import zero_shot as Z
+    from tpu_reid_torch.weights.convert import convert_clip, random_clip_state_dict
+
+    t0 = time.perf_counter()
+    sd = random_clip_state_dict(0, vision="rn50")
+    cfg, params = convert_clip(sd, image_hw=(256, 128), device=dev)
+    torch.cuda.synchronize()
+    r = cfg.resnet
+    say(f"RN50: random state dict -> convert_clip (256x128): layers {r.layers}, width "
+        f"{r.width}, a {r.h_grid}x{r.w_grid} layer-4 map (attention pool over "
+        f"{1 + r.h_grid * r.w_grid} tokens, {r.heads} heads), embed_dim {cfg.embed_dim}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if (r.h_grid, r.w_grid) != (16, 8):
+        raise PhaseFailed(f"unexpected RN50 geometry {cfg}")
+    tokenizer, ids, templates = zero_shot_prompts()
+    # less of each identity's base image than the ViT phase's 0.35: the RN's
+    # pooled features tell the blocky bases apart at 0.35 (mAP 0.998)
+    data = make_images(len(ids), 128, 512, seed=1, mix=RN_MIX)
+    zero_shot_run(params, cfg, tokenizer, ids[:2], {i: templates[i] for i in ids[:2]},
+                  tuple(a[:8] for a in data), torch.bfloat16, 8, dev)  # warm-up
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    res = zero_shot_run(params, cfg, tokenizer, ids, templates, data, torch.bfloat16, 128, dev)
+    launches = launched(counters)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_img = len(data[0]) + len(data[3])
+    t = res["times"]
+    emb_s = n_img / t["extract_s"]
+    say(f"RN50 zero-shot main path (bf16, flip-TTA, batches of 128): {len(data[0])} query + "
+        f"{len(data[3])} gallery images, {len(ids)} identities")
+    say(f"  classifier {t['classifier_s']:.3f} s, extraction {t['extract_s']:.3f} s "
+        f"({emb_s:.1f} emb/s), scoring {t['score_s']:.3f} s; peak memory {peak:.2f} GiB")
+    say(f"  Rank-1 {res['cmc'][0]:.4f}, Rank-5 {res['cmc'][4]:.4f}, mAP {res['mAP']:.4f}, "
+        f"mINP {res['mINP']:.4f}; launches in the run {launches}")
+    width = r.width * 32 + cfg.embed_dim
+    for name, f, n in (("query", res["qf"], len(data[0])), ("gallery", res["gf"], len(data[3]))):
+        if f.shape != (n, width) or not torch.isfinite(f).all():
+            raise PhaseFailed(f"RN50 {name} embeddings {tuple(f.shape)} not finite/({n}, {width})")
+    require("the RN50 zero-shot path", launches, BLOCK_KERNELS)
+    if not 0.02 < res["mAP"] < 0.98:
+        raise PhaseFailed(f"RN50 mAP {res['mAP']:.4f} too close to 0 or 1 to hold anything")
+    trace_step(params, cfg, data[3][:128], dev)
+
+    # the classifier's text blocks (fp32, causal S=77) against their plain version
+    errs = []
+    with held_against_plain(FA, "fused_block", FA.fused_block_reference, errs):
+        Z.zeroshot_classifier(params, cfg, tokenizer, ids, templates, augmented=True, device=dev)
+    worst = max((rel for _, rel in errs), default=float("inf"))
+    tol = TOL[torch.float32]
+    say(f"  the classifier's {len(errs)} text blocks (fp32, causal, 77 tokens), each against "
+        f"its plain version on the run's own inputs: worst rel {worst:.3e} (tol {tol:.0e}) "
+        f"{'ok' if worst <= tol else 'FAIL'}")
+    if worst > tol:
+        raise PhaseFailed("the RN50 classifier's blocks disagree with their plain version")
+
+    # the tower in fp32 on the card against the CPU (TF32 is off: main())
+    x = DevicePreprocess((256, 128), "rn").eval_batch(torch.from_numpy(data[3][:4]))
+    with torch.no_grad():
+        got = R.apply_resnet(params["visual"], r, x.to(dev))
+        want = R.apply_resnet(to_device(params["visual"], torch.device("cpu")), r, x)
+    rels = [rel_err(g.cpu(), w)[1] for g, w in zip(got, want)]
+    ok = max(rels) <= 2e-4 and not torch.backends.cudnn.allow_tf32
+    say(f"  RN50 tower fp32 on the card vs the CPU (4 images; x3, x4, xproj): rel "
+        f"{', '.join(f'{v:.2e}' for v in rels)} (tol 2e-4 of max|CPU|: cuDNN's and the CPU's "
+        f"convolutions sum in other orders; TF32 {torch.backends.cudnn.allow_tf32}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed("the RN50 tower on the card disagrees with the CPU")
+    del params, res
+    torch.cuda.empty_cache()
+    return {"resnet_zero_shot": launches, "resnet_cli": resnet_cli(sd, counters)}, emb_s
+
+
+def resnet_cli(sd, counters):
+    """python -m tpu_reid_torch.cli.zero_shot with the RN50 checkpoint on the
+    synthetic Market1501 directory, --rerank (minsum)."""
+    import tempfile
+
+    from tpu_reid_torch.cli import zero_shot as cli
+    from tpu_reid_torch.models.tokenizer import write_test_merges
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        nq, ng = write_market_dir(tmp)
+        ckpt = os.path.join(tmp, "rn50_random.pth")
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, ckpt)
+        merges = os.path.join(tmp, "merges.txt")
+        write_test_merges(merges, [("p", "e"), ("r", "s"), ("o", "n</w>"), ("n", "o")])
+        argv = ["--root", tmp, "--model_path", ckpt, "--bpe_path", merges, "--rerank",
+                "--height", "256", "--ratio", "0.5", "--bs", "128", "--test_dataset",
+                "market1501"]
+        say(f"RN50 CLI: {nq} query + {ng} gallery JPEGs and a random RN50 checkpoint written "
+            f"in {time.perf_counter() - t0:.1f} s; python -m tpu_reid_torch.cli.zero_shot "
+            + " ".join(argv[6:]))
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        cmc, mAP = cli.main(argv)
+        torch.cuda.synchronize()
+    launches = launched(counters)
+    say(f"  RN50 CLI run {time.perf_counter() - t0:.1f} s: Rank-1 {cmc[0]:.4f}, mAP {mAP:.4f}; "
+        f"launches {launches}")
+    require("the RN50 zero-shot CLI", launches, BLOCK_KERNELS + ("minsum",))
+    if len(cmc) != min(50, ng) or not np.isfinite(cmc).all() or not 0.0 < mAP <= 1.0:
+        raise PhaseFailed(f"RN50 CLI result out of range: cmc {len(cmc)} entries, mAP {mAP}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the prompt-learning variants at full ViT-B/16 width: MaPLe, and
+# coop with the JPM branch and SIE
+# ---------------------------------------------------------------------------
+
+N_CAMERAS = 6  # Market-1501's
+
+
+def variant_model(dev, mode, use_jpm=False, sie_ids=0, n_cls=751):
+    """ViT-B/16 at 256x128, stride 12, random weights from seed 0, in `mode`
+    (maple: prompt depth 12 with 2 context tokens, 213 tokens; coop: 211),
+    with the JPM branch and an SIE table of `sie_ids` rows."""
+    from tpu_reid_torch.configs import PromptDesign
+    from tpu_reid_torch.models import prompts as P
+    from tpu_reid_torch.models import reid_clip as M
+    from tpu_reid_torch.weights.convert import convert_clip, init_vpt, random_clip_state_dict
+
+    design = PromptDesign()
+    if mode == "maple":
+        design = PromptDesign(trainer="MaPLe", vision_depth=12, vision_ctx=2, language_depth=12,
+                              language_ctx=2, maple_length=2)
+    cfg, clip = convert_clip(random_clip_state_dict(0), image_hw=(256, 128), stride=12,
+                             design=design, device=dev)
+    if design.has_vision_prompts:
+        clip = init_vpt(torch.Generator().manual_seed(0), cfg, clip)
+    pcfg = (P.PromptLearnerConfig.ivlp(n_cls) if mode == "maple"
+            else P.PromptLearnerConfig.coop(n_cls))
+    mcfg = M.ReidModelConfig(mode=mode, clip=cfg, prompt=pcfg, use_jpm=use_jpm, sie_ids=sie_ids)
+    params = M.init_reid_model(torch.Generator().manual_seed(0), mcfg, clip,
+                               *random_template(cfg, clip, dev))
+    return mcfg, params
+
+
+def variant_batch(dev, mcfg, bs, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.randint(0, 255, (bs, 256, 128, 3), dtype=torch.uint8, device=dev,
+                           generator=gen)
+    labels = torch.as_tensor(np.repeat(np.random.RandomState(seed).choice(
+        mcfg.n_cls, bs // 4, replace=False), 4), device=dev)
+    cams = torch.randint(0, N_CAMERAS, (bs,), device=dev, generator=gen)
+    return images, labels, cams, gen
+
+
+def stage2_steps(dev, counters, mcfg, params, name, bs, losses):
+    """Three stage-2 steps at bs `bs` in bf16 activations (SIE camera ids
+    when the model has a table): timed_steps' report. The JPM path runs no
+    CLS tail (plain LayerNorm and product, as in JAX), so its steps are held
+    to the block kernels only."""
+    from tpu_reid_torch.data.transforms import DevicePreprocess
+    from tpu_reid_torch.models import reid_clip as M
+    from tpu_reid_torch.train import optim as O
+    from tpu_reid_torch.train import trainer as TR
+
+    tcfg = TR.TrainConfig()
+    images, labels, cams, gen = variant_batch(dev, mcfg, bs, seed=3)
+    pp = DevicePreprocess((256, 128), "vit", dtype=torch.bfloat16)
+    x = pp.train_batch(images, pp.train_draws(gen, bs))
+    valid = torch.ones(bs, dtype=torch.bool, device=dev)
+    cv = cams if mcfg.sie_ids else None
+    with torch.no_grad():
+        text = M.all_class_text_features(params, mcfg)
+    tr, fr = O.partition(params, lambda p: M.stage2_trainable(p, mcfg))
+    tr = TR._trainable_copy(tr)
+    step = TR.make_stage2_step(mcfg, tcfg, O.make_stage_optimizer(
+        tr, tcfg.lr_stage2, tcfg.weight_decay, bias_lr_mult=2.0))
+    state = {"frozen": fr}
+
+    def s2():
+        state["frozen"], loss = step(tr, state["frozen"], x, labels, text, valid, cv)
+        return loss
+
+    held = {k: c for k, c in counters.items() if not (mcfg.use_jpm and k == "ln_proj_tail")}
+    report = timed_steps(f"{name} stage-2", s2, held, losses)
+    if mcfg.use_jpm:
+        moved = float((state["frozen"]["jpm_head"]["bn"]["mean"]
+                       - params["jpm_head"]["bn"]["mean"]).abs().max())
+        say(f"  JPM BNNeck running mean moved by up to {moved:.3e} over the steps")
+        if not moved > 0:
+            raise PhaseFailed("the JPM BNNeck's running statistics were not threaded")
+    return report
+
+
+def maple_plane_gradients(dev, maple):
+    """One spliced block at full width (B=16, S=213, fp32) whose prompt plane
+    is computed from MaPLe's couplings (layer 0's rows: shared_ctx through
+    proj[0]; layer 1's: text_deep[0] through proj[1]): the block Function's
+    gradients to those leaves against plain autograd through the plain
+    block, under one fixed grad_output."""
+    from tpu_reid_torch.device import clone
+    from tpu_reid_torch.models.layers import _apply_splice_plane, _block_xla_impl
+    from tpu_reid_torch.models.maple_prompts import maple_prompt_stacks
+    from tpu_reid_torch.ops import fused_attention as FA
+    from tpu_reid_torch.train.optim import paths
+
+    rng = np.random.default_rng(7)
+    d = maple["proj"]["w"].shape[-1]
+    b, s, hid, heads = 16, 213, 4 * d, d // 64
+    f32 = torch.float32
+    w = list(block_params(rng, d, hid, f32, dev).values())
+    x = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32)).to(dev)
+    pm = torch.zeros(s, 1, device=dev)
+    pm[s - 2:] = 1.0
+    worst, names = 0.0, []
+    for layer, reached in ((0, ("shared_ctx", "proj/w", "proj/b")),
+                           (1, ("text_deep", "proj/w", "proj/b"))):
+        grads = {}
+        for impl in ("kernel", "plain"):
+            m = clone(maple)
+            leaves = {"/".join(p): t.requires_grad_() for p, t in paths(m)}
+            _, vdeep, _ = maple_prompt_stacks(m, 2)
+            plane = vdeep.new_zeros(s, d)
+            plane[s - 2:] = vdeep[layer]
+            if impl == "kernel":
+                out = FA.fused_block_autograd(x, *w, heads, None, prompt_plane=plane,
+                                              prompt_mask=pm)
+            else:
+                out = _block_xla_impl(FA._block_params(w), _apply_splice_plane(x, plane, pm),
+                                      heads, None)
+            grads[impl] = torch.autograd.grad(out, [leaves[k] for k in reached], g)
+        for k, gk, gp in zip(reached, grads["kernel"], grads["plain"]):
+            _, rel = rel_err(gk, gp)
+            worst = max(worst, rel)
+            names.append(f"{k}@{layer}")
+    ok = worst <= 1e-5
+    say(f"  MaPLe's computed prompt plane through the block Function (B={b}, S={s}, fp32): "
+        f"gradients of {', '.join(names)} against plain autograd, worst rel {worst:.3e} (tol "
+        f"1e-5: both backwards are the same recompute) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed("the gradient of MaPLe's prompt plane disagrees with plain autograd")
+
+
+def variants_phase(dev, counters, bs=64, batch=512):
+    """MaPLe (213 tokens, 751 classes): 3 live stage-1 and 3 stage-2 steps at
+    bs 64 in bf16 activations, the spliced blocks forward on MaPLe's computed
+    prompts against their plain version, the plane's gradient against plain
+    autograd. coop with JPM and SIE (211 tokens, 6 cameras): 3 stage-2 steps,
+    then eval_embed (2048 wide) at batch 512, bf16, fast softmax, 4 batches,
+    with every block (the full-sequence 12th and the JPM block included)
+    held against its plain version. Then the prompt-learning CLI with both.
+    Returns ({path: launches}, {name: number})."""
+    from tpu_reid_torch.data.transforms import DevicePreprocess
+    from tpu_reid_torch.models import reid_clip as M
+    from tpu_reid_torch.models.layers import kernel_impl
+    from tpu_reid_torch.ops import fused_attention as FA
+    from tpu_reid_torch.ops.attention import set_fast_softmax
+    from tpu_reid_torch.parallel.extract import make_extractor
+    from tpu_reid_torch.train import optim as O
+    from tpu_reid_torch.train import trainer as TR
+
+    bf = torch.bfloat16
+    by_path, numbers, losses = {}, {}, []
+    steps_counters = {k: counters[k] for k in BLOCK_KERNELS + ("ln_proj_tail",)}
+    t0 = time.perf_counter()
+    mcfg, params = variant_model(dev, "maple")
+    if mcfg.clip.vision.seq_len != 213:
+        raise PhaseFailed(f"unexpected MaPLe geometry {mcfg.clip.vision}")
+    say(f"variants: MaPLe ViT-B/16 (213 tokens, prompt depth 12, 2 context tokens, "
+        f"{mcfg.n_cls} classes) built in {time.perf_counter() - t0:.1f} s; bs {bs}, bf16 "
+        f"activations, fp32 master weights")
+    tcfg = TR.TrainConfig()
+    images, labels, _, _ = variant_batch(dev, mcfg, bs, seed=1)
+    pp = DevicePreprocess((256, 128), "vit", dtype=bf)
+    valid = torch.ones(bs, dtype=torch.bool, device=dev)
+    tr1, fr1 = O.partition(params, lambda p: M.stage1_trainable(p, mcfg))
+    tr1 = TR._trainable_copy(tr1)
+    step1 = TR.make_stage1_step(mcfg, O.make_stage_optimizer(tr1, tcfg.lr_stage1,
+                                                             tcfg.weight_decay), cached=False)
+    batch1 = {"images": pp.eval_batch(images), "labels": labels, "valid": valid}
+    r1 = timed_steps("MaPLe stage-1 live", lambda: step1(tr1, fr1, batch1), steps_counters,
+                     losses)
+    moved = float((tr1["maple"]["proj"]["w"].detach() - params["maple"]["proj"]["w"]).abs().max())
+    say(f"  the couplings moved by up to {moved:.3e} in 3 steps")
+    if not moved > 0:
+        raise PhaseFailed("MaPLe's stage 1 did not train the couplings")
+    del tr1, step1
+    r2 = stage2_steps(dev, steps_counters, mcfg, params, "MaPLe", bs, losses)
+    by_path["maple_stage1"], by_path["maple_stage2"] = r1["launches"], r2["launches"]
+    numbers.update(maple_stage1_ms=r1["ms"], maple_stage2_ms=r2["ms"])
+
+    # the spliced blocks forward on MaPLe's computed prompts (bf16)
+    errs = []
+    pbf = _cast(params, bf)
+    with torch.no_grad(), held_against_plain(FA, "fused_block", FA.fused_block_reference, errs):
+        M.encode_image_features(pbf, mcfg, pp.eval_batch(images))
+        M.encode_text_features(pbf, mcfg, labels)
+    worst = max((rel for _, rel in errs), default=float("inf"))
+    say(f"  MaPLe's spliced blocks (vision 213 tokens, text 77, bf16): {len(errs)} block calls "
+        f"on computed prompts, each against its plain version, worst rel {worst:.3e} (tol "
+        f"{TOL[bf]:.0e}) {'ok' if worst <= TOL[bf] else 'FAIL'}")
+    if worst > TOL[bf]:
+        raise PhaseFailed("MaPLe's spliced blocks disagree with their plain version")
+    maple_plane_gradients(dev, params["maple"])
+    del params, pbf
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mcfg, params = variant_model(dev, "coop", use_jpm=True, sie_ids=N_CAMERAS)
+    if mcfg.clip.vision.seq_len != 211:
+        raise PhaseFailed(f"unexpected coop geometry {mcfg.clip.vision}")
+    say(f"variants: coop ViT-B/16 with JPM and SIE ({N_CAMERAS} cameras; 211 tokens) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    r3 = stage2_steps(dev, steps_counters, mcfg, params, "JPM + SIE", bs, losses)
+    by_path["jpm_sie_stage2"] = r3["launches"]
+    numbers["jpm_sie_stage2_ms"] = r3["ms"]
+    vals = [float(v) for v in losses]
+    say(f"  losses: {', '.join(f'{v:.4f}' for v in vals)}")
+    if not np.isfinite(vals).all():
+        raise PhaseFailed(f"non-finite variant losses {vals}")
+
+    # serving: eval_embed with the JPM part, batch 512
+    k_batches = 4
+    pbf = _cast(params, bf)
+    ext = make_extractor(lambda p, im, cv: M.eval_embed(p, mcfg, im, cv),
+                         DevicePreprocess((256, 128), "vit", dtype=bf), flip_tta=False,
+                         dtype=bf, with_cv_ids=True, fold=lambda p: M.fold_input_norm(p, mcfg),
+                         device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    xs = torch.randint(0, 255, (k_batches, batch, 256, 128, 3), dtype=torch.uint8, device=dev,
+                       generator=gen)
+    cams = torch.randint(0, N_CAMERAS + 2, (k_batches, batch), device=dev, generator=gen)
+    set_fast_softmax(True)
+    try:
+        ext(pbf, xs[0], cams[0])  # warm-up
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        outs = [ext(pbf, xs[k], cams[k]) for k in range(k_batches)]
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = launched(counters)
+        emb_s = k_batches * batch / sec
+        say(f"JPM + SIE serving (eval_embed, 256x128, 211 tokens + the JPM block, batch {batch}, "
+            f"bf16, fast softmax, folded input norm, no flip-TTA): {k_batches} batches in "
+            f"{sec:.3f} s, {emb_s:.1f} emb/s, {1e3 * sec / k_batches:.2f} ms per batch; "
+            f"launches {launches}")
+        trace(lambda: ext(pbf, xs[0], cams[0]),
+              f"one JPM + SIE eval_embed batch ({batch} images, bf16)")
+        errs = []
+        with held_against_plain(FA, "fused_block", FA.fused_block_reference, errs):
+            ek = ext(pbf, xs[0], cams[0])
+        with kernel_impl("plain"):
+            ep = ext(pbf, xs[0], cams[0])
+    finally:
+        set_fast_softmax(False)
+    worst = max((rel for _, rel in errs), default=float("inf"))
+    say(f"  {len(errs)} block calls of one batch (11 blocks, the full-sequence 12th, the JPM "
+        f"block), each against its plain version: worst rel {worst:.3e} (tol {TOL[bf]:.0e}) "
+        f"{'ok' if worst <= TOL[bf] else 'FAIL'}")
+    if len(errs) != mcfg.clip.vision.layers + 1 or worst > TOL[bf]:
+        raise PhaseFailed("the JPM serving blocks disagree with their plain version")
+    cos = float(F.cosine_similarity(ek.float(), ep.float(), dim=-1).min())
+    say(f"  bf16 JPM + SIE embeddings, kernels vs plain path: least cosine {cos:.6f} (tol 0.99, "
+        f"as for IVLP serving) {'ok' if cos >= 0.99 else 'FAIL'}")
+    if cos < 0.99:
+        raise PhaseFailed("the bf16 JPM kernel path disagrees with the plain path")
+    width = 2 * mcfg.clip.vision.width + mcfg.clip.embed_dim  # 2048 for ViT-B/16
+    bad = [tuple(o.shape) for o in outs if o.shape != (batch, width)
+           or not torch.isfinite(o).all()]
+    if bad:
+        raise PhaseFailed(f"JPM embeddings not finite / not {width} wide: {bad[:3]}")
+    require("JPM + SIE serving", launches, BLOCK_KERNELS)
+    by_path["jpm_sie_serve"] = launches
+    numbers["jpm_sie_emb_s"] = emb_s
+    del params, pbf, xs, outs, ext
+    torch.cuda.empty_cache()
+    by_path.update(variant_cli_phase(counters))
+    return by_path, numbers
+
+
+def variant_cli_phase(counters):
+    """The prompt-learning CLI on the synthetic Market1501 directory at full
+    width, one epoch per stage, bf16, --rerank: --training_mode maple, and
+    --training_mode coop --jpm --sie_camera --augmented_prompts."""
+    import tempfile
+
+    from tpu_reid_torch.cli import prompt_learning as pl_cli
+    from tpu_reid_torch.models.tokenizer import write_test_merges
+    from tpu_reid_torch.weights.convert import random_clip_state_dict
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        nq, ng = write_market_dir(tmp)
+        ckpt = os.path.join(tmp, "vit_b16_random.pth")
+        torch.save({k: torch.from_numpy(v) for k, v in random_clip_state_dict(0).items()}, ckpt)
+        merges = os.path.join(tmp, "merges.txt")
+        write_test_merges(merges, [("p", "e"), ("r", "s"), ("o", "n</w>"), ("n", "o")])
+        common = ["--root", tmp, "--model_path", ckpt, "--bpe_path", merges,
+                  "--epochs_stage1", "1", "--epochs_stage2", "1", "--rerank", "--dtype", "bf16",
+                  "--height", "256", "--ratio", "0.5", "--stride", "12", "--bs", "64",
+                  "--train_dataset", "market1501", "--save_path", os.path.join(tmp, "ckpt")]
+        for name, extra, needs in (
+                ("maple_cli", ["--training_mode", "maple"], ("ln_proj_tail",)),
+                ("jpm_sie_cli", ["--training_mode", "coop", "--jpm", "--sie_camera",
+                                 "--augmented_prompts"], ())):
+            say("prompt-learning CLI: python -m tpu_reid_torch.cli.prompt_learning "
+                + " ".join(common[6:] + extra) + f" (256 training, {nq} query, {ng} gallery)")
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            cmc, mAP = pl_cli.main(common + extra)
+            torch.cuda.synchronize()
+            launches = runs[name] = launched(counters)
+            say(f"  {name} run {time.perf_counter() - t0:.1f} s: Rank-1 {cmc[0]:.4f}, mAP "
+                f"{mAP:.4f}; launches {launches}")
+            require(name, launches, BLOCK_KERNELS + ("minsum",) + needs)
+            if not np.isfinite(cmc).all() or not 0.0 < mAP <= 1.0:
+                raise PhaseFailed(f"{name} result out of range: mAP {mAP}")
+    return runs
+
+
 # instantiations of the wgmma kernels that the sources launch: the GEMM as
 # (LN, 128 or 64 rows, epilogue) = 3 without LN + 4 with; the two attention
 # kernels; the CLS tail
@@ -2383,10 +2878,25 @@ def main() -> int:
         by_path["multitask_cli"] = multitask_cli_phase(
             dict(vehicle_counters, minsum=MS.minsum_kernel))
 
+    def run_resnet():
+        state.clear()
+        torch.cuda.empty_cache()
+        runs, emb_s = resnet_phase(dev, counters)
+        by_path.update(runs)
+        say(f"emb/s (bf16 RN50 zero-shot main path, flip-TTA): {emb_s:.1f}")
+
+    def run_variants():
+        state.clear()
+        torch.cuda.empty_cache()
+        runs, numbers = variants_phase(dev, counters)
+        by_path.update(runs)
+        say("variants: " + ", ".join(f"{k} {v:.1f}" for k, v in numbers.items()))
+
     phases = (("kernels", run_kernels), ("minsum", run_minsum),
               ("grad", lambda: gradient_phase(dev)), ("zero_shot", run_zero_shot),
               ("rerank", run_rerank), ("serve", run_serve), ("vehicle", run_vehicle),
-              ("train", run_train), ("cli", run_cli), ("multitask", run_multitask))
+              ("train", run_train), ("cli", run_cli), ("multitask", run_multitask),
+              ("resnet", run_resnet), ("variants", run_variants))
     # `--phases kernels,serve` runs only those phases (for work on one of
     # them); such a run is no pass: it ends with {"ok": false, ...} and code 3
     only = None

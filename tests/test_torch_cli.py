@@ -131,17 +131,6 @@ def test_cli_refuses_what_is_not_ported(assets, extra, match):
         TCLI.main(_argv(assets, *extra, "--device", "cpu"))
 
 
-def test_cli_refuses_a_resnet_checkpoint(assets, tmp_path):
-    sd = {k: v for k, v in assets["sd"].items() if not k.startswith("visual.")}
-    sd["visual.attnpool.c_proj.weight"] = np.zeros((32, 64), np.float32)
-    ckpt = str(tmp_path / "rn.pth")
-    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, ckpt)
-    argv = _argv(assets, "--device", "cpu")
-    argv[argv.index("--model_path") + 1] = ckpt
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        TCLI.main(argv)
-
-
 def test_overlay_and_prefix_helpers_match_jax(assets):
     from tpu_reid.weights import convert as JW
 

@@ -83,8 +83,13 @@ def test_infer_config_vit_b16_geometry():
     assert inferred.vision.patch_size == 16 and inferred.text.context_length == 8
     jcfg = JW.infer_config(sd, image_hw=(256, 128), stride=12)
     assert inferred.vision.seq_len == jcfg.vision.seq_len
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        TW.infer_config({"visual.conv1.weight": np.zeros((1,))})
+    # without visual.proj a state dict is a ModifiedResNet's, read as JAX reads it
+    rn = TW.random_clip_state_dict(0, vision="rn50", rn_layers=(1, 1, 1, 1), rn_width=16,
+                                   grid=2, text_width=64, text_layers=1, vocab=50, context=8)
+    got, want = TW.infer_config(rn, image_hw=(256, 128)), JW.infer_config(rn, image_hw=(256, 128))
+    assert got.vision is None and (got.resnet.h_grid, got.resnet.w_grid) == (16, 8)
+    assert (got.resnet.layers, got.resnet.width, got.resnet.output_dim, got.embed_dim) == (
+        want.resnet.layers, want.resnet.width, want.resnet.output_dim, want.embed_dim)
 
 
 def test_random_state_dict_is_seeded_and_openai_shaped():

@@ -304,8 +304,8 @@ def test_prompt_learning_cli_on_veri_at_256x256_matches_jax(veri, monkeypatch, c
 
     t_build = TPCLI.build_model
 
-    def carried(args, n_cls, car_types=None, device=None):
-        mcfg, _, hw = t_build(args, n_cls, car_types, device)
+    def carried(args, n_cls, car_types=None, device=None, n_sie_ids=0):
+        mcfg, _, hw = t_build(args, n_cls, car_types, device, n_sie_ids)
         assert mcfg.clip.vision.seq_len == 444 and hw == (256, 256)
         jp = jax.tree.map(np.asarray, captured["jax"][1])
         return mcfg, TW.from_jax_reid_params(jp, mcfg, device=device), hw

@@ -77,8 +77,8 @@ def test_cli_matches_jax_from_the_same_initial_parameters(assets, monkeypatch, c
 
     t_build = TCLI.build_model
 
-    def carried(args, n_cls, car_types=None, device=None):
-        mcfg, _, hw = t_build(args, n_cls, car_types, device)
+    def carried(args, n_cls, car_types=None, device=None, n_sie_ids=0):
+        mcfg, _, hw = t_build(args, n_cls, car_types, device, n_sie_ids)
         jp = jax.tree.map(np.asarray, captured["jax"][1])
         return mcfg, TW.from_jax_reid_params(jp, mcfg, device=device), hw
 

@@ -65,11 +65,6 @@ def test_cli_defaults_to_the_card(assets, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (("--training_mode", "maple"), "queue 1 item 5"),
-    (("--jpm",), "queue 1 item 5"),
-    (("--sie_camera",), "queue 1 item 5"),
-    (("--augmented_prompts",), "queue 1 item 5"),
-    (("--captions_file", "captions.txt"), "queue 1 item 5"),
     (("--cache_device",), "queue 1 item 6"),
     (("--devices", "2"), "queue 1 item 7"),
     (("--multihost", "localhost:1234"), "queue 1 item 7"),

@@ -242,12 +242,3 @@ def test_converter_checks_and_vpt_init():
     assert kept["visual"]["vpt_deep"] is tp["clip"]["visual"]["vpt_deep"]
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(mode="maple"), "queue 1 item 5"),
-    (dict(mode="coop", use_jpm=True), "queue 1 item 5"),
-    (dict(mode="coop", sie_ids=3), "queue 1 item 5"),
-])
-def test_unported_model_options_name_their_item(kw, match):
-    _, _, tcfg, _ = tiny_models("coop")
-    with pytest.raises(NotImplementedError, match=match):
-        TM.ReidModelConfig(clip=tcfg.clip, prompt=tcfg.prompt, **kw)

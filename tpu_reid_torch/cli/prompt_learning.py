@@ -1,5 +1,5 @@
 """Two-stage prompt-learning CLI of the PyTorch/CUDA port (CoOp / IVLP /
-PromptSRC / CLIP-Adapter): stage-1 prompt learning, stage-2 vision
+PromptSRC / CLIP-Adapter / MaPLe): stage-1 prompt learning, stage-2 vision
 fine-tuning, then flip-TTA embedding extraction and CMC/mAP/mINP.
 
 The flags of tpu_reid/cli/prompt_learning.py, plus --device (default cuda;
@@ -18,10 +18,15 @@ included; --keep_best keeps the best-mAP parameters among the evaluated
 ones (--eval_every, and the final test) under .../best. The port cannot
 read the JAX package's orbax checkpoints.
 
+Variants: --jpm adds the jigsaw-patch branch (coop and adapter only: no
+vision prompt tokens); --sie_camera / --sie_view learn a camera (x view)
+embedding added to the CLS token, in training and at inference, scaled by
+--sie_coe; --augmented_prompts encodes 4 article-variant templates per class
+and averages them; --captions_file takes per-identity caption prompts
+("label: description" lines).
+
 Not ported yet, and refused with their ROADMAP.md queue-1 item:
---training_mode maple, --jpm, --sie_camera/--sie_view, --augmented_prompts
-and --captions_file (item 5), --cache_device (item 6), --devices > 1 and
---multihost (item 7).
+--cache_device (item 6), --devices > 1 and --multihost (item 7).
 """
 
 from __future__ import annotations
@@ -97,12 +102,6 @@ def params_parser(argv=None):
 def refuse_unported(args) -> None:
     """Raise for the flags whose code is not ported yet, naming its item."""
     refused = [
-        (args.training_mode == "maple", "--training_mode maple needs "
-         "models/maple_prompts.py (ROADMAP.md queue 1 item 5)"),
-        (args.jpm or args.sie_camera or args.sie_view, "--jpm and --sie_camera/--sie_view "
-         "need the JPM branch and SIE (ROADMAP.md queue 1 item 5)"),
-        (args.augmented_prompts or args.captions_file, "--augmented_prompts and "
-         "--captions_file are not wired into the port's CLI (ROADMAP.md queue 1 item 5)"),
         (args.cache_device, "--cache_device needs data/device_cache.py (ROADMAP.md queue 1 "
          "item 6)"),
         (args.devices > 1 or args.multihost, "--devices > 1 and --multihost need the "
@@ -113,9 +112,10 @@ def refuse_unported(args) -> None:
             raise NotImplementedError(f"not ported yet: {msg}")
 
 
-def build_model(args, n_cls: int, car_types=None, device=None):
+def build_model(args, n_cls: int, car_types=None, device=None, n_sie_ids: int = 0):
     """Load + convert CLIP and assemble the ReID model for the chosen mode:
-    (ReidModelConfig, params on `device`, (h, w))."""
+    (ReidModelConfig, params on `device`, (h, w)). n_sie_ids > 0 (from
+    --sie_camera / --sie_view) sizes the SIE embedding table."""
     from tpu_reid_torch.configs import PromptDesign
     from tpu_reid_torch.device import clone
     from tpu_reid_torch.models import prompts as P
@@ -130,12 +130,21 @@ def build_model(args, n_cls: int, car_types=None, device=None):
     if args.training_mode in ("ivlp", "promptsrc"):
         design = PromptDesign(trainer="IVLP", vision_depth=12, vision_ctx=args.vpt_ctx,
                               language_depth=12, language_ctx=args.vpt_ctx)
+    elif args.training_mode == "maple":
+        design = PromptDesign(trainer="MaPLe", vision_depth=12, vision_ctx=args.vpt_ctx,
+                              language_depth=12, language_ctx=args.vpt_ctx,
+                              maple_length=args.vpt_ctx)
+    if args.jpm and args.training_mode not in ("coop", "adapter"):
+        raise ValueError("--jpm requires a prompt-free vision tower "
+                         "(--training_mode coop or adapter)")
     sd = load_state_dict(args.model_path)
     cfg, clip_params = convert_clip(sd, image_hw=(h, w), stride=args.stride, design=design,
                                     device=device)
     if design.has_vision_prompts:
-        # fresh prompt tokens (the checkpoint may carry none), then the VPT
-        # keys of a pretrained checkpoint laid over them where shapes match
+        # fresh prompt tokens (the checkpoint may carry none; a MaPLe design
+        # gets no tower-level deep ones: its deep prompts are projected),
+        # then the VPT keys of a pretrained checkpoint laid over them where
+        # shapes match
         clip_params = init_vpt(torch.Generator().manual_seed(1), cfg, clip_params)
         if args.pretrained_vpt:
             vpt_only = {k: v for k, v in load_state_dict(args.pretrained_vpt).items()
@@ -164,7 +173,23 @@ def build_model(args, n_cls: int, car_types=None, device=None):
             pcfg, texts = P.PromptLearnerConfig.veri(n_cls), P.veri_templates(car_types, 3)
         tokens = tokenizer.tokenize(texts, context_length=cfg.text.context_length,
                                     truncate=True)
+    elif args.captions_file:
+        # per-class caption templates: the frozen prefix is SOT and the first
+        # 4 caption tokens, 4 learnable ctx spliced in, EOT shifted past them
+        pcfg = P.PromptLearnerConfig.captions(n_cls)
+        tokens = tokenizer.tokenize(P.read_caption_prompts(args.captions_file, n_cls),
+                                    context_length=cfg.text.context_length, truncate=True)
+    elif args.augmented_prompts:
+        # 4 article-variant templates, shared per-class ctx, mean-pooled
+        # text features
+        if args.train_dataset not in P.PERSON_DATASETS:
+            raise ValueError("--augmented_prompts templates are person-phrased; use the "
+                             "default template for vehicle datasets")
+        pcfg = P.PromptLearnerConfig.augmented(n_cls)
+        tokens = tokenizer.tokenize(list(P.AUGMENTED_TEMPLATES),
+                                    context_length=cfg.text.context_length)
     else:
+        # ivlp geometry for maple too (per-class ctx + coupled deep prompts)
         pcfg = (P.PromptLearnerConfig.coop(n_cls) if args.training_mode in ("coop", "adapter")
                 else P.PromptLearnerConfig.ivlp(n_cls))
         tokens = tokenizer.tokenize(P.base_template(args.train_dataset),
@@ -172,7 +197,8 @@ def build_model(args, n_cls: int, car_types=None, device=None):
     tokens = np.asarray(tokens)
     temb = clip_params["text"]["token_embedding"][torch.as_tensor(tokens, dtype=torch.long,
                                                                   device=device)]
-    mcfg = M.ReidModelConfig(mode=args.training_mode, clip=cfg, prompt=pcfg)
+    mcfg = M.ReidModelConfig(mode=args.training_mode, clip=cfg, prompt=pcfg, use_jpm=args.jpm,
+                             sie_ids=n_sie_ids, sie_coe=args.sie_coe)
     zs = None
     if args.training_mode == "promptsrc":
         if args.zs_weights:
@@ -190,6 +216,28 @@ def build_model(args, n_cls: int, car_types=None, device=None):
     params = M.init_reid_model(torch.Generator().manual_seed(args.seed), mcfg, clip_params,
                                temb, tokens, zs_visual_params=zs)
     return mcfg, params, (h, w)
+
+
+def sie_table(args, dataset):
+    """(table size, batch -> (B,) int ids, or (0, None) without SIE): with
+    --sie_camera and --sie_view the table is cameras x views (TransReID's
+    composition), with one flag that factor alone; ids are camera * n_views
+    + view, the view clipped to the table. Counts cover every split."""
+    if not (args.sie_camera or args.sie_view):
+        return 0, None
+    recs = dataset.train + dataset.query + dataset.gallery
+    n_cams = 1 + max(r[2] for r in recs) if args.sie_camera else 1
+    n_views = 1 + max(r[3] for r in recs) if args.sie_view else 1
+
+    def sie_ids_of(b):
+        ids = np.zeros(len(b.pids), np.int64)
+        if args.sie_camera:
+            ids = np.asarray(b.camids, np.int64) * n_views
+        if args.sie_view:
+            ids = ids + np.minimum(np.asarray(b.seqids, np.int64), n_views - 1)
+        return ids
+
+    return n_cams * n_views, sie_ids_of
 
 
 def main(argv=None):
@@ -219,8 +267,10 @@ def main(argv=None):
     log = MetricLogger(args.log_dir)
     dataset = get_dataset(args.root, args.train_dataset)
     n_cls = dataset.num_train_pids
-    mcfg, params, (h, w) = build_model(args, n_cls, dataset.car_types_train, device=dev)
-    log.log("model", mode=args.training_mode, n_cls=n_cls, h=h, w=w, sie_ids=0)
+    n_sie, sie_ids_of = sie_table(args, dataset)
+    mcfg, params, (h, w) = build_model(args, n_cls, dataset.car_types_train, device=dev,
+                                       n_sie_ids=n_sie)
+    log.log("model", mode=args.training_mode, n_cls=n_cls, h=h, w=w, sie_ids=n_sie)
 
     # bf16 activations over fp32 master weights: the layers cast the weights
     # to the activation dtype on the fly
@@ -234,8 +284,10 @@ def main(argv=None):
                              order="shuffle" if epoch > 0 else None,
                              seed=args.seed + epoch, drop_tail=epoch > 0)
         for b in loader:
-            yield (pp.eval_batch(torch.as_tensor(b.images).to(dev)),
+            out = (pp.eval_batch(torch.as_tensor(b.images).to(dev)),
                    torch.as_tensor(b.pids).to(dev), b.valid)
+            # SIE: the side-information ids ride as a trailing element
+            yield out + ((torch.as_tensor(sie_ids_of(b)).to(dev),) if n_sie else ())
 
     def stage2_batches(epoch):
         labels = [r[1] for r in dataset.train]
@@ -246,7 +298,8 @@ def main(argv=None):
             images = torch.as_tensor(b.images).to(dev)
             imgs = pp.train_batch(images, pp.train_draws(gen, images.shape[0]),
                                   pad_hw=(10, 10))
-            yield imgs, torch.as_tensor(b.pids).to(dev), b.valid
+            out = (imgs, torch.as_tensor(b.pids).to(dev), b.valid)
+            yield out + ((torch.as_tensor(sie_ids_of(b)).to(dev),) if n_sie else ())
 
     tcfg = TR.TrainConfig(epochs_stage1=args.epochs_stage1, epochs_stage2=args.epochs_stage2)
     ckpt_dir = os.path.join(args.save_path, args.training_mode, args.train_dataset)
@@ -285,15 +338,19 @@ def main(argv=None):
         if not eval_state:
             eval_state["ds"] = get_dataset(args.root, args.test_dataset)
             # input normalization folded into the patch-embed weights (exact)
+            # SIE applies at inference too (ids past the training range are
+            # clipped to the last row of the table inside the model)
             eval_state["xtr"] = make_extractor(
-                lambda p, im: M.eval_embed(p, mcfg, im), pp, flip_tta=True,
-                dtype=EXTRACT_DTYPE, fold=lambda p: M.fold_input_norm(p, mcfg, "vit"),
-                device=dev)
+                lambda p, im, *cv: M.eval_embed(p, mcfg, im, *cv), pp, flip_tta=True,
+                dtype=EXTRACT_DTYPE, with_cv_ids=bool(n_sie),
+                fold=lambda p: M.fold_input_norm(p, mcfg, "vit"), device=dev)
         test_ds, extractor = eval_state["ds"], eval_state["xtr"]
         g_feats, g_pids, g_cams, _ = extract_embeddings(
-            extractor, eval_params, BatchLoader(test_ds.gallery, args.bs, (h, w)), device=dev)
+            extractor, eval_params, BatchLoader(test_ds.gallery, args.bs, (h, w)),
+            cv_ids_of=sie_ids_of, device=dev)
         q_feats, q_pids, q_cams, _ = extract_embeddings(
-            extractor, eval_params, BatchLoader(test_ds.query, args.bs, (h, w)), device=dev)
+            extractor, eval_params, BatchLoader(test_ds.query, args.bs, (h, w)),
+            cv_ids_of=sie_ids_of, device=dev)
         ev = Evaluator(num_query=len(q_pids), max_rank=10, feat_norm=True,
                        reranking=args.rerank, with_minp=True)
         ev.update(q_feats, q_pids, q_cams)

@@ -10,10 +10,15 @@ cuda; `--device cpu` runs the plain PyTorch versions on the host).
         --bpe_path bpe_simple_vocab_16e6.txt.gz \\
         --attributes market_attribute.mat --augmented_template --mm --rerank
 
+A ModifiedResNet (RN50-style) checkpoint is recognised by its shapes and
+runs with ImageNet input statistics, its embedding cat(mean of the layer-4
+map, the attention-pooled token); the input normalisation is folded into the
+patch embed for a ViT only, as in the JAX CLI.
+
 Not ported yet, and refused with the slice named: --devices/--tp > 1 and
---multihost (slice 7) and ResNet checkpoints (slice 5). --training_mode ivlp
-with a checkpoint that carries no IVLP prompt tokens is refused too (the
-JAX CLI fails on it): such tokens come from the prompt-learning CLI.
+--multihost (slice 7). --training_mode ivlp with a ViT checkpoint that
+carries no IVLP prompt tokens is refused too (the JAX CLI fails on it): such
+tokens come from the prompt-learning CLI.
 """
 
 from __future__ import annotations
@@ -107,7 +112,9 @@ def main(argv=None):
                                   language_depth=12, language_ctx=2)
         cfg, params = convert_clip(sd, image_hw=(h, w), stride=args.stride, design=design,
                                    device=dev)
-        if design.has_vision_prompts and "vpt_shallow" not in params["visual"]:
+        model_type = "vit" if cfg.vision is not None else "rn"
+        if (model_type == "vit" and design.has_vision_prompts
+                and "vpt_shallow" not in params["visual"]):
             raise NotImplementedError(
                 "--training_mode ivlp with a checkpoint that carries no IVLP prompt tokens: "
                 "the zero-shot CLI evaluates trained tokens only; train them with "
@@ -132,9 +139,11 @@ def main(argv=None):
 
     with log.phase("extract"):
         dataset = get_dataset(args.root, args.test_dataset)
-        pp = DevicePreprocess((h, w), "vit", dtype=EXTRACT_DTYPE)
-        # normalization folded into the patch-embed weights (exact)
-        fold = lambda p: dict(p, visual=fold_visual_input_norm(p["visual"], "vit"))  # noqa: E731
+        pp = DevicePreprocess((h, w), model_type, dtype=EXTRACT_DTYPE)
+        fold = None
+        if model_type == "vit":
+            # normalization folded into the patch-embed weights (exact)
+            fold = lambda p: dict(p, visual=fold_visual_input_norm(p["visual"], "vit"))  # noqa: E731
         extractor = make_extractor(Z.make_zeroshot_embed(params, cfg), pp,
                                    flip_tta=not args.no_flip_tta, dtype=EXTRACT_DTYPE,
                                    fold=fold, device=dev)

@@ -1,5 +1,5 @@
-"""Typed configuration for the port (a copy of the ViT and text parts of
-tpu_reid/configs.py; the ResNet tower comes with a later slice).
+"""Typed configuration for the port (a copy of the ViT, ResNet and text
+parts of tpu_reid/configs.py).
 
 Every component takes an explicit frozen dataclass, so configs are hashable
 and self-documenting.
@@ -90,10 +90,46 @@ class TextConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ResNetConfig:
+    """ModifiedResNet (RN50-style) vision tower config: a 3-conv stem,
+    bottleneck layers, an attention-pool head over an h_grid x w_grid
+    feature map. The ReID variant runs layer 4 at stride 1, so the final map
+    is input/16 (standard CLIP RN is stride 2, input/32)."""
+
+    layers: Tuple[int, int, int, int] = (3, 4, 6, 3)
+    width: int = 64
+    output_dim: int = 1024
+    h_grid: int = 7
+    w_grid: int = 7
+    layer4_stride: int = 1
+
+    @property
+    def total_stride(self) -> int:
+        return 16 * self.layer4_stride
+
+    @property
+    def heads(self) -> int:
+        return self.width * 32 // 64
+
+    @staticmethod
+    def grid_for(image_hw: Tuple[int, int], layer4_stride: int = 1) -> Tuple[int, int]:
+        s = 16 * layer4_stride
+        return image_hw[0] // s, image_hw[1] // s
+
+
+@dataclasses.dataclass(frozen=True)
 class CLIPConfig:
-    vision: VisionConfig
+    """Exactly one of the two vision towers is set: `vision` (ViT) or
+    `resnet` (ModifiedResNet)."""
+
+    vision: Optional[VisionConfig] = None
+    resnet: Optional[ResNetConfig] = None
     text: TextConfig = TextConfig()
     embed_dim: int = 512
+
+    def __post_init__(self):
+        if (self.vision is None) == (self.resnet is None):
+            raise ValueError("exactly one of vision (ViT) / resnet towers must be set")
 
 
 def vit_b16_reid(

@@ -26,10 +26,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def to_device(tree, device: torch.device):
-    """A nested dict of numpy arrays or tensors -> the same dict of tensors
-    on `device` (tensors already there are returned as they are)."""
+    """A nested dict (or list, as a ResNet's layers) of numpy arrays or
+    tensors -> the same structure of tensors on `device` (tensors already
+    there are returned as they are)."""
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
     if isinstance(tree, np.ndarray):
         if not tree.flags.writeable:  # e.g. a view of a JAX array: copy it
             tree = np.array(tree)
@@ -38,7 +41,10 @@ def to_device(tree, device: torch.device):
 
 
 def clone(tree):
-    """A copy of a nested dict of tensors that shares no storage with it."""
+    """A copy of a nested dict (or list) of tensors that shares no storage
+    with it."""
     if isinstance(tree, dict):
         return {k: clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [clone(v) for v in tree]
     return tree.clone()

@@ -16,12 +16,17 @@ import numpy as np
 import torch
 
 from tpu_reid_torch.configs import CLIPConfig
+from tpu_reid_torch.models import resnet as R
 from tpu_reid_torch.models import text as T
 from tpu_reid_torch.models import vit as V
 
 
 def encode_image(params: dict, cfg: CLIPConfig, images: torch.Tensor, **kw):
-    return V.apply_vit(params["visual"], cfg.vision, images, **kw)
+    """The configured tower: the ViT's (x11, x12, xproj) or the ResNet's
+    (x3, x4, xproj)."""
+    if cfg.vision is not None:
+        return V.apply_vit(params["visual"], cfg.vision, images, **kw)
+    return R.apply_resnet(params["visual"], cfg.resnet, images, **kw)
 
 
 def encode_text(params: dict, cfg: CLIPConfig, tokens: torch.Tensor, **kw):

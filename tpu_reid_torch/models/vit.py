@@ -6,10 +6,13 @@
   * triple-feature output (x11, x12, xproj): the layer-11 sequence, the
     final LayerNormed sequence, and its projection,
   * shallow visual prompt tokens appended after the pos-embed, and per-layer
-    deep prompt replacement for IVLP/MaPLe.
+    deep prompt replacement for IVLP/MaPLe,
+  * the jigsaw patch module (JPM, TransReID): a copy of the last block and
+    of ln_post run on the final sequence with its patches shifted and
+    group-shuffled.
 
 Layout is batch-first (B, S, D); images are NHWC and the conv weight HWIO,
-as in the JAX package. The jigsaw-patch branch comes with a later slice.
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch.nn.functional as F
 
 from tpu_reid_torch.configs import VisionConfig
 from tpu_reid_torch.data.transforms import norm_stats
+from tpu_reid_torch.device import clone
 from tpu_reid_torch.models import layers as L
 from tpu_reid_torch.ops.fused_tail import ln_proj_tail
 
@@ -77,15 +81,24 @@ def apply_vit(
     shallow_prompt: Optional[Tensor] = None,
     cv_emb: Optional[Tensor] = None,
     cls_only: bool = False,
-) -> tuple[Tensor, Tensor, Tensor]:
+    jpm_params: Optional[dict] = None,
+) -> tuple[Tensor, ...]:
     """Forward pass. Returns (x11, x12, xproj) full sequences; callers take
     [:, 0] for the CLS features.
 
-    deep_prompts/shallow_prompt override params["vpt_deep"/"vpt_shallow"].
+    deep_prompts/shallow_prompt override params["vpt_deep"/"vpt_shallow"]
+    (MaPLe passes its projected prompts here). cv_emb (B, width) is added to
+    the CLS token (SIE).
     cls_only=True runs the final block, ln_post and the projection on the
     CLS position only (x12/xproj come back as (B, 1, ...)) — exact for every
     caller that consumes [:, 0]; ln_post + proj then run as the CLS-tail
-    kernel."""
+    kernel.
+
+    jpm_params adds the jigsaw-patch branch on the final pre-LN sequence and
+    returns (x11, x12, xproj, jpm_seq). The final block then runs on the
+    whole sequence (JPM takes all of it) through the block kernels, and with
+    cls_only ln_post and the projection narrow to the CLS row as plain
+    LayerNorm and product (no tail kernel, as in the JAX package)."""
     x = patch_embed(params, cfg, images)
     b = x.shape[0]
     cls = params["class_embedding"].to(x.dtype).expand(b, 1, cfg.width)
@@ -122,6 +135,13 @@ def apply_vit(
     x_last = x11
     if dp is not None and flags[n_layers - 1]:
         x_last = L.splice_prompt_tokens(x_last, dp[n_layers - 1], text_side=False)
+    if jpm_params is not None:
+        x12_pre = L.residual_block(tail, x_last, cfg.heads)
+        jpm_seq = apply_jpm(jpm_params, cfg, x12_pre)
+        if cls_only:
+            x12_pre = x12_pre[:, :1]
+        x12 = L.layer_norm(params["ln_post"], x12_pre)
+        return x11, x12, x12 @ params["proj"].to(x12.dtype), jpm_seq
     if cls_only:
         x12 = L.residual_block_cls(tail, x_last, cfg.heads)
         y, pr = ln_proj_tail(x12[:, 0], params["ln_post"], params["proj"])
@@ -130,3 +150,41 @@ def apply_vit(
     x12 = L.layer_norm(params["ln_post"], x12)
     xproj = x12 @ params["proj"].to(x12.dtype)
     return x11, x12, xproj
+
+
+# ---------------------------------------------------------------------------
+# JPM — jigsaw patch module (TransReID)
+# ---------------------------------------------------------------------------
+
+
+def shuffle_unit(features: Tensor, shift: int, group: int) -> Tensor:
+    """Token shift and grouped shuffle over the patch axis of (B, S, D):
+    a circular shift by `shift` over all patch tokens, then (group > 1) the
+    sequence, padded with its own last rows to a multiple of `group`,
+    group-transposed."""
+    b, s, d = features.shape
+    x = torch.roll(features, -shift, dims=1)
+    if group > 1:
+        pad = (-s) % group
+        if pad:
+            x = torch.cat([x, x[:, -pad:]], dim=1)
+        x = x.reshape(b, group, -1, d).transpose(1, 2).reshape(b, -1, d)
+    return x
+
+
+def init_jpm(params_vit: dict, cfg: VisionConfig) -> dict:
+    """JPM owns a copy of the last block and of the final LayerNorm."""
+    last = L.slice_layer(params_vit["blocks"], cfg.layers - 1)
+    return {"block": clone(last), "ln": clone(params_vit["ln_post"])}
+
+
+def apply_jpm(jpm_params: dict, cfg: VisionConfig, x12_pre_ln: Tensor,
+              shift: int = 5, group: int = 1) -> Tensor:
+    """The shuffled-patch branch on the final token sequence: CLS kept in
+    front, patches through `shuffle_unit`, then JPM's block (the block
+    kernels, on a contiguous tensor: the concatenation makes one) and its
+    LayerNorm. Returns the whole (B, S, D) sequence."""
+    patches = shuffle_unit(x12_pre_ln[:, 1:], shift, group)
+    x = torch.cat([x12_pre_ln[:, :1], patches], dim=1)
+    x = L.residual_block(jpm_params["block"], x, cfg.heads)
+    return L.layer_norm(jpm_params["ln"], x)

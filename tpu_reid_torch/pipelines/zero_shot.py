@@ -3,7 +3,8 @@
   * zeroshot_classifier — per-identity text weights: encode each template,
     L2-normalize, mean over templates, L2-normalize again,
   * flip-TTA inference (parallel/extract.py) over make_zeroshot_embed: ViT
-    features are cat(x12 CLS, xproj CLS),
+    features are cat(x12 CLS, xproj CLS), ResNet features cat(mean of the
+    layer-4 map, the attention-pooled token),
   * --mm multimodal mode — the retrieval embedding becomes
     cat(image_features, softmax(1/0.07 * norm(proj) @ zs_weights.T)),
   * evaluation through the Evaluator (CMC + mAP, optionally mINP, max_rank
@@ -19,6 +20,7 @@ import torch
 
 from tpu_reid_torch.configs import CLIPConfig
 from tpu_reid_torch.device import DeviceLike, resolve_device, to_device
+from tpu_reid_torch.models import resnet as R
 from tpu_reid_torch.models import text as T
 from tpu_reid_torch.models import vit as V
 from tpu_reid_torch.models.tokenizer import ClipTokenizer
@@ -71,11 +73,20 @@ def zeroshot_classifier(
 
 
 def make_zeroshot_embed(clip_params: dict, cfg: CLIPConfig):
-    """(params, images) -> cat(x12 CLS, xproj CLS) for the ViT tower."""
+    """(params, images) -> cat(non_proj feature, proj feature): for the ViT
+    the CLS rows of (x12, xproj); for the ResNet the spatial mean of the
+    layer-4 map and the attention-pooled token (3072-wide for RN50)."""
+    if cfg.vision is not None:
 
-    def embed(params, images):
-        _, x12, xproj = V.apply_vit(params["visual"], cfg.vision, images, cls_only=True)
-        return torch.cat([x12[:, 0], xproj[:, 0]], dim=-1)
+        def embed(params, images):
+            _, x12, xproj = V.apply_vit(params["visual"], cfg.vision, images, cls_only=True)
+            return torch.cat([x12[:, 0], xproj[:, 0]], dim=-1)
+
+    else:
+
+        def embed(params, images):
+            _, x4, xproj = R.apply_resnet(params["visual"], cfg.resnet, images)
+            return torch.cat([x4.mean(dim=(2, 3)), xproj[:, 0]], dim=-1)
 
     return embed
 

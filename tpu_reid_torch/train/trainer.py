@@ -4,8 +4,8 @@ single device).
 Stage 1 — learn text prompts:
   * coop/adapter: image features are computed ONCE with the frozen encoder,
     then every step runs only the text side against the cached features,
-  * ivlp/promptsrc: the VPT tokens change the image encoder, so image
-    features are computed live each step,
+  * ivlp/promptsrc/maple: the prompt tokens change the image encoder, so
+    image features are computed live each step,
   * loss = SupCon(i2t) + SupCon(t2i), Adam lr 3.5e-4 wd 1e-4, cosine
     schedule with 5-epoch warmup; promptsrc keeps a gaussian-weighted
     parameter average (GPA mu=60 sigma=45).
@@ -13,15 +13,18 @@ Stage 1 — learn text prompts:
 Stage 2 — fine-tune the image tower:
   * text features for all classes computed once with frozen prompts,
   * loss = 0.25*smoothCE(id logits) per head + smoothCE(proj @ text.T)
-    + triplet(margin 0.3) on all three feature levels, the triplet gated on
-    Σvalid >= 4 (+ SmoothL1 against the frozen teacher for promptsrc),
+    + triplet(margin 0.3) on all three feature levels (four with JPM, whose
+    BNNeck and ID head join), the triplet gated on Σvalid >= 4 (+ SmoothL1
+    against the frozen teacher for promptsrc),
   * Adam lr 5e-6 (bias x2) wd 1e-4, WarmupMultiStepLR([30, 50], warmup 10),
-  * the BNNeck running statistics threaded as state through `frozen`,
+  * the BNNeck running statistics (JPM's too) threaded as state through
+    `frozen`,
   * GPA mu=30 sigma=30 for promptsrc (swapped in at the end of training).
 
 A step takes (trainable, frozen) trees: the trainable leaves are fp32
 master tensors that require grad, updated in place by torch.optim.Adam; the
-input parameter dict is not modified. On CUDA every block of both towers
+input parameter dict is not modified. A batch may carry a 4th element, the
+SIE camera/view ids of its images. On CUDA every block of both towers
 runs forward through the hand-written kernels and backward through the
 plain block's recompute (models/layers.residual_block). Epoch loops read the
 loss on the host one step late (`LossPipeline`), so the card is not
@@ -197,14 +200,16 @@ def _restore_into(live: dict, saved: dict) -> None:
 
 def stage1_loss(cfg: M.ReidModelConfig, params: dict, batch: dict) -> Tensor:
     """SupCon(i2t) + SupCon(t2i) of one stage-1 batch: with
-    "image_features" (the cached path) or "images" (the live encoder);
-    batch["valid"] (B,) bool masks padded rows out of both directions."""
+    "image_features" (the cached path) or "images" (the live encoder, and
+    "cv_ids" with SIE); batch["valid"] (B,) bool masks padded rows out of
+    both directions."""
     labels = batch["labels"]
     valid = batch.get("valid")
     if "image_features" in batch:
         image_features = batch["image_features"]
     else:
-        image_features = M.encode_image_features(params, cfg, batch["images"])["proj"]
+        image_features = M.encode_image_features(params, cfg, batch["images"],
+                                                 batch.get("cv_ids"))["proj"]
     text_features = M.encode_text_features(params, cfg, labels)
     loss = L.supcon_loss(image_features, text_features, labels, labels,
                          anchor_valid=valid, contrast_valid=valid)
@@ -232,15 +237,15 @@ def make_stage1_step(cfg: M.ReidModelConfig, optimizer: torch.optim.Optimizer, c
 def precompute_image_features(params: dict, cfg: M.ReidModelConfig,
                               batches: Iterable) -> Tuple[Tensor, Tensor]:
     """Frozen-encoder sweep caching the proj features for the coop/adapter
-    stage 1; batches yield (images, labels, valid). Stays on the device."""
+    stage 1; batches yield (images, labels, valid[, cv_ids]): camera ids go
+    through the SIE embedding at its frozen initial values. Stays on the
+    device."""
     dev = _device_of(params)
     feats, labels = [], []
     for images, lab, valid, *rest in batches:
-        if rest:
-            raise NotImplementedError(
-                "camera ids feed SIE, not ported yet (ROADMAP.md queue 1 item 5)")
+        cv = _as_tensor(rest[0], dev) if rest else None
         v = _as_tensor(valid, dev).bool()
-        f = M.encode_image_features(params, cfg, _as_tensor(images, dev))["proj"]
+        f = M.encode_image_features(params, cfg, _as_tensor(images, dev), cv)["proj"]
         feats.append(f[v])
         labels.append(_as_tensor(lab, dev)[v])
     return torch.cat(feats), torch.cat(labels)
@@ -262,7 +267,7 @@ def run_stage1(
     init_opt_state: Optional[dict] = None,
     init_gpa: Optional[dict] = None,
 ) -> dict:
-    """epoch_batches(epoch) yields (images, labels, valid) batches
+    """epoch_batches(epoch) yields (images, labels, valid[, cv_ids]) batches
     (epoch 0 is the coop/adapter feature precompute's sequential pass).
     batch_size drives the cached-feature path's step size. Returns the
     trained parameters (GPA-averaged for promptsrc). checkpoint_cb(epoch,
@@ -308,11 +313,11 @@ def run_stage1(
 
     def live_batches(epoch):
         for images, lab, valid, *rest in epoch_batches(epoch):
-            if rest:
-                raise NotImplementedError(
-                    "camera ids feed SIE, not ported yet (ROADMAP.md queue 1 item 5)")
-            yield {"images": _as_tensor(images, dev), "labels": _as_tensor(lab, dev),
-                   "valid": _as_tensor(valid, dev).bool()}
+            batch = {"images": _as_tensor(images, dev), "labels": _as_tensor(lab, dev),
+                     "valid": _as_tensor(valid, dev).bool()}
+            if rest:  # SIE camera ids
+                batch["cv_ids"] = _as_tensor(rest[0], dev)
+            yield batch
 
     def get_state():
         return trainable, optimizer.state_dict()
@@ -353,11 +358,13 @@ def run_stage1(
 
 
 def stage2_loss(cfg: M.ReidModelConfig, tcfg: TrainConfig, params: dict, images: Tensor,
-                labels: Tensor, text_features: Tensor, valid: Optional[Tensor] = None):
+                labels: Tensor, text_features: Tensor, valid: Optional[Tensor] = None,
+                cv_ids: Optional[Tensor] = None):
     """(loss, new BN statistics) of one stage-2 batch: 0.25 x smoothed CE
-    per ID head + smoothed CE of proj @ text.T + the triplet on the three
-    feature levels (gated on >= 4 real rows) [+ SmoothL1 to the teacher]."""
-    out = M.forward_train(params, cfg, images, train=True, valid=valid)
+    per ID head + smoothed CE of proj @ text.T + the triplet on every
+    feature level (gated on >= 4 real rows) [+ SmoothL1 to the teacher].
+    cv_ids: the SIE camera ids."""
+    out = M.forward_train(params, cfg, images, train=True, valid=valid, cv_ids=cv_ids)
     loss = torch.zeros((), device=images.device)
     if cfg.mode == "promptsrc":
         loss = loss + L.smooth_l1(out["features"][1], out["zs_non_proj"], valid)
@@ -381,12 +388,13 @@ def stage2_loss(cfg: M.ReidModelConfig, tcfg: TrainConfig, params: dict, images:
 def make_stage2_step(cfg: M.ReidModelConfig, tcfg: TrainConfig,
                      optimizer: torch.optim.Optimizer):
     """Stage-2 step(trainable, frozen, images, labels, text_features,
-    valid=None) -> (frozen, loss): the returned frozen tree carries the
-    BNNeck's new running statistics; loss is a 0-dim tensor."""
+    valid=None, cv_ids=None) -> (frozen, loss): the returned frozen tree
+    carries the BNNeck's (and JPM's BNNeck's) new running statistics; loss
+    is a 0-dim tensor."""
 
-    def step(trainable, frozen, images, labels, text_features, valid=None):
+    def step(trainable, frozen, images, labels, text_features, valid=None, cv_ids=None):
         loss, bn_stats = stage2_loss(cfg, tcfg, O.combine(trainable, frozen), images, labels,
-                                     text_features, valid)
+                                     text_features, valid, cv_ids)
         _apply_grads(loss, trainable, optimizer)
         # thread the BNNeck running stats (state lives in the frozen tree)
         frozen = dict(frozen, head=dict(frozen["head"]))
@@ -395,6 +403,11 @@ def make_stage2_step(cfg: M.ReidModelConfig, tcfg: TrainConfig,
             if stats is not None:
                 frozen["head"][name] = dict(frozen["head"][name], mean=stats["mean"].detach(),
                                             var=stats["var"].detach())
+        jpm_stats = bn_stats.get("jpm")
+        if jpm_stats is not None:  # use_jpm: the 4th BNNeck, on the jigsaw branch
+            bn = dict(frozen["jpm_head"]["bn"], mean=jpm_stats["mean"].detach(),
+                      var=jpm_stats["var"].detach())
+            frozen["jpm_head"] = dict(frozen["jpm_head"], bn=bn)
         return frozen, loss.detach()
 
     return step
@@ -413,10 +426,11 @@ def run_stage2(
     init_opt_state: Optional[dict] = None,
     init_gpa: Optional[dict] = None,
 ) -> dict:
-    """epoch_batches(epoch) yields (images, labels, valid) batches (epochs
-    0-based). guard: optional runtime.guard.TrainGuard — snapshots the
-    trainable leaves, the BNNeck statistics and the optimizer state, and
-    rolls all three back when a step yields a non-finite loss.
+    """epoch_batches(epoch) yields (images, labels, valid[, cv_ids]) batches
+    (epochs 0-based; the SIE camera ids are required when cfg.sie_ids > 0).
+    guard: optional runtime.guard.TrainGuard — snapshots the trainable
+    leaves, the BNNeck statistics and the optimizer state, and rolls all
+    three back when a step yields a non-finite loss.
     checkpoint_cb and start_epoch / init_opt_state / init_gpa: as in
     run_stage1."""
     epochs = epochs or tcfg.epochs_stage2
@@ -432,13 +446,15 @@ def run_stage2(
     opt_paths = O.leaf_order(trainable, bias_lr_mult=2.0)
     step = make_stage2_step(cfg, tcfg, optimizer)
 
+    bn_state = ("head", "jpm_head") if cfg.use_jpm else ("head",)
+
     def get_state():
-        return trainable, frozen["head"], optimizer.state_dict()
+        return trainable, {k: frozen[k] for k in bn_state}, optimizer.state_dict()
 
     def set_state(state):
         nonlocal frozen
         _restore_into(trainable, state[0])
-        frozen = dict(frozen, head=state[1])
+        frozen = dict(frozen, **state[1])
         optimizer.load_state_dict(state[2])
 
     pipe = LossPipeline(guard, get_state, set_state)
@@ -449,16 +465,16 @@ def run_stage2(
         lr = S.warmup_multistep_lr(epoch, tcfg.lr_stage2)
         O.set_lr(optimizer, lr)
         for images, labels, valid, *rest in epoch_batches(epoch):
-            if rest:
-                raise NotImplementedError(
-                    "camera ids feed SIE, not ported yet (ROADMAP.md queue 1 item 5)")
+            if cfg.sie_ids > 0 and not rest:
+                raise ValueError("sie_ids > 0: stage-2 batches must carry camera ids")
             batch = (_as_tensor(images, dev), _as_tensor(labels, dev),
-                     _as_tensor(valid, dev).bool())
+                     _as_tensor(valid, dev).bool(),
+                     _as_tensor(rest[0], dev) if cfg.sie_ids > 0 else None)
             pipe.before_step(gstep)
 
             def dispatch(batch=batch):
                 nonlocal frozen
-                frozen, loss = step(trainable, frozen, *batch[:2], text_features, batch[2])
+                frozen, loss = step(trainable, frozen, *batch[:2], text_features, *batch[2:])
                 return loss
 
             gstep += 1

@@ -1,8 +1,9 @@
 """OpenAI-format CLIP state dict -> the port's parameter dicts.
 
 The parameter dicts have the JAX package's structure and layouts (linear
-weights (in, out), conv weights HWIO, blocks stacked on a leading layer
-axis), holding torch tensors on the requested device — CUDA unless
+weights (in, out), the ViT's patch-embed conv HWIO, blocks stacked on a
+leading layer axis; a ResNet tower keeps torch's OIHW conv weights and a
+list of blocks per layer), holding torch tensors on the requested device — CUDA unless
 device="cpu". The architecture is inferred from state-dict shapes; the square
 pretrained positional grid is bicubic-resized to the rectangular ReID grid at
 load time (models/clip_model.resize_pos_embed).
@@ -13,8 +14,8 @@ to the same dicts, so both packages can run one set of weights;
 tokens, prompt learner, heads with BN running statistics, adapter, the
 promptsrc teacher), checked against the model config. `init_vpt` gives IVLP
 prompt tokens to a checkpoint that has none.
-`random_clip_state_dict` makes a random OpenAI-format ViT state dict from a
-seed, for smoke runs and tests at full width without a checkpoint.
+`random_clip_state_dict` makes a random OpenAI-format ViT or RN50 state dict
+from a seed, for smoke runs and tests at full width without a checkpoint.
 `overlay_clip_reid` lays a CLIP-ReID checkpoint over a CLIP state dict (the
 CLI's --clip_weights).
 """
@@ -28,9 +29,12 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from tpu_reid_torch.configs import CLIPConfig, PromptDesign, TextConfig, VisionConfig
+from tpu_reid_torch.configs import (
+    CLIPConfig, PromptDesign, ResNetConfig, TextConfig, VisionConfig,
+)
 from tpu_reid_torch.device import DeviceLike, resolve_device, to_device
 from tpu_reid_torch.models.clip_model import resize_pos_embed
+from tpu_reid_torch.models.resnet import EXPANSION
 
 Array = np.ndarray
 StateDict = Dict[str, Array]
@@ -93,10 +97,6 @@ def infer_config(
     stride: Optional[int] = None,
     design: PromptDesign = PromptDesign(),
 ) -> CLIPConfig:
-    if "visual.proj" not in sd:
-        raise NotImplementedError(
-            "ModifiedResNet CLIP towers are not ported yet (slice 5 of the port)"
-        )
     text = TextConfig(
         layers=len({k.split(".")[2] for k in sd if k.startswith("transformer.resblocks.")}),
         width=sd["ln_final.weight"].shape[0],
@@ -106,6 +106,17 @@ def infer_config(
         output_dim=sd["text_projection"].shape[1],
         design=design,
     )
+    embed_dim = sd["text_projection"].shape[1]
+    if "visual.proj" not in sd:  # a ModifiedResNet tower
+        counts = tuple(
+            len({int(k.split(".")[2]) for k in sd
+                 if re.match(rf"visual\.layer{b}\.\d+\.conv1\.weight", k)})
+            for b in range(1, 5))
+        hg, wg = ResNetConfig.grid_for(image_hw, layer4_stride=1)
+        resnet = ResNetConfig(layers=counts, width=sd["visual.conv1.weight"].shape[0] * 2,
+                              output_dim=sd["visual.attnpool.c_proj.weight"].shape[0],
+                              h_grid=hg, w_grid=wg)
+        return CLIPConfig(resnet=resnet, text=text, embed_dim=embed_dim)
     width = sd["visual.conv1.weight"].shape[0]
     patch = sd["visual.conv1.weight"].shape[-1]
     s = stride or patch
@@ -121,7 +132,7 @@ def infer_config(
         output_dim=sd["visual.proj"].shape[1],
         design=design,
     )
-    return CLIPConfig(vision=vision, text=text, embed_dim=sd["text_projection"].shape[1])
+    return CLIPConfig(vision=vision, text=text, embed_dim=embed_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +149,11 @@ def _linear(sd: StateDict, name: str) -> dict:
 
 def _ln(sd: StateDict, name: str) -> dict:
     return {"scale": sd[f"{name}.weight"].copy(), "bias": sd[f"{name}.bias"].copy()}
+
+
+def _bn(sd: StateDict, name: str) -> dict:
+    return {"scale": sd[f"{name}.weight"].copy(), "bias": sd[f"{name}.bias"].copy(),
+            "mean": sd[f"{name}.running_mean"].copy(), "var": sd[f"{name}.running_var"].copy()}
 
 
 def _block(sd: StateDict, pre: str) -> dict:
@@ -217,6 +233,53 @@ def _convert_text_np(sd: StateDict, cfg: TextConfig) -> dict:
     return params
 
 
+def _convert_resnet_np(sd: StateDict, cfg: ResNetConfig) -> dict:
+    def conv(name):  # OIHW, torch's layout, kept as it is
+        return {"w": sd[f"{name}.weight"].copy()}
+
+    params = {
+        "conv1": conv("visual.conv1"), "bn1": _bn(sd, "visual.bn1"),
+        "conv2": conv("visual.conv2"), "bn2": _bn(sd, "visual.bn2"),
+        "conv3": conv("visual.conv3"), "bn3": _bn(sd, "visual.bn3"),
+    }
+    for li, blocks in enumerate(cfg.layers):
+        layer = []
+        for j in range(blocks):
+            pre = f"visual.layer{li + 1}.{j}"
+            blk = {
+                "conv1": conv(f"{pre}.conv1"), "bn1": _bn(sd, f"{pre}.bn1"),
+                "conv2": conv(f"{pre}.conv2"), "bn2": _bn(sd, f"{pre}.bn2"),
+                "conv3": conv(f"{pre}.conv3"), "bn3": _bn(sd, f"{pre}.bn3"),
+            }
+            # index 0 holds a weight only in the [conv 1x1, bn] layout (in
+            # CLIP's [avgpool, conv 1x1, bn] it is the pool), so it decides
+            if f"{pre}.downsample.0.weight" in sd:
+                blk["down_conv"] = conv(f"{pre}.downsample.0")
+                blk["down_bn"] = _bn(sd, f"{pre}.downsample.1")
+            elif f"{pre}.downsample.1.weight" in sd:
+                blk["down_conv"] = conv(f"{pre}.downsample.1")
+                blk["down_bn"] = _bn(sd, f"{pre}.downsample.2")
+            layer.append(blk)
+        params[f"layer{li + 1}"] = layer
+    pos = sd["visual.attnpool.positional_embedding"]
+    if pos.shape[0] != cfg.h_grid * cfg.w_grid + 1:
+        pos = resize_pos_embed(pos, cfg.h_grid, cfg.w_grid)
+    params["attnpool"] = {
+        "positional_embedding": pos,
+        **{name: _linear(sd, f"visual.attnpool.{name}")
+           for name in ("q_proj", "k_proj", "v_proj", "c_proj")},
+    }
+    return params
+
+
+def convert_resnet(sd: StateDict, cfg: ResNetConfig, device: DeviceLike = None) -> dict:
+    """`visual.*`-keyed CLIP ModifiedResNet tower -> models.resnet params
+    (conv weights OIHW, both downsample key layouts); the attention pool's
+    positional grid is resized from the checkpoint's square grid to
+    (h_grid, w_grid)."""
+    return to_device(_convert_resnet_np(sd, cfg), resolve_device(device))
+
+
 def convert_vit(sd: StateDict, cfg: VisionConfig, device: DeviceLike = None) -> dict:
     """`visual.*`-keyed CLIP ViT tower -> models.vit params. Conv weights go
     OIHW -> HWIO; the positional grid is resized to (h_grid, w_grid)."""
@@ -238,7 +301,8 @@ def convert_clip(
     dev = resolve_device(device)
     cfg = infer_config(sd, image_hw=image_hw, stride=stride, design=design)
     params = {
-        "visual": _convert_vit_np(sd, cfg.vision),
+        "visual": (_convert_vit_np(sd, cfg.vision) if cfg.vision is not None
+                   else _convert_resnet_np(sd, cfg.resnet)),
         "text": _convert_text_np(sd, cfg.text),
         "logit_scale": np.asarray(sd.get("logit_scale", math.log(1 / 0.07)),
                                   np.float32).reshape(()),
@@ -248,10 +312,28 @@ def convert_clip(
 
 def from_jax_params(params_np: dict, cfg: CLIPConfig, device: DeviceLike = None) -> dict:
     """The JAX package's parameter pytree (nested dicts of numpy arrays, the
-    same structure and layouts) -> the port's parameters on `device`. The
-    config is checked against the shapes it must match."""
-    _check_patch_embed(params_np.get("visual", params_np), cfg)
+    same structure and layouts but for a ResNet tower's conv weights, which
+    go HWIO -> OIHW) -> the port's parameters on `device`. The config is
+    checked against the shapes it must match."""
+    if cfg.resnet is not None:
+        if "visual" in params_np:
+            params_np = dict(params_np, visual=resnet_from_jax(params_np["visual"]))
+        else:
+            params_np = resnet_from_jax(params_np)
+    else:
+        _check_patch_embed(params_np.get("visual", params_np), cfg)
     return to_device(params_np, resolve_device(device))
+
+
+def resnet_from_jax(visual: dict) -> dict:
+    """A JAX ResNet tower's parameters -> the port's: the conv weights
+    (every 4-d leaf) HWIO -> OIHW, the rest as it is."""
+    if isinstance(visual, dict):
+        return {k: resnet_from_jax(v) for k, v in visual.items()}
+    if isinstance(visual, list):
+        return [resnet_from_jax(v) for v in visual]
+    a = np.asarray(visual)
+    return np.ascontiguousarray(a.transpose(3, 2, 0, 1)) if a.ndim == 4 else a
 
 
 def _check_patch_embed(visual: dict, cfg: CLIPConfig) -> None:
@@ -274,8 +356,9 @@ def from_jax_reid_params(params_np: dict, cfg, device: DeviceLike = None) -> dic
     leaves as numpy arrays) -> the port's on `device`, checked against the
     ReidModelConfig `cfg`: the CLIP towers with their `vpt_*` tokens, the
     prompt learner (its int32 `eot_idx` included), the BNNeck heads with
-    their running mean and variance, the adapter (adapter mode) and the
-    zero-shot teacher (promptsrc)."""
+    their running mean and variance, the adapter (adapter mode), the
+    zero-shot teacher (promptsrc), MaPLe's couplings (maple), the JPM branch
+    and its head (use_jpm) and the SIE table (sie_ids > 0)."""
     v, t = cfg.clip.vision, cfg.clip.text
     clip = params_np["clip"]
     _check_patch_embed(clip["visual"], cfg.clip)
@@ -303,6 +386,29 @@ def from_jax_reid_params(params_np: dict, cfg, device: DeviceLike = None) -> dic
         raise ValueError("adapter mode needs an 'adapter' subtree")
     if cfg.mode == "promptsrc" and "zs_visual" not in params_np:
         raise ValueError("promptsrc needs a 'zs_visual' teacher subtree")
+    if cfg.mode == "maple":
+        mp = params_np["maple"]
+        depth = np.shape(mp["proj"]["w"])[0]
+        n_ctx = np.shape(mp["shared_ctx"])[0]
+        _check_shapes(mp, {"shared_ctx": (n_ctx, t.width),
+                           "text_deep": (max(depth - 1, 0), n_ctx, t.width)}, "maple")
+        _check_shapes(mp["proj"], {"w": (depth, t.width, v.width), "b": (depth, v.width)},
+                      "maple.proj")
+    if cfg.use_jpm:
+        _check_shapes(params_np["jpm"]["ln"], {"scale": (v.width,), "bias": (v.width,)},
+                      "jpm.ln")
+        _check_shapes(params_np["jpm"]["block"]["ln_1"], {"scale": (v.width,)}, "jpm.block")
+        bn = params_np["jpm_head"]["bn"]
+        _check_shapes(bn, {k: (v.width,) for k in ("scale", "bias", "mean", "var")},
+                      "jpm_head.bn")
+        _check_shapes(params_np["jpm_head"]["cls"], {"w": (v.width, pc.n_cls)},
+                      "jpm_head.cls")
+    if cfg.sie_ids > 0:
+        _check_shapes(params_np, {"sie_embed": (cfg.sie_ids, v.width)}, "params")
+    for key, used in (("maple", cfg.mode == "maple"), ("jpm", cfg.use_jpm),
+                      ("sie_embed", cfg.sie_ids > 0)):
+        if key in params_np and not used:
+            raise ValueError(f"the tree has a {key!r} subtree the config does not use")
     return to_device(params_np, resolve_device(device))
 
 
@@ -373,19 +479,32 @@ def init_vpt(gen: torch.Generator, cfg: CLIPConfig, clip_params: dict) -> dict:
 def random_clip_state_dict(
     seed: int,
     *,
+    vision: str = "vit",
     vision_width: int = 768,
     vision_layers: int = 12,
     patch: int = 16,
-    grid: int = 14,
+    grid: Optional[int] = None,
+    rn_layers: Tuple[int, int, int, int] = (3, 4, 6, 3),
+    rn_width: int = 64,
     text_width: int = 512,
     text_layers: int = 12,
     vocab: int = 49408,
     context: int = 77,
-    embed_dim: int = 512,
+    embed_dim: Optional[int] = None,
 ) -> StateDict:
-    """Random OpenAI-format CLIP ViT state dict (float32 numpy) from a seed;
-    the defaults are ViT-B/16's published shapes. Weight scales keep the
-    activations of a deep random tower in a sane range."""
+    """Random OpenAI-format CLIP state dict (float32 numpy) from a seed.
+    vision="vit": the defaults are ViT-B/16's published shapes (a 14x14
+    pretrained grid, embed_dim 512). vision="rn50": a ModifiedResNet with
+    `rn_layers` and `rn_width` (RN50: (3, 4, 6, 3), 64; an attention pool
+    2048 wide with 32 heads over a 7x7 grid, output and embed_dim 1024).
+    Weight scales keep the activations of a deep random tower in a sane
+    range (for the ResNet: He-scaled convs, each bottleneck's last BatchNorm
+    at scale 0.25)."""
+    if vision not in ("vit", "rn50"):
+        raise ValueError(f"vision must be 'vit' or 'rn50': {vision!r}")
+    rn = vision == "rn50"
+    grid = grid or (7 if rn else 14)
+    embed_dim = embed_dim or (1024 if rn else 512)
     rng = np.random.default_rng(seed)
     sd = {}
 
@@ -409,16 +528,56 @@ def random_clip_state_dict(
             sd[f"{pre}.mlp.c_proj.weight"] = randn(width, 4 * width, std=std / 4)
             sd[f"{pre}.mlp.c_proj.bias"] = randn(width, std=0.01)
 
-    sd["visual.conv1.weight"] = randn(vision_width, 3, patch, patch,
-                                      std=(3 * patch * patch) ** -0.5)
-    sd["visual.class_embedding"] = randn(vision_width, std=vision_width ** -0.5)
-    sd["visual.positional_embedding"] = randn(grid * grid + 1, vision_width, std=0.01)
-    sd["visual.ln_pre.weight"] = randn(vision_width, std=0.01, mean=1.0)
-    sd["visual.ln_pre.bias"] = randn(vision_width, std=0.01)
-    blocks("visual.transformer.resblocks", vision_width, vision_layers)
-    sd["visual.ln_post.weight"] = randn(vision_width, std=0.01, mean=1.0)
-    sd["visual.ln_post.bias"] = randn(vision_width, std=0.01)
-    sd["visual.proj"] = randn(vision_width, embed_dim, std=vision_width ** -0.5)
+    def conv(name, cin, cout, k):
+        sd[f"{name}.weight"] = randn(cout, cin, k, k, std=(2.0 / (cin * k * k)) ** 0.5)
+
+    def bn(name, c, scale=1.0):
+        sd[f"{name}.weight"] = randn(c, std=0.01 * scale, mean=scale)
+        sd[f"{name}.bias"] = randn(c, std=0.01)
+        sd[f"{name}.running_mean"] = randn(c, std=0.01)
+        sd[f"{name}.running_var"] = 1.0 + np.abs(randn(c, std=0.01))
+
+    if rn:
+        w = rn_width
+        conv("visual.conv1", 3, w // 2, 3)
+        bn("visual.bn1", w // 2)
+        conv("visual.conv2", w // 2, w // 2, 3)
+        bn("visual.bn2", w // 2)
+        conv("visual.conv3", w // 2, w, 3)
+        bn("visual.bn3", w)
+        cin = w
+        for li, n_blocks in enumerate(rn_layers):
+            planes = w * 2 ** li
+            for j in range(n_blocks):
+                pre = f"visual.layer{li + 1}.{j}"
+                conv(f"{pre}.conv1", cin, planes, 1)
+                bn(f"{pre}.bn1", planes)
+                conv(f"{pre}.conv2", planes, planes, 3)
+                bn(f"{pre}.bn2", planes)
+                conv(f"{pre}.conv3", planes, planes * EXPANSION, 1)
+                bn(f"{pre}.bn3", planes * EXPANSION, scale=0.25)
+                if j == 0:  # CLIP's downsample: [avgpool, conv 1x1, bn]
+                    conv(f"{pre}.downsample.1", cin, planes * EXPANSION, 1)
+                    bn(f"{pre}.downsample.2", planes * EXPANSION)
+                cin = planes * EXPANSION
+        width = w * 32
+        sd["visual.attnpool.positional_embedding"] = randn(grid * grid + 1, width,
+                                                           std=width ** -0.5)
+        for name, out in (("q_proj", width), ("k_proj", width), ("v_proj", width),
+                          ("c_proj", embed_dim)):
+            sd[f"visual.attnpool.{name}.weight"] = randn(out, width, std=width ** -0.5)
+            sd[f"visual.attnpool.{name}.bias"] = randn(out, std=0.01)
+    else:
+        sd["visual.conv1.weight"] = randn(vision_width, 3, patch, patch,
+                                          std=(3 * patch * patch) ** -0.5)
+        sd["visual.class_embedding"] = randn(vision_width, std=vision_width ** -0.5)
+        sd["visual.positional_embedding"] = randn(grid * grid + 1, vision_width, std=0.01)
+        sd["visual.ln_pre.weight"] = randn(vision_width, std=0.01, mean=1.0)
+        sd["visual.ln_pre.bias"] = randn(vision_width, std=0.01)
+        blocks("visual.transformer.resblocks", vision_width, vision_layers)
+        sd["visual.ln_post.weight"] = randn(vision_width, std=0.01, mean=1.0)
+        sd["visual.ln_post.bias"] = randn(vision_width, std=0.01)
+        sd["visual.proj"] = randn(vision_width, embed_dim, std=vision_width ** -0.5)
 
     sd["token_embedding.weight"] = randn(vocab, text_width, std=0.02)
     sd["positional_embedding"] = randn(context, text_width, std=0.01)
