@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases kernels,serve,...]
 
 With `--phases` only the named phases run (kernels, minsum, grad, zero_shot,
-rerank, serve, vehicle, train, cli, multitask, resnet, variants); such a run
+rerank, serve, vehicle, train, cli, multitask, resnet, variants, cache); such a run
 is no pass: it prints {"ok": false, "partial": [...]} as its last line and
 exits with code 3.
 
@@ -94,6 +94,20 @@ exits with code 3.
    full-sequence 12th and the JPM block) against its plain version; then
    the prompt-learning CLI with --training_mode maple and with coop --jpm
    --sie_camera --augmented_prompts, one epoch per stage, --rerank.
+15. cache: the device-resident training input. A DeviceImageCache of a
+   synthetic Market1501 split at Market-1501's scale (751 identities x 17
+   training JPEGs at 256x128; upload seconds, MiB, the build's peak memory),
+   its gathers of 4 PK batches against BatchLoader's rows bit for bit and
+   timed; then at full width, bs 64, bf16 activations, 2 epochs x 6 steps
+   each: run_stage2_cached (the IVLP flagship, a CUDA graph per step) against
+   run_stage2 fed the same gathers and draws, run_stage1_live_cached against
+   run_stage1, and the cached coop stage 1 against the same steps through
+   make_stage1_step(cached=True) eagerly: per-step losses and final leaves
+   (bit-equal, or within 2e-2 with the cause), ms per step, capture seconds,
+   peak memory, a traced epoch of replays against an eager one; the guard on
+   the graph path (an inf leaf rolled back in place); device_prefetch on a
+   copy stream against depth 0; then both training CLIs with --cache_device
+   against the same commands without it, and --resume.
 
 It prints the kernels' JSON record on the line before the last (each
 kernel's launches on the main path of the slice that brought it: IVLP
@@ -943,11 +957,11 @@ def trace(fn, label, top=12):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = device_events(prof)
-    if not kernels:
-        say(f"trace of {label}: the profiler recorded no kernel on the card "
-            f"(device split not measured)")
-        return
+    return report_trace(device_events(prof), wall_us, label, top)
+
+
+def busy_us(kernels) -> float:
+    """The union of the kernels' spans on the card, in microseconds."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s, e in spans[1:]:
@@ -956,7 +970,17 @@ def trace(fn, label, top=12):
             cur_s, cur_e = s, e
         else:
             cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
+    return busy + cur_e - cur_s
+
+
+def report_trace(kernels, wall_us, label, top=12):
+    """Print the device time by kernel and the busy share of `wall_us`;
+    returns {"busy_ms", "wall_ms", "kernels"} (None without kernels)."""
+    if not kernels:
+        say(f"trace of {label}: the profiler recorded no kernel on the card "
+            f"(device split not measured)")
+        return None
+    busy = busy_us(kernels)
     groups = {}
     for e in kernels:
         name = next((g for k, g in KERNEL_GROUPS if k in e.name), e.name[:70])
@@ -967,6 +991,7 @@ def trace(fn, label, top=12):
         f"{len(kernels)} kernels")
     for name, (t, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])[:top]:
         say(f"  {t / 1e3:8.3f} ms  {100 * t / busy:5.1f}%  x{n:<4d} {name}")
+    return {"busy_ms": busy / 1e3, "wall_ms": wall_us / 1e3, "kernels": len(kernels)}
 
 
 def trace_step(params, cfg, images, dev):
@@ -1280,25 +1305,36 @@ def write_market_dir(root, n_ids=32, n_query=2, n_gallery=8, n_train=8, seed=2, 
     per identity plus noise; n_ids test identities (queries on camera 1,
     gallery on cameras 2-6) and n_ids other training identities of n_train
     images each."""
+    import concurrent.futures as cf
+
     from PIL import Image
 
     base_dir = os.path.join(root, "Market1501")
     for sub in ("bounding_box_train", "query", "bounding_box_test"):
         os.makedirs(os.path.join(base_dir, sub))
     rng = np.random.default_rng(seed)
-    base = rng.uniform(0, 255, (2 * n_ids, 16, 8, 3)).repeat(16, axis=1).repeat(16, axis=2)
-    for pid in range(2 * n_ids):
-        test = pid < n_ids
-        for k in range(n_query + n_gallery if test else n_train):
-            noise = rng.uniform(0, 255, (256, 128, 3))
-            img = np.clip(mix * base[pid] + (1 - mix) * noise, 0, 255).astype(np.uint8)
-            if test:
-                sub, cam = ("query", 1) if k < n_query else ("bounding_box_test", 2 + k % 5)
-            else:
-                sub, cam = "bounding_box_train", 1 + k % 6
-            Image.fromarray(img).save(
-                os.path.join(base_dir, sub, f"{pid + 1:04d}_c{cam}s1_{k:06d}_00.jpg"),
-                quality=90)
+    base = rng.uniform(0, 255, (2 * n_ids, 16, 8, 3))
+
+    def save(img, path):
+        Image.fromarray(img).save(path, quality=90)
+
+    # the draws in order on this thread, the JPEG encoding on a pool
+    with cf.ThreadPoolExecutor(8) as pool:
+        pending = []
+        for pid in range(2 * n_ids):
+            test = pid < n_ids
+            big = base[pid].repeat(16, axis=0).repeat(16, axis=1)
+            for k in range(n_query + n_gallery if test else n_train):
+                noise = rng.uniform(0, 255, (256, 128, 3))
+                img = np.clip(mix * big + (1 - mix) * noise, 0, 255).astype(np.uint8)
+                if test:
+                    sub, cam = ("query", 1) if k < n_query else ("bounding_box_test", 2 + k % 5)
+                else:
+                    sub, cam = "bounding_box_train", 1 + k % 6
+                pending.append(pool.submit(save, img, os.path.join(
+                    base_dir, sub, f"{pid + 1:04d}_c{cam}s1_{k:06d}_00.jpg")))
+        for f in pending:
+            f.result()
     return n_ids * n_query, n_ids * n_gallery
 
 
@@ -1706,18 +1742,13 @@ def training_phase(dev, counters, mcfg, params, bs=64):
         text = M.all_class_text_features(params, mcfg)
     tr2, fr2 = O.partition(params, lambda p: M.stage2_trainable(p, mcfg))
     frozen2 = fr2
+    fr2 = TR._bn_state(fr2, mcfg)[0]  # the steps write the BN statistics in place
     tr2 = TR._trainable_copy(tr2)
     step2 = TR.make_stage2_step(mcfg, tcfg, O.make_stage_optimizer(
         tr2, tcfg.lr_stage2, tcfg.weight_decay, bias_lr_mult=2.0))
     draws = pp.train_draws(gen, bs)
     imgs2 = pp.train_batch(images, draws)
-    state = {"frozen": fr2}
-
-    def s2():
-        state["frozen"], loss = step2(tr2, state["frozen"], imgs2, labels, text, valid)
-        return loss
-
-    run("stage-2 step", s2)
+    run("stage-2 step", lambda: step2(tr2, fr2, imgs2, labels, text, valid))
     vals = [float(v) for v in losses]
     say(f"  losses: {', '.join(f'{v:.4f}' for v in vals)}")
     if not np.isfinite(vals).all():
@@ -2488,18 +2519,14 @@ def stage2_steps(dev, counters, mcfg, params, name, bs, losses):
         text = M.all_class_text_features(params, mcfg)
     tr, fr = O.partition(params, lambda p: M.stage2_trainable(p, mcfg))
     tr = TR._trainable_copy(tr)
+    fr = TR._bn_state(fr, mcfg)[0]  # the steps write the BN statistics in place
     step = TR.make_stage2_step(mcfg, tcfg, O.make_stage_optimizer(
         tr, tcfg.lr_stage2, tcfg.weight_decay, bias_lr_mult=2.0))
-    state = {"frozen": fr}
-
-    def s2():
-        state["frozen"], loss = step(tr, state["frozen"], x, labels, text, valid, cv)
-        return loss
-
     held = {k: c for k, c in counters.items() if not (mcfg.use_jpm and k == "ln_proj_tail")}
-    report = timed_steps(f"{name} stage-2", s2, held, losses)
+    report = timed_steps(f"{name} stage-2", lambda: step(tr, fr, x, labels, text, valid, cv),
+                         held, losses)
     if mcfg.use_jpm:
-        moved = float((state["frozen"]["jpm_head"]["bn"]["mean"]
+        moved = float((fr["jpm_head"]["bn"]["mean"]
                        - params["jpm_head"]["bn"]["mean"]).abs().max())
         say(f"  JPM BNNeck running mean moved by up to {moved:.3e} over the steps")
         if not moved > 0:
@@ -2737,6 +2764,574 @@ def variant_cli_phase(counters):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the device-resident training input: a DeviceImageCache at
+# Market-1501 scale, the cached epochs as CUDA-graph replays against their
+# eager counterparts, the guard on the graph path, device_prefetch, and
+# --cache_device in both training CLIs
+# ---------------------------------------------------------------------------
+
+CACHE_STEPS = 6  # steps per epoch of each graph-against-eager comparison
+CACHE_EPOCHS = 3  # the first holds the capture, the second is timed, the third traced
+CACHE_TOL = 2e-2
+
+
+def _write_identity(args):
+    """One identity's JPEGs of write_market_scale_dir (a pool worker)."""
+    from PIL import Image
+
+    base_dir, pid, test, n_train, seed, mix = args
+    rng = np.random.default_rng([seed, pid])
+    base = rng.integers(0, 256, (16, 8, 3)).repeat(16, axis=0).repeat(16, axis=1)
+    noise = rng.integers(0, 256, (2 if test else n_train, 256, 128, 3), dtype=np.uint8)
+    imgs = (mix * base + (1 - mix) * noise.astype(np.float32)).astype(np.uint8)
+    for k, img in enumerate(imgs):
+        if test:
+            sub, cam = ("query", 1) if k == 0 else ("bounding_box_test", 2)
+        else:
+            sub, cam = "bounding_box_train", 1 + k % 6
+        Image.fromarray(img).save(
+            os.path.join(base_dir, sub, f"{pid:04d}_c{cam}s1_{k:06d}_00.jpg"), quality=90)
+
+
+def write_market_scale_dir(root, n_train_ids=751, n_train=17, n_test_ids=750, seed=5, mix=0.45):
+    """A Market1501-layout directory at Market-1501's training scale: n_train_ids
+    identities x n_train 256x128 training JPEGs (751 x 17 = 12,767; the real
+    split has 12,936), and n_test_ids test identities with one query and one
+    gallery image each (Market's identity numbers end at 1501). As
+    write_market_dir's images (a blocky base per identity plus noise), each
+    identity drawn from a generator of its own, on a pool of processes (the
+    pool touches no CUDA)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    base_dir = os.path.join(root, "Market1501")
+    for sub in ("bounding_box_train", "query", "bounding_box_test"):
+        os.makedirs(os.path.join(base_dir, sub))
+    jobs = [(base_dir, pid, pid <= n_test_ids, n_train, seed, mix)
+            for pid in range(1, n_test_ids + n_train_ids + 1)]
+    with cf.ProcessPoolExecutor(min(8, os.cpu_count() or 1),
+                                mp_context=mp.get_context("fork")) as pool:
+        list(pool.map(_write_identity, jobs, chunksize=32))
+    return n_train_ids * n_train
+
+
+class LossLog:
+    """A guard that keeps no snapshot: the loss pipeline hands it every
+    step's loss as the host reads it; `times` are those moments."""
+
+    def __init__(self):
+        self.losses, self.times = [], []
+
+    def will_snapshot(self, step):
+        return False
+
+    def maybe_snapshot(self, step, *state):
+        pass
+
+    def check(self, loss, *state):
+        self.losses.append(float(loss))
+        self.times.append(time.perf_counter())
+        return state, True
+
+    def ms_per_step(self, first, last=-1):
+        """Host ms per step between the reads of steps `first` and `last`."""
+        last %= len(self.times)
+        return 1e3 * (self.times[last] - self.times[first]) / (last - first)
+
+
+class CapturedLaunches:
+    """The kernel launches of one captured step, from the Python counters
+    around each capture (train/step_graph.CAPTURE_HOOKS); replays launch
+    no Python, so a graph path's launches are these times its replays."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.per_step = []
+
+    def __enter__(self):
+        from tpu_reid_torch.train import step_graph
+
+        step_graph.CAPTURE_HOOKS.append(self.hook)
+        return self
+
+    def __exit__(self, *exc):
+        from tpu_reid_torch.train import step_graph
+
+        step_graph.CAPTURE_HOOKS.remove(self.hook)
+
+    def hook(self, when):
+        now = launched(self.counters)
+        if when == "before":
+            self._before = now
+        else:
+            self.per_step.append({k: now[k] - self._before[k] for k in now})
+
+
+class EpochTrace:
+    """A run's `log`: the profiler runs from the second epoch's log line to
+    the third's (the third epoch, ending with its loss read); `report`
+    gives the device's busy share of that window and its kernels."""
+
+    def __init__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.marks = []
+
+    def __call__(self, _msg):
+        self.marks.append(time.perf_counter())
+        if len(self.marks) == 2:
+            self.prof.start()
+        elif len(self.marks) == 3:
+            torch.cuda.synchronize()
+            self.prof.stop()
+
+    def report(self, label):
+        if len(self.marks) != 3:
+            raise PhaseFailed(f"{label}: expected three epochs, logged {len(self.marks)}")
+        return report_trace(device_events(self.prof), 1e6 * (self.marks[2] - self.marks[1]),
+                            label, top=6)
+
+
+def held(got, want, got_losses, want_losses, paths_of):
+    """(bit-equal, losses' max|d| / max|want|, the leaves' worst rel, its path)
+    of two runs' per-step losses and final leaves (paths_of(tree) -> [(path,
+    tensor)])."""
+    if len(got_losses) != len(want_losses) or not got_losses:
+        raise PhaseFailed(f"{len(got_losses)} losses against {len(want_losses)}")
+    lg, lw = np.asarray(got_losses), np.asarray(want_losses)
+    loss_rel = float(np.abs(lg - lw).max() / np.abs(lw).max()) if np.isfinite(lg).all() \
+        else float("inf")
+    worst, worst_path, equal = 0.0, None, bool((lg == lw).all())
+    gp = dict(paths_of(got))
+    for path, t in paths_of(want):
+        _, rel = rel_err(gp[path], t)
+        equal = equal and torch.equal(gp[path], t)
+        if rel > worst:
+            worst, worst_path = rel, "/".join(path)
+    return equal, loss_rel, worst, worst_path
+
+
+def compare_runs(label, graph, eager, g_losses, e_losses, paths_of, eager_again):
+    """A graph path's per-step losses and final leaves against its eager
+    counterpart's (both with the same capturable Adam): bit-equal, or each
+    within CACHE_TOL of max|eager|. When they differ, eager_again() runs the
+    eager path once more, to tell the graph from the eager path's own
+    run-to-run variation."""
+    equal, loss_rel, worst, worst_path = held(graph, eager, g_losses, e_losses, paths_of)
+    ok = loss_rel <= CACHE_TOL and worst <= CACHE_TOL
+    msg = (f"  {label}: graph against eager over {len(g_losses)} steps: "
+           + ("bit-equal (every loss and leaf)" if equal else
+              f"losses rel {loss_rel:.3e}, leaves worst rel {worst:.3e} at {worst_path} (tol "
+              f"{CACHE_TOL:.0e})"))
+    out = {"bit_equal": equal, "loss_rel": loss_rel, "leaf_rel": worst}
+    if not equal:
+        again, again_losses = eager_again()
+        e2 = held(again, eager, again_losses, e_losses, paths_of)
+        out["eager_again"] = {"bit_equal": e2[0], "loss_rel": e2[1], "leaf_rel": e2[2]}
+        msg += ("; the eager path run again: " + ("bit-equal to its first run, so the graph "
+                "is the difference" if e2[0] else
+                f"losses rel {e2[1]:.3e}, leaves worst rel {e2[2]:.3e} at {e2[3]} against its "
+                f"first run: the eager path itself varies from run to run (the order of "
+                f"atomic additions in the backward), the graph no more than that"
+                if e2[1] >= loss_rel / 10 else
+                f"losses rel {e2[1]:.3e} against its first run, less than the graph's"))
+    say(msg + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed(f"{label}: the graph path disagrees with the eager one")
+    return out
+
+
+PRIMITIVE_KERNELS = ("ln_gemm", "mha_core", "gemm_bias_residual", "ln_proj_tail")
+
+
+def graph_against_eager(label, graph_run, eager_run, paths_of, counters, needs=()):
+    """Both runs (run(log, guard) -> params, CACHE_EPOCHS epochs of
+    CACHE_STEPS steps): ms per step over the second epoch (the first holds
+    the capture), a trace of the third, peak memory, capture seconds; every
+    loss and the final leaves held graph against eager; one captured step
+    must launch the block kernels and `needs`."""
+    from tpu_reid_torch.train import step_graph
+
+    out, res = {}, {}
+    for kind, run in (("graph", graph_run), ("eager", eager_run)):
+        rec, tr = LossLog(), EpochTrace()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n_hist = len(step_graph.history)
+        with CapturedLaunches(counters) as cl:
+            params = run(tr, rec)
+        torch.cuda.synchronize()
+        r = {"ms": rec.ms_per_step(CACHE_STEPS, 2 * CACHE_STEPS - 1),
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "losses": rec.losses}
+        if kind == "graph":
+            hist = step_graph.history[n_hist:]
+            if len(hist) != 1 or len(cl.per_step) != 1:
+                raise PhaseFailed(f"{label}: expected one captured step graph, got {hist}")
+            r.update(capture_s=hist[0]["capture_s"], warmup_s=hist[0]["warmup_s"],
+                     replays=hist[0]["replays"],
+                     launches={k: v * hist[0]["replays"] for k, v in cl.per_step[0].items()})
+            require(f"{label} (one captured step)", cl.per_step[0], BLOCK_KERNELS + needs)
+        say(f"  {label} {kind}: {r['ms']:.2f} ms per step (the second epoch, by the host's "
+            f"reads of the losses), peak memory {r['peak_gib']:.2f} GiB"
+            + (f", warm-up {r['warmup_s']:.2f} s, capture {r['capture_s']:.3f} s, "
+               f"{r['replays']} replays" if kind == "graph" else ""))
+        r["trace"] = tr.report(f"the third epoch of the {label} {kind} run "
+                               f"({CACHE_STEPS} steps)")
+        if r["trace"] is None and kind == "graph":
+            raise PhaseFailed(f"{label}: the trace of the graph's replays holds no kernel")
+        out[kind], res[kind] = params, r
+        del params
+
+    def eager_again():
+        rec = LossLog()
+        return eager_run(lambda s: None, rec), rec.losses
+
+    res["held"] = compare_runs(label, out["graph"], out["eager"], res["graph"]["losses"],
+                               res["eager"]["losses"], paths_of, eager_again)
+    del out
+    per_step = sum(v for k, v in res["graph"]["launches"].items() if k in PRIMITIVE_KERNELS)
+    per_step /= max(res["graph"]["replays"], 1)
+    seen = res["graph"]["trace"]["kernels"] / CACHE_STEPS
+    res["graph"]["trace"]["shows_kernels"] = shows = seen >= per_step
+    say(f"  the graph's trace: {seen:.0f} kernels on the card per replay, against "
+        f"{per_step:.0f} launches of the port's kernels in one captured step: "
+        + ("the trace shows the graph's own kernels, not only its launch" if shows else
+           "the trace shows fewer kernels than the graph holds"))
+    return res
+
+
+def trainable_paths(pred):
+    from tpu_reid_torch.train import optim as O
+
+    def paths_of(tree):
+        return [(p, t) for p, t in O.paths(tree) if t is not None
+                and (pred(p) or p[-1] in ("mean", "var"))]
+    return paths_of
+
+
+def cache_phase(dev, counters, bs=64):
+    """The device-resident training input at full ViT-B/16 width."""
+    import tempfile
+
+    from tpu_reid_torch.data.datasets import get_dataset
+    from tpu_reid_torch.data.device_cache import DeviceImageCache
+    from tpu_reid_torch.data.loader import BatchLoader
+    from tpu_reid_torch.data.sampler import PKSampler
+    from tpu_reid_torch.data.transforms import DevicePreprocess
+    from tpu_reid_torch.models import reid_clip as M
+    from tpu_reid_torch.train import trainer as TR
+
+    report, runs = {}, {}
+    bf = torch.bfloat16
+    tcfg = TR.TrainConfig()
+    pp = DevicePreprocess((256, 128), "vit", dtype=bf)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        n_train = write_market_scale_dir(tmp)
+        ds = get_dataset(tmp, "market1501")
+        say(f"cache: a Market1501 directory of {n_train} training JPEGs at 256x128 "
+            f"({ds.num_train_pids} identities x 17) and 750 + 750 test JPEGs (one query and "
+            f"one gallery image per test identity: cut from Market's 3368 / 15913, the "
+            f"phase reads only the training split) written in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        cache = DeviceImageCache(ds.train, (256, 128), device=dev)
+        upload_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        mib = cache.nbytes() / 2**20
+        say(f"  DeviceImageCache: {cache.n} images, {mib:.1f} MiB on the card, decode + upload "
+            f"{upload_s:.2f} s ({cache.nbytes() / upload_s / 1e9:.2f} GB/s of uint8 rows), "
+            f"peak memory of the build {peak:.1f} MiB (the split itself: preallocated, no "
+            f"second copy)")
+        if peak > mib * 1.05:
+            raise PhaseFailed(f"the cache build peaked at {peak:.1f} MiB for {mib:.1f} MiB")
+        report["cache"] = {"n": cache.n, "mib": mib, "upload_s": upload_s, "peak_mib": peak}
+
+        labels = [r[1] for r in ds.train]
+        order = list(PKSampler(labels, bs, 4, seed=0).epoch())[:4]
+        for hb, (sel, pids, camids, valid) in zip(
+                BatchLoader(ds.train, bs, (256, 128), order=iter(order)),
+                cache.epoch_index_batches(order, bs)):
+            got = cache.gather(sel).cpu().numpy()
+            if not (np.array_equal(hb.images[valid], got[valid])
+                    and np.array_equal(hb.pids, pids) and np.array_equal(hb.valid, valid)
+                    and np.array_equal(hb.camids, camids)):
+                raise PhaseFailed("a cache gather differs from BatchLoader's rows")
+        idx = torch.as_tensor(order[0], device=dev)
+        gather_ms = time_ms(lambda: cache.gather(idx))
+        say(f"  the gathers of 4 PK batches of {bs} equal BatchLoader's valid rows, pids, "
+            f"camids and valid bit for bit; gather {gather_ms:.4f} ms per {bs}-row batch "
+            f"({bs * 256 * 128 * 3 * 2 / gather_ms / 1e6:.1f} GB/s read + written)")
+        report["cache"]["gather_ms"] = gather_ms
+
+        def order2(epoch):
+            pk = PKSampler(labels, bs, 4, seed=epoch).epoch()
+            return list(cache.epoch_index_batches(pk, bs))[:CACHE_STEPS]
+
+        def gen2(epoch):
+            return torch.Generator(device=dev).manual_seed(10_000 + epoch)
+
+        def host2(epoch):
+            g = gen2(epoch)
+            for sel, pids, _c, valid in order2(epoch):
+                yield pp.train_batch(cache.gather(sel), pp.train_draws(g, bs)), pids, valid
+
+        mcfg, params = flagship(dev)
+        say(f"stage 2 of the IVLP flagship (751 classes, 213 tokens) at bs {bs} (PK "
+            f"{bs // 4}x4), bf16 activations over fp32 master weights, {CACHE_EPOCHS} epochs x "
+            f"{CACHE_STEPS} steps: run_stage2_cached (a CUDA graph per step) against "
+            f"run_stage2 fed the same gathers and draws")
+        report["stage2"] = graph_against_eager(
+            "stage 2",
+            lambda log, g: TR.run_stage2_cached(params, mcfg, tcfg, cache, order2, pp, gen2,
+                                                epochs=CACHE_EPOCHS, log=log, guard=g),
+            lambda log, g: TR.run_stage2(params, mcfg, tcfg, host2, epochs=CACHE_EPOCHS,
+                                         log=log, guard=g),
+            trainable_paths(lambda p: M.stage2_trainable(p, mcfg)), counters,
+            needs=("ln_proj_tail",))
+        runs["cache_stage2"] = report["stage2"]["graph"]["launches"]
+
+        def order1(epoch):
+            perm = np.random.default_rng(epoch).permutation(cache.n)[:CACHE_STEPS * bs]
+            return cache.epoch_index_batches(perm, bs, drop_tail=True)
+
+        def host1(epoch):
+            for sel, pids, _c, valid in order1(epoch):
+                yield pp.eval_batch(cache.gather(sel)), pids, valid
+
+        say(f"live IVLP stage 1, the same model and batch: run_stage1_live_cached (graph) "
+            f"against run_stage1 on the same gathers")
+        report["stage1_live"] = graph_against_eager(
+            "live stage 1",
+            lambda log, g: TR.run_stage1_live_cached(params, mcfg, tcfg, cache, order1, pp,
+                                                     epochs=CACHE_EPOCHS, log=log, guard=g),
+            lambda log, g: TR.run_stage1(params, mcfg, tcfg, host1, epochs=CACHE_EPOCHS,
+                                         batch_size=bs, log=log, guard=g),
+            trainable_paths(lambda p: M.stage1_trainable(p, mcfg)), counters,
+            needs=("ln_proj_tail",))
+        runs["cache_stage1_live"] = report["stage1_live"]["graph"]["launches"]
+        report["guard"] = graph_guard(mcfg, params, cache, order1, pp, tcfg)
+        report["prefetch"] = prefetch_effect(dev, mcfg, params, ds, pp, bs, tcfg)
+        del params
+        torch.cuda.empty_cache()
+
+        coop, cparams = variant_model(dev, "coop")
+        pre = [(pp.eval_batch(cache.gather(np.arange(i, i + bs))),
+                torch.as_tensor(cache.pids[i:i + bs], device=dev), np.ones(bs, bool))
+               for i in range(0, 8 * bs, bs)]
+
+        def coop_order(epoch, n):
+            perm = np.random.default_rng(epoch).permutation(n)
+            return [perm[i * bs:(i + 1) * bs] for i in range(CACHE_STEPS)]
+
+        say(f"cached coop stage 1 (ViT-B/16, 211 tokens, features of {8 * bs} cached images "
+            f"precomputed): run_stage1 (a CUDA graph per step) against the same steps through "
+            f"make_stage1_step(cached=True), eager")
+        report["coop"] = graph_against_eager(
+            "cached coop stage 1",
+            lambda log, g: TR.run_stage1(cparams, coop, tcfg, lambda e: iter(pre),
+                                         epochs=CACHE_EPOCHS, batch_size=bs, log=log, guard=g,
+                                         cached_order=lambda e, lab: coop_order(e, len(lab))),
+            lambda log, g: eager_coop_stage1(cparams, coop, tcfg, pre, coop_order, bs, log, g),
+            trainable_paths(lambda p: M.stage1_trainable(p, coop)), counters)
+        runs["cache_coop_stage1"] = report["coop"]["graph"]["launches"]
+        del cparams, pre, cache
+        torch.cuda.empty_cache()
+    runs.update(cache_cli_phase(counters))
+    return report, runs
+
+
+def eager_coop_stage1(params, cfg, tcfg, pre, coop_order, bs, log, guard):
+    """The cached coop stage 1 by hand: the same precompute, epochs, lr and
+    index rows through make_stage1_step(cached=True), each step eager, the
+    losses read one step late as the runners do."""
+    from tpu_reid_torch.train import optim as O
+    from tpu_reid_torch.train import trainer as TR
+
+    feats, labels = TR.precompute_image_features(params, cfg, iter(pre))
+    tr, fr = O.partition(params, lambda p: TR.M.stage1_trainable(p, cfg))
+    tr = TR._trainable_copy(tr)
+    opt = O.make_stage_optimizer(tr, tcfg.lr_stage1, tcfg.weight_decay,
+                                 capturable=feats.is_cuda)
+    step = TR.make_stage1_step(cfg, opt, cached=True)
+    state = TR._TrainState(tr, opt)
+    pipe = TR.LossPipeline(guard, state.get, state.set)
+    valid = torch.ones(bs, dtype=torch.bool, device=feats.device)
+    gstep = 0
+    for epoch in range(1, CACHE_EPOCHS + 1):
+        O.set_lr(opt, TR.S.cosine_warmup_lr(epoch, tcfg.lr_stage1, CACHE_EPOCHS))
+        for sel in coop_order(epoch, labels.shape[0]):
+            idx = torch.as_tensor(sel, device=feats.device)
+            batch = {"image_features": feats[idx], "labels": labels[idx], "valid": valid}
+            pipe.before_step(gstep)
+            gstep += 1
+            pipe.after_step(step(tr, fr, batch), redo=lambda b=batch: step(tr, fr, b))
+        losses = pipe.drain_epoch()
+        log(f"[stage1] epoch {epoch}/{CACHE_EPOCHS} loss {np.mean(losses):.4f}")
+    return O.combine(TR._detached(tr), fr)
+
+
+def graph_guard(mcfg, params, cache, order1, pp, tcfg):
+    """The guard on the graph path: live IVLP stage 1, one epoch of
+    CACHE_STEPS replays, a snapshot every 2 steps; right after the snapshot
+    of step 2 a trained leaf is set to inf in place, so step 2's loss is not
+    finite. The guard rolls back: every state tensor keeps its address, the
+    restored leaves equal the snapshot bit for bit, and the losses that
+    follow are finite."""
+    from tpu_reid_torch.runtime.guard import TrainGuard, _to_host
+    from tpu_reid_torch.train import trainer as TR
+
+    class PoisonGuard(TrainGuard):
+        def __init__(self):
+            super().__init__(snapshot_every=2, max_restores=1, log=say)
+            self.ptrs, self.losses, self.restored_equal = [], [], None
+
+        def _ptrs(self, state):
+            out = []
+            for s in state:
+                out += [t.data_ptr() for t in _tensors(s)]
+            self.ptrs.append(out)
+
+        def maybe_snapshot(self, step, *state):
+            super().maybe_snapshot(step, *state)
+            self._ptrs(state)
+            if step == 2:
+                with torch.no_grad():
+                    state[0]["clip"]["visual"]["vpt_shallow"].fill_(float("inf"))
+
+        def check(self, loss, *state):
+            self.losses.append(float(loss))
+            out, ok = super().check(loss, *state)
+            self._ptrs(out)
+            if not ok:
+                snap = self._snap[1]
+                self.restored_equal = all(
+                    torch.equal(a, b) for s_live, s_snap in zip(_to_host(out), snap)
+                    for a, b in zip(_tensors(s_live), _tensors(s_snap)))
+            return out, ok
+
+    guard = PoisonGuard()
+    TR.run_stage1_live_cached(params, mcfg, tcfg, cache, order1, pp, epochs=1, guard=guard,
+                              log=lambda s: None)
+    after = guard.losses[guard.losses.index(next(v for v in guard.losses
+                                                  if not np.isfinite(v))) + 1:]
+    same_ptrs = all(p == guard.ptrs[0] for p in guard.ptrs)
+    ok = (guard.restores == 1 and guard.restored_equal and same_ptrs and after
+          and np.isfinite(after).all())
+    say(f"  guard on the graph path: a trained leaf set to inf after the snapshot of step 2; "
+        f"losses {', '.join(f'{v:.4f}' for v in guard.losses)}; {guard.restores} rollback, "
+        f"restored leaves and Adam state equal the snapshot bit for bit: "
+        f"{guard.restored_equal}; every state tensor's address unchanged over "
+        f"{len(guard.ptrs)} snapshots and checks: {same_ptrs}; the {len(after)} losses after "
+        f"it finite {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed("the guard did not roll the graph path back in place")
+    return {"restores": guard.restores, "losses": guard.losses}
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def prefetch_effect(dev, mcfg, params, ds, pp, bs, tcfg):
+    """run_stage2 of the flagship on 6 PK batches from BatchLoader (host
+    decode, the image copy to the card and the train transform in the
+    batch source, as the CLI's), through device_prefetch on its copy stream
+    (depth 2) against depth 0 (synchronous, the default stream): the same
+    losses, and ms per step."""
+    from tpu_reid_torch.data.loader import BatchLoader
+    from tpu_reid_torch.data.sampler import PKSampler
+    from tpu_reid_torch.parallel import prefetch as PF
+    from tpu_reid_torch.train import trainer as TR
+
+    labels = [r[1] for r in ds.train]
+
+    def batches(epoch):
+        gen = torch.Generator(device=dev).manual_seed(10_000 + epoch)
+        order = list(PKSampler(labels, bs, 4, seed=epoch).epoch())[:CACHE_STEPS]
+        for b in BatchLoader(ds.train, bs, (256, 128), order=iter(order)):
+            images = torch.as_tensor(b.images).to(dev)
+            yield pp.train_batch(images, pp.train_draws(gen, bs)), b.pids, b.valid
+
+    res = {}
+    for name, depth in (("depth 2", 2), ("depth 0", 0), ("depth 2 again", 2)):
+        rec = LossLog()
+        TR.device_prefetch = lambda src, place, depth=depth: PF.device_prefetch(src, place, depth)
+        try:
+            TR.run_stage2(params, mcfg, tcfg, batches, epochs=1, log=lambda s: None, guard=rec)
+        finally:
+            TR.device_prefetch = PF.device_prefetch
+        res[name] = {"ms": rec.ms_per_step(0), "losses": rec.losses}
+    same = res["depth 2"]["losses"] == res["depth 0"]["losses"] == res["depth 2 again"]["losses"]
+    say(f"  device_prefetch on {CACHE_STEPS} stage-2 batches from BatchLoader: "
+        + ", ".join(f"{k} {v['ms']:.2f} ms per step" for k, v in res.items())
+        + f"; losses equal: {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        raise PhaseFailed("the prefetched stage 2 differs from the synchronous one")
+    return res
+
+
+def cache_cli_phase(counters):
+    """Both training CLIs on a synthetic Market1501 (and VeRi) directory at
+    full width, each with --cache_device against the same command without
+    it (mAP within 1e-5), then the cached prompt-learning command with
+    --resume."""
+    import tempfile
+
+    from tpu_reid_torch.cli import multitask as mt_cli
+    from tpu_reid_torch.cli import prompt_learning as pl_cli
+    from tpu_reid_torch.models.tokenizer import write_test_merges
+    from tpu_reid_torch.weights.convert import random_clip_state_dict
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_market_dir(tmp)
+        write_veri_dir(tmp, n_ids=16, mix=0.2)
+        ckpt = os.path.join(tmp, "vit_b16_random.pth")
+        torch.save({k: torch.from_numpy(v) for k, v in random_clip_state_dict(0).items()}, ckpt)
+        merges = os.path.join(tmp, "merges.txt")
+        write_test_merges(merges, [("p", "e"), ("r", "s"), ("c", "a"), ("ca", "r</w>")])
+        common = ["--root", tmp, "--model_path", ckpt, "--bpe_path", merges, "--dtype", "bf16",
+                  "--height", "256", "--ratio", "0.5", "--stride", "12", "--bs", "64",
+                  "--epochs_stage1", "1", "--epochs_stage2", "1", "--train_dataset", "market1501"]
+        cases = (("ivlp", pl_cli, ["--training_mode", "ivlp"]),
+                 ("coop", pl_cli, ["--training_mode", "coop"]),
+                 ("multitask hard_ivlp", mt_cli,
+                  ["--variant", "hard_ivlp", "--train_dataset_multitask", "veri",
+                   "--height_multitask", "256", "--ratio_multitask", "1.0"]))
+        for name, cli, extra in cases:
+            maps = {}
+            for flag in ((), ("--cache_device",)):
+                save = os.path.join(tmp, "ckpt", name.replace(" ", "_") + "".join(flag))
+                argv = common + extra + list(flag) + ["--save_path", save]
+                for c in counters.values():
+                    c.launches = 0
+                t0 = time.perf_counter()
+                _, maps[flag] = cli.main(argv)
+                torch.cuda.synchronize()
+                say(f"  {name} CLI{' --cache_device' if flag else ''}: "
+                    f"{time.perf_counter() - t0:.1f} s, mAP {maps[flag]:.6f}; launches outside "
+                    f"the graphs {launched(counters)}")
+            d = abs(maps[()] - maps[("--cache_device",)])
+            say(f"  {name}: --cache_device mAP against the loader path's: |d| {d:.1e} (tol "
+                f"1e-5) {'ok' if d <= 1e-5 else 'FAIL'}")
+            if d > 1e-5:
+                raise PhaseFailed(f"{name}: --cache_device changes the mAP by {d:.3e}")
+            runs[f"{name.replace(' ', '_')}_cache_cli"] = launched(counters)
+            if name == "ivlp":
+                resume_cli(pl_cli, argv, os.path.join(save, "ivlp", "market1501"), 2,
+                           maps[("--cache_device",)])
+    return runs
+
+
 # instantiations of the wgmma kernels that the sources launch: the GEMM as
 # (LN, 128 or 64 rows, epilogue) = 3 without LN + 4 with; the two attention
 # kernels; the CLS tail
@@ -2892,11 +3487,22 @@ def main() -> int:
         by_path.update(runs)
         say("variants: " + ", ".join(f"{k} {v:.1f}" for k, v in numbers.items()))
 
+    def run_cache():
+        state.clear()
+        torch.cuda.empty_cache()
+        numbers, runs = cache_phase(dev, counters)
+        by_path.update(runs)
+        say("cache: " + json.dumps({k: {kk: vv for kk, vv in v.items() if kk != "losses"}
+                                    if k in ("cache", "guard") else
+                                    {kind: {kk: vv for kk, vv in r.items() if kk != "losses"}
+                                     for kind, r in v.items()}
+                                    for k, v in numbers.items()}, default=float))
+
     phases = (("kernels", run_kernels), ("minsum", run_minsum),
               ("grad", lambda: gradient_phase(dev)), ("zero_shot", run_zero_shot),
               ("rerank", run_rerank), ("serve", run_serve), ("vehicle", run_vehicle),
               ("train", run_train), ("cli", run_cli), ("multitask", run_multitask),
-              ("resnet", run_resnet), ("variants", run_variants))
+              ("resnet", run_resnet), ("variants", run_variants), ("cache", run_cache))
     # `--phases kernels,serve` runs only those phases (for work on one of
     # them); such a run is no pass: it ends with {"ok": false, ...} and code 3
     only = None
@@ -2931,7 +3537,9 @@ def main() -> int:
         r["launches"] = by_path[main][name]
         r["launches_by_path"] = {p: c[name] for p, c in by_path.items() if name in c}
         kernels.append(r)
-    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"kernels": kernels, "note": "launches_by_path on the cache_* paths: one "
+                    "captured step's launches times the graph's replays (a replay runs no "
+                    "Python wrapper, so the counters see a captured step once)"}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -65,7 +65,7 @@ def test_cli_defaults_to_the_card(assets, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (("--cache_device",), "queue 1 item 6"),
+    (("--cache_device", "--devices", "2"), "queue 1 item 7"),
     (("--devices", "2"), "queue 1 item 7"),
     (("--multihost", "localhost:1234"), "queue 1 item 7"),
 ])

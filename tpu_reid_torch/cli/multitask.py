@@ -23,9 +23,13 @@ Checkpoints (runtime/checkpoint.py) go under
 <save_path>/<variant>/<training_mode>/<dataset>_<dataset_multitask>, every
 20 epochs and at the end of each stage, with the optimizer state, the GPA
 sum and the XBM banks beside them; --resume continues from the newest one,
---keep_best keeps the best evaluated parameters under .../best. Not ported
-yet, and refused with their ROADMAP.md queue-1 item: --cache_device
-(item 6), --devices > 1 and --multihost (item 7).
+--keep_best keeps the best evaluated parameters under .../best.
+--cache_device keeps each training split on the device, one
+data/device_cache.DeviceImageCache per (dataset, size): stage 2's PK batches
+gather their images there (same orders, same draws: the flag changes no
+result); stage 1's batches stay on the loader, as in the JAX package. Not
+ported yet, and refused with their ROADMAP.md queue-1 item: --devices > 1
+and --multihost (item 7).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import time
 
 import numpy as np
 import torch
@@ -93,9 +98,6 @@ def params_parser(argv=None):
 
 def refuse_unported(args) -> None:
     """Raise for the flags whose code is not ported yet, naming its item."""
-    if args.cache_device:
-        raise NotImplementedError("not ported yet: --cache_device needs data/device_cache.py "
-                                  "(ROADMAP.md queue 1 item 6)")
     if args.devices > 1 or args.multihost:
         raise NotImplementedError("not ported yet: --devices > 1 and --multihost need the "
                                   "multi-device slice (ROADMAP.md queue 1 item 7)")
@@ -209,6 +211,19 @@ def main(argv=None):
             yield (pp.eval_batch(torch.as_tensor(b.images).to(dev)),
                    torch.as_tensor(b.pids).to(dev), b.valid)
 
+    caches = {}
+    if args.cache_device:
+        # both training splits on the device once; stage 2's batches become
+        # a gather there (data/device_cache.py)
+        from tpu_reid_torch.data.device_cache import DeviceImageCache
+
+        for ds_, pp_ in ((ds1, pp1), (ds2, pp2)):
+            t0 = time.perf_counter()
+            c = caches[(ds_.name, pp_.size_hw)] = DeviceImageCache(ds_.train, pp_.size_hw,
+                                                                   device=dev)
+            log.log("cache_device", dataset=ds_.name, n=c.n, mb=round(c.nbytes() / 2**20, 1),
+                    upload_s=round(time.perf_counter() - t0, 1), sharded=False)
+
     def train_batches(dataset, pp, epoch, offset=0):
         # PK batches with the train augmentation, its draws from a stream of
         # their own per (dataset, epoch)
@@ -217,6 +232,13 @@ def main(argv=None):
         tag = sum(map(ord, dataset.name)) & 0xFFFF
         gen = torch.Generator(device=dev).manual_seed(
             args.seed * 1_000_003 + ((tag << 14) | (epoch & 0x3FFF)))
+        cache = caches.get((dataset.name, pp.size_hw))
+        if cache is not None:
+            for sel, pids, _camids, valid in cache.epoch_index_batches(sampler.epoch(), args.bs):
+                imgs = pp.train_batch(cache.gather(sel), pp.train_draws(gen, args.bs),
+                                      pad_hw=(10, 10))
+                yield imgs, torch.as_tensor(pids).to(dev) + offset, valid
+            return
         for b in BatchLoader(dataset.train, args.bs, pp.size_hw, order=sampler.epoch(),
                              seed=args.seed + epoch):
             images = torch.as_tensor(b.images).to(dev)

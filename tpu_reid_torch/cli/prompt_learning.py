@@ -25,14 +25,23 @@ embedding added to the CLS token, in training and at inference, scaled by
 and averages them; --captions_file takes per-identity caption prompts
 ("label: description" lines).
 
+--cache_device keeps the train split on the device
+(data/device_cache.DeviceImageCache, built once after the model): the
+epoch-0 precompute and the coop/adapter stage 1 gather their batches from
+it, the live stage 1 runs train/trainer.run_stage1_live_cached and stage 2
+run_stage2_cached, each step a CUDA graph replay on the card. The orders
+and augmentation draws are the loader path's, so the flag changes no
+result. It carries no SIE ids (--sie_camera / --sie_view: ValueError).
+
 Not ported yet, and refused with their ROADMAP.md queue-1 item:
---cache_device (item 6), --devices > 1 and --multihost (item 7).
+--devices > 1 and --multihost (item 7).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import time
 
 import numpy as np
 import torch
@@ -100,16 +109,15 @@ def params_parser(argv=None):
 
 
 def refuse_unported(args) -> None:
-    """Raise for the flags whose code is not ported yet, naming its item."""
-    refused = [
-        (args.cache_device, "--cache_device needs data/device_cache.py (ROADMAP.md queue 1 "
-         "item 6)"),
-        (args.devices > 1 or args.multihost, "--devices > 1 and --multihost need the "
-         "multi-device slice (ROADMAP.md queue 1 item 7)"),
-    ]
-    for hit, msg in refused:
-        if hit:
-            raise NotImplementedError(f"not ported yet: {msg}")
+    """Raise for the flags whose code is not ported yet, naming its item, and
+    for --cache_device with SIE ids, which the cache does not carry."""
+    if args.devices > 1 or args.multihost:
+        raise NotImplementedError("not ported yet: --devices > 1 and --multihost need the "
+                                  "multi-device slice (ROADMAP.md queue 1 item 7)")
+    if args.cache_device and (args.sie_camera or args.sie_view):
+        # the JAX CLI's assertion, as a ValueError
+        raise ValueError("--cache_device is a single-process feature (no --multihost) and "
+                         "does not carry SIE side-info ids")
 
 
 def build_model(args, n_cls: int, car_types=None, device=None, n_sie_ids: int = 0):
@@ -277,9 +285,40 @@ def main(argv=None):
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     pp = DevicePreprocess((h, w), "vit", dtype=dtype)
 
+    cache = None
+    if args.cache_device:
+        # the train split on the device once: every epoch's batches become a
+        # gather there, with no host decode or image copy in the epoch loop
+        from tpu_reid_torch.data.device_cache import DeviceImageCache
+
+        t0 = time.perf_counter()
+        cache = DeviceImageCache(dataset.train, (h, w), device=dev)
+        log.log("cache_device", n=cache.n, mb=round(cache.nbytes() / 2**20, 1),
+                upload_s=round(time.perf_counter() - t0, 1), sharded=False)
+
+    def stage1_order(epoch):
+        # the loader's order: shuffled with seed + epoch (a Generator's
+        # permutation is its shuffle of arange), the tail dropped; epoch 0
+        # the sequential pass, tail padded
+        order = (np.random.default_rng(args.seed + epoch).permutation(cache.n) if epoch > 0
+                 else np.arange(cache.n))
+        return cache.epoch_index_batches(order, args.bs, drop_tail=epoch > 0)
+
+    def stage2_order(epoch):
+        labels = [r[1] for r in dataset.train]
+        sampler = PKSampler(labels, args.bs, 4, seed=args.seed + epoch)
+        return cache.epoch_index_batches(sampler.epoch(), args.bs)
+
+    def stage2_gen(epoch):
+        return torch.Generator(device=dev).manual_seed(args.seed * 1_000_003 + 10_000 + epoch)
+
     def stage1_batches(epoch):
         # stage 1 consumes the deterministic eval transform, shuffled order
         # (epoch 0: the sequential pass of the coop/adapter precompute)
+        if cache is not None:
+            for sel, pids, _camids, valid in stage1_order(epoch):
+                yield pp.eval_batch(cache.gather(sel)), torch.as_tensor(pids).to(dev), valid
+            return
         loader = BatchLoader(dataset.train, args.bs, (h, w),
                              order="shuffle" if epoch > 0 else None,
                              seed=args.seed + epoch, drop_tail=epoch > 0)
@@ -292,8 +331,7 @@ def main(argv=None):
     def stage2_batches(epoch):
         labels = [r[1] for r in dataset.train]
         sampler = PKSampler(labels, args.bs, 4, seed=args.seed + epoch)
-        gen = torch.Generator(device=dev).manual_seed(
-            args.seed * 1_000_003 + 10_000 + epoch)
+        gen = stage2_gen(epoch)
         for b in BatchLoader(dataset.train, args.bs, (h, w), order=sampler.epoch()):
             images = torch.as_tensor(b.images).to(dev)
             imgs = pp.train_batch(images, pp.train_draws(gen, images.shape[0]),
@@ -370,21 +408,36 @@ def main(argv=None):
             maybe_keep_best(done, p, float(m))
 
     try:  # a write in flight is finished even when training raises
+        train_log = lambda s: log.log("train", msg=s)  # noqa: E731
         if done_stage < 1:
             with synced_phase(log, "stage1", dev):
-                params = TR.run_stage1(params, mcfg, tcfg, stage1_batches,
-                                       epochs=args.epochs_stage1, seed=args.seed,
-                                       batch_size=args.bs, guard=make_guard(),
-                                       log=lambda s: log.log("train", msg=s),
-                                       checkpoint_cb=two_stage_cb(mgr, 0, lambda e: e), **kw1)
+                if cache is not None and args.training_mode not in ("coop", "adapter"):
+                    # the live modes: run_stage1's epochs are 1-based, so the
+                    # shuffled, tail-dropped orders of stage1_batches
+                    params = TR.run_stage1_live_cached(
+                        params, mcfg, tcfg, cache, stage1_order, pp, epochs=args.epochs_stage1,
+                        guard=make_guard(), log=train_log,
+                        checkpoint_cb=two_stage_cb(mgr, 0, lambda e: e), **kw1)
+                else:
+                    params = TR.run_stage1(params, mcfg, tcfg, stage1_batches,
+                                           epochs=args.epochs_stage1, seed=args.seed,
+                                           batch_size=args.bs, guard=make_guard(),
+                                           log=train_log,
+                                           checkpoint_cb=two_stage_cb(mgr, 0, lambda e: e),
+                                           **kw1)
                 mgr.save(args.epochs_stage1,
                          {"params": params, "stage": 1, "epoch_in_stage": -1})
         if done_stage < 2:
             with synced_phase(log, "stage2", dev):
-                params = TR.run_stage2(params, mcfg, tcfg, stage2_batches,
-                                       epochs=args.epochs_stage2, guard=make_guard(),
-                                       log=lambda s: log.log("train", msg=s),
-                                       checkpoint_cb=stage2_cb, **kw2)
+                if cache is not None:
+                    params = TR.run_stage2_cached(
+                        params, mcfg, tcfg, cache, stage2_order, pp, stage2_gen,
+                        epochs=args.epochs_stage2, guard=make_guard(), log=train_log,
+                        checkpoint_cb=stage2_cb, **kw2)
+                else:
+                    params = TR.run_stage2(params, mcfg, tcfg, stage2_batches,
+                                           epochs=args.epochs_stage2, guard=make_guard(),
+                                           log=train_log, checkpoint_cb=stage2_cb, **kw2)
                 mgr.save(args.epochs_stage1 + args.epochs_stage2,
                          {"params": params, "stage": 2, "epoch_in_stage": -1})
     finally:

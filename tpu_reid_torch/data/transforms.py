@@ -19,6 +19,11 @@ and no antialias, so it is not used.
 
 Normalization constants: ViT towers use (0.5,0.5,0.5)/(0.5,0.5,0.5); RN
 towers use ImageNet stats.
+
+The normalisation constants and the resize weights are made once per
+(size, dtype, device) and reused: a training step captured as a CUDA graph
+(train/step_graph.py) may make no host-to-device copy, and building them on
+every call made one.
 """
 
 from __future__ import annotations
@@ -44,6 +49,31 @@ def norm_stats(model_type: str) -> Tuple[Tuple[float, ...], Tuple[float, ...]]:
     return IMAGENET_MEAN, IMAGENET_STD
 
 
+# (in_size, out_size, device) -> weights, and (model_type, device) ->
+# (mean, std): made once, reused by every later call
+_WEIGHT_MATS: Dict[tuple, Tensor] = {}
+_NORM_CONSTS: Dict[tuple, Tuple[Tensor, Tensor]] = {}
+
+
+def _device_key(device) -> torch.device:
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def norm_constants(model_type: str, device=None) -> Tuple[Tensor, Tensor]:
+    """(mean, std) as fp32 (3,) tensors on `device`, one pair per
+    (model_type, device), made at the first call: do not write into them."""
+    key = (model_type, _device_key(device))
+    out = _NORM_CONSTS.get(key)
+    if out is None:
+        mean, std = norm_stats(model_type)
+        out = _NORM_CONSTS[key] = (torch.tensor(mean, dtype=torch.float32, device=key[1]),
+                                   torch.tensor(std, dtype=torch.float32, device=key[1]))
+    return out
+
+
 def _keys_cubic(x: Tensor) -> Tensor:
     """Keys cubic kernel, a = -0.5, on non-negative distances."""
     out = ((1.5 * x - 2.5) * x) * x + 1.0
@@ -54,7 +84,16 @@ def _keys_cubic(x: Tensor) -> Tensor:
 def cubic_weight_mat(in_size: int, out_size: int, device=None) -> Tensor:
     """(in_size, out_size) fp32 resampling weights, the same computation as
     jax.image.scale.compute_weight_mat with the cubic kernel, antialias on
-    and no translation."""
+    and no translation. One tensor per (sizes, device), made at the first
+    call: do not write into it."""
+    key = (in_size, out_size, _device_key(device))
+    w = _WEIGHT_MATS.get(key)
+    if w is None:
+        w = _WEIGHT_MATS[key] = _cubic_weight_mat(in_size, out_size).to(key[2])
+    return w
+
+
+def _cubic_weight_mat(in_size: int, out_size: int) -> Tensor:
     inv_scale = 1.0 / (out_size / in_size)
     kernel_scale = max(inv_scale, 1.0)
     sample_f = (torch.arange(out_size, dtype=torch.float32) + 0.5) * inv_scale - 0.5
@@ -67,8 +106,7 @@ def cubic_weight_mat(in_size: int, out_size: int, device=None) -> Tensor:
         torch.zeros_like(w),
     )
     inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    w = torch.where(inside[None, :], w, torch.zeros_like(w))
-    return w.to(device)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
 
 
 def resize_cubic(images: Tensor, size_hw: Tuple[int, int]) -> Tensor:
@@ -94,9 +132,7 @@ class DevicePreprocess:
     dtype: torch.dtype = torch.float32
 
     def _normalize(self, x: Tensor) -> Tensor:
-        mean, std = norm_stats(self.model_type)
-        mean_t = torch.tensor(mean, dtype=torch.float32, device=x.device)
-        std_t = torch.tensor(std, dtype=torch.float32, device=x.device)
+        mean_t, std_t = norm_constants(self.model_type, x.device)
         x = x.float() / 255.0
         return ((x - mean_t) / std_t).to(self.dtype)
 

@@ -9,9 +9,12 @@ holds the optimizer state as well as the parameters, so a restore resumes
 the optimization trajectory, not just the weights.
 
 State is any tuple of nested dicts / lists / tuples of tensors (for example
-(trainable leaves, BN statistics, optimizer.state_dict())); snapshots are
-CPU copies, and a restore returns them on the devices of the live state they
-replace. Host-side logic only: the trainer already reads each loss.
+(trainable leaves, BN statistics, train/optim.state_tensors)); snapshots are
+CPU copies. A restore writes them back into the live tensors in place
+(`copy_`), so every tensor keeps its address: a training step captured as a
+CUDA graph reads fixed addresses (train/step_graph.py); a non-tensor leaf
+comes back as its snapshot. Host-side logic only: the trainer already reads
+each loss.
 
 StepWatchdog fires a callback once when a guarded wait outlasts its
 budget: a wedged device presents as a host thread blocked in a
@@ -45,8 +48,11 @@ def _to_host(tree):
     return _map(lambda t, _: t.detach().to("cpu", copy=True), tree)
 
 
-def _to_device(tree, like):
-    return _map(lambda t, ref: t.to(ref.device) if isinstance(ref, torch.Tensor) else t,
+@torch.no_grad()
+def _restore(tree, like):
+    """The snapshot `tree` written into the live tensors of `like` in place;
+    returns the restored live structure."""
+    return _map(lambda t, ref: ref.copy_(t) if isinstance(ref, torch.Tensor) else t,
                 tree, like)
 
 
@@ -60,7 +66,8 @@ class TrainGuard:
         guard.maybe_snapshot(step_idx, *state)
         state, ok = guard.check(loss, *state)
         if not ok:
-            ...restore `state` into the live tensors and skip the batch
+            ...the live tensors hold the snapshot again (in place): skip
+            the batch, and rebind whatever `state` replaced
 
     `check` treats NaN/inf losses as failures; everything else marks the
     current state good. The cost of a clean run is one host copy every
@@ -111,7 +118,7 @@ class TrainGuard:
         if self._snap is None:
             raise RuntimeError("check() before any maybe_snapshot()")
         _, host_state = self._snap
-        return tuple(_to_device(s, live) for s, live in zip(host_state, state)), False
+        return tuple(_restore(s, live) for s, live in zip(host_state, state)), False
 
 
 class StepWatchdog:

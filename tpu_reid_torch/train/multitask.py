@@ -17,6 +17,10 @@ optimizer (reference: one optimizer step per task batch). On CUDA every
 block of both towers runs forward through the hand-written kernels and
 backward through the plain block's recompute, as in train/trainer.py.
 
+Input: both runners take their batches through
+parallel/prefetch.device_prefetch (a worker thread and, on CUDA, a copy
+stream), and roll back in place as train/trainer.py does.
+
 Resume: both runners take start_epoch / init_opt_state / init_gpa (and
 init_xbms for stage 2); their checkpoint_cb hands over {"optimizer",
 "opt_paths", "gpa"} (+ "xbms") after every epoch.
@@ -41,6 +45,7 @@ from tpu_reid_torch.models import prompts as P
 from tpu_reid_torch.models import text as T
 from tpu_reid_torch.models import vit as V
 from tpu_reid_torch.models.clip_model import resize_pos_embed
+from tpu_reid_torch.parallel.prefetch import StreamPlacer, device_prefetch
 from tpu_reid_torch.train import losses as L
 from tpu_reid_torch.train import optim as O
 from tpu_reid_torch.train import schedules as S
@@ -345,24 +350,25 @@ def run_mt_stage1(
     trainable = TR._trainable_copy(trainable)
     optimizer = O.make_stage_optimizer(trainable, tcfg.lr_stage1, tcfg.weight_decay)
     if init_opt_state is not None:
-        optimizer.load_state_dict(init_opt_state)
+        O.load_state(optimizer, init_opt_state)
     opt_paths = O.leaf_order(trainable)
     steps = [make_mt_stage1_step(cfg, optimizer, t) for t in (0, 1)]
 
     def get_state():
-        return trainable, optimizer.state_dict()
+        return trainable, O.state_tensors(optimizer)
 
     def set_state(state):
         TR._restore_into(trainable, state[0])
-        optimizer.load_state_dict(state[1])
+        O.restore_state(optimizer, state[1])
 
     pipe = TR.LossPipeline(guard, get_state, set_state)
+    placer = StreamPlacer(dev)
     gw = O.gauss_weights(*tcfg.gpa_stage1, epochs)
     gpa = init_gpa
     gstep = 0
     for epoch in range(start_epoch, epochs + 1):
         O.set_lr(optimizer, S.cosine_warmup_lr(epoch, tcfg.lr_stage1, epochs))
-        for item in epoch_batches(epoch):
+        for item in device_prefetch(epoch_batches(epoch), placer):
             task, batch = _task_batch(item, dev)
             pipe.before_step(gstep)
             gstep += 1
@@ -417,7 +423,7 @@ def run_mt_stage2(
     optimizer = O.make_stage_optimizer(trainable, tcfg.lr_stage2, tcfg.weight_decay,
                                        bias_lr_mult=2.0)
     if init_opt_state is not None:
-        optimizer.load_state_dict(init_opt_state)
+        O.load_state(optimizer, init_opt_state)
     opt_paths = O.leaf_order(trainable, bias_lr_mult=2.0)
     steps = [make_mt_stage2_step(cfg, tcfg, optimizer, t) for t in (0, 1)]
     dim = cfg.clip.embed_dim
@@ -426,23 +432,24 @@ def run_mt_stage2(
 
     def get_state():
         return (trainable, {k: frozen[k] for k in ("head1", "head2")},
-                optimizer.state_dict(), xbms[0], xbms[1])
+                O.state_tensors(optimizer), xbms[0], xbms[1])
 
     def set_state(state):
         nonlocal frozen
         TR._restore_into(trainable, state[0])
         frozen = dict(frozen, **state[1])
-        optimizer.load_state_dict(state[2])
+        O.restore_state(optimizer, state[2])
         xbms[0], xbms[1] = state[3], state[4]
 
     pipe = TR.LossPipeline(guard, get_state, set_state)
+    placer = StreamPlacer(dev)
     gw = O.gauss_weights(*tcfg.gpa_stage2, epochs)
     gpa = init_gpa
     gstep = 0
     for epoch in range(start_epoch, epochs):
         O.set_lr(optimizer, S.warmup_multistep_lr(epoch, tcfg.lr_stage2))
         use_xbm = epoch >= xbm_start_epoch
-        for item in epoch_batches(epoch):
+        for item in device_prefetch(epoch_batches(epoch), placer):
             task, batch = _task_batch(item, dev)
             pipe.before_step(gstep)
 

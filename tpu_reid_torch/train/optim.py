@@ -13,6 +13,19 @@ param group with lr x `bias_lr_mult` (the JAX chain's post-scale of those
 leaves' updates: Adam's update is linear in lr). `set_lr` sets the epoch's
 lr on both groups.
 
+A step captured as a CUDA graph (train/step_graph.py) needs
+`capturable=True`, which only CUDA Adam takes, and an lr that the graph
+reads from memory: with capturable=True each group's lr is a 0-dim CUDA
+tensor that `set_lr` writes in place (a float would be baked into the
+graph at capture). The stage runners take capturable mode on CUDA on every
+path, the host loops too, so that a graph path and its host loop do the
+same arithmetic (capturable Adam computes its bias corrections on the card
+in fp32, the other mode on the host in double). Adam's state is made when
+the optimizer is, so it has fixed addresses from the start;
+`state_tensors` / `restore_state` snapshot and roll back that state in
+place, and `load_state` reads a saved state dict into either kind of
+optimizer, whichever kind wrote it.
+
 GPA (Gaussian-weighted prompt averaging, PromptSRC) keeps a running
 gauss-weighted sum of the full parameter dict and swaps it in at the end.
 """
@@ -88,22 +101,94 @@ def leaf_order(trainable: dict, bias_lr_mult: float = 1.0) -> list:
 
 
 def make_stage_optimizer(trainable: dict, base_lr: float, weight_decay: float = 1e-4,
-                         bias_lr_mult: float = 1.0) -> torch.optim.Adam:
+                         bias_lr_mult: float = 1.0, capturable: bool = False) -> torch.optim.Adam:
     """torch.optim.Adam over the trainable leaves (each must require grad):
     one group at base_lr and, with bias_lr_mult != 1, a second group of the
     bias leaves at base_lr * bias_lr_mult. Each group records its
-    multiplier as "lr_mult" for `set_lr`."""
+    multiplier as "lr_mult" for `set_lr`. capturable=True (CUDA leaves
+    only): Adam's capturable mode, each group's lr a 0-dim fp32 tensor on
+    the leaves' device."""
     groups = [{"params": [t for _, t in leaves], "lr_mult": mult}
               for mult, leaves in _groups(trainable, bias_lr_mult)]
     for g in groups:
-        g["lr"] = base_lr * g["lr_mult"]
-    return torch.optim.Adam(groups, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
+        lr = base_lr * g["lr_mult"]
+        g["lr"] = (torch.tensor(lr, dtype=torch.float32, device=g["params"][0].device)
+                   if capturable else lr)
+    opt = torch.optim.Adam(groups, lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
+                           weight_decay=weight_decay, capturable=capturable)
+    # torch warns once when a capturable Adam steps outside a capture: the
+    # host loops and a graph's warm-up steps do so on purpose
+    opt._warned_capturable_if_run_uncaptured = True
+    _init_state(opt)
+    return opt
+
+
+def _init_state(optimizer: torch.optim.Adam) -> None:
+    """Adam's state for every leaf, as its first step would make it (step 0,
+    zero moments)."""
+    for g in optimizer.param_groups:
+        for p in g["params"]:
+            st = optimizer.state[p]
+            if not st:
+                st["step"] = (torch.zeros((), dtype=torch.float32, device=p.device)
+                              if g["capturable"] else torch.tensor(0.0, dtype=torch.float32))
+                st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """The epoch's lr on every group (x its lr_mult); a tensor lr is written
+    in place."""
     for g in optimizer.param_groups:
-        g["lr"] = lr * g["lr_mult"]
+        if isinstance(g["lr"], Tensor):
+            g["lr"].fill_(lr * g["lr_mult"])
+        else:
+            g["lr"] = lr * g["lr_mult"]
+
+
+def state_tensors(optimizer: torch.optim.Optimizer) -> dict:
+    """The optimizer's live state, for a guard snapshot: {"state": each
+    leaf's state dict (step, moments) in group order, "lr": each group's
+    lr}. The tensors are the optimizer's own, not copies."""
+    return {"state": [optimizer.state[p] for g in optimizer.param_groups for p in g["params"]],
+            "lr": [g["lr"] for g in optimizer.param_groups]}
+
+
+@torch.no_grad()
+def restore_state(optimizer: torch.optim.Optimizer, saved: dict) -> None:
+    """Write a `state_tensors` snapshot back into the optimizer in place
+    (tensors that already are the live ones are skipped)."""
+    live = state_tensors(optimizer)
+    for st, sv in zip(live["state"], saved["state"]):
+        for k, v in sv.items():
+            if st[k] is not v:
+                st[k].copy_(v)
+    for g, lr in zip(optimizer.param_groups, saved["lr"]):
+        if isinstance(g["lr"], Tensor):
+            if g["lr"] is not lr:
+                g["lr"].copy_(torch.as_tensor(lr))
+        else:
+            g["lr"] = float(lr)
+
+
+def load_state(optimizer: torch.optim.Optimizer, state_dict: dict) -> None:
+    """`optimizer.load_state_dict` that keeps this optimizer's own mode: its
+    capturable and foreach options and its lr tensors (filled with the saved
+    lr), whichever mode wrote `state_dict`; the step counters land where
+    that mode keeps them."""
+    live = optimizer.param_groups
+    groups = [dict(s, lr=float(s["lr"]), capturable=g["capturable"], foreach=g["foreach"])
+              for s, g in zip(state_dict["param_groups"], live)]
+    lr_tensors = [g["lr"] if isinstance(g["lr"], Tensor) else None for g in live]
+    optimizer.load_state_dict(dict(state_dict, param_groups=groups))
+    for g, t in zip(optimizer.param_groups, lr_tensors):
+        if t is not None:
+            t.fill_(g["lr"])
+            g["lr"] = t
+        for p in g["params"]:
+            st = optimizer.state[p]
+            if "step" in st and not g["capturable"] and st["step"].device.type != "cpu":
+                st["step"] = st["step"].cpu()
 
 
 def gauss_weights(mu: float, sigma: float, max_epochs: int) -> np.ndarray:

@@ -39,9 +39,30 @@ one exactly; the cached coop/adapter path draws every epoch's permutation
 from one generator seeded at the start of run_stage1, so a resumed run
 starts that stream again, as in the JAX package.
 
+Input: the host loops (the live stage 1, stage 2) take their batches
+through parallel/prefetch.device_prefetch, `depth` batches ahead on a worker
+thread and, on CUDA, a copy stream. The device-resident paths serve every
+batch from a data/device_cache.DeviceImageCache (`run_stage2_cached`,
+`run_stage1_live_cached`) or from the precomputed features (the cached
+coop/adapter stage 1): a step's host inputs are then an index row, its
+labels and its valid mask, and on CUDA the whole step (gather, transform,
+forward through the kernels, backward, Adam) is one CUDA graph replayed
+per batch (train/step_graph.py); on the CPU the same step runs eagerly.
+`chunk` is the number of steps whose index rows go to the card in one
+pinned copy; results do not depend on it.
+
+State is updated and rolled back in place on every path: Adam's state is
+made with the optimizer (in its capturable mode on CUDA, the host loops
+too, so that both do the same arithmetic), the BN statistics are written
+with copy_, and the
+guard (runtime/guard.TrainGuard) writes a snapshot back into the live
+tensors, since a graph reads fixed addresses. The guard stays per step on
+the cached paths too: a non-finite loss rolls back to the last snapshot and
+re-runs the step already queued, from the inputs already in its buffers
+(the JAX package checks and replays a whole chunk instead).
+
 Later slices: the multi-device paths (`sharded_encoder`, the `mesh=`
-arguments) and the device-resident chunked epochs (`run_stage2_cached`,
-`run_stage1_live_cached`).
+arguments).
 """
 
 from __future__ import annotations
@@ -53,9 +74,11 @@ import numpy as np
 import torch
 
 from tpu_reid_torch.models import reid_clip as M
+from tpu_reid_torch.parallel.prefetch import StreamPlacer, device_prefetch
 from tpu_reid_torch.train import losses as L
 from tpu_reid_torch.train import optim as O
 from tpu_reid_torch.train import schedules as S
+from tpu_reid_torch.train.step_graph import StepGraph
 
 Tensor = torch.Tensor
 
@@ -186,11 +209,100 @@ def stage2_leaf_order(params: dict, cfg: M.ReidModelConfig) -> list:
 
 def _restore_into(live: dict, saved: dict) -> None:
     """Copy a snapshot's values into the live leaves in place (the optimizer
-    holds references to them)."""
+    holds references to them; leaves that already are the live ones are
+    skipped)."""
     with torch.no_grad():
         for (_, t), (_, s) in zip(O.paths(live), O.paths(saved)):
-            if t is not None:
+            if t is not None and t is not s:
                 t.copy_(s)
+
+
+class _TrainState:
+    """What a step updates: the trained leaves, Adam's state and, in stage
+    2, the BN statistics. `get` / `set` are the loss pipeline's state
+    callbacks, `set` writing in place; `tensors` lists them all for a
+    step graph."""
+
+    def __init__(self, trainable: dict, optimizer: torch.optim.Optimizer,
+                 bn: Optional[dict] = None):
+        self.trainable, self.optimizer, self.bn = trainable, optimizer, bn
+
+    def get(self) -> tuple:
+        opt = O.state_tensors(self.optimizer)
+        if self.bn is None:
+            return self.trainable, opt
+        return self.trainable, self.bn, opt
+
+    def set(self, state: tuple) -> None:
+        _restore_into(self.trainable, state[0])
+        if self.bn is not None:
+            _restore_into(self.bn, state[1])
+        O.restore_state(self.optimizer, state[-1])
+
+    def tensors(self) -> list:
+        out = _leaves(self.trainable) + ([] if self.bn is None else _leaves(self.bn))
+        for st in O.state_tensors(self.optimizer)["state"]:
+            out.extend(v for v in st.values() if isinstance(v, Tensor))
+        return out
+
+
+def _bn_state(frozen: dict, cfg: M.ReidModelConfig) -> Tuple[dict, dict]:
+    """(frozen with its own copies of the BNNeck running statistics, a tree
+    of just those statistics): stage 2 writes them in place, and the
+    caller's parameter dict stays as it is."""
+    frozen, stats = dict(frozen), {}
+    for name in (("head", "jpm_head") if cfg.use_jpm else ("head",)):
+        head = frozen[name] = dict(frozen[name])
+        for bn in ("bn", "bn_proj"):
+            if isinstance(head.get(bn), dict):
+                head[bn] = dict(head[bn], mean=head[bn]["mean"].clone(),
+                                var=head[bn]["var"].clone())
+                stats.setdefault(name, {})[bn] = {k: head[bn][k] for k in ("mean", "var")}
+    return frozen, stats
+
+
+def _replay_epoch(rows: list, chunk: int, bufs: dict, run: StepGraph, pipe: "LossPipeline",
+                  gstep: int, dev: torch.device, draw: Optional[Callable[[], dict]] = None
+                  ) -> int:
+    """One epoch of a device-resident path: rows are (sel, labels, valid)
+    host arrays of one batch each. Every `chunk` rows go to the device in one
+    pinned copy; then for each row, the augmentation draws (`draw()`, for
+    every row in order, as the host loop makes them), and unless the row has
+    no valid entry, its static buffers are written in place and the step
+    runs through the loss pipeline (a redo runs it again on the same
+    buffers). Returns the global step count."""
+    for lo in range(0, len(rows), chunk):
+        block = rows[lo:lo + chunk]
+        packed = torch.from_numpy(np.stack([np.stack([np.asarray(a, np.int64) for a in r])
+                                            for r in block]))
+        if dev.type == "cuda":
+            packed = packed.pin_memory()
+        packed = packed.to(dev, non_blocking=True)
+        for j, (_sel, _labels, valid) in enumerate(block):
+            draws = draw() if draw is not None else None
+            if not np.asarray(valid).any():
+                continue  # a step with no valid row is not run
+            pipe.before_step(gstep)
+            with torch.no_grad():
+                bufs["idx"].copy_(packed[j, 0])
+                bufs["labels"].copy_(packed[j, 1])
+                bufs["valid"].copy_(packed[j, 2])
+                if draws is not None:
+                    if "draws" not in bufs:
+                        bufs["draws"] = {k: torch.empty_like(t) for k, t in draws.items()}
+                    for k, t in draws.items():
+                        bufs["draws"][k].copy_(t)
+            gstep += 1
+            pipe.after_step(run(), redo=run)
+    return gstep
+
+
+def _static_buffers(bs: int, dev: torch.device) -> dict:
+    """A step's static inputs: the index row, labels and valid mask (the
+    augmentation draws join at the first draw)."""
+    return {"idx": torch.zeros(bs, dtype=torch.long, device=dev),
+            "labels": torch.zeros(bs, dtype=torch.long, device=dev),
+            "valid": torch.zeros(bs, dtype=torch.bool, device=dev)}
 
 
 # ---------------------------------------------------------------------------
@@ -277,76 +389,93 @@ def run_stage1(
     cached_order(epoch, labels) -> iterable of index arrays overrides the
     cached path's batch order (the soft-multitask per-dataset alternation);
     tail batches shorter than batch_size are padded and masked.
-    start_epoch / init_opt_state / init_gpa resume a run mid-stage."""
+    start_epoch / init_opt_state / init_gpa resume a run mid-stage.
+
+    The live modes take their batches through device_prefetch. The cached
+    coop/adapter path is the JAX package's chunked branch: each step
+    gathers its features and labels on the device by an index row, on CUDA
+    as a CUDA graph replay (32 index rows per host copy)."""
     epochs = epochs or tcfg.epochs_stage1
     dev = _device_of(params)
     cached = cfg.mode in ("coop", "adapter")
     trainable, frozen = O.partition(params, lambda path: M.stage1_trainable(path, cfg))
     trainable = _trainable_copy(trainable)
-    optimizer = O.make_stage_optimizer(trainable, tcfg.lr_stage1, tcfg.weight_decay)
+    optimizer = O.make_stage_optimizer(trainable, tcfg.lr_stage1, tcfg.weight_decay,
+                                       capturable=dev.type == "cuda")
     if init_opt_state is not None:
-        optimizer.load_state_dict(init_opt_state)
+        O.load_state(optimizer, init_opt_state)
     opt_paths = O.leaf_order(trainable)
     step = make_stage1_step(cfg, optimizer, cached)
+    state = _TrainState(trainable, optimizer)
+    pipe = LossPipeline(guard, state.get, state.set)
 
     if cached:
         feats, labels = precompute_image_features(params, cfg, epoch_batches(0))
         n = labels.shape[0]
         bs = min(batch_size, n)
         rng = np.random.default_rng(seed)
+        bufs = _static_buffers(bs, dev)
 
-        def cached_batches(epoch):
+        def body():
+            idx = bufs["idx"]
+            return step(trainable, frozen, {"image_features": feats[idx], "labels": labels[idx],
+                                            "valid": bufs["valid"]})
+
+        run = StepGraph(body, state.tensors, dev, name="cached stage-1 step")
+
+        def cached_rows(epoch):
             if cached_order is not None:
                 sels = cached_order(epoch, labels.cpu().numpy())
             else:
                 order = rng.permutation(n)
                 sels = (order[i:i + bs] for i in range(0, n, bs))
+            rows = []
             for sel in sels:
                 sel = np.asarray(sel)
                 valid = np.ones((bs,), bool)
                 if len(sel) < bs:  # padded tail, masked out of the loss
                     valid[len(sel):] = False
                     sel = np.concatenate([sel, np.zeros((bs - len(sel),), sel.dtype)])
-                idx = torch.as_tensor(sel, device=dev)
-                yield {"image_features": feats[idx], "labels": labels[idx],
-                       "valid": torch.as_tensor(valid, device=dev)}
+                rows.append((sel, np.zeros((bs,), np.int64), valid))
+            return rows
 
-    def live_batches(epoch):
-        for images, lab, valid, *rest in epoch_batches(epoch):
-            batch = {"images": _as_tensor(images, dev), "labels": _as_tensor(lab, dev),
-                     "valid": _as_tensor(valid, dev).bool()}
-            if rest:  # SIE camera ids
-                batch["cv_ids"] = _as_tensor(rest[0], dev)
-            yield batch
+    def live_batch(item):
+        images, lab, valid, *rest = item
+        batch = {"images": _as_tensor(images, dev), "labels": _as_tensor(lab, dev),
+                 "valid": _as_tensor(valid, dev).bool()}
+        if rest:  # SIE camera ids
+            batch["cv_ids"] = _as_tensor(rest[0], dev)
+        return batch
 
-    def get_state():
-        return trainable, optimizer.state_dict()
-
-    def set_state(state):
-        _restore_into(trainable, state[0])
-        optimizer.load_state_dict(state[1])
-
-    pipe = LossPipeline(guard, get_state, set_state)
+    placer = StreamPlacer(dev)
     gw = O.gauss_weights(*tcfg.gpa_stage1, epochs)
     gpa = init_gpa
     gstep = 0
-    for epoch in range(start_epoch, epochs + 1):
-        lr = S.cosine_warmup_lr(epoch, tcfg.lr_stage1, epochs)
-        O.set_lr(optimizer, lr)
-        for batch in (cached_batches(epoch) if cached else live_batches(epoch)):
-            pipe.before_step(gstep)
-            gstep += 1
-            pipe.after_step(step(trainable, frozen, batch),
-                            redo=lambda batch=batch: step(trainable, frozen, batch))
-        losses = pipe.drain_epoch()
-        if cfg.mode == "promptsrc":
-            gpa = O.gpa_update(gpa, O.combine(_detached(trainable), frozen), gw[epoch - 1])
-        if losses:
-            log(f"[stage1] epoch {epoch}/{epochs} loss {np.mean(losses):.4f} lr {lr:.2e}")
-        if checkpoint_cb is not None:
-            checkpoint_cb(epoch, O.combine(_detached(trainable), frozen),
-                          {"optimizer": optimizer.state_dict(), "opt_paths": opt_paths,
-                           "gpa": gpa})
+    try:
+        for epoch in range(start_epoch, epochs + 1):
+            lr = S.cosine_warmup_lr(epoch, tcfg.lr_stage1, epochs)
+            O.set_lr(optimizer, lr)
+            if cached:
+                gstep = _replay_epoch(cached_rows(epoch), 32, bufs, run, pipe, gstep, dev)
+            else:
+                for item in device_prefetch(epoch_batches(epoch), placer):
+                    batch = live_batch(item)
+                    pipe.before_step(gstep)
+                    gstep += 1
+                    pipe.after_step(step(trainable, frozen, batch),
+                                    redo=lambda batch=batch: step(trainable, frozen, batch))
+            losses = pipe.drain_epoch()
+            if cfg.mode == "promptsrc":
+                gpa = O.gpa_update(gpa, O.combine(_detached(trainable), frozen), gw[epoch - 1])
+            if losses:
+                log(f"[stage1] epoch {epoch}/{epochs} loss {np.mean(losses):.4f} lr {lr:.2e}")
+            if checkpoint_cb is not None:
+                checkpoint_cb(epoch, O.combine(_detached(trainable), frozen),
+                              {"optimizer": optimizer.state_dict(), "opt_paths": opt_paths,
+                               "gpa": gpa})
+    finally:
+        if cached:
+            run.release(_leaves(trainable))
     if cfg.mode == "promptsrc" and gpa is not None:
         return gpa
     return O.combine(_detached(trainable), frozen)
@@ -388,27 +517,24 @@ def stage2_loss(cfg: M.ReidModelConfig, tcfg: TrainConfig, params: dict, images:
 def make_stage2_step(cfg: M.ReidModelConfig, tcfg: TrainConfig,
                      optimizer: torch.optim.Optimizer):
     """Stage-2 step(trainable, frozen, images, labels, text_features,
-    valid=None, cv_ids=None) -> (frozen, loss): the returned frozen tree
-    carries the BNNeck's (and JPM's BNNeck's) new running statistics; loss
-    is a 0-dim tensor."""
+    valid=None, cv_ids=None) -> loss (a 0-dim tensor): the BNNeck's (and
+    JPM's BNNeck's) new running statistics are written into frozen's tensors
+    with copy_, so frozen must own them (`_bn_state`)."""
 
     def step(trainable, frozen, images, labels, text_features, valid=None, cv_ids=None):
         loss, bn_stats = stage2_loss(cfg, tcfg, O.combine(trainable, frozen), images, labels,
                                      text_features, valid, cv_ids)
         _apply_grads(loss, trainable, optimizer)
         # thread the BNNeck running stats (state lives in the frozen tree)
-        frozen = dict(frozen, head=dict(frozen["head"]))
-        for name in ("bn", "bn_proj"):
-            stats = bn_stats[name]
-            if stats is not None:
-                frozen["head"][name] = dict(frozen["head"][name], mean=stats["mean"].detach(),
-                                            var=stats["var"].detach())
-        jpm_stats = bn_stats.get("jpm")
-        if jpm_stats is not None:  # use_jpm: the 4th BNNeck, on the jigsaw branch
-            bn = dict(frozen["jpm_head"]["bn"], mean=jpm_stats["mean"].detach(),
-                      var=jpm_stats["var"].detach())
-            frozen["jpm_head"] = dict(frozen["jpm_head"], bn=bn)
-        return frozen, loss.detach()
+        new = [(("head", name), bn_stats[name]) for name in ("bn", "bn_proj")
+               if bn_stats[name] is not None]
+        if bn_stats.get("jpm") is not None:  # use_jpm: the 4th BNNeck, on the jigsaw branch
+            new.append((("jpm_head", "bn"), bn_stats["jpm"]))
+        with torch.no_grad():
+            for (head, name), stats in new:
+                for k in ("mean", "var"):
+                    frozen[head][name][k].copy_(stats[k])
+        return loss.detach()
 
     return step
 
@@ -427,10 +553,11 @@ def run_stage2(
     init_gpa: Optional[dict] = None,
 ) -> dict:
     """epoch_batches(epoch) yields (images, labels, valid[, cv_ids]) batches
-    (epochs 0-based; the SIE camera ids are required when cfg.sie_ids > 0).
-    guard: optional runtime.guard.TrainGuard — snapshots the trainable
-    leaves, the BNNeck statistics and the optimizer state, and rolls all
-    three back when a step yields a non-finite loss.
+    (epochs 0-based; the SIE camera ids are required when cfg.sie_ids > 0),
+    taken through device_prefetch. guard: optional
+    runtime.guard.TrainGuard — snapshots the trainable leaves, the BNNeck
+    statistics and the optimizer state, and rolls all three back in place
+    when a step yields a non-finite loss.
     checkpoint_cb and start_epoch / init_opt_state / init_gpa: as in
     run_stage1."""
     epochs = epochs or tcfg.epochs_stage2
@@ -439,32 +566,23 @@ def run_stage2(
         text_features = M.all_class_text_features(params, cfg)
     trainable, frozen = O.partition(params, lambda path: M.stage2_trainable(path, cfg))
     trainable = _trainable_copy(trainable)
+    frozen, bn = _bn_state(frozen, cfg)
     optimizer = O.make_stage_optimizer(trainable, tcfg.lr_stage2, tcfg.weight_decay,
-                                       bias_lr_mult=2.0)
+                                       bias_lr_mult=2.0, capturable=dev.type == "cuda")
     if init_opt_state is not None:
-        optimizer.load_state_dict(init_opt_state)
+        O.load_state(optimizer, init_opt_state)
     opt_paths = O.leaf_order(trainable, bias_lr_mult=2.0)
     step = make_stage2_step(cfg, tcfg, optimizer)
-
-    bn_state = ("head", "jpm_head") if cfg.use_jpm else ("head",)
-
-    def get_state():
-        return trainable, {k: frozen[k] for k in bn_state}, optimizer.state_dict()
-
-    def set_state(state):
-        nonlocal frozen
-        _restore_into(trainable, state[0])
-        frozen = dict(frozen, **state[1])
-        optimizer.load_state_dict(state[2])
-
-    pipe = LossPipeline(guard, get_state, set_state)
+    state = _TrainState(trainable, optimizer, bn)
+    pipe = LossPipeline(guard, state.get, state.set)
+    placer = StreamPlacer(dev)
     gw = O.gauss_weights(*tcfg.gpa_stage2, epochs)
     gpa = init_gpa
     gstep = 0
     for epoch in range(start_epoch, epochs):
         lr = S.warmup_multistep_lr(epoch, tcfg.lr_stage2)
         O.set_lr(optimizer, lr)
-        for images, labels, valid, *rest in epoch_batches(epoch):
+        for images, labels, valid, *rest in device_prefetch(epoch_batches(epoch), placer):
             if cfg.sie_ids > 0 and not rest:
                 raise ValueError("sie_ids > 0: stage-2 batches must carry camera ids")
             batch = (_as_tensor(images, dev), _as_tensor(labels, dev),
@@ -473,9 +591,7 @@ def run_stage2(
             pipe.before_step(gstep)
 
             def dispatch(batch=batch):
-                nonlocal frozen
-                frozen, loss = step(trainable, frozen, *batch[:2], text_features, *batch[2:])
-                return loss
+                return step(trainable, frozen, *batch[:2], text_features, *batch[2:])
 
             gstep += 1
             pipe.after_step(dispatch(), redo=dispatch)
@@ -488,6 +604,182 @@ def run_stage2(
             checkpoint_cb(epoch, O.combine(_detached(trainable), frozen),
                           {"optimizer": optimizer.state_dict(), "opt_paths": opt_paths,
                            "gpa": gpa})
+    if cfg.mode == "promptsrc" and gpa is not None:
+        return gpa
+    return O.combine(_detached(trainable), frozen)
+
+
+# ---------------------------------------------------------------------------
+# the device-resident paths (a DeviceImageCache; CUDA graphs on the card)
+# ---------------------------------------------------------------------------
+
+
+def _refuse_sie(cfg: M.ReidModelConfig) -> None:
+    if cfg.sie_ids > 0:
+        raise ValueError("the device-resident paths carry no SIE camera ids; train an SIE "
+                         "model through run_stage1 / run_stage2")
+
+
+def _rows(order) -> list:
+    """(sel, pids, valid) of each (sel, pids, camids, valid) batch of an
+    epoch order (DeviceImageCache.epoch_index_batches)."""
+    return [(sel, pids, valid) for sel, pids, _camids, valid in order]
+
+
+def run_stage2_cached(
+    params: dict,
+    cfg: M.ReidModelConfig,
+    tcfg: TrainConfig,
+    cache,
+    order_of_epoch: Callable[[int], Iterable],
+    pp,
+    epoch_gen: Callable[[int], torch.Generator],
+    epochs: Optional[int] = None,
+    pad_hw: Tuple[int, int] = (10, 10),
+    log: Callable[[str], None] = print,
+    checkpoint_cb: Optional[Callable[[int, dict, dict], None]] = None,
+    guard=None,
+    start_epoch: int = 0,
+    init_opt_state: Optional[dict] = None,
+    init_gpa: Optional[dict] = None,
+    chunk: int = 32,
+) -> dict:
+    """Stage 2 served from a DeviceImageCache: each step gathers its images
+    on the device by an index row, runs the train transform (`pp`) and the
+    stage-2 step; on CUDA the whole step is a CUDA graph replay.
+
+    order_of_epoch(epoch) -> (sel, pids, camids, valid) batches
+    (DeviceImageCache.epoch_index_batches); epoch_gen(epoch) -> the
+    torch.Generator of that epoch's augmentation draws, made outside the
+    graph as the host loop makes them (pp.train_draws(gen, B) per batch, in
+    order) and copied into the step's buffers. With the same order and
+    generators this equals run_stage2 fed the same gathers. Steps with no
+    valid row are not run; an epoch's mean loss counts the steps that ran.
+    chunk: index rows per host-to-device copy (results do not depend on
+    it). Guard, checkpoint_cb and the resume arguments as in run_stage2."""
+    _refuse_sie(cfg)
+    epochs = epochs or tcfg.epochs_stage2
+    dev = _device_of(params)
+    with torch.no_grad():
+        text_features = M.all_class_text_features(params, cfg)
+    trainable, frozen = O.partition(params, lambda path: M.stage2_trainable(path, cfg))
+    trainable = _trainable_copy(trainable)
+    frozen, bn = _bn_state(frozen, cfg)
+    optimizer = O.make_stage_optimizer(trainable, tcfg.lr_stage2, tcfg.weight_decay,
+                                       bias_lr_mult=2.0, capturable=dev.type == "cuda")
+    if init_opt_state is not None:
+        O.load_state(optimizer, init_opt_state)
+    opt_paths = O.leaf_order(trainable, bias_lr_mult=2.0)
+    step = make_stage2_step(cfg, tcfg, optimizer)
+    state = _TrainState(trainable, optimizer, bn)
+    pipe = LossPipeline(guard, state.get, state.set)
+    bs = None
+    bufs: dict = {}
+
+    def body():
+        imgs = pp.train_batch(cache.gather(bufs["idx"]), bufs["draws"], pad_hw=pad_hw)
+        return step(trainable, frozen, imgs, bufs["labels"], text_features, bufs["valid"])
+
+    run = StepGraph(body, state.tensors, dev, name="stage-2 step")
+    gw = O.gauss_weights(*tcfg.gpa_stage2, epochs)
+    gpa = init_gpa
+    gstep = 0
+    try:
+        for epoch in range(start_epoch, epochs):
+            lr = S.warmup_multistep_lr(epoch, tcfg.lr_stage2)
+            O.set_lr(optimizer, lr)
+            rows = _rows(order_of_epoch(epoch))
+            if not rows:
+                continue
+            gen = epoch_gen(epoch)
+            if bs is None:
+                bs = len(rows[0][0])
+                bufs.update(_static_buffers(bs, dev))
+            gstep = _replay_epoch(rows, chunk, bufs, run, pipe, gstep, dev,
+                                  draw=lambda: pp.train_draws(gen, bs, pad_hw))
+            losses = pipe.drain_epoch()
+            if cfg.mode == "promptsrc":
+                gpa = O.gpa_update(gpa, O.combine(_detached(trainable), frozen), gw[epoch])
+            if losses:
+                log(f"[stage2] epoch {epoch + 1}/{epochs} loss {np.mean(losses):.4f} "
+                    f"lr {lr:.2e}")
+            if checkpoint_cb is not None:
+                checkpoint_cb(epoch, O.combine(_detached(trainable), frozen),
+                              {"optimizer": optimizer.state_dict(), "opt_paths": opt_paths,
+                               "gpa": gpa})
+    finally:
+        run.release(_leaves(trainable))
+    if cfg.mode == "promptsrc" and gpa is not None:
+        return gpa
+    return O.combine(_detached(trainable), frozen)
+
+
+def run_stage1_live_cached(
+    params: dict,
+    cfg: M.ReidModelConfig,
+    tcfg: TrainConfig,
+    cache,
+    order_of_epoch: Callable[[int], Iterable],
+    pp,
+    epochs: Optional[int] = None,
+    log: Callable[[str], None] = print,
+    checkpoint_cb: Optional[Callable[[int, dict, dict], None]] = None,
+    guard=None,
+    start_epoch: int = 1,
+    init_opt_state: Optional[dict] = None,
+    init_gpa: Optional[dict] = None,
+    chunk: int = 32,
+) -> dict:
+    """Live stage 1 (ivlp/promptsrc/maple: the prompt tokens change the
+    image encoder, so features are computed every step) served from a
+    DeviceImageCache: each step gathers its images by an index row, runs
+    the deterministic eval transform (`pp.eval_batch`) and the live step; on
+    CUDA the whole step is a CUDA graph replay. order_of_epoch(epoch) ->
+    (sel, pids, camids, valid) batches; with the order of run_stage1's
+    batches it equals run_stage1. Guard, checkpoint_cb, resume and chunk as
+    in run_stage2_cached."""
+    _refuse_sie(cfg)
+    epochs = epochs or tcfg.epochs_stage1
+    dev = _device_of(params)
+    trainable, frozen = O.partition(params, lambda path: M.stage1_trainable(path, cfg))
+    trainable = _trainable_copy(trainable)
+    optimizer = O.make_stage_optimizer(trainable, tcfg.lr_stage1, tcfg.weight_decay,
+                                       capturable=dev.type == "cuda")
+    if init_opt_state is not None:
+        O.load_state(optimizer, init_opt_state)
+    opt_paths = O.leaf_order(trainable)
+    step = make_stage1_step(cfg, optimizer, cached=False)
+    state = _TrainState(trainable, optimizer)
+    pipe = LossPipeline(guard, state.get, state.set)
+    bufs: dict = {}
+
+    def body():
+        return step(trainable, frozen, {"images": pp.eval_batch(cache.gather(bufs["idx"])),
+                                        "labels": bufs["labels"], "valid": bufs["valid"]})
+
+    run = StepGraph(body, state.tensors, dev, name="live stage-1 step")
+    gw = O.gauss_weights(*tcfg.gpa_stage1, epochs)
+    gpa = init_gpa
+    gstep = 0
+    try:
+        for epoch in range(start_epoch, epochs + 1):
+            lr = S.cosine_warmup_lr(epoch, tcfg.lr_stage1, epochs)
+            O.set_lr(optimizer, lr)
+            rows = _rows(order_of_epoch(epoch))
+            if rows and not bufs:
+                bufs.update(_static_buffers(len(rows[0][0]), dev))
+            gstep = _replay_epoch(rows, chunk, bufs, run, pipe, gstep, dev)
+            losses = pipe.drain_epoch()
+            if cfg.mode == "promptsrc":
+                gpa = O.gpa_update(gpa, O.combine(_detached(trainable), frozen), gw[epoch - 1])
+            if losses:
+                log(f"[stage1] epoch {epoch}/{epochs} loss {np.mean(losses):.4f} lr {lr:.2e}")
+            if checkpoint_cb is not None:
+                checkpoint_cb(epoch, O.combine(_detached(trainable), frozen),
+                              {"optimizer": optimizer.state_dict(), "opt_paths": opt_paths,
+                               "gpa": gpa})
+    finally:
+        run.release(_leaves(trainable))
     if cfg.mode == "promptsrc" and gpa is not None:
         return gpa
     return O.combine(_detached(trainable), frozen)
