@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--phases kernels,serve,...]
 
 With `--phases` only the named phases run (kernels, minsum, grad, zero_shot,
-rerank, serve, vehicle, train, cli, multitask, resnet, variants, cache); such a run
+rerank, serve, vehicle, train, cli, multitask, resnet, variants, cache,
+multidevice); such a run
 is no pass: it prints {"ok": false, "partial": [...]} as its last line and
 exits with code 3.
 
@@ -108,6 +109,20 @@ exits with code 3.
    the graph path (an inf leaf rolled back in place); device_prefetch on a
    copy stream against depth 0; then both training CLIs with --cache_device
    against the same commands without it, and --resume.
+16. multidevice: the data mesh of parallel/mesh.py and parallel/launch.py
+   (one process per card, NCCL) in worlds of one rank, started and
+   destroyed inside the phase (a world of more ranks needs more cards; the
+   CPU tests hold the cross-rank behaviour over gloo): the IVLP flagship
+   through extract_embeddings over the mesh (4 batches of 512, bench.py's
+   profile) against the single-device sweep; three live stage-1 and three
+   stage-2 steps at bs 64 with mesh= against the same steps without; one
+   run_stage2_cached epoch over a sharded cache (eager, no graph) against
+   the graph path; the sharded streamed re-ranking at Market-1501 scale
+   (3368 x 15913, D=1280) against the single-device route; the zero-shot
+   and prompt-learning CLIs with --multihost 127.0.0.1:<port> --num_hosts 1
+   --host_id 0 against the same commands without it; --devices 2 on a
+   one-card host raises and names the visible count. Each prints ms or emb/s
+   of both paths.
 
 It prints the kernels' JSON record on the line before the last (each
 kernel's launches on the main path of the slice that brought it: IVLP
@@ -3332,6 +3347,428 @@ def cache_cli_phase(counters):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 16: data parallelism over ranks (parallel/mesh.py, parallel/launch.py)
+# in NCCL worlds of one rank on the one card, each against its single-device
+# path. A world of more ranks needs more cards: the cross-rank behaviour is
+# held on the CPU over gloo (tests/test_torch_sharded_*.py).
+# ---------------------------------------------------------------------------
+
+
+def nccl_world(dev):
+    """An NCCL world of one rank on `dev`, started here and destroyed on the
+    way out; yields its mesh."""
+    from tpu_reid_torch.parallel import launch
+
+    return launch.process_group(str(dev), f"tcp://127.0.0.1:{launch.free_port()}", 0, 1)
+
+
+def rank_clock(mesh):
+    """A rank's wall clock after its world's first collective (the spawn and
+    rendezvous probe of multidevice_phase)."""
+    from tpu_reid_torch.parallel.mesh import agree
+
+    agree(mesh, True, "a flag")
+    return time.time()
+
+
+def adam_bound(lrs):
+    """The most an Adam update of these learning rates moves a leaf (each
+    step moves it by at most ~lr), doubled: 2 x sum(lr)."""
+    return 2.0 * float(sum(lrs))
+
+
+def sharded_serving(dev, counters, mcfg, params, k_batches=4, batch=512):
+    """The flagship at bench.py's profile through extract_embeddings over a
+    one-rank mesh against the same sweep without one: the features
+    (bit-equal expected), emb/s of both in turns (single, mesh, mesh,
+    single)."""
+    from tpu_reid_torch.data.transforms import DevicePreprocess
+    from tpu_reid_torch.models import reid_clip as M
+    from tpu_reid_torch.ops.attention import set_fast_softmax
+    from tpu_reid_torch.parallel.extract import extract_embeddings, make_extractor
+
+    bf = torch.bfloat16
+    pbf = _cast(params, bf)
+    fold = lambda p: M.fold_input_norm(p, mcfg, "vit")  # noqa: E731
+    embed = lambda p, im: M.eval_embed(p, mcfg, im)  # noqa: E731
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batches = [SimpleNamespace(images=torch.randint(0, 255, (batch, 256, 128, 3),
+                                                    dtype=torch.uint8, device=dev,
+                                                    generator=gen),
+                               pids=np.arange(batch), camids=np.zeros(batch, np.int64),
+                               seqids=np.zeros(batch, np.int64), valid=np.ones(batch, bool))
+               for _ in range(k_batches)]
+    out, secs = {}, {"single": [], "mesh": []}
+    set_fast_softmax(True)
+    try:
+        with nccl_world(dev) as mesh:
+            runs = {"single": (None, make_extractor(embed, DevicePreprocess(
+                        (256, 128), "vit", dtype=bf), flip_tta=False, dtype=bf, fold=fold,
+                        device=dev)),
+                    "mesh": (mesh, make_extractor(embed, DevicePreprocess(
+                        (256, 128), "vit", dtype=bf), flip_tta=False, dtype=bf, fold=fold,
+                        mesh=mesh))}
+            for kind in ("single", "mesh", "mesh", "single"):
+                m, ext = runs[kind]
+                extract_embeddings(ext, pbf, batches[:1], device=dev, mesh=m)  # warm-up
+                torch.cuda.synchronize()
+                if kind == "mesh":
+                    for c in counters.values():
+                        c.launches = 0
+                t0 = time.perf_counter()
+                f, *_ = extract_embeddings(ext, pbf, batches, device=dev, mesh=m)
+                torch.cuda.synchronize()
+                secs[kind].append(time.perf_counter() - t0)
+                if kind == "mesh" and "launches" not in out:
+                    out["launches"] = launched(counters)
+                out.setdefault(kind, f)
+    finally:
+        set_fast_softmax(False)
+    n = k_batches * batch
+    emb_s = {k: n / min(v) for k, v in secs.items()}
+    equal = torch.equal(out["single"], out["mesh"])
+    err, rel = rel_err(out["mesh"], out["single"])
+    width = mcfg.clip.vision.width + mcfg.clip.embed_dim  # 1280 at ViT-B/16
+    ok = out["mesh"].shape == (n, width) and bool(torch.isfinite(out["mesh"]).all()) and (
+        equal or rel <= TOL[bf])
+    say(f"  sharded extractor (IVLP flagship, {k_batches} batches of {batch}, bf16, fast "
+        f"softmax, folded norm): one-rank mesh {emb_s['mesh']:.1f} emb/s, single device "
+        f"{emb_s['single']:.1f} emb/s (best of 2 each, in turns); features "
+        + ("bit-equal" if equal else f"NOT bit-equal: max|d| {err:.3e}, rel {rel:.3e} (tol "
+           f"{TOL[bf]:.0e})") + f" {'ok' if ok else 'FAIL'}")
+    say(f"    launches in the mesh sweep: {out['launches']}")
+    if not ok:
+        raise PhaseFailed("the sharded extractor disagrees with the single-device one")
+    require("the sharded extractor", out["launches"], BLOCK_KERNELS + ("ln_proj_tail",))
+    return out["launches"], emb_s
+
+
+def sharded_steps(dev, counters, mcfg, params, bs=64, rounds=6, k=2):
+    """Live stage-1 and stage-2 steps of the flagship at bs 64 with mesh= (a
+    one-rank NCCL world) against the same steps without one, on the same
+    inputs: a warm-up step each, then `rounds` blocks of k steps per side
+    in alternating order (single, mesh / mesh, single), each block timed
+    with CUDA events. Per-step losses and final leaves (bit-equal, or the
+    leaves within the Adam bound 2 x sum(lr)); ms per step of both, the
+    median of the blocks and their range."""
+    import functools
+    import statistics
+
+    from tpu_reid_torch.data.transforms import DevicePreprocess
+    from tpu_reid_torch.models import reid_clip as M
+    from tpu_reid_torch.parallel.mesh import shard_batch
+    from tpu_reid_torch.train import optim as O
+    from tpu_reid_torch.train import trainer as TR
+
+    bf = torch.bfloat16
+    tcfg = TR.TrainConfig()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    images = torch.randint(0, 255, (bs, 256, 128, 3), dtype=torch.uint8, device=dev,
+                           generator=gen)
+    labels = torch.as_tensor(np.repeat(np.random.RandomState(1).choice(
+        mcfg.n_cls, bs // 4, replace=False), 4), device=dev)
+    valid = torch.ones(bs, dtype=torch.bool, device=dev)
+    pp = DevicePreprocess((256, 128), "vit", dtype=bf)
+    imgs1 = pp.eval_batch(images)
+    imgs2 = pp.train_batch(images, pp.train_draws(gen, bs))
+    with torch.no_grad():
+        text = M.all_class_text_features(params, mcfg)
+    n = 1 + rounds * k  # steps per side
+    report, launches = {}, {}
+    with nccl_world(dev) as mesh:
+        for stage, pred, lr in (("stage-1 live", M.stage1_trainable, tcfg.lr_stage1),
+                                ("stage-2", M.stage2_trainable, tcfg.lr_stage2)):
+            sides = {}
+            for kind, m in (("single", None), ("mesh", mesh)):
+                tr, fr = O.partition(params, lambda p: pred(p, mcfg))
+                tr = TR._trainable_copy(tr)
+                if stage == "stage-1 live":
+                    opt = O.make_stage_optimizer(tr, lr, tcfg.weight_decay)
+                    step = TR.make_stage1_step(mcfg, opt, cached=False, mesh=m)
+                    batch = {"images": imgs1 if m is None else shard_batch(m, imgs1),
+                             "labels": labels, "valid": valid}
+                    call = functools.partial(step, tr, fr, batch)
+                else:
+                    fr = TR._bn_state(fr, mcfg)[0]
+                    opt = O.make_stage_optimizer(tr, lr, tcfg.weight_decay, bias_lr_mult=2.0)
+                    step = TR.make_stage2_step(mcfg, tcfg, opt, mesh=m)
+                    x = imgs2 if m is None else shard_batch(m, imgs2)
+                    call = functools.partial(step, tr, fr, x, labels, text, valid)
+                sides[kind] = (tr, fr, call, [call()])  # the warm-up step
+            torch.cuda.synchronize()
+            ms = {"single": [], "mesh": []}
+            for r in range(rounds):
+                for kind in ("single", "mesh") if r % 2 == 0 else ("mesh", "single"):
+                    call, losses = sides[kind][2:]
+                    counted = kind == "mesh" and stage not in launches
+                    if counted:
+                        for c in counters.values():
+                            c.launches = 0
+                    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    t0.record()
+                    for _ in range(k):
+                        losses.append(call())
+                    t1.record()
+                    t1.synchronize()
+                    if counted:
+                        launches[stage] = launched(counters)
+                    ms[kind].append(t0.elapsed_time(t1) / k)
+            res = {kind: (O.combine(tr, fr), [float(v) for v in losses], ms[kind])
+                   for kind, (tr, fr, _, losses) in sides.items()}
+            del sides
+            got, want = res["mesh"], res["single"]
+            paths_of = trainable_paths(lambda p: pred(p, mcfg))
+            equal, loss_rel, worst, worst_path = held(got[0], want[0], got[1], want[1],
+                                                      paths_of)
+            gp = dict(paths_of(got[0]))
+            max_d = max(float((gp[p] - t).detach().abs().max()) for p, t in paths_of(want[0]))
+            bound = adam_bound([lr] * n)
+            ok = equal or (loss_rel <= CACHE_TOL and max_d <= bound)
+            med = {kind: statistics.median(v[2]) for kind, v in res.items()}
+            say(f"  {stage} steps at bs {bs} (bf16), CUDA events over {rounds} blocks of {k} "
+                f"steps per side in alternating order after a warm-up step: mesh median "
+                f"{med['mesh']:.2f} ms per step (blocks {min(got[2]):.2f}-{max(got[2]):.2f}), "
+                f"single device {med['single']:.2f} ms ({min(want[2]):.2f}-{max(want[2]):.2f}); "
+                f"{n} losses " + ("and every leaf bit-equal" if equal else
+                   f"rel {loss_rel:.3e}, leaves max|d| {max_d:.3e} (Adam bound {bound:.2e}), "
+                   f"worst rel {worst:.3e} at {worst_path}") + f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise PhaseFailed(f"the {stage} step over a mesh disagrees with one device")
+            require(f"the {stage} step over a mesh", launches[stage], BLOCK_KERNELS)
+            report[stage] = {"ms_mesh": med["mesh"], "ms_single": med["single"],
+                             "ms_mesh_blocks": got[2], "ms_single_blocks": want[2],
+                             "bit_equal": equal, "loss_rel": loss_rel, "leaf_max_d": max_d}
+            del res, got, want
+    return report, launches
+
+
+def sharded_cached_epoch(dev, counters, mcfg, params, bs=64):
+    """One run_stage2_cached epoch over a DeviceImageCache sharded over a
+    one-rank mesh, which runs every step eagerly (no graph is captured),
+    against the same epoch without a mesh (a CUDA graph per step)."""
+    import tempfile
+
+    from tpu_reid_torch.data.datasets import get_dataset
+    from tpu_reid_torch.data.device_cache import DeviceImageCache
+    from tpu_reid_torch.data.sampler import PKSampler
+    from tpu_reid_torch.data.transforms import DevicePreprocess
+    from tpu_reid_torch.models import reid_clip as M
+    from tpu_reid_torch.train import step_graph
+    from tpu_reid_torch.train import trainer as TR
+
+    tcfg = TR.TrainConfig()
+    pp = DevicePreprocess((256, 128), "vit", dtype=torch.bfloat16)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_market_dir(tmp)
+        ds = get_dataset(tmp, "market1501")
+        labels = [r[1] for r in ds.train]
+
+        def run(mesh, log):
+            cache = DeviceImageCache(ds.train, (256, 128), device=dev, mesh=mesh)
+            rec = LossLog()
+            out = TR.run_stage2_cached(
+                params, mcfg, tcfg, cache,
+                lambda e: cache.epoch_index_batches(PKSampler(labels, bs, 4, seed=e).epoch(), bs),
+                pp, lambda e: torch.Generator(device=dev).manual_seed(10_000 + e), epochs=1,
+                log=log, guard=rec, mesh=mesh)
+            torch.cuda.synchronize()
+            return out, rec.losses
+
+        n_hist = len(step_graph.history)
+        t0 = time.perf_counter()
+        want, want_losses = run(None, lambda s: None)
+        t_graph = time.perf_counter() - t0
+        captured = len(step_graph.history) - n_hist
+        lines = []
+        with nccl_world(dev) as mesh, CapturedLaunches(counters) as cl:
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            got, got_losses = run(mesh, lines.append)
+            t_mesh = time.perf_counter() - t0
+            launches = launched(counters)
+    eager = (len(step_graph.history) == n_hist + captured and not cl.per_step
+             and any("eagerly" in s for s in lines))
+    paths_of = trainable_paths(lambda p: M.stage2_trainable(p, mcfg))
+    equal, loss_rel, worst, worst_path = held(got, want, got_losses, want_losses, paths_of)
+    ok = eager and captured == int(dev.type == "cuda") and (
+        equal or (loss_rel <= CACHE_TOL and worst <= CACHE_TOL))
+    say(f"  run_stage2_cached, one epoch of {len(got_losses)} steps at bs {bs}: over a "
+        f"one-rank mesh {t_mesh:.2f} s, eager ({'no graph captured' if eager else 'A GRAPH'}"
+        f"; the log says: {lines[0] if lines else 'nothing'}); without a mesh {t_graph:.2f} s "
+        f"({captured} graph captured); losses and leaves "
+        + ("bit-equal" if equal else f"losses rel {loss_rel:.3e}, leaves worst rel {worst:.3e} "
+           f"at {worst_path} (tol {CACHE_TOL:.0e})") + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed("run_stage2_cached over a mesh: not eager, or not the graph's result")
+    require("run_stage2_cached over a mesh", launches, BLOCK_KERNELS)
+    return launches
+
+
+def sharded_rerank(dev):
+    """The sharded streamed re-ranking at Market-1501 scale over a one-rank
+    mesh (every pass, the gallery side of V_qe and t sharded; minsum on
+    the rank's gallery slice) against the single-device route: the
+    re-ranked distances of every query and the metrics; seconds of both
+    (the best of two, in turns)."""
+    from tpu_reid_torch.ops import minsum as MS
+    from tpu_reid_torch.retrieval.distance import l2_normalize
+    from tpu_reid_torch.retrieval.rerank_stream import k_reciprocal_rerank_streamed_rows
+
+    feats = market_features(dev)
+    qf, gf, qp, gp, qc, gc = feats
+    qn, gn = l2_normalize(qf, axis=1), l2_normalize(gf, axis=1)
+
+    def distances(mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        row_fn, q_chunk = k_reciprocal_rerank_streamed_rows(qn, gn, mesh=mesh)
+        d = torch.cat([row_fn(s) for s in range(0, len(qp), q_chunk)])[:len(qp)]
+        torch.cuda.synchronize()
+        return d, time.perf_counter() - t0
+
+    with nccl_world(dev) as mesh:
+        # in turns (single, mesh, mesh, single): the first collective of a
+        # world also builds its NCCL communicator
+        want, t_single = distances(None)
+        MS.minsum_kernel.launches = 0
+        got, t_mesh = distances(mesh)
+        launches = {"minsum": MS.minsum_kernel.launches}
+        t_mesh = min(t_mesh, distances(mesh)[1])
+        t_single = min(t_single, distances(None)[1])
+        m_mesh = evaluate_market("sharded streamed route over a one-rank mesh", feats,
+                                 reranking=True, rerank_mode="streamed", mesh=mesh)
+    m_single = evaluate_market("streamed route on one device", feats, reranking=True,
+                               rerank_mode="streamed")
+    equal = torch.equal(got, want)
+    err = float((got - want).abs().max())
+    d_map = abs(m_mesh[1] - m_single[1])
+    ok = err <= 1e-4 and d_map <= 1e-4 and launches["minsum"] > 0
+    say(f"  sharded streamed re-ranking ({len(qp)} x {len(gp)}, D={qf.shape[1]}, bf16 V, fp8 "
+        f"V_qe) over a one-rank mesh: {t_mesh:.3f} s, single device {t_single:.3f} s; "
+        f"re-ranked distances of all {len(qp)} queries "
+        + ("bit-equal" if equal else f"max|d| {err:.3e} (atol 1e-4: pass C's scatter_add_ "
+           f"sums in the order of its atomics)") + f"; |dmAP| {d_map:.1e}; minsum launches "
+        f"{launches['minsum']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed("the sharded streamed re-ranking disagrees with one device")
+    del got, want
+    return launches, {"mesh_s": t_mesh, "single_s": t_single}
+
+
+def multihost_clis(counters):
+    """The zero-shot and prompt-learning CLIs (ivlp, one epoch per stage) on
+    the cli phase's synthetic Market1501 directory, each with --multihost
+    127.0.0.1:<port> --num_hosts 1 --host_id 0 (an NCCL world of one rank
+    in this process) against the same command without it; then --devices 2
+    on this one-card host, which must raise and name the visible count."""
+    import tempfile
+
+    from tpu_reid_torch.cli import prompt_learning as pl_cli
+    from tpu_reid_torch.cli import zero_shot as zs_cli
+    from tpu_reid_torch.models.tokenizer import write_test_merges
+    from tpu_reid_torch.parallel import launch
+    from tpu_reid_torch.weights.convert import random_clip_state_dict
+
+    runs, secs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_market_dir(tmp)
+        ckpt = os.path.join(tmp, "vit_b16_random.pth")
+        torch.save({k: torch.from_numpy(v) for k, v in random_clip_state_dict(0).items()}, ckpt)
+        merges = os.path.join(tmp, "merges.txt")
+        write_test_merges(merges, [("p", "e"), ("r", "s"), ("o", "n</w>"), ("n", "o")])
+        common = ["--root", tmp, "--model_path", ckpt, "--bpe_path", merges, "--height", "256",
+                  "--ratio", "0.5", "--stride", "12"]
+        cases = (("zero_shot", zs_cli, ["--rerank", "--bs", "128",
+                                        "--test_dataset", "market1501"]),
+                 ("prompt_learning", pl_cli, ["--training_mode", "ivlp", "--epochs_stage1", "1",
+                                              "--epochs_stage2", "1", "--rerank", "--dtype",
+                                              "bf16", "--bs", "64",
+                                              "--train_dataset", "market1501"]))
+        for name, cli, extra in cases:
+            maps = {}
+            for kind in ("single", "multihost"):
+                argv = common + extra + (["--save_path", os.path.join(tmp, kind)]
+                                         if cli is pl_cli else [])
+                if kind == "multihost":
+                    argv += ["--multihost", f"127.0.0.1:{launch.free_port()}", "--num_hosts",
+                             "1", "--host_id", "0"]
+                for c in counters.values():
+                    c.launches = 0
+                t0 = time.perf_counter()
+                _, maps[kind] = cli.main(argv)
+                torch.cuda.synchronize()
+                secs[f"{name}_{kind}"] = time.perf_counter() - t0
+                if kind == "multihost":
+                    runs[f"multihost_{name}_cli"] = launched(counters)
+            d = abs(maps["multihost"] - maps["single"])
+            ok = d <= 1e-5 and 0.0 < maps["single"] <= 1.0
+            say(f"  {name} CLI with --multihost (NCCL, one rank): {secs[name + '_multihost']:.1f}"
+                f" s, mAP {maps['multihost']:.6f}; without: {secs[name + '_single']:.1f} s, mAP "
+                f"{maps['single']:.6f}; |d mAP| {d:.1e} (tol 1e-5: 0 expected; a training "
+                f"backward sums in the order of its atomics) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise PhaseFailed(f"the {name} CLI with --multihost differs from one device")
+            require(f"the {name} CLI with --multihost", runs[f"multihost_{name}_cli"],
+                    BLOCK_KERNELS)
+        try:
+            zs_cli.main(common + cases[0][2] + ["--devices", "2"])
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            raise PhaseFailed("--devices 2 ran on a one-card host")
+        ok = f"{torch.cuda.device_count()} visible CUDA device" in msg
+        say(f"  --devices 2 on this {torch.cuda.device_count()}-card host raises: {msg!r} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseFailed("--devices 2 raised without naming the visible count")
+    return runs, secs
+
+
+def multidevice_phase(dev, counters):
+    """Data parallelism over ranks at full ViT-B/16 width, in NCCL worlds of
+    one rank: the sharded extractor, the sharded training steps and a cached
+    epoch, the sharded streamed re-ranking, both CLIs with --multihost."""
+    say("multidevice: the port's data mesh (one process per card, NCCL) in worlds of one "
+        f"rank on this {torch.cuda.device_count()}-card host; each sub-check against its "
+        "single-device path")
+    from tpu_reid_torch.parallel.mesh import agree
+
+    runs, numbers = {}, {}
+    t0 = time.perf_counter()
+    with nccl_world(dev) as mesh:
+        t1 = time.perf_counter()
+        agree(mesh, True, "a flag")  # the first collective builds the communicator
+        t2 = time.perf_counter()
+    numbers["world_s"] = {"init": t1 - t0, "first_collective": t2 - t1,
+                          "destroy": time.perf_counter() - t2}
+    say(f"  an NCCL world of one rank: init_process_group {t1 - t0:.3f} s, the first "
+        f"collective {t2 - t1:.3f} s, destroy {numbers['world_s']['destroy']:.3f} s")
+    # the launcher on this host's CPU (one card: no second NCCL rank): two
+    # spawned gloo ranks, from run() to both past their first collective
+    from tpu_reid_torch.parallel import launch
+
+    t0 = time.time()
+    ready = launch.run(rank_clock, devices=2, device="cpu", timeout_s=120, join_timeout_s=300)
+    numbers["spawn_s"] = {"ready": ready - t0, "run": time.time() - t0}
+    say(f"  launch.run of 2 gloo ranks on the host's CPU: spawn + rendezvous + first collective "
+        f"{numbers['spawn_s']['ready']:.2f} s, the whole run {numbers['spawn_s']['run']:.2f} s")
+    mcfg, params = flagship(dev)
+    runs["multidevice_serve"], numbers["emb_s"] = sharded_serving(dev, counters, mcfg, params)
+    numbers["steps"], steps = sharded_steps(dev, counters, mcfg, params)
+    runs["multidevice_stage1"] = steps["stage-1 live"]
+    runs["multidevice_stage2"] = steps["stage-2"]
+    runs["multidevice_cached_stage2"] = sharded_cached_epoch(dev, counters, mcfg, params)
+    del mcfg, params
+    torch.cuda.empty_cache()
+    runs["multidevice_rerank"], numbers["rerank"] = sharded_rerank(dev)
+    torch.cuda.empty_cache()
+    cli_runs, numbers["cli_s"] = multihost_clis(counters)
+    runs.update(cli_runs)
+    return runs, numbers
+
+
 # instantiations of the wgmma kernels that the sources launch: the GEMM as
 # (LN, 128 or 64 rows, epilogue) = 3 without LN + 4 with; the two attention
 # kernels; the CLS tail
@@ -3498,11 +3935,19 @@ def main() -> int:
                                      for kind, r in v.items()}
                                     for k, v in numbers.items()}, default=float))
 
+    def run_multidevice():
+        state.clear()
+        torch.cuda.empty_cache()
+        runs, numbers = multidevice_phase(dev, counters)
+        by_path.update(runs)
+        say("multidevice: " + json.dumps(numbers, default=float))
+
     phases = (("kernels", run_kernels), ("minsum", run_minsum),
               ("grad", lambda: gradient_phase(dev)), ("zero_shot", run_zero_shot),
               ("rerank", run_rerank), ("serve", run_serve), ("vehicle", run_vehicle),
               ("train", run_train), ("cli", run_cli), ("multitask", run_multitask),
-              ("resnet", run_resnet), ("variants", run_variants), ("cache", run_cache))
+              ("resnet", run_resnet), ("variants", run_variants), ("cache", run_cache),
+              ("multidevice", run_multidevice))
     # `--phases kernels,serve` runs only those phases (for work on one of
     # them); such a run is no pass: it ends with {"ok": false, ...} and code 3
     only = None
@@ -3539,7 +3984,9 @@ def main() -> int:
         kernels.append(r)
     say(json.dumps({"kernels": kernels, "note": "launches_by_path on the cache_* paths: one "
                     "captured step's launches times the graph's replays (a replay runs no "
-                    "Python wrapper, so the counters see a captured step once)"}))
+                    "Python wrapper, so the counters see a captured step once); on the "
+                    "multidevice_* and multihost_* paths: the launches of rank 0, the one rank "
+                    "of its one-card world"}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

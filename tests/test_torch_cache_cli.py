@@ -4,8 +4,8 @@ run_stage1_live_cached, the coop stage 1 and the precompute from the cache,
 stage 2 through run_stage2_cached. The orders and draws are the loader
 path's, so each command equals the same command without the flag (cmc and
 mAP within 1e-5); --resume after a finished cached run reproduces the
-metrics; SIE ids are refused with the JAX CLI's message, more than one
-device with ROADMAP.md's item 7."""
+metrics; SIE ids are refused with the JAX CLI's message (several ranks:
+tests/test_torch_multidevice_cli.py)."""
 
 import numpy as np
 import pytest

@@ -120,14 +120,19 @@ def test_cli_defaults_to_the_card(assets, monkeypatch):
         TCLI.main(_argv(assets))
 
 
-@pytest.mark.parametrize("extra,match", [
-    (("--devices", "2"), "slice 7"),
-    (("--tp", "2"), "slice 7"),
-    (("--multihost", "localhost:1234"), "slice 7"),
-    (("--training_mode", "ivlp"), "train them with tpu_reid_torch.cli.prompt_learning"),
+@pytest.mark.parametrize("extra,exc,match", [
+    (("--devices", "3"), ValueError, "--bs 8 must divide by --devices 3"),
+    (("--tp", "2"), NotImplementedError, "item 7b"),
+    (("--multihost", "localhost:1234", "--num_hosts", "3"), ValueError,
+     "--bs 8 must divide by the 3 global devices"),
+    (("--training_mode", "ivlp"), NotImplementedError,
+     "train them with tpu_reid_torch.cli.prompt_learning"),
 ])
-def test_cli_refuses_what_is_not_ported(assets, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_cli_refuses_what_is_not_ported(assets, extra, exc, match):
+    """--devices and --multihost run (tests/test_torch_multidevice_cli.py);
+    what stays refused: tensor parallelism (ROADMAP.md item 7b), a batch
+    that does not divide by the ranks, an IVLP checkpoint without tokens."""
+    with pytest.raises(exc, match=match):
         TCLI.main(_argv(assets, *extra, "--device", "cpu"))
 
 

@@ -2,8 +2,9 @@
 CPU: its gathers equal the port's BatchLoader rows on a PK and on the
 sequential order (valid rows, pids, camids and valid bit-equal), after
 tests/test_data.py's cache case; its gathers and epoch_index_batches equal
-the JAX package's DeviceImageCache on the same directory; a mesh is refused;
-nbytes counts the resident split."""
+the JAX package's DeviceImageCache on the same directory; a mesh that is not
+the port's is refused, the port's shards the cache; nbytes counts the
+resident split."""
 
 import numpy as np
 import pytest
@@ -100,10 +101,22 @@ def test_gathers_and_orders_match_jax(market, cache, monkeypatch):
                                           np.asarray(jc.gather(w[0])))
 
 
-def test_mesh_is_refused(market):
+def test_mesh_is_refused(market, tmp_path):
+    """A mesh that is not the port's (a JAX Mesh, any object) is refused; the
+    port's mesh shards the cache: in a world of one rank it holds the whole
+    split and gathers the single-device rows bit for bit
+    (tests/test_torch_sharded_training.py holds two ranks)."""
+    from tpu_reid_torch.parallel import launch
+
     ds = load_market1501(market)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         DeviceImageCache(ds.train, HW, mesh=object(), device="cpu")
+    single = DeviceImageCache(ds.train, HW, device="cpu")
+    sel = np.arange(len(ds.train))[::-3][:8].copy()
+    with launch.process_group("cpu", f"file://{tmp_path}/rdv", 0, 1) as mesh:
+        sharded = DeviceImageCache(ds.train, HW, mesh=mesh)
+        assert sharded.n_local == single.n and sharded.nbytes() == single.nbytes()
+        assert torch.equal(sharded.gather(sel), single.gather(sel))
 
 
 def test_cache_defaults_to_the_card(market, monkeypatch):

@@ -461,7 +461,9 @@ def test_mt_resume_equals_the_straight_run(models, tmp_path, stage):
 
 
 def test_mt_runners_refuse_a_mesh(models):
+    """A mesh that is not the port's is refused (the port's mesh runs:
+    tests/test_torch_sharded_training.py)."""
     hw2, jcfg, jp, tcfg, tp = models
     for run in (TMT.run_mt_stage1, TMT.run_mt_stage2):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
             run(tp, tcfg, TrainConfig(), lambda e: iter([]), epochs=1, mesh=object())

@@ -3,8 +3,8 @@ DukeMTMC-reID and VeRi directories with a tiny random CLIP checkpoint: the
 hard variant against the JAX package's CLI from the same initial parameters
 (fp32, equal metrics within 1e-4); the soft (coop) and hard_ivlp variants
 on their own, each resumed after a finished run with the same metrics;
-without --device it wants the card; the flags the port does not take yet
-are refused with their ROADMAP item."""
+without --device it wants the card; the flag combinations it cannot run
+are refused."""
 
 import sys
 
@@ -145,10 +145,14 @@ def test_cli_defaults_to_the_card(assets, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (("--cache_device", "--devices", "2"), "queue 1 item 7"),
-    (("--devices", "2"), "queue 1 item 7"),
-    (("--multihost", "localhost:1234"), "queue 1 item 7"),
+    (("--cache_device", "--multihost", "localhost:1234"), "single-process feature"),
+    (("--devices", "3"), "--bs 8 must divide by --devices 3"),
+    (("--num_hosts", "2"), "--num_hosts > 1 needs --multihost"),
 ])
 def test_cli_refuses_what_is_not_ported(assets, tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """--devices and --multihost run (tests/test_torch_multidevice_cli.py);
+    what stays refused, with a ValueError: --cache_device across hosts (as
+    the JAX CLI asserts), a batch that does not divide by the ranks,
+    --num_hosts without an address."""
+    with pytest.raises(ValueError, match=match):
         TCLI.main(_argv(assets, tmp_path, *extra, "--device", "cpu"))

@@ -2,8 +2,8 @@
 stages (bf16, fast softmax, --rerank, --eval_every) ends with finite losses
 and metrics; --resume after a finished run skips both stages and gives the
 same metrics; --keep_best keeps the best evaluated parameters; without
---device it wants the card; the flags the port does not take yet are
-refused with their ROADMAP item."""
+--device it wants the card; the flag combinations it cannot run are
+refused."""
 
 import numpy as np
 import pytest
@@ -65,12 +65,16 @@ def test_cli_defaults_to_the_card(assets, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (("--cache_device", "--devices", "2"), "queue 1 item 7"),
-    (("--devices", "2"), "queue 1 item 7"),
-    (("--multihost", "localhost:1234"), "queue 1 item 7"),
+    (("--cache_device", "--multihost", "localhost:1234"), "single-process feature"),
+    (("--devices", "3"), "--bs 8 must divide by --devices 3"),
+    (("--num_hosts", "2"), "--num_hosts > 1 needs --multihost"),
 ])
 def test_cli_refuses_what_is_not_ported(assets, tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """--devices and --multihost run (tests/test_torch_multidevice_cli.py);
+    what stays refused, with a ValueError: --cache_device across hosts (as
+    the JAX CLI asserts), a batch that does not divide by the ranks,
+    --num_hosts without an address."""
+    with pytest.raises(ValueError, match=match):
         TCLI.main(_argv(assets, tmp_path, *extra, "--device", "cpu"))
 
 

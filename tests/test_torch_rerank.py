@@ -2,7 +2,7 @@
 host golden of tests/golden.py, on the same numpy features: the expansion
 sets, the exact and streamed routes (fp32 and the production bf16/fp8
 quantization, V_qe bit for bit), the row provider, the Evaluator in every
-mode, ties, and the single-device rule."""
+mode, ties, and the mesh rule."""
 
 import warnings
 from types import SimpleNamespace
@@ -198,7 +198,15 @@ def test_ties_from_duplicated_rows_match_jax():
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
 
 
-def test_a_mesh_larger_than_one_device_raises():
+def test_a_mesh_larger_than_one_device_raises(tmp_path):
+    """A mesh that is not the port's (a JAX Mesh, or any object with a
+    "data" axis) over more than one device raises: re-ranking over several
+    devices takes a parallel/mesh.Mesh; one of a single device is the
+    single-device route. The port's mesh runs the sharded core, which in a
+    world of one rank gives the single-device answer
+    (tests/test_torch_sharded_rerank.py holds two ranks)."""
+    from tpu_reid_torch.parallel import launch
+
     qf, gf, _, _ = _workload(nq=4, ng=12)
     feats = torch.from_numpy(np.concatenate([qf, gf]))
     for mesh in (make_mesh(n_data=8), SimpleNamespace(shape={"data": 2, "model": 1})):
@@ -210,13 +218,27 @@ def test_a_mesh_larger_than_one_device_raises():
                                           [1] * 12, reranking=True, mesh=mesh, device="cpu"),
         ]
         for call in calls:
-            with pytest.raises(NotImplementedError, match="slice 7"):
+            with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
                 call()
     single = SimpleNamespace(shape={"data": 1})
     ev = TM.Evaluator(num_query=4, max_rank=5, reranking=True, rerank_params=(5, 2, 0.3),
                       mesh=single)
     ev.update(feats, np.arange(16) % 3, np.arange(16) % 2)
-    assert np.isfinite(ev.compute()[1])
+    want = ev.compute()
+    assert np.isfinite(want[1])
+    with launch.process_group("cpu", f"file://{tmp_path}/rdv", 0, 1) as mesh:
+        got = TS.k_reciprocal_rerank_streamed(*_t(qf, gf), k1=5, k2=2, mesh=mesh)
+        ev = TM.Evaluator(num_query=4, max_rank=5, reranking=True, rerank_params=(5, 2, 0.3),
+                          rerank_mode="streamed", mesh=mesh)
+        ev.update(feats, np.arange(16) % 3, np.arange(16) % 2)
+        sharded = ev.compute()
+    assert torch.equal(got, TS.k_reciprocal_rerank_streamed(*_t(qf, gf), k1=5, k2=2))
+    ev = TM.Evaluator(num_query=4, max_rank=5, reranking=True, rerank_params=(5, 2, 0.3),
+                      rerank_mode="streamed")
+    ev.update(feats, np.arange(16) % 3, np.arange(16) % 2)
+    plain = ev.compute()
+    np.testing.assert_array_equal(sharded[0], plain[0])
+    assert sharded[1] == plain[1]
 
 
 def test_evaluate_zero_shot_reranks_like_jax():

@@ -151,8 +151,8 @@ def test_cli_resume_mid_stage_equals_the_straight_run(assets, monkeypatch, capsy
     real_mgr, real_cb = C.CheckpointManager, C.two_stage_cb
 
     class EveryEpoch(real_mgr):
-        def __init__(self, directory, max_to_keep=3, save_interval=20):
-            super().__init__(directory, max_to_keep, save_interval=1)
+        def __init__(self, directory, max_to_keep=3, save_interval=20, mesh=None):
+            super().__init__(directory, max_to_keep, save_interval=1, mesh=mesh)
 
     def stop_after_stage2_epoch0(mgr, stage, step_of):
         save = real_cb(mgr, stage, step_of)

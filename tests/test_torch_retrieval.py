@@ -82,10 +82,11 @@ def test_ties_rank_stably_like_jax():
 
 
 def test_reranking_names_its_slice():
-    """Re-ranking is ported for one device; a mesh of several devices is
-    refused with the slice that brings it."""
+    """Re-ranking over several devices takes the port's mesh
+    (parallel/mesh.Mesh, tests/test_torch_sharded_rerank.py); another
+    object with a "data" axis of several devices is refused, naming it."""
     from types import SimpleNamespace
 
     TM.Evaluator(num_query=1, reranking=True)
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         TM.Evaluator(num_query=1, reranking=True, mesh=SimpleNamespace(shape={"data": 4}))

@@ -27,9 +27,15 @@ sum and the XBM banks beside them; --resume continues from the newest one,
 --cache_device keeps each training split on the device, one
 data/device_cache.DeviceImageCache per (dataset, size): stage 2's PK batches
 gather their images there (same orders, same draws: the flag changes no
-result); stage 1's batches stay on the loader, as in the JAX package. Not
-ported yet, and refused with their ROADMAP.md queue-1 item: --devices > 1
-and --multihost (item 7).
+result); stage 1's batches stay on the loader, as in the JAX package.
+
+--devices N / --multihost HOST:PORT --num_hosts H --host_id h: the ranks of
+a "data" mesh (parallel/launch.py; NCCL on cards, gloo with --device cpu),
+as in the prompt-learning CLI: every rank reads the global batch's labels
+and encodes its rows of the images, the caches are sharded over the ranks,
+and rank 0 alone logs, writes the checkpoints and prints the result. --bs
+must divide by the global number of ranks; --cache_device with --multihost
+is refused, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -96,11 +102,14 @@ def params_parser(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_unported(args) -> None:
-    """Raise for the flags whose code is not ported yet, naming its item."""
-    if args.devices > 1 or args.multihost:
-        raise NotImplementedError("not ported yet: --devices > 1 and --multihost need the "
-                                  "multi-device slice (ROADMAP.md queue 1 item 7)")
+def check_flags(args) -> None:
+    """Raise for a --bs that does not divide by the global ranks and for
+    --cache_device with --multihost (the JAX CLI's assertions)."""
+    from tpu_reid_torch.cli.zero_shot import check_world
+
+    check_world(args)
+    if args.cache_device and args.multihost:
+        raise ValueError("--cache_device is a single-process feature (no --multihost)")
 
 
 def geometries(args):
@@ -164,9 +173,20 @@ def build_model(args, n1: int, n2: int, device=None):
 
 
 def main(argv=None):
+    """Parse the flags and run the CLI on every rank; returns rank 0's
+    (cmc, mAP)."""
+    from tpu_reid_torch.parallel import launch
+
     args = params_parser(argv)
-    refuse_unported(args)
+    check_flags(args)
     args.test_dataset = args.test_dataset or args.train_dataset
+    return launch.run(run, (args,), devices=args.devices, device=args.device,
+                      multihost=args.multihost, num_hosts=args.num_hosts,
+                      host_id=args.host_id)
+
+
+def run(mesh, args):
+    """The CLI on one rank (`mesh` None on a single device)."""
 
     from tpu_reid_torch.data.datasets import get_dataset, merge_datasets
     from tpu_reid_torch.data.loader import BatchLoader
@@ -177,6 +197,8 @@ def main(argv=None):
     from tpu_reid_torch.models.vit import fold_visual_input_norm
     from tpu_reid_torch.ops.attention import set_fast_softmax
     from tpu_reid_torch.parallel.extract import extract_embeddings, make_extractor
+    from tpu_reid_torch.parallel.mesh import shard_batch
+    from tpu_reid_torch.parallel.multihost import extract_embeddings_multihost
     from tpu_reid_torch.retrieval.metrics import Evaluator
     from tpu_reid_torch.runtime.checkpoint import (
         BestKeeper, CheckpointManager, fresh_start, two_stage_cb, two_stage_resume,
@@ -186,10 +208,13 @@ def main(argv=None):
     from tpu_reid_torch.train import multitask as MT
     from tpu_reid_torch.train import trainer as TR
 
-    dev = resolve_device(args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0  # rank 0 alone logs and prints
+    # under a mesh a batch carries this rank's rows of the images
+    rows = (lambda x: x) if mesh is None else (lambda x: shard_batch(mesh, x))
     if args.fast_softmax:
         set_fast_softmax(True)
-    log = MetricLogger(args.log_dir)
+    log = MetricLogger(args.log_dir if lead else None, console=lead)
     (h1, w1), (h2, w2) = geometries(args)
     ds1 = get_dataset(args.root, args.train_dataset)
     ds2 = get_dataset(args.root, args.train_dataset_multitask)
@@ -208,7 +233,7 @@ def main(argv=None):
         loader = BatchLoader(records, args.bs, pp.size_hw, order="shuffle" if epoch > 0 else None,
                              seed=args.seed + 7919 * epoch)
         for b in loader:
-            yield (pp.eval_batch(torch.as_tensor(b.images).to(dev)),
+            yield (pp.eval_batch(torch.as_tensor(rows(b.images)).to(dev)),
                    torch.as_tensor(b.pids).to(dev), b.valid)
 
     caches = {}
@@ -220,9 +245,9 @@ def main(argv=None):
         for ds_, pp_ in ((ds1, pp1), (ds2, pp2)):
             t0 = time.perf_counter()
             c = caches[(ds_.name, pp_.size_hw)] = DeviceImageCache(ds_.train, pp_.size_hw,
-                                                                   device=dev)
+                                                                   device=dev, mesh=mesh)
             log.log("cache_device", dataset=ds_.name, n=c.n, mb=round(c.nbytes() / 2**20, 1),
-                    upload_s=round(time.perf_counter() - t0, 1), sharded=False)
+                    upload_s=round(time.perf_counter() - t0, 1), sharded=mesh is not None)
 
     def train_batches(dataset, pp, epoch, offset=0):
         # PK batches with the train augmentation, its draws from a stream of
@@ -233,28 +258,31 @@ def main(argv=None):
         gen = torch.Generator(device=dev).manual_seed(
             args.seed * 1_000_003 + ((tag << 14) | (epoch & 0x3FFF)))
         cache = caches.get((dataset.name, pp.size_hw))
+        # the global batch's draws on every rank, each taking its rows (a
+        # sharded cache's gather gives this rank's rows)
         if cache is not None:
             for sel, pids, _camids, valid in cache.epoch_index_batches(sampler.epoch(), args.bs):
-                imgs = pp.train_batch(cache.gather(sel), pp.train_draws(gen, args.bs),
+                imgs = pp.train_batch(cache.gather(sel), rows(pp.train_draws(gen, args.bs)),
                                       pad_hw=(10, 10))
                 yield imgs, torch.as_tensor(pids).to(dev) + offset, valid
             return
         for b in BatchLoader(dataset.train, args.bs, pp.size_hw, order=sampler.epoch(),
                              seed=args.seed + epoch):
-            images = torch.as_tensor(b.images).to(dev)
-            imgs = pp.train_batch(images, pp.train_draws(gen, images.shape[0]),
+            imgs = pp.train_batch(torch.as_tensor(rows(b.images)).to(dev),
+                                  rows(pp.train_draws(gen, b.images.shape[0])),
                                   pad_hw=(10, 10))
             yield imgs, torch.as_tensor(b.pids).to(dev) + offset, b.valid
 
     ckpt_dir = os.path.join(args.save_path, args.variant, args.training_mode,
                             f"{args.train_dataset}_{args.train_dataset_multitask}")
-    mgr = CheckpointManager(ckpt_dir, save_interval=20)
+    mgr = CheckpointManager(ckpt_dir, save_interval=20, mesh=mesh)
 
     def make_guard():
         return TrainGuard(snapshot_every=50, max_restores=3,
                           log=lambda s: log.log("guard", msg=s))
 
-    best = BestKeeper(os.path.join(ckpt_dir, "best"), log.log) if args.keep_best else None
+    best = (BestKeeper(os.path.join(ckpt_dir, "best"), log.log, mesh=mesh) if args.keep_best
+            else None)
 
     def maybe_keep_best(epoch: int, p, m: float):
         if best is not None:
@@ -274,15 +302,21 @@ def main(argv=None):
 
             eval_state["xtr"] = make_extractor(eval_state["embed"], eval_state["pp"],
                                                flip_tta=True, dtype=EXTRACT_DTYPE, fold=fold,
-                                               device=dev)
+                                               device=dev, mesh=mesh)
         test_ds, extractor = eval_state["ds"], eval_state["xtr"]
         hw = eval_state["pp"].size_hw
-        g_feats, g_pids, g_cams, _ = extract_embeddings(
-            extractor, eval_params, BatchLoader(test_ds.gallery, args.bs, hw), device=dev)
-        q_feats, q_pids, q_cams, _ = extract_embeddings(
-            extractor, eval_params, BatchLoader(test_ds.query, args.bs, hw), device=dev)
+
+        def sweep(records):
+            if mesh is not None:  # each rank decodes only its rows
+                return extract_embeddings_multihost(extractor, eval_params, records, args.bs,
+                                                    hw, mesh)
+            return extract_embeddings(extractor, eval_params, BatchLoader(records, args.bs, hw),
+                                      device=dev)
+
+        g_feats, g_pids, g_cams, _ = sweep(test_ds.gallery)
+        q_feats, q_pids, q_cams, _ = sweep(test_ds.query)
         ev = Evaluator(num_query=len(q_pids), max_rank=20, feat_norm=True,
-                       reranking=args.rerank, with_minp=True)
+                       reranking=args.rerank, mesh=mesh, with_minp=True)
         ev.update(q_feats, q_pids, q_cams)
         ev.update(g_feats, g_pids, g_cams)
         return ev.compute()
@@ -356,14 +390,14 @@ def main(argv=None):
                                            seed=args.seed, batch_size=args.bs,
                                            cached_order=cached_order, guard=make_guard(),
                                            checkpoint_cb=two_stage_cb(mgr, 0, lambda e: e),
-                                           log=train_log, **kw1)
+                                           log=train_log, mesh=mesh, **kw1)
                     end_of_stage(1, params)
             eval_state["embed"] = lambda p, im: M.eval_embed(p, mcfg, im)
             if done_stage < 2:
                 with synced_phase(log, "stage2", dev):
                     params = TR.run_stage2(params, mcfg, tcfg, s2, epochs=args.epochs_stage2,
                                            guard=make_guard(), checkpoint_cb=stage2_cb,
-                                           log=train_log, **kw2)
+                                           log=train_log, mesh=mesh, **kw2)
                     end_of_stage(2, params)
         else:
             def s1(epoch):
@@ -386,7 +420,7 @@ def main(argv=None):
                     params = MT.run_mt_stage1(params, mcfg, tcfg, s1, epochs=args.epochs_stage1,
                                               guard=make_guard(),
                                               checkpoint_cb=two_stage_cb(mgr, 0, lambda e: e),
-                                              log=train_log, **kw1)
+                                              log=train_log, mesh=mesh, **kw1)
                     end_of_stage(1, params)
             task = 0 if args.test_dataset == args.train_dataset else 1
             eval_state["embed"] = lambda p, im: MT.eval_embed_mt(p, mcfg, task, im)
@@ -394,7 +428,8 @@ def main(argv=None):
                 with synced_phase(log, "stage2", dev):
                     params = MT.run_mt_stage2(params, mcfg, tcfg, s2, epochs=args.epochs_stage2,
                                               xbm_capacity=2 * args.bs, guard=make_guard(),
-                                              checkpoint_cb=stage2_cb, log=train_log, **kw2)
+                                              checkpoint_cb=stage2_cb, log=train_log,
+                                              mesh=mesh, **kw2)
                     end_of_stage(2, params)
     finally:
         mgr.close()
@@ -409,9 +444,10 @@ def main(argv=None):
         return float(cmc[min(k - 1, len(cmc) - 1)])
 
     log.log("result", mAP=float(mAP), rank1=rank(1), rank5=rank(5), rank10=rank(10),
-            mINP=float(mINP), host=0)
-    print(f"Rank@1: {rank(1):.4f}, Rank@5: {rank(5):.4f}, "
-          f"Rank@10: {rank(10):.4f}, mAP: {mAP:.4f}, mINP: {mINP:.4f}")
+            mINP=float(mINP), host=args.host_id)
+    if lead:
+        print(f"Rank@1: {rank(1):.4f}, Rank@5: {rank(5):.4f}, "
+              f"Rank@10: {rank(10):.4f}, mAP: {mAP:.4f}, mINP: {mINP:.4f}")
     log.close()
     return cmc, mAP
 

@@ -33,8 +33,18 @@ run_stage2_cached, each step a CUDA graph replay on the card. The orders
 and augmentation draws are the loader path's, so the flag changes no
 result. It carries no SIE ids (--sie_camera / --sie_view: ValueError).
 
-Not ported yet, and refused with their ROADMAP.md queue-1 item:
---devices > 1 and --multihost (item 7).
+Several devices (parallel/launch.py: one process per device, a "data"
+mesh): --devices N trains and evaluates on N ranks of this host (NCCL on
+cards, one rank per card; gloo with --device cpu), --multihost HOST:PORT
+--num_hosts H --host_id h on the ranks of H hosts. Every rank reads the
+global batch's labels, encodes its rows of the images and gathers the
+features, so the losses see the global batch and every rank applies the
+single-device update (train/trainer.py); in evaluation each rank decodes
+and embeds only its rows of every global batch, and the re-ranking runs
+over the mesh. --bs must divide by the global number of ranks. With
+--cache_device the split is sharded over the ranks and the cached steps run
+eagerly; with --multihost it is refused, as in the JAX CLI. Rank 0 alone
+logs, writes the checkpoints and prints the result.
 """
 
 from __future__ import annotations
@@ -108,13 +118,13 @@ def params_parser(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_unported(args) -> None:
-    """Raise for the flags whose code is not ported yet, naming its item, and
-    for --cache_device with SIE ids, which the cache does not carry."""
-    if args.devices > 1 or args.multihost:
-        raise NotImplementedError("not ported yet: --devices > 1 and --multihost need the "
-                                  "multi-device slice (ROADMAP.md queue 1 item 7)")
-    if args.cache_device and (args.sie_camera or args.sie_view):
+def check_flags(args) -> None:
+    """Raise for --cache_device with --multihost or SIE ids (the JAX CLI's
+    assertion), and for a --bs that does not divide by the global ranks."""
+    from tpu_reid_torch.cli.zero_shot import check_world
+
+    check_world(args)
+    if args.cache_device and (args.multihost or args.sie_camera or args.sie_view):
         # the JAX CLI's assertion, as a ValueError
         raise ValueError("--cache_device is a single-process feature (no --multihost) and "
                          "does not carry SIE side-info ids")
@@ -249,9 +259,20 @@ def sie_table(args, dataset):
 
 
 def main(argv=None):
+    """Parse the flags and run the CLI on every rank; returns rank 0's
+    (cmc, mAP)."""
+    from tpu_reid_torch.parallel import launch
+
     args = params_parser(argv)
-    refuse_unported(args)
+    check_flags(args)
     args.test_dataset = args.test_dataset or args.train_dataset
+    return launch.run(run, (args,), devices=args.devices, device=args.device,
+                      multihost=args.multihost, num_hosts=args.num_hosts,
+                      host_id=args.host_id)
+
+
+def run(mesh, args):
+    """The CLI on one rank (`mesh` None on a single device)."""
 
     from tpu_reid_torch.data.datasets import get_dataset
     from tpu_reid_torch.data.loader import BatchLoader
@@ -261,6 +282,8 @@ def main(argv=None):
     from tpu_reid_torch.models import reid_clip as M
     from tpu_reid_torch.ops.attention import set_fast_softmax
     from tpu_reid_torch.parallel.extract import extract_embeddings, make_extractor
+    from tpu_reid_torch.parallel.mesh import shard_batch
+    from tpu_reid_torch.parallel.multihost import extract_embeddings_multihost
     from tpu_reid_torch.retrieval.metrics import Evaluator
     from tpu_reid_torch.runtime.checkpoint import (
         BestKeeper, CheckpointManager, fresh_start, two_stage_cb, two_stage_resume,
@@ -269,10 +292,13 @@ def main(argv=None):
     from tpu_reid_torch.runtime.observe import MetricLogger, synced_phase
     from tpu_reid_torch.train import trainer as TR
 
-    dev = resolve_device(args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0  # rank 0 alone logs and prints
+    # under a mesh a batch carries this rank's rows of the images (and ids)
+    rows = (lambda x: x) if mesh is None else (lambda x: shard_batch(mesh, x))
     if args.fast_softmax:
         set_fast_softmax(True)
-    log = MetricLogger(args.log_dir)
+    log = MetricLogger(args.log_dir if lead else None, console=lead)
     dataset = get_dataset(args.root, args.train_dataset)
     n_cls = dataset.num_train_pids
     n_sie, sie_ids_of = sie_table(args, dataset)
@@ -292,9 +318,9 @@ def main(argv=None):
         from tpu_reid_torch.data.device_cache import DeviceImageCache
 
         t0 = time.perf_counter()
-        cache = DeviceImageCache(dataset.train, (h, w), device=dev)
+        cache = DeviceImageCache(dataset.train, (h, w), device=dev, mesh=mesh)
         log.log("cache_device", n=cache.n, mb=round(cache.nbytes() / 2**20, 1),
-                upload_s=round(time.perf_counter() - t0, 1), sharded=False)
+                upload_s=round(time.perf_counter() - t0, 1), sharded=mesh is not None)
 
     def stage1_order(epoch):
         # the loader's order: shuffled with seed + epoch (a Generator's
@@ -315,7 +341,7 @@ def main(argv=None):
     def stage1_batches(epoch):
         # stage 1 consumes the deterministic eval transform, shuffled order
         # (epoch 0: the sequential pass of the coop/adapter precompute)
-        if cache is not None:
+        if cache is not None:  # a sharded cache's gather gives this rank's rows
             for sel, pids, _camids, valid in stage1_order(epoch):
                 yield pp.eval_batch(cache.gather(sel)), torch.as_tensor(pids).to(dev), valid
             return
@@ -323,25 +349,26 @@ def main(argv=None):
                              order="shuffle" if epoch > 0 else None,
                              seed=args.seed + epoch, drop_tail=epoch > 0)
         for b in loader:
-            out = (pp.eval_batch(torch.as_tensor(b.images).to(dev)),
+            out = (pp.eval_batch(torch.as_tensor(rows(b.images)).to(dev)),
                    torch.as_tensor(b.pids).to(dev), b.valid)
             # SIE: the side-information ids ride as a trailing element
-            yield out + ((torch.as_tensor(sie_ids_of(b)).to(dev),) if n_sie else ())
+            yield out + ((torch.as_tensor(rows(sie_ids_of(b))).to(dev),) if n_sie else ())
 
     def stage2_batches(epoch):
         labels = [r[1] for r in dataset.train]
         sampler = PKSampler(labels, args.bs, 4, seed=args.seed + epoch)
         gen = stage2_gen(epoch)
         for b in BatchLoader(dataset.train, args.bs, (h, w), order=sampler.epoch()):
-            images = torch.as_tensor(b.images).to(dev)
-            imgs = pp.train_batch(images, pp.train_draws(gen, images.shape[0]),
+            # the global batch's draws on every rank, each taking its rows
+            draws = rows(pp.train_draws(gen, b.images.shape[0]))
+            imgs = pp.train_batch(torch.as_tensor(rows(b.images)).to(dev), draws,
                                   pad_hw=(10, 10))
             out = (imgs, torch.as_tensor(b.pids).to(dev), b.valid)
-            yield out + ((torch.as_tensor(sie_ids_of(b)).to(dev),) if n_sie else ())
+            yield out + ((torch.as_tensor(rows(sie_ids_of(b))).to(dev),) if n_sie else ())
 
     tcfg = TR.TrainConfig(epochs_stage1=args.epochs_stage1, epochs_stage2=args.epochs_stage2)
     ckpt_dir = os.path.join(args.save_path, args.training_mode, args.train_dataset)
-    mgr = CheckpointManager(ckpt_dir, save_interval=20)
+    mgr = CheckpointManager(ckpt_dir, save_interval=20, mesh=mesh)
 
     # --resume: the newest checkpoint's parameters, and mid-stage its
     # optimizer state and (promptsrc) GPA sum: the run goes on where it
@@ -364,7 +391,8 @@ def main(argv=None):
 
     # best among the evaluated parameters: every --eval_every epochs and the
     # final test (without --eval_every, the final parameters)
-    best = BestKeeper(os.path.join(ckpt_dir, "best"), log.log) if args.keep_best else None
+    best = (BestKeeper(os.path.join(ckpt_dir, "best"), log.log, mesh=mesh) if args.keep_best
+            else None)
 
     def maybe_keep_best(epoch: int, p, m: float):
         if best is not None:
@@ -381,16 +409,21 @@ def main(argv=None):
             eval_state["xtr"] = make_extractor(
                 lambda p, im, *cv: M.eval_embed(p, mcfg, im, *cv), pp, flip_tta=True,
                 dtype=EXTRACT_DTYPE, with_cv_ids=bool(n_sie),
-                fold=lambda p: M.fold_input_norm(p, mcfg, "vit"), device=dev)
+                fold=lambda p: M.fold_input_norm(p, mcfg, "vit"), device=dev, mesh=mesh)
         test_ds, extractor = eval_state["ds"], eval_state["xtr"]
-        g_feats, g_pids, g_cams, _ = extract_embeddings(
-            extractor, eval_params, BatchLoader(test_ds.gallery, args.bs, (h, w)),
-            cv_ids_of=sie_ids_of, device=dev)
-        q_feats, q_pids, q_cams, _ = extract_embeddings(
-            extractor, eval_params, BatchLoader(test_ds.query, args.bs, (h, w)),
-            cv_ids_of=sie_ids_of, device=dev)
+
+        def sweep(records):
+            if mesh is not None:  # each rank decodes only its rows
+                return extract_embeddings_multihost(extractor, eval_params, records, args.bs,
+                                                    (h, w), mesh, cv_ids_of=sie_ids_of)
+            return extract_embeddings(extractor, eval_params,
+                                      BatchLoader(records, args.bs, (h, w)),
+                                      cv_ids_of=sie_ids_of, device=dev)
+
+        g_feats, g_pids, g_cams, _ = sweep(test_ds.gallery)
+        q_feats, q_pids, q_cams, _ = sweep(test_ds.query)
         ev = Evaluator(num_query=len(q_pids), max_rank=10, feat_norm=True,
-                       reranking=args.rerank, with_minp=True)
+                       reranking=args.rerank, mesh=mesh, with_minp=True)
         ev.update(q_feats, q_pids, q_cams)
         ev.update(g_feats, g_pids, g_cams)
         return ev.compute()
@@ -417,14 +450,14 @@ def main(argv=None):
                     params = TR.run_stage1_live_cached(
                         params, mcfg, tcfg, cache, stage1_order, pp, epochs=args.epochs_stage1,
                         guard=make_guard(), log=train_log,
-                        checkpoint_cb=two_stage_cb(mgr, 0, lambda e: e), **kw1)
+                        checkpoint_cb=two_stage_cb(mgr, 0, lambda e: e), mesh=mesh, **kw1)
                 else:
                     params = TR.run_stage1(params, mcfg, tcfg, stage1_batches,
                                            epochs=args.epochs_stage1, seed=args.seed,
                                            batch_size=args.bs, guard=make_guard(),
                                            log=train_log,
                                            checkpoint_cb=two_stage_cb(mgr, 0, lambda e: e),
-                                           **kw1)
+                                           mesh=mesh, **kw1)
                 mgr.save(args.epochs_stage1,
                          {"params": params, "stage": 1, "epoch_in_stage": -1})
         if done_stage < 2:
@@ -433,11 +466,12 @@ def main(argv=None):
                     params = TR.run_stage2_cached(
                         params, mcfg, tcfg, cache, stage2_order, pp, stage2_gen,
                         epochs=args.epochs_stage2, guard=make_guard(), log=train_log,
-                        checkpoint_cb=stage2_cb, **kw2)
+                        checkpoint_cb=stage2_cb, mesh=mesh, **kw2)
                 else:
                     params = TR.run_stage2(params, mcfg, tcfg, stage2_batches,
                                            epochs=args.epochs_stage2, guard=make_guard(),
-                                           log=train_log, checkpoint_cb=stage2_cb, **kw2)
+                                           log=train_log, checkpoint_cb=stage2_cb, mesh=mesh,
+                                           **kw2)
                 mgr.save(args.epochs_stage1 + args.epochs_stage2,
                          {"params": params, "stage": 2, "epoch_in_stage": -1})
     finally:
@@ -452,9 +486,10 @@ def main(argv=None):
         return float(cmc[min(k - 1, len(cmc) - 1)])
 
     log.log("result", mAP=float(mAP), rank1=rank(1), rank5=rank(5), rank10=rank(10),
-            mINP=float(mINP), host=0)
-    print(f"Rank@1: {rank(1):.4f}, Rank@5: {rank(5):.4f}, "
-          f"Rank@10: {rank(10):.4f}, mAP: {mAP:.4f}, mINP: {mINP:.4f}")
+            mINP=float(mINP), host=args.host_id)
+    if lead:
+        print(f"Rank@1: {rank(1):.4f}, Rank@5: {rank(5):.4f}, "
+              f"Rank@10: {rank(10):.4f}, mAP: {mAP:.4f}, mINP: {mINP:.4f}")
     log.close()
     return cmc, mAP
 

@@ -15,10 +15,19 @@ runs with ImageNet input statistics, its embedding cat(mean of the layer-4
 map, the attention-pooled token); the input normalisation is folded into the
 patch embed for a ViT only, as in the JAX CLI.
 
-Not ported yet, and refused with the slice named: --devices/--tp > 1 and
---multihost (slice 7). --training_mode ivlp with a ViT checkpoint that
-carries no IVLP prompt tokens is refused too (the JAX CLI fails on it): such
-tokens come from the prompt-learning CLI.
+Several devices (parallel/launch.py: one process per device, a "data" mesh):
+--devices N runs N ranks on this host (NCCL on cards, one rank per card;
+gloo with --device cpu); each decodes and embeds only its rows of every
+global batch, the features are gathered once, and with --rerank the
+streamed route shards its passes over the ranks. --multihost HOST:PORT
+--num_hosts H --host_id h joins the ranks of H hosts (each running this
+command with its --devices) at HOST:PORT. --bs must divide by the global
+number of ranks. Rank 0 prints the result.
+
+Refused: --tp > 1 (tensor parallelism, ROADMAP.md queue 1 item 7b), and
+--training_mode ivlp with a ViT checkpoint that carries no IVLP prompt
+tokens (the JAX CLI fails on it): such tokens come from the prompt-learning
+CLI.
 """
 
 from __future__ import annotations
@@ -56,13 +65,17 @@ def params_parser(argv=None):
                             "veri", "vehicleid", "personx"])
     p.add_argument("--rerank", action="store_true")
     p.add_argument("--devices", default=1, type=int,
-                   help="data-parallel devices (only 1 in the port so far)")
+                   help="ranks on this host, one per device: extraction and the streamed "
+                        "re-ranking shard over them")
     p.add_argument("--tp", default=1, type=int,
-                   help="tensor-parallel width (only 1 in the port so far)")
+                   help="tensor-parallel width (only 1: ROADMAP.md queue 1 item 7b)")
     p.add_argument("--multihost", default=None, type=str, metavar="HOST:PORT",
-                   help="multi-host extraction (not in the port yet)")
-    p.add_argument("--num_hosts", default=1, type=int)
-    p.add_argument("--host_id", default=0, type=int)
+                   help="multi-host extraction: the rendezvous address of the ranks of "
+                        "every host (run this command on each with --num_hosts/--host_id)")
+    p.add_argument("--num_hosts", default=1, type=int,
+                   help="with --multihost: the number of hosts")
+    p.add_argument("--host_id", default=0, type=int,
+                   help="with --multihost: this host's index")
     p.add_argument("--no_flip_tta", action="store_true")
     p.add_argument("--fast_softmax", action="store_true",
                    help="throughput profile for the attention softmax "
@@ -73,13 +86,34 @@ def params_parser(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
-    args = params_parser(argv)
-    if args.devices > 1 or args.tp > 1 or args.multihost:
-        raise NotImplementedError(
-            "--devices/--tp > 1 and --multihost are not ported yet (slice 7 of the port)"
-        )
+def check_world(args) -> None:
+    """--bs must divide by the global number of ranks (the JAX CLIs'
+    messages)."""
+    if args.multihost:
+        world = args.devices * args.num_hosts
+        if args.bs % world:
+            raise ValueError(f"--bs {args.bs} must divide by the {world} global devices")
+    elif args.bs % args.devices:
+        raise ValueError(f"--bs {args.bs} must divide by --devices {args.devices}")
 
+
+def main(argv=None):
+    """Parse the flags and run the CLI on every rank; returns rank 0's
+    (cmc, mAP)."""
+    from tpu_reid_torch.parallel import launch
+    from tpu_reid_torch.parallel.mesh import ITEM_7B
+
+    args = params_parser(argv)
+    if args.tp > 1:
+        raise NotImplementedError(ITEM_7B)
+    check_world(args)
+    return launch.run(run, (args,), devices=args.devices, device=args.device,
+                      multihost=args.multihost, num_hosts=args.num_hosts,
+                      host_id=args.host_id)
+
+
+def run(mesh, args):
+    """The CLI on one rank (`mesh` None on a single device)."""
     from tpu_reid_torch.configs import PromptDesign
     from tpu_reid_torch.data import attributes as A
     from tpu_reid_torch.data.datasets import get_dataset
@@ -90,16 +124,18 @@ def main(argv=None):
     from tpu_reid_torch.models.vit import fold_visual_input_norm
     from tpu_reid_torch.ops.attention import set_fast_softmax
     from tpu_reid_torch.parallel.extract import extract_embeddings, make_extractor
+    from tpu_reid_torch.parallel.multihost import extract_embeddings_multihost
     from tpu_reid_torch.pipelines import zero_shot as Z
     from tpu_reid_torch.runtime.observe import MetricLogger
     from tpu_reid_torch.weights.convert import (
         convert_clip, load_state_dict, overlay_clip_reid,
     )
 
-    dev = resolve_device(args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0  # rank 0 alone logs and prints
     if args.fast_softmax:
         set_fast_softmax(True)
-    log = MetricLogger(args.log_dir)
+    log = MetricLogger(args.log_dir if lead else None, console=lead)
     h, w = args.height, int(args.height * args.ratio)
 
     with log.phase("load_weights"):
@@ -146,11 +182,17 @@ def main(argv=None):
             fold = lambda p: dict(p, visual=fold_visual_input_norm(p["visual"], "vit"))  # noqa: E731
         extractor = make_extractor(Z.make_zeroshot_embed(params, cfg), pp,
                                    flip_tta=not args.no_flip_tta, dtype=EXTRACT_DTYPE,
-                                   fold=fold, device=dev)
-        g_feats, g_pids, g_cams, _ = extract_embeddings(
-            extractor, params, BatchLoader(dataset.gallery, args.bs, (h, w)), device=dev)
-        q_feats, q_pids, q_cams, _ = extract_embeddings(
-            extractor, params, BatchLoader(dataset.query, args.bs, (h, w)), device=dev)
+                                   fold=fold, device=dev, mesh=mesh)
+
+        def sweep(records):
+            if mesh is not None:  # each rank decodes only its rows
+                return extract_embeddings_multihost(extractor, params, records, args.bs,
+                                                    (h, w), mesh)
+            return extract_embeddings(extractor, params, BatchLoader(records, args.bs, (h, w)),
+                                      device=dev)
+
+        g_feats, g_pids, g_cams, _ = sweep(dataset.gallery)
+        q_feats, q_pids, q_cams, _ = sweep(dataset.query)
         log.log("extracted", gallery=len(g_pids), query=len(q_pids))
 
     # the weights are dead after extraction; re-ranking wants the memory
@@ -160,16 +202,18 @@ def main(argv=None):
         cmc, mAP, mINP = Z.evaluate_zero_shot(
             q_feats, g_feats, q_pids, g_pids, q_cams, g_cams,
             zs_weights=zs_weights, proj_dim=cfg.embed_dim, multimodal=args.mm,
-            max_rank=50, reranking=args.rerank, with_minp=True, device=dev, log=log,
+            max_rank=50, reranking=args.rerank, mesh=mesh, with_minp=True, device=dev,
+            log=log,
         )
 
     def rank(k):  # the gallery may be smaller than max_rank
         return float(cmc[min(k - 1, len(cmc) - 1)])
 
     log.log("result", mAP=float(mAP), rank1=rank(1), rank5=rank(5), rank10=rank(10),
-            mINP=float(mINP), host=0)
-    print(f"Rank@1: {rank(1):.4f}, Rank@5: {rank(5):.4f}, "
-          f"Rank@10: {rank(10):.4f}, mAP: {mAP:.4f}, mINP: {mINP:.4f}")
+            mINP=float(mINP), host=args.host_id)
+    if lead:
+        print(f"Rank@1: {rank(1):.4f}, Rank@5: {rank(5):.4f}, "
+              f"Rank@10: {rank(10):.4f}, mAP: {mAP:.4f}, mINP: {mINP:.4f}")
     log.close()
     return cmc, mAP
 

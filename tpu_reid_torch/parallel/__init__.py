@@ -1,1 +1,2 @@
-"""Batched embedding extraction (one device)."""
+"""Extraction, prefetch and the data mesh over ranks (mesh.py, launch.py,
+multihost.py)."""

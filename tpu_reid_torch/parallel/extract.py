@@ -1,8 +1,11 @@
-"""Gallery/query embedding extraction on one device.
+"""Gallery/query embedding extraction.
 
 The step runs preprocessing, the encoder and flip-TTA on the device and
-leaves the features there for the retrieval tail. Multi-device meshes come
-with a later slice.
+leaves the features there for the retrieval tail. Over a "data" mesh
+(parallel/mesh.py) every rank runs the whole step on its rows of each global
+batch with its own copy of the parameters, and the features are gathered
+once at the end into global batch order (the counterpart of the JAX
+package's shard_map sweep).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 
 from tpu_reid_torch.data.transforms import DevicePreprocess
 from tpu_reid_torch.device import DeviceLike, resolve_device, to_device
+from tpu_reid_torch.parallel.mesh import all_gather_rows, shard_batch
 from tpu_reid_torch.runtime.guard import StepWatchdog
 
 Tensor = torch.Tensor
@@ -36,9 +40,12 @@ def make_extractor(
     with_cv_ids: bool = False,
     fold=None,
     device: DeviceLike = None,
+    mesh=None,
 ):
     """Build a step: uint8 images -> (B, E) fp32 embeddings on `device`
-    (CUDA unless device="cpu").
+    (CUDA unless device="cpu"; the mesh's device when `mesh` is given: the
+    step then embeds whatever rows of a batch this rank is handed, and
+    extract_embeddings(mesh=) hands it its share).
 
     embed_fn(params, images_normalized) -> (B, E); with flip_tta the plain
     and flipped passes are averaged (the mean, not the sum: in mm mode the
@@ -52,7 +59,7 @@ def make_extractor(
     normalization into the patch-embed weights (e.g. a wrapper of
     models.vit.fold_visual_input_norm). When given, the step applies it and
     feeds RAW-scale images — the normalization pass disappears (exact)."""
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
 
     @torch.no_grad()
     def step(params, images_u8, *cv):
@@ -98,6 +105,16 @@ def make_scan_extractor(
     return scan_fn
 
 
+def global_batch_order(mesh, local: Tensor, n_batches: int) -> Tensor:
+    """Every rank's rows of `n_batches` equal batches (`local`: this rank's
+    rows of each, batch after batch) -> the global batches in order, on
+    every rank (one all-gather)."""
+    every = all_gather_rows(mesh, local)  # rank-major
+    per = local.shape[0] // n_batches
+    return (every.reshape(mesh.size, n_batches, per, *local.shape[1:]).transpose(0, 1)
+            .reshape(mesh.size * local.shape[0], *local.shape[1:]))
+
+
 def extract_embeddings(
     extractor,
     params: dict,
@@ -106,6 +123,7 @@ def extract_embeddings(
     device: DeviceLike = None,
     hang_timeout_s: float = 600.0,
     on_hang=None,
+    mesh=None,
 ) -> Tuple[Tensor, np.ndarray, np.ndarray, np.ndarray]:
     """Sweep batches; returns (features_on_device, pids, camids, seqids).
 
@@ -122,20 +140,28 @@ def extract_embeddings(
     the last one's at the end): the device time is covered while one batch
     stays queued behind the one being waited for. On the CPU the
     extractor call itself is the device work and is what is guarded. One
-    watchdog is re-armed for every wait (no thread per batch)."""
-    dev = resolve_device(device)
+    watchdog is re-armed for every wait (no thread per batch).
+
+    mesh: every rank sweeps the same global batches and embeds its
+    contiguous rows of each (the batch size must divide by the world
+    size); one all-gather at the end puts the features of every rank, in
+    global batch order, on every rank, and the valid masks then drop the
+    padded tail rows as on one device. The watchdog guards each rank's
+    waits."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     params = to_device(params, dev)  # moved once, not per batch
     cuda = dev.type == "cuda"
     watchdog = StepWatchdog(hang_timeout_s, on_hang=on_hang)
-    feats, pids, camids, seqids = [], [], [], []
+    feats, pids, camids, seqids, valids = [], [], [], [], []
     queued = None  # the previous batch's CUDA event
+    place = (lambda x: x) if mesh is None else (lambda x: shard_batch(mesh, x))
     for b in batches:
         extra = (
-            (torch.as_tensor(np.asarray(cv_ids_of(b), np.int64), device=dev),)
+            (torch.as_tensor(place(np.asarray(cv_ids_of(b), np.int64)), device=dev),)
             if cv_ids_of is not None else ()
         )
         with contextlib.nullcontext() if cuda else watchdog:
-            f = extractor(params, torch.as_tensor(b.images).to(dev), *extra)
+            f = extractor(params, torch.as_tensor(place(b.images)).to(dev), *extra)
         if cuda:
             done = torch.cuda.Event()
             done.record()
@@ -144,7 +170,13 @@ def extract_embeddings(
                     queued.synchronize()
             queued = done
         valid = np.asarray(b.valid, bool)
-        if valid.all():
+        if mesh is not None:  # masked after the gather
+            feats.append(f)
+            valids.append(valid)
+            pids.append(b.pids[valid])
+            camids.append(b.camids[valid])
+            seqids.append(b.seqids[valid])
+        elif valid.all():
             feats.append(f)
             pids.append(b.pids)
             camids.append(b.camids)
@@ -157,8 +189,12 @@ def extract_embeddings(
     if queued is not None:
         with watchdog:
             queued.synchronize()
+    out = torch.cat(feats, dim=0)
+    if mesh is not None:
+        out = global_batch_order(mesh, out, len(feats))
+        out = out[torch.from_numpy(np.concatenate(valids)).to(dev)]
     return (
-        torch.cat(feats, dim=0),
+        out,
         np.concatenate(pids),
         np.concatenate(camids),
         np.concatenate(seqids),

@@ -121,8 +121,8 @@ def evaluate_zero_shot(
     """Final ranking on `device` (CUDA unless device="cpu"): optional mm
     transform, then CMC/mAP, with k-reciprocal re-ranking when `reranking`
     (the Evaluator's "auto" route). Returns (cmc, mAP), or (cmc, mAP, mINP)
-    when with_minp. A `mesh` larger than one device raises (slice 7 of the
-    port); `log` is handed to the Evaluator."""
+    when with_minp. `mesh` (a parallel/mesh.Mesh) and `log` are handed to
+    the Evaluator."""
     dev = resolve_device(device)
     query_feats = torch.as_tensor(query_feats).to(dev)
     gallery_feats = torch.as_tensor(gallery_feats).to(dev)

@@ -22,10 +22,7 @@ import torch
 
 from tpu_reid_torch.retrieval.distance import euclidean_distmat, l2_normalize
 from tpu_reid_torch.retrieval.rerank import k_reciprocal_rerank, k_reciprocal_rerank_sharded
-from tpu_reid_torch.retrieval.rerank_stream import (
-    k_reciprocal_rerank_streamed_rows,
-    require_single_device,
-)
+from tpu_reid_torch.retrieval.rerank_stream import check_mesh, k_reciprocal_rerank_streamed_rows
 from tpu_reid_torch.runtime.observe import synced_phase
 
 Tensor = torch.Tensor
@@ -143,9 +140,11 @@ class Evaluator:
     `rerank_stream.k_reciprocal_rerank_streamed_rows`, blended and scored
     per query chunk), "sharded" (shard-local neighbourhoods, an
     approximation) or "auto" (exact up to `rerank_exact_limit` = Q+G, then
-    streamed). A `mesh` whose "data" axis is larger than 1 raises (slice 7
-    of the port). `log`: an optional MetricLogger that gets the streamed
-    route's passes as device-synchronised phases."""
+    streamed). `mesh` (a parallel/mesh.Mesh): the streamed route shards its
+    passes and the gallery side of V_qe over the ranks
+    (`rerank_stream._streamed_core_sharded`); every rank holds all the
+    features and computes the same metrics. `log`: an optional MetricLogger
+    that gets the streamed route's passes as device-synchronised phases."""
 
     def __init__(self, num_query: int, max_rank: int = 50, feat_norm: bool = True,
                  reranking: bool = False, rerank_params: tuple = (50, 15, 0.3),
@@ -153,7 +152,7 @@ class Evaluator:
         if rerank_mode not in ("auto", "exact", "streamed", "sharded"):
             raise ValueError(f"rerank_mode must be auto, exact, streamed or sharded: "
                              f"{rerank_mode!r}")
-        require_single_device(mesh)
+        check_mesh(mesh)
         self.num_query = num_query
         self.max_rank = max_rank
         self.feat_norm = feat_norm
@@ -164,6 +163,7 @@ class Evaluator:
         # (25.6 GB at 40,000); above this population "auto" streams
         self.rerank_exact_limit = 40_000
         self.with_minp = with_minp
+        self.mesh = mesh
         self.log = log
         self.reset()
 
@@ -201,7 +201,7 @@ class Evaluator:
             distmat = k_reciprocal_rerank(qf, gf, k1=k1, k2=k2, lambda_value=lam)
         elif mode == "streamed":
             row_fn, q_chunk = k_reciprocal_rerank_streamed_rows(
-                qf, gf, k1=k1, k2=k2, lambda_value=lam, log=self.log)
+                qf, gf, k1=k1, k2=k2, lambda_value=lam, mesh=self.mesh, log=self.log)
             with synced_phase(self.log, "rerank.blend_metric", qf.device):
                 return cmc_map_from_rows(row_fn, q_chunk, *ids, **kw)
         else:

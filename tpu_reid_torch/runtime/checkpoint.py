@@ -21,6 +21,11 @@ What orbax gave the JAX package for free is done here by hand:
     `restore_extras` raises when they differ from the restoring run's;
   * `extras_<epoch>` is pruned with its epoch (the JAX package keeps them).
 
+Over a "data" mesh (parallel/mesh.py) rank 0 alone writes: a manager made
+with `mesh=` on another rank decides the cadence and writes nothing. Every
+rank restores the same files, and `two_stage_resume` checks that the ranks
+then hold identical parameters and optimizer state.
+
 The port cannot read the JAX package's orbax checkpoints, nor the JAX
 package the port's.
 """
@@ -36,6 +41,7 @@ from typing import Any, Callable, List, Optional
 import torch
 
 from tpu_reid_torch.device import DeviceLike
+from tpu_reid_torch.parallel.mesh import check_replicated
 from tpu_reid_torch.runtime.guard import _to_host
 
 _EPOCH_FILE = re.compile(r"^(\d+)\.pt$")
@@ -74,10 +80,13 @@ class CheckpointManager:
     """Epoch-indexed manager: keeps the newest `max_to_keep` checkpoints
     (and their extras), `latest_epoch()` for resume."""
 
-    def __init__(self, directory: str, max_to_keep: int = 3, save_interval: int = 20):
+    def __init__(self, directory: str, max_to_keep: int = 3, save_interval: int = 20,
+                 mesh=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.save_interval = save_interval
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.rank == 0
         os.makedirs(self.directory, exist_ok=True)
         self._writer = cf.ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt")
         self._pending: List[cf.Future] = []
@@ -107,7 +116,10 @@ class CheckpointManager:
     def save(self, epoch: int, payload: Any) -> None:
         """Snapshot `payload` to host memory now; the file is written on the
         writer thread while training goes on. An earlier write is waited for
-        first, so at most one is in flight."""
+        first, so at most one is in flight. A rank other than 0 of a mesh
+        writes nothing."""
+        if not self.writes:
+            return
         self._wait()
         self._submit(self._write, epoch, _to_host(payload))
 
@@ -118,6 +130,8 @@ class CheckpointManager:
     def save_extras(self, epoch: int, payload: Any) -> None:
         """Companion payload of epoch `epoch`'s checkpoint, written after it
         on the writer thread."""
+        if not self.writes:
+            return
         self._submit(_write_file, self._extras_path(epoch), _to_host(payload))
 
     def restore_extras(self, epoch: int, opt_paths: Optional[List[str]] = None,
@@ -180,8 +194,8 @@ class BestKeeper:
     periodic evaluations and the final test), kept under `directory` as
     {"params", "mAP", "epoch"} (one checkpoint)."""
 
-    def __init__(self, directory: str, log: Callable[..., None]):
-        self.mgr = CheckpointManager(directory, max_to_keep=1, save_interval=1)
+    def __init__(self, directory: str, log: Callable[..., None], mesh=None):
+        self.mgr = CheckpointManager(directory, max_to_keep=1, save_interval=1, mesh=mesh)
         self.log = log
         self.best = -1.0
 
@@ -262,7 +276,9 @@ def two_stage_resume(
 
     A resumed run must use the SAME total epoch counts as the interrupted
     one: the GPA gaussian weights normalize over the planned epoch count
-    (optim.gauss_weights)."""
+    (optim.gauss_weights). Under the manager's mesh every rank restores the
+    same files and the restored parameters and optimizer state are checked
+    to be identical on every rank."""
     kw1, kw2 = fresh_start(xbms_used)
     step = mgr.latest_epoch()
     if step is None:
@@ -302,4 +318,7 @@ def two_stage_resume(
                    "init_gpa": extras.get("gpa")}
             if xbms_used:
                 kw2["init_xbms"] = extras.get("xbms")
+    if mgr.mesh is not None:
+        check_replicated(mgr.mesh, [params, kw1["init_opt_state"], kw2["init_opt_state"]],
+                         f"the checkpoint of step {step}")
     return params, done, kw1, kw2

@@ -1,5 +1,5 @@
 """Multitask prompt learning across two datasets, one shared CLIP trunk (the
-port of tpu_reid/train/multitask.py, single device).
+port of tpu_reid/train/multitask.py).
 
 Variants (the soft one, one model over the merged label space, runs on the
 single-task trainers: cli/multitask.py):
@@ -19,14 +19,18 @@ backward through the plain block's recompute, as in train/trainer.py.
 
 Input: both runners take their batches through
 parallel/prefetch.device_prefetch (a worker thread and, on CUDA, a copy
-stream), and roll back in place as train/trainer.py does.
+stream; synchronous under a mesh, train/trainer._prefetch), and roll back in
+place as train/trainer.py does.
 
 Resume: both runners take start_epoch / init_opt_state / init_gpa (and
 init_xbms for stage 2); their checkpoint_cb hands over {"optimizer",
 "opt_paths", "gpa"} (+ "xbms") after every epoch.
 
-The multi-device paths (`_mt_sharded_encoder`, the `mesh=` arguments) come
-with ROADMAP.md queue 1 item 7; a mesh is refused.
+Data parallelism (`mesh=`): as in train/trainer.py, a task batch carries
+this rank's rows of the images and the global labels and valid mask; both
+encoders run on this rank's rows and gather (`_mt_sharded_encoder`), the XBM
+memory is filled from the gathered global batch, and the gradients are
+averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -45,7 +49,8 @@ from tpu_reid_torch.models import prompts as P
 from tpu_reid_torch.models import text as T
 from tpu_reid_torch.models import vit as V
 from tpu_reid_torch.models.clip_model import resize_pos_embed
-from tpu_reid_torch.parallel.prefetch import StreamPlacer, device_prefetch
+from tpu_reid_torch.parallel.mesh import gathered, shard_batch
+from tpu_reid_torch.parallel.prefetch import StreamPlacer
 from tpu_reid_torch.train import losses as L
 from tpu_reid_torch.train import optim as O
 from tpu_reid_torch.train import schedules as S
@@ -71,12 +76,6 @@ class MultitaskModelConfig:
     @property
     def dual_text(self) -> bool:
         return self.variant == "hard_ivlp"
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("multitask training over a device mesh is not ported yet "
-                                  "(ROADMAP.md queue 1 item 7)")
 
 
 def init_multitask_model(gen: torch.Generator, cfg: MultitaskModelConfig, clip_params: dict,
@@ -191,24 +190,35 @@ def mt_stage2_leaf_order(params: dict, cfg: MultitaskModelConfig) -> list:
 # ---------------------------------------------------------------------------
 
 
+def _mt_sharded_encoder(mesh, fn):
+    """fn(params, cfg, task, this rank's rows) -> the gathered global-batch
+    features (identity without a mesh)."""
+    return fn if mesh is None else gathered(mesh, fn)
+
+
 def mt_stage1_loss(cfg: MultitaskModelConfig, task: int, params: dict, images: Tensor,
-                   labels: Tensor, valid: Optional[Tensor] = None) -> Tensor:
-    """SupCon(i2t) + SupCon(t2i) of one task's batch."""
-    image_features = encode_image_mt(params, cfg, task, images)[2]
-    text_features = encode_text_mt(params, cfg, task, labels)
+                   labels: Tensor, valid: Optional[Tensor] = None, mesh=None) -> Tensor:
+    """SupCon(i2t) + SupCon(t2i) of one task's batch (mesh: `images` are
+    this rank's rows; both sides are encoded on this rank's share and
+    gathered)."""
+    image_features = _mt_sharded_encoder(mesh, encode_image_mt)(params, cfg, task, images)[2]
+    text_labels = labels if mesh is None else shard_batch(mesh, labels)
+    text_features = _mt_sharded_encoder(mesh, encode_text_mt)(params, cfg, task, text_labels)
     return (L.supcon_loss(image_features, text_features, labels, labels,
                           anchor_valid=valid, contrast_valid=valid)
             + L.supcon_loss(text_features, image_features, labels, labels,
                             anchor_valid=valid, contrast_valid=valid))
 
 
-def make_mt_stage1_step(cfg: MultitaskModelConfig, optimizer: torch.optim.Optimizer, task: int):
+def make_mt_stage1_step(cfg: MultitaskModelConfig, optimizer: torch.optim.Optimizer, task: int,
+                        mesh=None):
     """step(trainable, frozen, images, labels, valid=None) -> loss (0-dim,
     not read on the host); one update of `optimizer`."""
 
     def step(trainable, frozen, images, labels, valid=None):
-        loss = mt_stage1_loss(cfg, task, O.combine(trainable, frozen), images, labels, valid)
-        TR._apply_grads(loss, trainable, optimizer)
+        loss = mt_stage1_loss(cfg, task, O.combine(trainable, frozen), images, labels, valid,
+                              mesh)
+        TR._apply_grads(loss, trainable, optimizer, mesh)
         return loss.detach()
 
     return step
@@ -216,15 +226,18 @@ def make_mt_stage1_step(cfg: MultitaskModelConfig, optimizer: torch.optim.Optimi
 
 def mt_stage2_loss(cfg: MultitaskModelConfig, tcfg: TrainConfig, task: int, params: dict,
                    images: Tensor, labels: Tensor, text_features: Tensor, xbm_state: dict,
-                   use_xbm: bool, valid: Optional[Tensor] = None, xbm_weight: float = 0.2):
+                   use_xbm: bool, valid: Optional[Tensor] = None, xbm_weight: float = 0.2,
+                   mesh=None):
     """(loss, new BN statistics, new XBM state) of one task's stage-2 batch:
     0.25 x smoothed CE per ID head + smoothed CE of proj @ text.T + the
     triplet on the three feature levels (gated on >= 4 real rows) + with
     use_xbm, xbm_weight x the memory triplet. The batch is enqueued BEFORE
     the mining (it is part of the bank; each anchor's own slot is
-    excluded), margin 0.3 as in both hard-sharing references."""
+    excluded), margin 0.3 as in both hard-sharing references. mesh: the
+    images are this rank's rows; the features, and so the memory, are the
+    global batch's."""
     head_key = "head1" if task == 0 else "head2"
-    last, non_proj, proj = encode_image_mt(params, cfg, task, images)
+    last, non_proj, proj = _mt_sharded_encoder(mesh, encode_image_mt)(params, cfg, task, images)
     head = H.apply_classifier(params[head_key], non_proj, proj, train=True, valid=valid)
     loss = torch.zeros((), device=images.device)
     for score in (head["logits"], head["logits_proj"]):
@@ -249,7 +262,8 @@ def mt_stage2_loss(cfg: MultitaskModelConfig, tcfg: TrainConfig, task: int, para
 
 
 def make_mt_stage2_step(cfg: MultitaskModelConfig, tcfg: TrainConfig,
-                        optimizer: torch.optim.Optimizer, task: int, xbm_weight: float = 0.2):
+                        optimizer: torch.optim.Optimizer, task: int, xbm_weight: float = 0.2,
+                        mesh=None):
     """step(trainable, frozen, images, labels, text_features, xbm_state,
     use_xbm, valid=None) -> (frozen, xbm_state, loss): the returned frozen
     tree carries the task head's new BN running statistics."""
@@ -259,8 +273,8 @@ def make_mt_stage2_step(cfg: MultitaskModelConfig, tcfg: TrainConfig,
              valid=None):
         loss, bn_stats, new_xbm = mt_stage2_loss(
             cfg, tcfg, task, O.combine(trainable, frozen), images, labels, text_features,
-            xbm_state, use_xbm, valid, xbm_weight)
-        TR._apply_grads(loss, trainable, optimizer)
+            xbm_state, use_xbm, valid, xbm_weight, mesh)
+        TR._apply_grads(loss, trainable, optimizer, mesh)
         frozen = dict(frozen, **{head_key: dict(frozen[head_key])})
         for name in ("bn", "bn_proj"):
             stats = bn_stats[name]
@@ -343,16 +357,17 @@ def run_mt_stage1(
     """Stage 1 over both tasks (epochs 1-based): the prompts (and, for
     hard_ivlp, the VPT tokens of the image tower and both text towers)
     train on SupCon. GPA only for hard_ivlp (the plain hard-sharing
-    reference has its stage-1 averaging commented out)."""
-    _refuse_mesh(mesh)
+    reference has its stage-1 averaging commented out). mesh: see the
+    module notes (the images of a batch are this rank's rows)."""
     dev = TR._device_of(params)
+    TR._check_start(mesh, params, "run_mt_stage1")
     trainable, frozen = O.partition(params, lambda p: mt_stage1_trainable(p, cfg))
     trainable = TR._trainable_copy(trainable)
     optimizer = O.make_stage_optimizer(trainable, tcfg.lr_stage1, tcfg.weight_decay)
     if init_opt_state is not None:
         O.load_state(optimizer, init_opt_state)
     opt_paths = O.leaf_order(trainable)
-    steps = [make_mt_stage1_step(cfg, optimizer, t) for t in (0, 1)]
+    steps = [make_mt_stage1_step(cfg, optimizer, t, mesh) for t in (0, 1)]
 
     def get_state():
         return trainable, O.state_tensors(optimizer)
@@ -361,14 +376,14 @@ def run_mt_stage1(
         TR._restore_into(trainable, state[0])
         O.restore_state(optimizer, state[1])
 
-    pipe = TR.LossPipeline(guard, get_state, set_state)
+    pipe = TR.LossPipeline(guard, get_state, set_state, mesh)
     placer = StreamPlacer(dev)
     gw = O.gauss_weights(*tcfg.gpa_stage1, epochs)
     gpa = init_gpa
     gstep = 0
     for epoch in range(start_epoch, epochs + 1):
         O.set_lr(optimizer, S.cosine_warmup_lr(epoch, tcfg.lr_stage1, epochs))
-        for item in device_prefetch(epoch_batches(epoch), placer):
+        for item in TR._prefetch(epoch_batches(epoch), placer, mesh):
             task, batch = _task_batch(item, dev)
             pipe.before_step(gstep)
             gstep += 1
@@ -413,9 +428,9 @@ def run_mt_stage2(
     `xbm_start_epoch`; GPA always. The guard snapshots the trainable
     leaves, both heads' BN statistics, the optimizer state and both banks.
     init_xbms restores the banks, so a resumed run mines against the same
-    memory."""
-    _refuse_mesh(mesh)
+    memory. mesh: as in run_mt_stage1."""
     dev = TR._device_of(params)
+    TR._check_start(mesh, params, "run_mt_stage2")
     with torch.no_grad():
         text_features = [all_class_text_features_mt(params, cfg, t) for t in (0, 1)]
     trainable, frozen = O.partition(params, lambda p: mt_stage2_trainable(p, cfg))
@@ -425,7 +440,7 @@ def run_mt_stage2(
     if init_opt_state is not None:
         O.load_state(optimizer, init_opt_state)
     opt_paths = O.leaf_order(trainable, bias_lr_mult=2.0)
-    steps = [make_mt_stage2_step(cfg, tcfg, optimizer, t) for t in (0, 1)]
+    steps = [make_mt_stage2_step(cfg, tcfg, optimizer, t, mesh=mesh) for t in (0, 1)]
     dim = cfg.clip.embed_dim
     xbms = (list(init_xbms) if init_xbms is not None
             else [X.init_xbm(xbm_capacity, dim, device=dev) for _ in (0, 1)])
@@ -441,7 +456,7 @@ def run_mt_stage2(
         O.restore_state(optimizer, state[2])
         xbms[0], xbms[1] = state[3], state[4]
 
-    pipe = TR.LossPipeline(guard, get_state, set_state)
+    pipe = TR.LossPipeline(guard, get_state, set_state, mesh)
     placer = StreamPlacer(dev)
     gw = O.gauss_weights(*tcfg.gpa_stage2, epochs)
     gpa = init_gpa
@@ -449,7 +464,7 @@ def run_mt_stage2(
     for epoch in range(start_epoch, epochs):
         O.set_lr(optimizer, S.warmup_multistep_lr(epoch, tcfg.lr_stage2))
         use_xbm = epoch >= xbm_start_epoch
-        for item in device_prefetch(epoch_batches(epoch), placer):
+        for item in TR._prefetch(epoch_batches(epoch), placer, mesh):
             task, batch = _task_batch(item, dev)
             pipe.before_step(gstep)
 

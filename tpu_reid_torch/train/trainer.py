@@ -1,5 +1,4 @@
-"""Two-stage prompt-learning trainers (the port of tpu_reid/train/trainer.py,
-single device).
+"""Two-stage prompt-learning trainers (the port of tpu_reid/train/trainer.py).
 
 Stage 1 — learn text prompts:
   * coop/adapter: image features are computed ONCE with the frozen encoder,
@@ -41,7 +40,8 @@ starts that stream again, as in the JAX package.
 
 Input: the host loops (the live stage 1, stage 2) take their batches
 through parallel/prefetch.device_prefetch, `depth` batches ahead on a worker
-thread and, on CUDA, a copy stream. The device-resident paths serve every
+thread and, on CUDA, a copy stream (synchronously under a mesh:
+`_prefetch`). The device-resident paths serve every
 batch from a data/device_cache.DeviceImageCache (`run_stage2_cached`,
 `run_stage1_live_cached`) or from the precomputed features (the cached
 coop/adapter stage 1): a step's host inputs are then an index row, its
@@ -61,8 +61,19 @@ the cached paths too: a non-finite loss rolls back to the last snapshot and
 re-runs the step already queued, from the inputs already in its buffers
 (the JAX package checks and replays a whole chunk instead).
 
-Later slices: the multi-device paths (`sharded_encoder`, the `mesh=`
-arguments).
+Data parallelism (`mesh=`, a parallel/mesh.Mesh; one process per device):
+a batch then carries this rank's rows of the images (and SIE ids) and the
+GLOBAL labels and valid mask. Each rank encodes only its rows, through the
+kernels and the block Function, and the features of every rank are gathered
+(`sharded_encoder`), so the losses, the triplet mining, SupCon and the BNNeck
+statistics see the global batch on every rank, as in the JAX package; the
+text side of stage 1 is sharded the same way. The gradients are averaged
+over the ranks (`parallel/mesh.all_reduce_grads`), so every rank applies the
+single-device update of the global batch and the ranks' parameters and Adam
+state stay identical; the guard's rollback decision is checked to agree on
+every rank. On the device-resident paths a mesh runs every step eagerly, as
+the JAX package runs its chunked paths only without a mesh: no CUDA graph
+holds the collectives.
 """
 
 from __future__ import annotations
@@ -74,6 +85,8 @@ import numpy as np
 import torch
 
 from tpu_reid_torch.models import reid_clip as M
+from tpu_reid_torch.parallel.mesh import agree, all_reduce_grads, check_replicated, gathered, \
+    require_mesh, shard_batch
 from tpu_reid_torch.parallel.prefetch import StreamPlacer, device_prefetch
 from tpu_reid_torch.train import losses as L
 from tpu_reid_torch.train import optim as O
@@ -125,10 +138,12 @@ def _leaves(tree) -> list:
     return [t for _, t in O.paths(tree) if t is not None]
 
 
-def _apply_grads(loss: Tensor, trainable: dict, optimizer: torch.optim.Optimizer) -> None:
+def _apply_grads(loss: Tensor, trainable: dict, optimizer: torch.optim.Optimizer,
+                 mesh=None) -> None:
     """loss.backward() over the trainable leaves, a zero gradient for any
     leaf the loss does not reach (so Adam's coupled decay still moves it,
-    as the JAX chain does), then the Adam step."""
+    as the JAX chain does), the gradients averaged over a mesh's ranks, then
+    the Adam step."""
     leaves = _leaves(trainable)
     for t in leaves:
         t.grad = None
@@ -136,7 +151,44 @@ def _apply_grads(loss: Tensor, trainable: dict, optimizer: torch.optim.Optimizer
     for t in leaves:
         if t.grad is None:
             t.grad = torch.zeros_like(t)
+    if mesh is not None:
+        all_reduce_grads(mesh, leaves)
     optimizer.step()
+
+
+def sharded_encoder(cfg, mesh, fn):
+    """fn(params, cfg, images, cv_ids) of this rank's rows -> the features
+    of the global batch, gathered from every rank (the backward keeps this
+    rank's share; parallel/mesh.gather_rows). The counterpart of the JAX
+    package's shard_map encoder: the kernels run on each rank's rows."""
+    return gathered(mesh, lambda params, _cfg, images, cv_ids=None: fn(params, cfg, images,
+                                                                        cv_ids))
+
+
+def _prefetch(batches: Iterable, placer, mesh):
+    """device_prefetch of the host loops; synchronous (depth 0) under a
+    mesh: a batch source may run collectives (a sharded cache's gather),
+    and a worker thread would interleave them with the step's in another
+    order on each rank."""
+    if mesh is None:
+        return device_prefetch(batches, placer)
+    return device_prefetch(batches, placer, 0)
+
+
+def _check_start(mesh, params: dict, what: str) -> None:
+    """Under a mesh, every rank must start from the same parameters."""
+    if mesh is not None:
+        check_replicated(require_mesh(mesh), params, f"{what}'s parameters")
+
+
+def _step_runner(body, state, dev, name: str, mesh, log):
+    """The device-resident paths' step: a CUDA graph (train/step_graph.py),
+    or under a mesh the eager body (said in the log)."""
+    if mesh is None:
+        return StepGraph(body, state, dev, name=name)
+    log(f"[{name}] over a {mesh.size}-rank mesh: every step runs eagerly, not as a CUDA "
+        f"graph")
+    return body
 
 
 class LossPipeline:
@@ -154,10 +206,11 @@ class LossPipeline:
     get_state() -> tuple / set_state(tuple) close over the caller's live
     state."""
 
-    def __init__(self, guard, get_state, set_state):
+    def __init__(self, guard, get_state, set_state, mesh=None):
         self.guard = guard
         self.get_state = get_state
         self.set_state = set_state
+        self.mesh = mesh
         self.losses: list = []
         self._pending = None
 
@@ -177,6 +230,8 @@ class LossPipeline:
     def _resolve(self) -> bool:
         lf = float(self._pending)
         self._pending = None
+        if self.guard is not None and self.mesh is not None:
+            agree(self.mesh, np.isfinite(lf), "the guard's rollback decision")
         if self.guard is not None:
             state, ok = self.guard.check(lf, *self.get_state())
             if not ok:
@@ -310,36 +365,42 @@ def _static_buffers(bs: int, dev: torch.device) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def stage1_loss(cfg: M.ReidModelConfig, params: dict, batch: dict) -> Tensor:
+def stage1_loss(cfg: M.ReidModelConfig, params: dict, batch: dict, mesh=None) -> Tensor:
     """SupCon(i2t) + SupCon(t2i) of one stage-1 batch: with
     "image_features" (the cached path) or "images" (the live encoder, and
     "cv_ids" with SIE); batch["valid"] (B,) bool masks padded rows out of
-    both directions."""
+    both directions. mesh: "images" / "cv_ids" are this rank's rows, the
+    rest global; both encoders run on this rank's rows and gather."""
     labels = batch["labels"]
     valid = batch.get("valid")
+    encode_image, encode_text = M.encode_image_features, M.encode_text_features
+    if mesh is not None:
+        encode_image = sharded_encoder(cfg, mesh, M.encode_image_features)
+        encode_text = gathered(mesh, lambda p, c, lab: M.encode_text_features(
+            p, c, shard_batch(mesh, lab)))
     if "image_features" in batch:
         image_features = batch["image_features"]
     else:
-        image_features = M.encode_image_features(params, cfg, batch["images"],
-                                                 batch.get("cv_ids"))["proj"]
-    text_features = M.encode_text_features(params, cfg, labels)
+        image_features = encode_image(params, cfg, batch["images"], batch.get("cv_ids"))["proj"]
+    text_features = encode_text(params, cfg, labels)
     loss = L.supcon_loss(image_features, text_features, labels, labels,
                          anchor_valid=valid, contrast_valid=valid)
     return loss + L.supcon_loss(text_features, image_features, labels, labels,
                                 anchor_valid=valid, contrast_valid=valid)
 
 
-def make_stage1_step(cfg: M.ReidModelConfig, optimizer: torch.optim.Optimizer, cached: bool):
+def make_stage1_step(cfg: M.ReidModelConfig, optimizer: torch.optim.Optimizer, cached: bool,
+                     mesh=None):
     """Stage-1 step(trainable, frozen, batch) -> loss (a 0-dim tensor, not
     read on the host). cached=True: the batch carries precomputed
     "image_features"; cached=False (ivlp/promptsrc): it carries "images" and
-    the encoder runs live inside the step."""
+    the encoder runs live inside the step. mesh: see the module notes."""
 
     def step(trainable, frozen, batch):
         if cached != ("image_features" in batch):
             raise ValueError("a cached step takes image_features, a live step images")
-        loss = stage1_loss(cfg, O.combine(trainable, frozen), batch)
-        _apply_grads(loss, trainable, optimizer)
+        loss = stage1_loss(cfg, O.combine(trainable, frozen), batch, mesh)
+        _apply_grads(loss, trainable, optimizer, mesh)
         return loss.detach()
 
     return step
@@ -347,17 +408,20 @@ def make_stage1_step(cfg: M.ReidModelConfig, optimizer: torch.optim.Optimizer, c
 
 @torch.no_grad()
 def precompute_image_features(params: dict, cfg: M.ReidModelConfig,
-                              batches: Iterable) -> Tuple[Tensor, Tensor]:
+                              batches: Iterable, mesh=None) -> Tuple[Tensor, Tensor]:
     """Frozen-encoder sweep caching the proj features for the coop/adapter
     stage 1; batches yield (images, labels, valid[, cv_ids]): camera ids go
     through the SIE embedding at its frozen initial values. Stays on the
-    device."""
+    device. mesh: the images and ids are this rank's rows; every rank gets
+    the features of the global batches."""
     dev = _device_of(params)
+    encode = (M.encode_image_features if mesh is None
+              else sharded_encoder(cfg, mesh, M.encode_image_features))
     feats, labels = [], []
     for images, lab, valid, *rest in batches:
         cv = _as_tensor(rest[0], dev) if rest else None
         v = _as_tensor(valid, dev).bool()
-        f = M.encode_image_features(params, cfg, _as_tensor(images, dev), cv)["proj"]
+        f = encode(params, cfg, _as_tensor(images, dev), cv)["proj"]
         feats.append(f[v])
         labels.append(_as_tensor(lab, dev)[v])
     return torch.cat(feats), torch.cat(labels)
@@ -378,9 +442,11 @@ def run_stage1(
     start_epoch: int = 1,
     init_opt_state: Optional[dict] = None,
     init_gpa: Optional[dict] = None,
+    mesh=None,
 ) -> dict:
     """epoch_batches(epoch) yields (images, labels, valid[, cv_ids]) batches
-    (epoch 0 is the coop/adapter feature precompute's sequential pass).
+    (epoch 0 is the coop/adapter feature precompute's sequential pass);
+    under a mesh the images and ids are this rank's rows.
     batch_size drives the cached-feature path's step size. Returns the
     trained parameters (GPA-averaged for promptsrc). checkpoint_cb(epoch,
     params, state) fires after every epoch with state = {"optimizer":
@@ -394,9 +460,11 @@ def run_stage1(
     The live modes take their batches through device_prefetch. The cached
     coop/adapter path is the JAX package's chunked branch: each step
     gathers its features and labels on the device by an index row, on CUDA
-    as a CUDA graph replay (32 index rows per host copy)."""
+    as a CUDA graph replay (32 index rows per host copy; eager under a
+    mesh)."""
     epochs = epochs or tcfg.epochs_stage1
     dev = _device_of(params)
+    _check_start(mesh, params, "run_stage1")
     cached = cfg.mode in ("coop", "adapter")
     trainable, frozen = O.partition(params, lambda path: M.stage1_trainable(path, cfg))
     trainable = _trainable_copy(trainable)
@@ -405,12 +473,12 @@ def run_stage1(
     if init_opt_state is not None:
         O.load_state(optimizer, init_opt_state)
     opt_paths = O.leaf_order(trainable)
-    step = make_stage1_step(cfg, optimizer, cached)
+    step = make_stage1_step(cfg, optimizer, cached, mesh)
     state = _TrainState(trainable, optimizer)
-    pipe = LossPipeline(guard, state.get, state.set)
+    pipe = LossPipeline(guard, state.get, state.set, mesh)
 
     if cached:
-        feats, labels = precompute_image_features(params, cfg, epoch_batches(0))
+        feats, labels = precompute_image_features(params, cfg, epoch_batches(0), mesh)
         n = labels.shape[0]
         bs = min(batch_size, n)
         rng = np.random.default_rng(seed)
@@ -421,7 +489,7 @@ def run_stage1(
             return step(trainable, frozen, {"image_features": feats[idx], "labels": labels[idx],
                                             "valid": bufs["valid"]})
 
-        run = StepGraph(body, state.tensors, dev, name="cached stage-1 step")
+        run = _step_runner(body, state.tensors, dev, "cached stage-1 step", mesh, log)
 
         def cached_rows(epoch):
             if cached_order is not None:
@@ -458,7 +526,7 @@ def run_stage1(
             if cached:
                 gstep = _replay_epoch(cached_rows(epoch), 32, bufs, run, pipe, gstep, dev)
             else:
-                for item in device_prefetch(epoch_batches(epoch), placer):
+                for item in _prefetch(epoch_batches(epoch), placer, mesh):
                     batch = live_batch(item)
                     pipe.before_step(gstep)
                     gstep += 1
@@ -474,7 +542,7 @@ def run_stage1(
                               {"optimizer": optimizer.state_dict(), "opt_paths": opt_paths,
                                "gpa": gpa})
     finally:
-        if cached:
+        if cached and mesh is None:
             run.release(_leaves(trainable))
     if cfg.mode == "promptsrc" and gpa is not None:
         return gpa
@@ -488,12 +556,15 @@ def run_stage1(
 
 def stage2_loss(cfg: M.ReidModelConfig, tcfg: TrainConfig, params: dict, images: Tensor,
                 labels: Tensor, text_features: Tensor, valid: Optional[Tensor] = None,
-                cv_ids: Optional[Tensor] = None):
+                cv_ids: Optional[Tensor] = None, mesh=None):
     """(loss, new BN statistics) of one stage-2 batch: 0.25 x smoothed CE
     per ID head + smoothed CE of proj @ text.T + the triplet on every
     feature level (gated on >= 4 real rows) [+ SmoothL1 to the teacher].
-    cv_ids: the SIE camera ids."""
-    out = M.forward_train(params, cfg, images, train=True, valid=valid, cv_ids=cv_ids)
+    cv_ids: the SIE camera ids. mesh: images / cv_ids are this rank's
+    rows; the features are gathered before the heads."""
+    encode = None if mesh is None else sharded_encoder(cfg, mesh, M.encode_train_features)
+    out = M.forward_train(params, cfg, images, train=True, valid=valid, cv_ids=cv_ids,
+                          encode_fn=encode)
     loss = torch.zeros((), device=images.device)
     if cfg.mode == "promptsrc":
         loss = loss + L.smooth_l1(out["features"][1], out["zs_non_proj"], valid)
@@ -515,16 +586,17 @@ def stage2_loss(cfg: M.ReidModelConfig, tcfg: TrainConfig, params: dict, images:
 
 
 def make_stage2_step(cfg: M.ReidModelConfig, tcfg: TrainConfig,
-                     optimizer: torch.optim.Optimizer):
+                     optimizer: torch.optim.Optimizer, mesh=None):
     """Stage-2 step(trainable, frozen, images, labels, text_features,
     valid=None, cv_ids=None) -> loss (a 0-dim tensor): the BNNeck's (and
     JPM's BNNeck's) new running statistics are written into frozen's tensors
-    with copy_, so frozen must own them (`_bn_state`)."""
+    with copy_, so frozen must own them (`_bn_state`). mesh: see the module
+    notes."""
 
     def step(trainable, frozen, images, labels, text_features, valid=None, cv_ids=None):
         loss, bn_stats = stage2_loss(cfg, tcfg, O.combine(trainable, frozen), images, labels,
-                                     text_features, valid, cv_ids)
-        _apply_grads(loss, trainable, optimizer)
+                                     text_features, valid, cv_ids, mesh)
+        _apply_grads(loss, trainable, optimizer, mesh)
         # thread the BNNeck running stats (state lives in the frozen tree)
         new = [(("head", name), bn_stats[name]) for name in ("bn", "bn_proj")
                if bn_stats[name] is not None]
@@ -551,10 +623,12 @@ def run_stage2(
     start_epoch: int = 0,
     init_opt_state: Optional[dict] = None,
     init_gpa: Optional[dict] = None,
+    mesh=None,
 ) -> dict:
     """epoch_batches(epoch) yields (images, labels, valid[, cv_ids]) batches
     (epochs 0-based; the SIE camera ids are required when cfg.sie_ids > 0),
-    taken through device_prefetch. guard: optional
+    taken through device_prefetch; under a mesh the images and ids are this
+    rank's rows. guard: optional
     runtime.guard.TrainGuard — snapshots the trainable leaves, the BNNeck
     statistics and the optimizer state, and rolls all three back in place
     when a step yields a non-finite loss.
@@ -562,6 +636,7 @@ def run_stage2(
     run_stage1."""
     epochs = epochs or tcfg.epochs_stage2
     dev = _device_of(params)
+    _check_start(mesh, params, "run_stage2")
     with torch.no_grad():
         text_features = M.all_class_text_features(params, cfg)
     trainable, frozen = O.partition(params, lambda path: M.stage2_trainable(path, cfg))
@@ -572,9 +647,9 @@ def run_stage2(
     if init_opt_state is not None:
         O.load_state(optimizer, init_opt_state)
     opt_paths = O.leaf_order(trainable, bias_lr_mult=2.0)
-    step = make_stage2_step(cfg, tcfg, optimizer)
+    step = make_stage2_step(cfg, tcfg, optimizer, mesh)
     state = _TrainState(trainable, optimizer, bn)
-    pipe = LossPipeline(guard, state.get, state.set)
+    pipe = LossPipeline(guard, state.get, state.set, mesh)
     placer = StreamPlacer(dev)
     gw = O.gauss_weights(*tcfg.gpa_stage2, epochs)
     gpa = init_gpa
@@ -582,7 +657,7 @@ def run_stage2(
     for epoch in range(start_epoch, epochs):
         lr = S.warmup_multistep_lr(epoch, tcfg.lr_stage2)
         O.set_lr(optimizer, lr)
-        for images, labels, valid, *rest in device_prefetch(epoch_batches(epoch), placer):
+        for images, labels, valid, *rest in _prefetch(epoch_batches(epoch), placer, mesh):
             if cfg.sie_ids > 0 and not rest:
                 raise ValueError("sie_ids > 0: stage-2 batches must carry camera ids")
             batch = (_as_tensor(images, dev), _as_tensor(labels, dev),
@@ -643,10 +718,14 @@ def run_stage2_cached(
     init_opt_state: Optional[dict] = None,
     init_gpa: Optional[dict] = None,
     chunk: int = 32,
+    mesh=None,
 ) -> dict:
     """Stage 2 served from a DeviceImageCache: each step gathers its images
     on the device by an index row, runs the train transform (`pp`) and the
-    stage-2 step; on CUDA the whole step is a CUDA graph replay.
+    stage-2 step; on CUDA the whole step is a CUDA graph replay. mesh: the
+    cache is sharded over it (DeviceImageCache(mesh=)): a gather returns this
+    rank's rows, which take this rank's rows of the global batch's draws,
+    and every step runs eagerly.
 
     order_of_epoch(epoch) -> (sel, pids, camids, valid) batches
     (DeviceImageCache.epoch_index_batches); epoch_gen(epoch) -> the
@@ -660,6 +739,7 @@ def run_stage2_cached(
     _refuse_sie(cfg)
     epochs = epochs or tcfg.epochs_stage2
     dev = _device_of(params)
+    _check_start(mesh, params, "run_stage2_cached")
     with torch.no_grad():
         text_features = M.all_class_text_features(params, cfg)
     trainable, frozen = O.partition(params, lambda path: M.stage2_trainable(path, cfg))
@@ -670,17 +750,18 @@ def run_stage2_cached(
     if init_opt_state is not None:
         O.load_state(optimizer, init_opt_state)
     opt_paths = O.leaf_order(trainable, bias_lr_mult=2.0)
-    step = make_stage2_step(cfg, tcfg, optimizer)
+    step = make_stage2_step(cfg, tcfg, optimizer, mesh)
     state = _TrainState(trainable, optimizer, bn)
-    pipe = LossPipeline(guard, state.get, state.set)
+    pipe = LossPipeline(guard, state.get, state.set, mesh)
     bs = None
     bufs: dict = {}
+    rows_of = (lambda x: x) if mesh is None else (lambda x: shard_batch(mesh, x))
 
     def body():
-        imgs = pp.train_batch(cache.gather(bufs["idx"]), bufs["draws"], pad_hw=pad_hw)
+        imgs = pp.train_batch(cache.gather(bufs["idx"]), rows_of(bufs["draws"]), pad_hw=pad_hw)
         return step(trainable, frozen, imgs, bufs["labels"], text_features, bufs["valid"])
 
-    run = StepGraph(body, state.tensors, dev, name="stage-2 step")
+    run = _step_runner(body, state.tensors, dev, "stage-2 step", mesh, log)
     gw = O.gauss_weights(*tcfg.gpa_stage2, epochs)
     gpa = init_gpa
     gstep = 0
@@ -708,7 +789,8 @@ def run_stage2_cached(
                               {"optimizer": optimizer.state_dict(), "opt_paths": opt_paths,
                                "gpa": gpa})
     finally:
-        run.release(_leaves(trainable))
+        if mesh is None:
+            run.release(_leaves(trainable))
     if cfg.mode == "promptsrc" and gpa is not None:
         return gpa
     return O.combine(_detached(trainable), frozen)
@@ -729,6 +811,7 @@ def run_stage1_live_cached(
     init_opt_state: Optional[dict] = None,
     init_gpa: Optional[dict] = None,
     chunk: int = 32,
+    mesh=None,
 ) -> dict:
     """Live stage 1 (ivlp/promptsrc/maple: the prompt tokens change the
     image encoder, so features are computed every step) served from a
@@ -736,11 +819,12 @@ def run_stage1_live_cached(
     the deterministic eval transform (`pp.eval_batch`) and the live step; on
     CUDA the whole step is a CUDA graph replay. order_of_epoch(epoch) ->
     (sel, pids, camids, valid) batches; with the order of run_stage1's
-    batches it equals run_stage1. Guard, checkpoint_cb, resume and chunk as
-    in run_stage2_cached."""
+    batches it equals run_stage1. Guard, checkpoint_cb, resume, chunk and
+    mesh as in run_stage2_cached."""
     _refuse_sie(cfg)
     epochs = epochs or tcfg.epochs_stage1
     dev = _device_of(params)
+    _check_start(mesh, params, "run_stage1_live_cached")
     trainable, frozen = O.partition(params, lambda path: M.stage1_trainable(path, cfg))
     trainable = _trainable_copy(trainable)
     optimizer = O.make_stage_optimizer(trainable, tcfg.lr_stage1, tcfg.weight_decay,
@@ -748,16 +832,16 @@ def run_stage1_live_cached(
     if init_opt_state is not None:
         O.load_state(optimizer, init_opt_state)
     opt_paths = O.leaf_order(trainable)
-    step = make_stage1_step(cfg, optimizer, cached=False)
+    step = make_stage1_step(cfg, optimizer, cached=False, mesh=mesh)
     state = _TrainState(trainable, optimizer)
-    pipe = LossPipeline(guard, state.get, state.set)
+    pipe = LossPipeline(guard, state.get, state.set, mesh)
     bufs: dict = {}
 
     def body():
         return step(trainable, frozen, {"images": pp.eval_batch(cache.gather(bufs["idx"])),
                                         "labels": bufs["labels"], "valid": bufs["valid"]})
 
-    run = StepGraph(body, state.tensors, dev, name="live stage-1 step")
+    run = _step_runner(body, state.tensors, dev, "live stage-1 step", mesh, log)
     gw = O.gauss_weights(*tcfg.gpa_stage1, epochs)
     gpa = init_gpa
     gstep = 0
@@ -779,7 +863,8 @@ def run_stage1_live_cached(
                               {"optimizer": optimizer.state_dict(), "opt_paths": opt_paths,
                                "gpa": gpa})
     finally:
-        run.release(_leaves(trainable))
+        if mesh is None:
+            run.release(_leaves(trainable))
     if cfg.mode == "promptsrc" and gpa is not None:
         return gpa
     return O.combine(_detached(trainable), frozen)
