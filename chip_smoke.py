@@ -5,7 +5,7 @@
 
 With `--phases` only the named phases run (kernels, minsum, grad, zero_shot,
 rerank, serve, vehicle, train, cli, multitask, resnet, variants, cache,
-multidevice); such a run
+multidevice, tp, tools); such a run
 is no pass: it prints {"ok": false, "partial": [...]} as its last line and
 exits with code 3.
 
@@ -123,6 +123,24 @@ exits with code 3.
    --host_id 0 against the same commands without it; --devices 2 on a
    one-card host raises and names the visible count. Each prints ms or emb/s
    of both paths.
+17. tp: tensor parallelism (parallel/tp.py) at full ViT-B/16 width from
+   random_clip_state_dict(0) (211 tokens, 12 heads of 64, MLP 3072, bf16,
+   B=128). The card host has one card, so for T in 2, 4 and 12 every shard
+   of a layout runs on it in turn: tp_attn_partial and tp_mlp_partial
+   (ln_gemm, mha_core, gemm_bias_residual on the shard's heads and hidden
+   units), the partials summed where a model group all-reduces; the summed
+   block against fused_block, each shard's kernels against their plain
+   versions, one shard's two halves timed against the whole block beside
+   the shard's bound, the whole apply_vit_tp(cls_only=True) (every shard on
+   a thread, a reduce across the threads) against apply_vit(cls_only=True);
+   make_tp_extractor over an NCCL world of one rank, 4 x 128 images with
+   flip-TTA, against the single-device extractor; the zero-shot CLI with
+   --tp 2 on this one-card host raises naming the card count.
+18. tools: tpu_reid_torch.tools.parity_run --synthetic --mm on the card
+   (both tails' results and their |d|), entry()'s forward on its 8 example
+   images against eval_embed's plain path, and the native decoder: built
+   or not; if built, its pixels against PIL's on a write_market_dir
+   directory and decode images/s of both.
 
 It prints the kernels' JSON record on the line before the last (each
 kernel's launches on the main path of the slice that brought it: IVLP
@@ -194,6 +212,25 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         events.append((s, e))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Median of `reps` CUDA-event timings of a CUDA-graph replay of fn()
+    (captured after a warm-up call on a side stream): the device time of
+    fn's kernels without the host's cost of launching them one by one,
+    which exceeds the device time of short kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    try:
+        return time_ms(graph.replay, reps=reps)
+    finally:
+        del graph
 
 
 def device_us(fn, reps: int = 20):
@@ -1520,39 +1557,21 @@ def gradient_phase(dev):
 
 
 def flagship(dev, n_cls=751, image_hw=(256, 128), seq_len=213):
-    """bench.py's model in the port: IVLP ViT-B/16 at 256x128, stride 12,
-    vision and language prompt depth 12 with 2 context tokens (213 vision
-    tokens), 751 classes; random weights from seed 0 (fp32). With image_hw
-    (256, 256) the same model at the vehicle geometry: a 21x21 patch grid,
-    444 vision tokens."""
-    from tpu_reid_torch.configs import PromptDesign
-    from tpu_reid_torch.models import prompts as P
-    from tpu_reid_torch.models import reid_clip as M
-    from tpu_reid_torch.weights.convert import convert_clip, init_vpt, random_clip_state_dict
+    """bench.py's model in the port (tpu_reid_torch.entry.flagship): IVLP
+    ViT-B/16 at 256x128, stride 12, prompt depth 12 with 2 context tokens
+    (213 vision tokens), 751 classes, random weights from seed 0 (fp32); at
+    image_hw (256, 256) the vehicle geometry, 444 vision tokens."""
+    from tpu_reid_torch.entry import flagship as build
 
-    design = PromptDesign(trainer="IVLP", vision_depth=12, vision_ctx=2, language_depth=12,
-                          language_ctx=2)
-    cfg, clip = convert_clip(random_clip_state_dict(0), image_hw=image_hw, stride=12,
-                             design=design, device=dev)
-    clip = init_vpt(torch.Generator().manual_seed(0), cfg, clip)
-    mcfg = M.ReidModelConfig(mode="ivlp", clip=cfg, prompt=P.PromptLearnerConfig.ivlp(n_cls))
-    params = M.init_reid_model(torch.Generator().manual_seed(0), mcfg, clip,
-                               *random_template(cfg, clip, dev))
-    if cfg.vision.seq_len != seq_len:
-        raise PhaseFailed(f"unexpected IVLP geometry {cfg.vision}")
-    return mcfg, params
+    return build(dev, n_cls=n_cls, image_hw=image_hw, seq_len=seq_len)
 
 
 def random_template(cfg, clip, dev):
-    """(embedded, token ids) of a prompt template of random tokens between
-    the start and end tokens."""
-    vocab = cfg.text.vocab_size
-    tokens = np.zeros((1, cfg.text.context_length), np.int32)
-    tokens[0, 0] = vocab - 2
-    tokens[0, 1:10] = np.random.RandomState(0).randint(1, vocab - 2, 9)
-    tokens[0, 10] = vocab - 1
-    table = clip["text"]["token_embedding"]
-    return table[torch.as_tensor(tokens, dtype=torch.long, device=dev)], tokens
+    """(embedded, token ids) of a random prompt template
+    (tpu_reid_torch.entry.random_template)."""
+    from tpu_reid_torch.entry import random_template as template
+
+    return template(cfg, clip, dev)
 
 
 def _cast(tree, dtype):
@@ -3769,6 +3788,374 @@ def multidevice_phase(dev, counters):
     return runs, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 17: tensor parallelism on one card
+# ---------------------------------------------------------------------------
+
+TP_WIDTHS = (2, 4, 12)
+TP_KERNELS = ("ln_gemm", "mha_core", "gemm_bias_residual")
+# ViT-B/16 at 256x128, stride 12: (tokens, width, heads, head width, MLP)
+TP_GEOMETRY = (211, 768, 12, 64, 3072)
+
+
+def _bf16_shard(shard):
+    """A block shard with its matrices and biases in bf16 (the block
+    kernels' operands; the LayerNorm parameters stay fp32, as fused_block
+    takes them)."""
+    return {k: (v if k in ("ln_1", "ln_2") else v.to(torch.bfloat16)) for k, v in shard.items()}
+
+
+def tp_shard_flops_bytes(b, s, d, hid, heads, dh, n_model):
+    """(operations, bytes) of one shard's two halves: the four GEMMs and the
+    attention on its heads; x, x1 and the shard's weights read once, the
+    two partials written once (bf16)."""
+    m, hl, hh = b * s, heads // n_model, hid // n_model
+    n_qkv = 3 * hl * dh
+    flops = (2.0 * m * d * n_qkv + 4.0 * b * hl * s * s * dh + 2.0 * m * hl * dh * d
+             + 2.0 * m * d * hh + 2.0 * m * hh * d)
+    weights = d * n_qkv + n_qkv + hl * dh * d + d * hh + hh + hh * d
+    return flops, 2.0 * (2 * m * d + weights + 2 * m * d) + 16.0 * d
+
+
+def tp_tower_in_threads(shards, vcfg, images):
+    """apply_vit_tp(cls_only=True) of every shard of one model group, each
+    on its own thread of this process, with a `reduce` that sums the
+    threads' partials in rank order (a model group's all-reduce, in one
+    process: the card host has one card and NCCL takes one rank per card).
+    Returns shard 0's (x12, xproj) CLS rows; every shard's are the same."""
+    import threading
+
+    from tpu_reid_torch.parallel import tp as TP
+
+    n = len(shards)
+    slots, outs, errors = [None] * n, [None] * n, []
+    barrier = threading.Barrier(n)
+
+    def run(r):
+        def reduce(t):
+            slots[r] = t.float()
+            barrier.wait()
+            summed = sum(slots[1:], slots[0])
+            barrier.wait()  # every thread has read the slots before the next write
+            return summed
+
+        try:
+            with torch.no_grad():
+                outs[r] = TP.apply_vit_tp(shards[r], vcfg, images, reduce, cls_only=True)[1:]
+        except BaseException as e:  # handed to the caller below
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        raise PhaseFailed(f"apply_vit_tp over {n} threads failed: {errors or 'timed out'}")
+    return outs[0]
+
+
+def tp_phase(dev, counters, b=128, n_batches=4):
+    """Tensor parallelism (parallel/tp.py) at full ViT-B/16 width from
+    random_clip_state_dict(0): 211 tokens, 12 heads of 64, MLP 3072, bf16.
+    For T in TP_WIDTHS every shard of one block runs on this card in turn
+    (tp_attn_partial, tp_mlp_partial) and the partials are summed where a
+    model group all-reduces; each shard's kernels against their plain
+    versions, the summed block against fused_block, one shard's halves
+    timed against the whole block beside the shard's bound; the whole
+    apply_vit_tp(cls_only=True) against apply_vit(cls_only=True) (exact
+    softmax); then make_tp_extractor over an NCCL world of one rank against
+    the single-device extractor, and the CLI's --tp 2 on this one-card host.
+    Returns ({path: launches}, numbers)."""
+    from tpu_reid_torch.data.transforms import DevicePreprocess
+    from tpu_reid_torch.models import layers as L
+    from tpu_reid_torch.models import vit as V
+    from tpu_reid_torch.ops import attention as TA
+    from tpu_reid_torch.ops import fused_attention as FA
+    from tpu_reid_torch.parallel import tp as TP
+    from tpu_reid_torch.parallel.extract import extract_embeddings, make_extractor
+    from tpu_reid_torch.pipelines import zero_shot as Z
+    from tpu_reid_torch.weights.convert import convert_clip, random_clip_state_dict
+
+    bf = torch.bfloat16
+    tol = TOL[bf]
+    cfg, clip = convert_clip(random_clip_state_dict(0), image_hw=(256, 128), stride=12,
+                             device=dev)
+    vcfg, visual = cfg.vision, clip["visual"]
+    s, d, heads = vcfg.seq_len, vcfg.width, vcfg.heads
+    dh, hid = d // heads, visual["blocks"]["mlp"]["c_fc"]["w"].shape[-1]
+    if (s, d, heads, dh, hid) != TP_GEOMETRY:
+        raise PhaseFailed(f"unexpected ViT-B/16 geometry {vcfg}")
+    layout = TP.tp_visual_layout(visual, heads)
+    blk = L.slice_layer(visual["blocks"], 0)
+    a, m_ = blk["attn"], blk["mlp"]
+    whole = (blk["ln_1"]["scale"], blk["ln_1"]["bias"], a["in_proj"]["w"].to(bf),
+             a["in_proj"]["b"].to(bf), a["out_proj"]["w"].to(bf), a["out_proj"]["b"].to(bf),
+             blk["ln_2"]["scale"], blk["ln_2"]["bias"], m_["c_fc"]["w"].to(bf),
+             m_["c_fc"]["b"].to(bf), m_["c_proj"]["w"].to(bf), m_["c_proj"]["b"].to(bf))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(b, s, d, device=dev, generator=gen).to(bf)
+    images = torch.randn(b, 256, 128, 3, device=dev, generator=gen).to(bf)
+    with torch.no_grad():
+        block_ms = time_ms(lambda: FA.fused_block(x, *whole, heads))
+        block_graph_ms = graph_ms(lambda: FA.fused_block(x, *whole, heads))
+        want_block = FA.fused_block(x, *whole, heads)
+        want_feats = torch.cat(V.apply_vit(visual, vcfg, images, cls_only=True)[1:], -1)[:, 0]
+    say(f"tp: tensor parallelism at ViT-B/16 width (B={b}, S={s}, D={d}, {heads} heads of {dh}, "
+        f"MLP {hid}, bf16), every shard of T in {TP_WIDTHS} on this one card in turn, the "
+        f"partials summed where a model group all-reduces; fused_block {block_ms:.4f} ms "
+        f"(median of 20 CUDA-event runs), {block_graph_ms:.4f} ms as a CUDA-graph replay")
+    runs, numbers, failures = {}, {}, []
+
+    def held(label, got, want):
+        err, rel = rel_err(got, want)
+        ok = rel <= tol
+        if not ok:
+            failures.append(label)
+        return err, rel, ok
+
+    for n_model in TP_WIDTHS:
+        hl = heads // n_model
+        shards = [_bf16_shard(L.slice_layer(TP.tp_shard(layout["blocks"], r, n_model), 0))
+                  for r in range(n_model)]
+        for sh in shards:
+            TP.check_tp_kernels(sh, hl)
+        # the TP block path, counted: every shard's halves, the partials summed
+        for c in counters.values():
+            c.launches = 0
+        with torch.no_grad():
+            attn = sum(TP.tp_attn_partial(sh, x, hl).float() for sh in shards)
+            x1 = TP.add_reduced(x, attn, shards[0]["out_b"])
+            mlp = sum(TP.tp_mlp_partial(sh, x1).float() for sh in shards)
+            got_block = TP.add_reduced(x1, mlp, shards[0]["proj_b"])
+        torch.cuda.synchronize()
+        runs[f"tp{n_model}_block"] = launched(counters)
+        require(f"the T={n_model} block", runs[f"tp{n_model}_block"], TP_KERNELS)
+        err, block_rel, ok = held(f"T={n_model} block", got_block, want_block)
+        say(f"  T={n_model} ({hl} heads, {hid // n_model} hidden units a shard): the summed "
+            f"block against fused_block: max|d| {err:.3e}, rel {block_rel:.3e} (tol {tol:.0e}) "
+            f"{'ok' if ok else 'FAIL'}; launches {runs[f'tp{n_model}_block']}")
+        # each shard's kernels against their plain versions, on the shard's shapes
+        worst = {}
+        with torch.no_grad():
+            for r, sh in enumerate(shards):
+                qkv = FA.ln_gemm(x, sh["ln_1"]["scale"], sh["ln_1"]["bias"], sh["w_in"],
+                                 sh["b_in"])
+                views = FA._qkv_views(qkv, hl)
+                att = TA.mha_core(*views).reshape(b, s, -1)
+                zero = x.new_zeros(d)
+                h = FA.ln_gemm(x1, sh["ln_2"]["scale"], sh["ln_2"]["bias"], sh["fc_w"],
+                               sh["fc_b"], gelu=True)
+                for label, got, want in (
+                        ("ln_gemm qkv", qkv, FA.ln_gemm_reference(
+                            x, sh["ln_1"]["scale"], sh["ln_1"]["bias"], sh["w_in"], sh["b_in"])),
+                        ("mha_core", att, TA.mha_core_reference(*views).reshape(b, s, -1)),
+                        ("gemm_bias_residual out-proj",
+                         FA.gemm_bias_residual(att, sh["w_out"], zero),
+                         FA.gemm_bias_residual_reference(att, sh["w_out"], zero)),
+                        ("ln_gemm c_fc", h, FA.ln_gemm_reference(
+                            x1, sh["ln_2"]["scale"], sh["ln_2"]["bias"], sh["fc_w"], sh["fc_b"],
+                            gelu=True)),
+                        ("gemm_bias_residual c_proj", FA.gemm_bias_residual(h, sh["proj_w"], zero),
+                         FA.gemm_bias_residual_reference(h, sh["proj_w"], zero))):
+                    e = held(f"T={n_model} shard {r} {label}", got, want)
+                    if label not in worst or e[1] > worst[label][1]:
+                        worst[label] = e
+        say("    each shard's kernels against their plain versions (worst shard): " + "; ".join(
+            f"{k} {v[0]:.3e} rel {v[1]:.3e} {'ok' if v[2] else 'FAIL'}" for k, v in worst.items()))
+        # one shard's two halves, timed, beside the bound of its work; then
+        # each of its five launches alone. CUDA events around a call measure
+        # the host's launch cost once a shard's kernels are shorter than it,
+        # so each is also timed as a CUDA-graph replay
+        s0 = shards[0]
+
+        def halves():
+            return TP.tp_attn_partial(s0, x, hl), TP.tp_mlp_partial(s0, x1)
+
+        shard_ms, shard_graph_ms = time_ms(halves), graph_ms(halves)
+        bnd, by = bound(*tp_shard_flops_bytes(b, s, d, hid, heads, dh, n_model))
+        say(f"    one shard's halves: {shard_graph_ms:.4f} ms as a graph replay (bound "
+            f"{bnd:.4f} ms, {by}; {bnd / shard_graph_ms:.1%} of it), {shard_ms:.4f} ms by CUDA "
+            f"events around the calls; the whole block's replay {block_graph_ms:.4f} ms: T x "
+            f"shard = {n_model * shard_graph_ms:.4f} ms "
+            f"({n_model * shard_graph_ms / block_graph_ms:.2f}x the block)")
+        with torch.no_grad():
+            qkv0 = FA.ln_gemm(x, s0["ln_1"]["scale"], s0["ln_1"]["bias"], s0["w_in"], s0["b_in"])
+            att0 = TA.mha_core(*FA._qkv_views(qkv0, hl)).reshape(b, s, -1)
+            h0 = FA.ln_gemm(x1, s0["ln_2"]["scale"], s0["ln_2"]["bias"], s0["fc_w"], s0["fc_b"],
+                            gelu=True)
+        zero = x.new_zeros(d)
+        parts = {
+            f"ln_gemm qkv N={qkv0.shape[-1]}": lambda: FA.ln_gemm(
+                x, s0["ln_1"]["scale"], s0["ln_1"]["bias"], s0["w_in"], s0["b_in"]),
+            f"mha_core {hl} heads": lambda: TA.mha_core(*FA._qkv_views(qkv0, hl)),
+            f"gemm_bias_residual out K={att0.shape[-1]}": lambda: FA.gemm_bias_residual(
+                att0, s0["w_out"], zero),
+            f"ln_gemm c_fc N={h0.shape[-1]}": lambda: FA.ln_gemm(
+                x1, s0["ln_2"]["scale"], s0["ln_2"]["bias"], s0["fc_w"], s0["fc_b"], gelu=True),
+            f"gemm_bias_residual c_proj K={h0.shape[-1]}": lambda: FA.gemm_bias_residual(
+                h0, s0["proj_w"], zero)}
+        part_ms = {k: graph_ms(f) for k, f in parts.items()}
+        say("    its launches alone, ms as graph replays: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in part_ms.items()))
+        # the whole tower, every shard on a thread, against apply_vit (exact softmax)
+        tower = [dict(layout, blocks=TP.tp_shard(layout["blocks"], r, n_model))
+                 for r in range(n_model)]
+        got_feats = torch.cat(tp_tower_in_threads(tower, vcfg, images), -1)[:, 0]
+        err, rel, ok = held(f"T={n_model} apply_vit_tp", got_feats, want_feats)
+        say(f"    apply_vit_tp(cls_only=True) over {n_model} threads, {b} images: cat(x12, "
+            f"xproj) CLS against apply_vit(cls_only=True): max|d| {err:.3e}, rel {rel:.3e} "
+            f"(tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
+        numbers[f"T{n_model}"] = {"shard_graph_ms": shard_graph_ms, "shard_ms": shard_ms,
+                                  "parts_graph_ms": part_ms, "bound_ms": bnd, "bound_by": by,
+                                  "block_graph_ms": block_graph_ms, "block_ms": block_ms,
+                                  "block_rel": block_rel, "tower_rel": rel}
+        del shards, tower
+        torch.cuda.empty_cache()
+    if failures:
+        raise PhaseFailed(f"tensor parallelism disagrees with its references: {failures}")
+
+    # make_tp_extractor over an NCCL world of one rank against the
+    # single-device extractor (no input-norm fold in either, as the TP route)
+    pp = DevicePreprocess((256, 128), "vit", dtype=bf)
+    u8 = [torch.randint(0, 255, (b, 256, 128, 3), dtype=torch.uint8, device=dev,
+                        generator=gen) for _ in range(n_batches)]
+    batches = [SimpleNamespace(images=im, pids=np.arange(b), camids=np.zeros(b, np.int64),
+                               seqids=np.zeros(b, np.int64), valid=np.ones(b, bool))
+               for im in u8]
+    single = make_extractor(Z.make_zeroshot_embed(clip, cfg), pp, flip_tta=True, dtype=bf,
+                            device=dev)
+    want, *_ = extract_embeddings(single, clip, batches, device=dev)
+    with nccl_world(dev) as mesh:
+        ext = TP.make_tp_extractor(mesh, vcfg, pp, flip_tta=True, dtype=bf)
+        params_tp = TP.shard_tp_visual(layout, mesh.model_rank, mesh.model_size)
+        extract_embeddings(ext, params_tp, batches[:1], device=dev, mesh=mesh)  # warm-up
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        got, *_ = extract_embeddings(ext, params_tp, batches, device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        runs["tp_extractor"] = launched(counters)
+        shape = dict(mesh.shape)
+    err, rel = rel_err(got, want)
+    ok = got.shape == want.shape and rel <= tol
+    say(f"  make_tp_extractor over an NCCL world of one rank ({shape}), {n_batches} x {b} "
+        f"images with flip-TTA: {n_batches * b / secs:.1f} emb/s; against the single-device zero-shot extractor: "
+        f"max|d| {err:.3e}, rel {rel:.3e} (tol {tol:.0e}) {'ok' if ok else 'FAIL'}; launches "
+        f"{runs['tp_extractor']}")
+    if not ok:
+        raise PhaseFailed("make_tp_extractor disagrees with the single-device extractor")
+    require("make_tp_extractor", runs["tp_extractor"], TP_KERNELS + ("ln_proj_tail",))
+    numbers["extractor"] = {"emb_s": n_batches * b / secs, "rel": rel}
+
+    from tpu_reid_torch.cli import zero_shot as zs_cli
+
+    try:
+        zs_cli.main(["--root", ".", "--model_path", "unused.pth", "--bpe_path", "unused.gz",
+                     "--tp", "2"])
+    except RuntimeError as e:
+        msg = str(e)
+    else:
+        raise PhaseFailed("--tp 2 ran on a one-card host")
+    ok = f"{torch.cuda.device_count()} visible CUDA device" in msg and "--tp 2" in msg
+    say(f"  the zero-shot CLI with --tp 2 on this {torch.cuda.device_count()}-card host raises: "
+        f"{msg!r} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed("--tp 2 raised without naming the card count")
+    return runs, numbers
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the tools, entry() and the native decoder
+# ---------------------------------------------------------------------------
+
+
+def tools_phase(dev, counters):
+    """tpu_reid_torch.tools.parity_run --synthetic on the card (both result
+    sets and their |d|), entry()'s forward on its 8 example images against
+    eval_embed's plain path, and the native decoder: built or not; if built,
+    its pixels against PIL's on a Market1501 directory of write_market_dir
+    and decode images/s of both. Returns ({path: launches}, numbers)."""
+    import tempfile
+
+    from tpu_reid_torch import entry as E
+    from tpu_reid_torch import native
+    from tpu_reid_torch.data.datasets import get_dataset
+    from tpu_reid_torch.data.loader import BatchLoader
+    from tpu_reid_torch.models import layers as L
+    from tpu_reid_torch.tools import parity_run
+
+    runs, numbers = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        res = parity_run.main(["--synthetic", "--synthetic_dir", tmp, "--bs", "16", "--mm"])
+        torch.cuda.synchronize()
+        runs["parity_run"] = launched(counters)
+        numbers["parity_run"] = {"s": time.perf_counter() - t0, **res}
+    say(f"tools: parity_run --synthetic --mm on the card ({numbers['parity_run']['s']:.1f} s): "
+        f"framework {res['framework']}, reference math {res['reference_math']}, |d| "
+        f"{res['abs_diff']} (max {res['max_abs_diff']:.2e}, tol 2e-3) ok; launches "
+        f"{runs['parity_run']}")
+    require("parity_run", runs["parity_run"], TP_KERNELS + ("ln_proj_tail",))
+
+    fn, (params, example) = E.entry()
+    for c in counters.values():
+        c.launches = 0
+    got = fn(params, example)
+    torch.cuda.synchronize()
+    runs["entry"] = launched(counters)
+    with L.kernel_impl("plain"):  # the same eval_embed through the plain block and tail
+        want = fn(params, example)
+    err, rel = rel_err(got, want)
+    ok = got.shape == want.shape and got.shape[0] == 8 and rel <= TOL[torch.bfloat16]
+    say(f"  entry(): the flagship's eval_embed on its 8 example images (bf16) against the plain "
+        f"path: max|d| {err:.3e}, rel {rel:.3e} (tol {TOL[torch.bfloat16]:.0e}) "
+        f"{'ok' if ok else 'FAIL'}; launches {runs['entry']}")
+    if not ok:
+        raise PhaseFailed("entry()'s forward disagrees with the plain path")
+    require("entry()", runs["entry"], BLOCK_KERNELS + ("ln_proj_tail",))
+    numbers["entry"] = {"rel": rel}
+    del fn, params, example
+    torch.cuda.empty_cache()
+
+    built = native.available()
+    numbers["native"] = {"built": built}
+    if not built:
+        say(f"  native decoder: not built here ({native._error.strip()[:300]!r}); "
+            "BatchLoader(backend='auto') decodes with PIL")
+        return runs, numbers
+    with tempfile.TemporaryDirectory() as tmp:
+        write_market_dir(tmp)
+        ds = get_dataset(tmp, "market1501")
+        records = ds.gallery + ds.query + ds.train
+        paths = [r[0] for r in records]
+        t0 = time.perf_counter()
+        ours = native.decode_resize_batch(paths, (256, 128))
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pil = np.concatenate([bt.images[:bt.n_valid] for bt in BatchLoader(
+            records, 64, (256, 128), backend="pil")])
+        t_pil = time.perf_counter() - t0
+    diff = np.abs(ours.astype(np.int16) - pil.astype(np.int16))
+    numbers["native"].update(images=len(paths), max_level_diff=int(diff.max()),
+                             share_differing=float((diff > 0).mean()),
+                             native_img_s=len(paths) / t_native, pil_img_s=len(paths) / t_pil)
+    ok = ours.shape == pil.shape and diff.max() <= 2
+    say(f"  native decoder: built ({native.library_path().name}); {len(paths)} 256x128 JPEGs of "
+        f"write_market_dir: max level difference to PIL {diff.max()}, "
+        f"{numbers['native']['share_differing']:.4%} of the values differ (JAX's bound: 2 "
+        f"levels) {'ok' if ok else 'FAIL'}; decode {len(paths) / t_native:.0f} images/s "
+        f"against PIL's {len(paths) / t_pil:.0f} (BatchLoader, 8 threads)")
+    if not ok:
+        raise PhaseFailed("the native decoder's pixels are more than 2 levels off PIL's")
+    return runs, numbers
+
+
 # instantiations of the wgmma kernels that the sources launch: the GEMM as
 # (LN, 128 or 64 rows, epilogue) = 3 without LN + 4 with; the two attention
 # kernels; the CLS tail
@@ -3942,12 +4329,26 @@ def main() -> int:
         by_path.update(runs)
         say("multidevice: " + json.dumps(numbers, default=float))
 
+    def run_tp():
+        state.clear()
+        torch.cuda.empty_cache()
+        runs, numbers = tp_phase(dev, counters)
+        by_path.update(runs)
+        say("tp: " + json.dumps(numbers, default=float))
+
+    def run_tools():
+        state.clear()
+        torch.cuda.empty_cache()
+        runs, numbers = tools_phase(dev, counters)
+        by_path.update(runs)
+        say("tools: " + json.dumps(numbers, default=float))
+
     phases = (("kernels", run_kernels), ("minsum", run_minsum),
               ("grad", lambda: gradient_phase(dev)), ("zero_shot", run_zero_shot),
               ("rerank", run_rerank), ("serve", run_serve), ("vehicle", run_vehicle),
               ("train", run_train), ("cli", run_cli), ("multitask", run_multitask),
               ("resnet", run_resnet), ("variants", run_variants), ("cache", run_cache),
-              ("multidevice", run_multidevice))
+              ("multidevice", run_multidevice), ("tp", run_tp), ("tools", run_tools))
     # `--phases kernels,serve` runs only those phases (for work on one of
     # them); such a run is no pass: it ends with {"ok": false, ...} and code 3
     only = None
@@ -3986,7 +4387,9 @@ def main() -> int:
                     "captured step's launches times the graph's replays (a replay runs no "
                     "Python wrapper, so the counters see a captured step once); on the "
                     "multidevice_* and multihost_* paths: the launches of rank 0, the one rank "
-                    "of its one-card world"}))
+                    "of its one-card world; on tp<T>_block: every shard of one block at "
+                    "tensor-parallel width T, run in turn on the one card; on tp_extractor: "
+                    "make_tp_extractor in an NCCL world of one rank"}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -45,16 +45,13 @@ def one_thread():
 @pytest.fixture(scope="module")
 def market(tmp_path_factory):
     """5 training identities of 17 images (relabelled 0-4, within the tiny
-    models' 6 classes), decoded by PIL in both packages."""
-    from tpu_reid import native
-
+    models' 6 classes), decoded by the same decoder in both packages (the
+    native one, one C++ source, where it builds)."""
     root = tmp_path_factory.mktemp("cached_training")
     SM.write_images(str(root / "Market1501"), np.random.RandomState(3), n_train_ids=5,
                     n_test_ids=2, n_query=2, n_gallery=4, hw=(64, 32))
     ds = load_market1501(str(root))
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(native, "available", lambda: False)
-        jcache = JCache(j_load_market(str(root)).train, HW)
+    jcache = JCache(j_load_market(str(root)).train, HW)
     return ds, DeviceImageCache(ds.train, HW, device="cpu"), jcache
 
 

@@ -1,8 +1,8 @@
 """The port's zero-shot CLI and its data layer against the JAX package's:
 the CLI end to end on a synthetic Market-1501 directory with a tiny random
 CLIP checkpoint (with and without --rerank, --device cpu), the dataset
-parsers on every synthetic layout, the attribute prompts, the loader, and
-the flags the port refuses."""
+parsers on every synthetic layout, the attribute prompts, the loader's
+decoders, and the flags the CLI refuses."""
 
 import os
 import sys
@@ -76,18 +76,16 @@ def _check_cli_against_jax(assets, monkeypatch, capsys, extra):
     """The same flags through both CLIs: CMC and mAP within 1e-4, and the
     same result line.
 
-    Both decode with PIL (the JAX loader's native C++ decoder rounds some
-    pixels differently and is not ported yet), and both extract in fp32:
+    Both decode with one decoder (the native C++ one, the same source in
+    both packages, where it builds; PIL otherwise), and both extract in fp32:
     the two frameworks round bf16 at other points (features differ by up to
     2.3e-2 on a max of 2.7 here, fp32 by 7e-7), which flips near-tied ranks
     of a random tiny model. The bf16 CLI itself runs in
     test_cli_runs_in_bf16."""
     import jax.numpy as jnp
 
-    from tpu_reid import native
     from tpu_reid.cli import zero_shot as JCLI
 
-    monkeypatch.setattr(native, "available", lambda: False)
     extra = [assets["attr"] if e == "ATTR" else e for e in extra]
     monkeypatch.setattr(sys, "argv", ["zero_shot", *_argv(assets, *extra)])
     with monkeypatch.context() as m:
@@ -122,16 +120,18 @@ def test_cli_defaults_to_the_card(assets, monkeypatch):
 
 @pytest.mark.parametrize("extra,exc,match", [
     (("--devices", "3"), ValueError, "--bs 8 must divide by --devices 3"),
-    (("--tp", "2"), NotImplementedError, "item 7b"),
+    (("--tp", "2", "--multihost", "localhost:1234"), ValueError,
+     "--multihost shards the batch axis only"),
     (("--multihost", "localhost:1234", "--num_hosts", "3"), ValueError,
      "--bs 8 must divide by the 3 global devices"),
     (("--training_mode", "ivlp"), NotImplementedError,
      "train them with tpu_reid_torch.cli.prompt_learning"),
 ])
 def test_cli_refuses_what_is_not_ported(assets, extra, exc, match):
-    """--devices and --multihost run (tests/test_torch_multidevice_cli.py);
-    what stays refused: tensor parallelism (ROADMAP.md item 7b), a batch
-    that does not divide by the ranks, an IVLP checkpoint without tokens."""
+    """--devices, --multihost and --tp run (tests/test_torch_multidevice_cli.py,
+    test_torch_tp_cli.py); what stays refused: --tp with --multihost (as
+    the JAX CLI), a batch that does not divide by the ranks, an IVLP
+    checkpoint without tokens."""
     with pytest.raises(exc, match=match):
         TCLI.main(_argv(assets, *extra, "--device", "cpu"))
 
@@ -200,16 +200,28 @@ def test_attribute_prompts_match_jax(assets):
     assert TA.get_prompts_simple(ids, 4) == JA.get_prompts_simple(ids, 4)
 
 
-def test_loader_batches_match_jax(assets):
+def test_loader_batches_match_jax(assets, monkeypatch):
     """The PIL decode path: the same fixed-shape batches, padded tail and
-    validity mask included; the native decoder is refused."""
+    validity mask included; the native decoder decodes the same batches as
+    the JAX package's (one C++ source), or raises NativeUnavailable where the
+    library cannot be built (no libjpeg)."""
+    from tpu_reid_torch import native
+
     records = TD.get_dataset(assets["root"], "market1501").gallery[:11]
-    got = list(TL.BatchLoader(records, 4, (32, 16), num_workers=2))
+    got = list(TL.BatchLoader(records, 4, (32, 16), num_workers=2, backend="pil"))
     want = list(JL.BatchLoader(records, 4, (32, 16), num_workers=2, backend="pil"))
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):
         for field in ("images", "pids", "camids", "seqids", "idxs", "valid"):
             np.testing.assert_array_equal(getattr(g, field), getattr(w, field))
     assert got[-1].n_valid == 3
-    with pytest.raises(NotImplementedError, match="native"):
+    if native.available():
+        got = list(TL.BatchLoader(records, 4, (32, 16), backend="native"))
+        want = list(JL.BatchLoader(records, 4, (32, 16), backend="native"))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.images, w.images)
+            np.testing.assert_array_equal(g.valid, w.valid)
+    monkeypatch.setattr(native, "available", lambda: False)  # a host without libjpeg
+    with pytest.raises(native.NativeUnavailable):
         TL.BatchLoader(records, 4, (32, 16), backend="native")
+    assert not TL.BatchLoader(records, 4, (32, 16))._native  # "auto" takes PIL there

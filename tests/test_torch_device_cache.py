@@ -74,14 +74,11 @@ def test_sequential_batches_match_the_loader(cache, drop_tail):
         assert not dev[-1][3][1:].any() and not dev[-1][1][1:].any()
 
 
-def test_gathers_and_orders_match_jax(market, cache, monkeypatch):
+def test_gathers_and_orders_match_jax(market, cache):
     """The same directory through both packages' caches: the resident split,
     every index batch of a PK and of a shuffled order, and their gathers
-    (the gather takes a numpy row or a tensor). JAX decodes with PIL, as the
-    port does (its native decoder differs by up to 2 levels)."""
-    from tpu_reid import native
-
-    monkeypatch.setattr(native, "available", lambda: False)
+    (the gather takes a numpy row or a tensor). Both decode with the same
+    decoder (the native one, one C++ source, where it builds)."""
     ds, c = cache
     jc = JCache(j_load_market(market).train, HW, chunk=9)
     np.testing.assert_array_equal(c.images.numpy(), np.asarray(jc.images))

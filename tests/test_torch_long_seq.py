@@ -248,15 +248,13 @@ def test_veri_directory_parses_alike(veri):
 @pytest.mark.parametrize("extra", [(), ("--rerank", "--mm")])
 def test_zero_shot_cli_on_veri_at_256x256_matches_jax(veri, monkeypatch, capsys, extra):
     """--height 256 --ratio 1.0 --stride 12 --test_dataset veri through both
-    CLIs, PIL decoding and fp32 extraction in both (as tests/test_torch_cli.py):
+    CLIs, one decoder and fp32 extraction in both (as tests/test_torch_cli.py):
     equal metrics and the same result line."""
-    from tpu_reid import native
     from tpu_reid.cli import zero_shot as JCLI
 
     argv = ["--root", veri["root"], "--model_path", veri["ckpt"], "--bpe_path", veri["merges"],
             "--height", "256", "--ratio", "1.0", "--stride", "12", "--bs", "4",
             "--test_dataset", "veri", *extra]
-    monkeypatch.setattr(native, "available", lambda: False)
     monkeypatch.setattr(sys, "argv", ["zero_shot", *argv])
     with monkeypatch.context() as m:
         m.setattr(jnp, "bfloat16", jnp.float32)  # the JAX CLI's extraction dtype
@@ -278,7 +276,6 @@ def test_prompt_learning_cli_on_veri_at_256x256_matches_jax(veri, monkeypatch, c
     one live stage-1 epoch of one batch, no stage-2 epoch, fp32 training and
     extraction, from the JAX CLI's initial parameters carried into the
     port's build_model (as tests/test_torch_prompt_cli.py): equal metrics."""
-    from tpu_reid import native
     from tpu_reid.cli import prompt_learning as JCLI
 
     def argv(save):
@@ -287,7 +284,6 @@ def test_prompt_learning_cli_on_veri_at_256x256_matches_jax(veri, monkeypatch, c
                 "--bs", "8", "--save_path", str(save), "--training_mode", "ivlp",
                 "--train_dataset", "veri", "--epochs_stage1", "1", "--epochs_stage2", "0"]
 
-    monkeypatch.setattr(native, "available", lambda: False)
     captured = {}
     j_build, j_make = JCLI.build_model, JX.make_extractor
 

@@ -20,11 +20,16 @@ from tpu_reid_torch.parallel import multihost as TMH
 from tpu_reid_torch.retrieval import topk as TT
 
 
-def test_make_mesh_needs_a_group_and_refuses_a_model_axis():
+def test_make_mesh_needs_a_group_and_refuses_a_model_axis(tmp_path):
+    """No group: RuntimeError. A (data, model) shape that is not the
+    world: ValueError naming both (the model axis itself runs,
+    tests/test_torch_tp.py)."""
     with pytest.raises(RuntimeError, match="initialised torch.distributed"):
         PM.make_mesh()
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        PM.make_mesh(n_model=2)
+    with launch.process_group("cpu", f"file://{tmp_path}/rdv", 0, 1):
+        with pytest.raises(ValueError, match="n_data=1 x n_model=2 = 2, but the process group "
+                                             "has 1 ranks"):
+            PM.make_mesh(n_data=1, n_model=2)
 
 
 def test_a_world_of_one_in_this_process(tmp_path):
@@ -33,6 +38,8 @@ def test_a_world_of_one_in_this_process(tmp_path):
         assert mesh.shape == {"data": 1, "model": 1} == PM.make_mesh(n_data=1).shape
         with pytest.raises(ValueError, match="has 1 ranks"):
             PM.make_mesh(n_data=2)
+        with pytest.raises(ValueError, match="has 1 ranks"):
+            PM.make_mesh(n_model=2)
     assert not torch.distributed.is_initialized()
 
 

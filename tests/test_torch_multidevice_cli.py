@@ -98,10 +98,8 @@ def test_zero_shot_over_two_ranks_matches_jax(assets, two_ranks, monkeypatch):
     within 1e-4."""
     import jax.numpy as jnp
 
-    from tpu_reid import native
     from tpu_reid.cli import zero_shot as JCLI
 
-    monkeypatch.setattr(native, "available", lambda: False)  # PIL decodes, as the port's
     argv = zs_argv(assets, "--rerank", "--devices", "2")
     monkeypatch.setattr(sys, "argv", ["zero_shot", *argv])
     with monkeypatch.context() as m:

@@ -59,14 +59,12 @@ def test_hard_cli_matches_jax_from_the_same_initial_parameters(assets, monkeypat
     (from_jax_multitask_params); the train augmentation, whose draws come
     from jax.random in one package and torch.Generators in the other, is
     the eval transform in both for this comparison."""
-    from tpu_reid import native
     from tpu_reid.cli import multitask as JCLI
     from tpu_reid.data.transforms import DevicePreprocess as JPre
     from tpu_reid.parallel import extract as JX
     from tpu_reid.train import multitask as JMT
 
     extra = ("--variant", "hard", "--epochs_stage1", "1", "--epochs_stage2", "1", "--rerank")
-    monkeypatch.setattr(native, "available", lambda: False)
     monkeypatch.setattr(JPre, "train_batch", lambda self, images, key, pad_hw=(10, 10):
                         self.eval_batch(images))
     monkeypatch.setattr(DevicePreprocess, "train_batch",

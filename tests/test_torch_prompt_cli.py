@@ -53,13 +53,11 @@ def test_cli_matches_jax_from_the_same_initial_parameters(assets, monkeypatch, c
     port's own initialisation draws from torch.Generators, so the JAX CLI's
     initial parameters are carried into the port's build_model
     (from_jax_reid_params); everything after it is each CLI's own."""
-    from tpu_reid import native
     from tpu_reid.cli import prompt_learning as JCLI
     from tpu_reid.parallel import extract as JX
 
     extra = ("--training_mode", "ivlp", "--epochs_stage1", "1", "--epochs_stage2", "0",
              "--rerank")
-    monkeypatch.setattr(native, "available", lambda: False)
     captured = {}
     j_build = JCLI.build_model
 

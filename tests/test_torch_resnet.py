@@ -197,12 +197,10 @@ def test_zero_shot_cli_with_an_rn_checkpoint_matches_jax(assets, rn_ckpt, monkey
                                                         extra):
     """Both CLIs on the synthetic Market-1501 directory (64x32) with an RN
     checkpoint, fp32 extraction in both (bf16 rounds at other points in the
-    two frameworks), PIL decoding in both: CMC within 1e-5, mAP within 1e-5
+    two frameworks), one decoder in both: CMC within 1e-5, mAP within 1e-5
     and the same result line."""
-    from tpu_reid import native
     from tpu_reid.cli import zero_shot as JCLI
 
-    monkeypatch.setattr(native, "available", lambda: False)
     argv = _argv(dict(assets, ckpt=rn_ckpt), "--height", "64", *extra)  # a 4x2 grid
     monkeypatch.setattr(sys, "argv", ["zero_shot", *argv])
     with monkeypatch.context() as m:

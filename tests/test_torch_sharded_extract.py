@@ -117,5 +117,5 @@ def test_the_multihost_sweep_over_two_hosts(model, market, tmp_path):
     jparams, jext = jax_extractor(model, None)
     from tpu_reid.data.loader import BatchLoader as JLoader
 
-    jax = JX.extract_embeddings(jext, jparams, JLoader(records, 4, (32, 16), backend="pil"))
+    jax = JX.extract_embeddings(jext, jparams, JLoader(records, 4, (32, 16)))
     np.testing.assert_allclose(feats, np.asarray(jax[0]), atol=1e-4)

@@ -135,14 +135,12 @@ def test_a_nan_on_one_rank_rolls_both_back(setup):
         assert np.isfinite(leaf.detach().numpy()).all()
 
 
-def test_the_sharded_cache_gathers_like_one_device_and_jax(setup, monkeypatch):
+def test_the_sharded_cache_gathers_like_one_device_and_jax(setup):
     """Each rank holds half the split (zero-padded); a global index row's
     gather on every rank, gathered in rank order, is the single-device
     cache's gather bit for bit, and the JAX package's sharded cache's."""
-    from tpu_reid import native
     from tpu_reid.data.device_cache import DeviceImageCache as JCache
 
-    monkeypatch.setattr(native, "available", lambda: False)  # PIL decodes, as the port's
     *_, records, sels, ranks = setup
     rows, n_local, nbytes = ranks["cache"]
     assert n_local == -(-len(records) // 2) and nbytes == n_local * 32 * 16 * 3

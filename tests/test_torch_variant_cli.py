@@ -27,11 +27,9 @@ N_TRAIN_IDS = 4  # the assets' training identities
 def _run_both(assets, monkeypatch, capsys, tmp_path, extra):
     """The JAX CLI, then the port's from the JAX CLI's initial parameters;
     returns ((cmc, mAP, result line) of JAX, of the port)."""
-    from tpu_reid import native
     from tpu_reid.cli import prompt_learning as JCLI
     from tpu_reid.parallel import extract as JX
 
-    monkeypatch.setattr(native, "available", lambda: False)  # PIL decoding in both
     captured = {}
     j_build = JCLI.build_model
 

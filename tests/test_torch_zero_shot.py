@@ -177,8 +177,9 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(setup, monkeypatch):
 def test_port_imports_neither_jax_nor_tpu_reid(tmp_path):
     """Every tpu_reid_torch module (the re-ranking modules, the data layer,
     the zero-shot, prompt-learning and multitask CLIs, the ReID model, the
-    trainers, the multitask trainers and XBM, and the checkpoints included)
-    and chip_smoke import with JAX made
+    trainers, the multitask trainers and XBM, the checkpoints, tensor
+    parallelism, the tools, the entry points and the native decoder
+    included) and chip_smoke import with JAX made
     unimportable, and load no tpu_reid module; chip_smoke run on a machine
     without a card, or alone without the package, prints no result and
     exits non-zero."""
@@ -197,9 +198,11 @@ def test_port_imports_neither_jax_nor_tpu_reid(tmp_path):
         "'cli.prompt_learning', 'models.heads', 'models.prompts', 'models.reid_clip', "
         "'train.losses', 'train.optim', 'train.schedules', 'train.trainer', "
         "'data.sampler', 'runtime.guard', 'runtime.checkpoint', 'train.xbm', "
-        "'train.multitask', 'cli.multitask'}\n"
+        "'train.multitask', 'cli.multitask', 'parallel.tp', 'tools.synth_market', "
+        "'tools.parity_run', 'tools.caption_prompts', 'tools.runbook_market_parity', "
+        "'entry', 'native'}\n"
         "assert {'tpu_reid_torch.' + m for m in need} <= set(names), names\n"
-        "assert len(names) >= 49, names\n"
+        "assert len(names) >= 57, names\n"
         "print('imported', len(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -241,14 +241,14 @@ def sharded_rerank(mesh, workloads, kw):
 def cli_mains(mesh, runs):
     """Each (module, argv, fp32) of `runs` in turn through the CLI's main,
     inside this world: main parses and checks the flags as always, and its
-    launch.run hands the rank body this mesh (argv's --devices must be the
-    world's size) where it would spawn a new world. fp32: extraction in
+    launch.run hands the rank body this mesh (argv's --devices and --tp
+    must be the mesh's shape) where it would spawn a new world. fp32: extraction in
     fp32 (the CLI parity tests' setting). Returns the results in order."""
     import importlib
 
-    def into_this_world(fn, args, devices, multihost=None, **_):
-        if devices != mesh.size or multihost:
-            raise ValueError(f"--devices {devices} in a world of {mesh.size}")
+    def into_this_world(fn, args, devices, multihost=None, tp=1, **_):
+        if devices != mesh.size or tp != mesh.model_size or multihost:
+            raise ValueError(f"--devices {devices} --tp {tp} in a world of {mesh.shape}")
         return fn(mesh, *args)
 
     out = []
@@ -274,3 +274,67 @@ def cli_host(module, argv, out_path):
     res = importlib.import_module(module).main(argv)
     if res is not None:
         torch.save(res, out_path)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+
+def tp_checks(mesh, visual, cfg, images):
+    """On this rank's shard of `visual` and its data rows of `images`:
+    apply_vit_tp (whole sequence and cls_only) and make_tp_extractor (fp32,
+    flip-TTA), each gathered over the data axis into global batch order;
+    every rank's (global rank, data index, model index); whether the ranks
+    of each model group got the same features."""
+    import torch.distributed as dist
+
+    from tpu_reid_torch.parallel import tp as TP
+
+    shard = TP.shard_tp_visual(TP.tp_visual_layout(visual, cfg.heads), mesh.model_rank,
+                               mesh.model_size)
+    x = torch.from_numpy(PM.shard_batch(mesh, images))
+    reduce = TP.model_reduce(mesh)
+    with torch.no_grad():
+        full = TP.apply_vit_tp(shard, cfg, x, reduce)
+        cls = TP.apply_vit_tp(shard, cfg, x, reduce, cls_only=True)
+    feats = TP.make_tp_extractor(mesh, cfg, None, flip_tta=True, dtype=torch.float32)(shard, x)
+    every = [torch.empty(1, 3, dtype=torch.int64) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, torch.tensor([[dist.get_rank(), mesh.rank, mesh.model_rank]]))
+    in_group = [torch.empty_like(feats) for _ in range(mesh.model_size)]
+    dist.all_gather(in_group, feats, group=mesh.model_group)
+    return {"full": [PM.all_gather_rows(mesh, t) for t in full],
+            "cls": [PM.all_gather_rows(mesh, t) for t in cls],
+            "extract": PM.all_gather_rows(mesh, feats),
+            "indices": torch.cat(every).tolist(),
+            "shape": dict(mesh.shape),
+            "model_group_same": all(torch.equal(in_group[0], f) for f in in_group)}
+
+
+def cli_runs_with_features(mesh, runs):
+    """Each (module, argv, fp32) of `runs` through cli_mains in turn, with
+    the zero-shot pipeline's evaluate_zero_shot wrapped to keep what it was
+    handed and what it returned. Per run, rank 0's ("ok", (cmc, mAP),
+    {"q", "g": features, "metrics": (cmc, mAP, mINP)}), or ("error",
+    "<type>: <message>") for a run that raised (a refusal under test)."""
+    from tpu_reid_torch.pipelines import zero_shot as Z
+
+    evaluate = Z.evaluate_zero_shot
+    out = []
+    for run in runs:
+        seen = {}
+
+        def keep(qf, gf, *a, **kw):
+            seen["q"], seen["g"] = qf.clone(), gf.clone()
+            seen["metrics"] = got = evaluate(qf, gf, *a, **kw)
+            return got
+
+        Z.evaluate_zero_shot = keep
+        try:
+            (res,) = cli_mains(mesh, [run])
+            out.append(("ok", res, seen))
+        except Exception as e:  # the refusal under test, handed to the parent
+            out.append(("error", f"{type(e).__name__}: {e}"))
+        finally:
+            Z.evaluate_zero_shot = evaluate
+    return out

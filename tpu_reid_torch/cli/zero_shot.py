@@ -24,10 +24,18 @@ streamed route shards its passes over the ranks. --multihost HOST:PORT
 command with its --devices) at HOST:PORT. --bs must divide by the global
 number of ranks. Rank 0 prints the result.
 
-Refused: --tp > 1 (tensor parallelism, ROADMAP.md queue 1 item 7b), and
---training_mode ivlp with a ViT checkpoint that carries no IVLP prompt
-tokens (the JAX CLI fails on it): such tokens come from the prompt-learning
-CLI.
+Tensor parallelism (parallel/tp.py): --tp T runs --devices x T ranks on a
+("data", "model") mesh; each model group of T ranks splits the ViT tower's
+heads and MLP hidden units (the block kernels on the rank's slice, two fp32
+all-reduces per block) and takes the same rows of every batch, while
+extraction and the evaluation run over the data axis. As in the JAX CLI,
+the TP route folds no input normalisation, the text classifier stays
+replicated, --multihost refuses --tp > 1 ("--multihost shards the batch axis
+only") and a ResNet tower refuses it ("--tp shards the ViT tower only").
+
+Refused: --training_mode ivlp with a ViT checkpoint that carries no IVLP
+prompt tokens (the JAX CLI fails on it): such tokens come from the
+prompt-learning CLI.
 """
 
 from __future__ import annotations
@@ -68,7 +76,8 @@ def params_parser(argv=None):
                    help="ranks on this host, one per device: extraction and the streamed "
                         "re-ranking shard over them")
     p.add_argument("--tp", default=1, type=int,
-                   help="tensor-parallel width (only 1: ROADMAP.md queue 1 item 7b)")
+                   help="tensor-parallel width of the ViT tower over the 'model' mesh axis "
+                        "(ranks = devices * tp)")
     p.add_argument("--multihost", default=None, type=str, metavar="HOST:PORT",
                    help="multi-host extraction: the rendezvous address of the ranks of "
                         "every host (run this command on each with --num_hosts/--host_id)")
@@ -87,8 +96,8 @@ def params_parser(argv=None):
 
 
 def check_world(args) -> None:
-    """--bs must divide by the global number of ranks (the JAX CLIs'
-    messages)."""
+    """--bs must divide by the global number of ranks of the data axis (the
+    JAX CLIs' messages)."""
     if args.multihost:
         world = args.devices * args.num_hosts
         if args.bs % world:
@@ -101,15 +110,12 @@ def main(argv=None):
     """Parse the flags and run the CLI on every rank; returns rank 0's
     (cmc, mAP)."""
     from tpu_reid_torch.parallel import launch
-    from tpu_reid_torch.parallel.mesh import ITEM_7B
 
     args = params_parser(argv)
-    if args.tp > 1:
-        raise NotImplementedError(ITEM_7B)
     check_world(args)
     return launch.run(run, (args,), devices=args.devices, device=args.device,
                       multihost=args.multihost, num_hosts=args.num_hosts,
-                      host_id=args.host_id)
+                      host_id=args.host_id, tp=args.tp)
 
 
 def run(mesh, args):
@@ -149,6 +155,8 @@ def run(mesh, args):
         cfg, params = convert_clip(sd, image_hw=(h, w), stride=args.stride, design=design,
                                    device=dev)
         model_type = "vit" if cfg.vision is not None else "rn"
+        if args.tp > 1 and model_type != "vit":
+            raise ValueError("--tp shards the ViT tower only")
         if (model_type == "vit" and design.has_vision_prompts
                 and "vpt_shallow" not in params["visual"]):
             raise NotImplementedError(
@@ -176,27 +184,39 @@ def run(mesh, args):
     with log.phase("extract"):
         dataset = get_dataset(args.root, args.test_dataset)
         pp = DevicePreprocess((h, w), model_type, dtype=EXTRACT_DTYPE)
-        fold = None
-        if model_type == "vit":
-            # normalization folded into the patch-embed weights (exact)
-            fold = lambda p: dict(p, visual=fold_visual_input_norm(p["visual"], "vit"))  # noqa: E731
-        extractor = make_extractor(Z.make_zeroshot_embed(params, cfg), pp,
-                                   flip_tta=not args.no_flip_tta, dtype=EXTRACT_DTYPE,
-                                   fold=fold, device=dev, mesh=mesh)
+        xtr_params = params
+        if args.tp > 1:
+            # batch over "data", the tower's heads and hidden units over
+            # "model": this rank keeps its slice of the blocks (no fold)
+            from tpu_reid_torch.parallel import tp as TP
+
+            xtr_params = TP.shard_tp_visual(
+                TP.tp_visual_layout(params["visual"], cfg.vision.heads), mesh.model_rank,
+                mesh.model_size)
+            extractor = TP.make_tp_extractor(mesh, cfg.vision, pp, flip_tta=not args.no_flip_tta,
+                                             dtype=EXTRACT_DTYPE)
+        else:
+            fold = None
+            if model_type == "vit":
+                # normalization folded into the patch-embed weights (exact)
+                fold = lambda p: dict(p, visual=fold_visual_input_norm(p["visual"], "vit"))  # noqa: E731
+            extractor = make_extractor(Z.make_zeroshot_embed(params, cfg), pp,
+                                       flip_tta=not args.no_flip_tta, dtype=EXTRACT_DTYPE,
+                                       fold=fold, device=dev, mesh=mesh)
 
         def sweep(records):
             if mesh is not None:  # each rank decodes only its rows
-                return extract_embeddings_multihost(extractor, params, records, args.bs,
+                return extract_embeddings_multihost(extractor, xtr_params, records, args.bs,
                                                     (h, w), mesh)
-            return extract_embeddings(extractor, params, BatchLoader(records, args.bs, (h, w)),
-                                      device=dev)
+            return extract_embeddings(extractor, xtr_params,
+                                      BatchLoader(records, args.bs, (h, w)), device=dev)
 
         g_feats, g_pids, g_cams, _ = sweep(dataset.gallery)
         q_feats, q_pids, q_cams, _ = sweep(dataset.query)
         log.log("extracted", gallery=len(g_pids), query=len(q_pids))
 
     # the weights are dead after extraction; re-ranking wants the memory
-    del extractor, params, sd
+    del extractor, params, xtr_params, sd
 
     with log.phase("evaluate"):
         cmc, mAP, mINP = Z.evaluate_zero_shot(

@@ -1,12 +1,15 @@
-"""Batched, prefetching data loader (the PIL path of tpu_reid/data/loader.py).
+"""Batched, prefetching data loader (the port of tpu_reid/data/loader.py).
 
-The host decodes and resizes crops (PIL bicubic) on a thread pool while the
-device computes the previous batch; the device finishes preprocessing
-(normalize) in the extraction step. Batches are fixed-shape: the final
-partial batch is zero-padded and carries a validity mask.
+The host decodes and resizes crops while the device computes the previous
+batch; the device finishes preprocessing (normalize) in the extraction
+step. Batches are fixed-shape: the final partial batch is zero-padded and
+carries a validity mask.
 
-The JAX package's C++ decoder (`tpu_reid/native`) is host code that comes
-with a later slice of the port: backend="native" raises.
+Decoders, as in the JAX package: the native C++ pool (tpu_reid_torch/native,
+the same source as the JAX package's) or PIL bicubic on a thread pool.
+backend="auto" (the default) takes the native one when it builds and there
+is no host transform, PIL otherwise; "native" raises NativeUnavailable when
+the library cannot be built; "pil" always decodes with PIL.
 """
 
 from __future__ import annotations
@@ -50,8 +53,8 @@ class BatchLoader:
     order: None (sequential), "shuffle", or an iterable of index arrays.
     transform: optional per-image host transform (receives the decoded uint8
     (h, w, 3) array, returns float32); when None, batches carry uint8 and
-    the device step normalizes. backend: "pil" (the native C++ decoder is
-    not ported yet)."""
+    the device step normalizes. backend: "auto" | "native" | "pil" (module
+    docstring)."""
 
     def __init__(
         self,
@@ -64,15 +67,20 @@ class BatchLoader:
         prefetch: int = 4,
         seed: int = 0,
         drop_tail: bool = False,
-        backend: str = "pil",
+        backend: str = "auto",
     ):
-        if backend == "native":
-            raise NotImplementedError(
-                "the native C++ image decoder is not ported yet (a later slice of the "
-                "port); use backend='pil'"
-            )
-        if backend != "pil":
-            raise ValueError(f"backend must be 'pil': {backend!r}")
+        if backend not in ("auto", "native", "pil"):
+            raise ValueError(f"backend must be 'auto', 'native' or 'pil': {backend!r}")
+        self._native = False
+        self._native_pool = None
+        if transform is None and backend in ("auto", "native"):
+            from tpu_reid_torch import native
+
+            if native.available():
+                self._native = True
+            elif backend == "native":
+                raise native.NativeUnavailable("the native loader was asked for and does not "
+                                               "build here")
         self.records = list(records)
         self.batch_size = batch_size
         self.size_hw = tuple(size_hw)
@@ -105,6 +113,18 @@ class BatchLoader:
         images = np.zeros((b, h, w, 3), dtype)
         meta = np.zeros((4, b), np.int32)
         valid = np.zeros((b,), bool)
+
+        if self._native:
+            from tpu_reid_torch import native
+
+            if self._native_pool is None:  # one persistent pool per loader
+                self._native_pool = native.DecodePool(self.num_workers)
+            self._native_pool.run([self.records[i][0] for i in idx], self.size_hw,
+                                  out=images[: len(idx)])
+            for slot, rec_i in enumerate(idx):
+                meta[:, slot] = self.records[rec_i][1:5]
+                valid[slot] = True
+            return Batch(images, meta[0], meta[1], meta[2], meta[3], valid)
 
         def load(slot: int, rec_i: int):
             rec = self.records[rec_i]

@@ -1,2 +1,2 @@
-"""Extraction, prefetch and the data mesh over ranks (mesh.py, launch.py,
-multihost.py)."""
+"""Extraction, prefetch and the ("data", "model") mesh over ranks (mesh.py,
+launch.py, multihost.py, tensor parallelism in tp.py)."""

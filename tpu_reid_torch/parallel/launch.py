@@ -1,14 +1,15 @@
-"""Rank launcher: run one function on every rank of a "data" mesh.
+"""Rank launcher: run one function on every rank of a ("data", "model") mesh.
 
 The JAX package drives all of a host's devices from one process; the port
 runs one process per device, so this module starts them:
 
-  * `run(fn, args, devices=N)` spawns N ranks (`torch.multiprocessing`,
-    start method "spawn"); rank r runs on `cuda:r` over NCCL, or with
-    device="cpu" on the host over gloo. Each calls `fn(mesh, *args)`, and
-    the result of rank 0 comes back to the caller. With devices=1 and no
-    multihost address, `fn(None, *args)` runs in this process, on the
-    single-device paths.
+  * `run(fn, args, devices=N, tp=T)` spawns N * T ranks
+    (`torch.multiprocessing`, start method "spawn") on an (N, T) mesh: N
+    along "data", T along "model" (tensor parallelism, parallel/tp.py); rank
+    r runs on `cuda:r` over NCCL, or with device="cpu" on the host over
+    gloo. Each calls `fn(mesh, *args)`, and the result of rank 0 comes back
+    to the caller. With one rank and no multihost address, `fn(None, *args)`
+    runs in this process, on the single-device paths.
   * multi-host: `multihost="HOST:PORT"`, `num_hosts`, `host_id`: every host
     runs the same command; host h's local rank l is global rank
     h * devices + l, and the ranks meet at the TCP store of HOST:PORT. With
@@ -53,28 +54,30 @@ def free_port() -> int:
 
 @contextlib.contextmanager
 def process_group(device: str, init_method: str, rank: int, world: int,
-                  timeout_s: float = DEFAULT_TIMEOUT_S):
+                  timeout_s: float = DEFAULT_TIMEOUT_S, n_model: int = 1):
     """Join the default process group of `world` ranks (nccl for a CUDA
-    device, gloo for the CPU), yield its mesh, and destroy the group on the
-    way out."""
+    device, gloo for the CPU), yield its mesh (`n_model` ranks along
+    "model"), and destroy the group on the way out."""
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dist.init_process_group(backend_for(dev), init_method=init_method, rank=rank,
                             world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
     try:
-        yield make_mesh()
+        yield make_mesh(n_model=n_model)
     finally:
         dist.destroy_process_group()
 
 
-def _check_devices(devices: int, device: str) -> None:
-    if devices < 1:
-        raise ValueError(f"--devices must be at least 1, got {devices}")
+def _check_devices(devices: int, tp: int, device: str) -> None:
+    if devices < 1 or tp < 1:
+        raise ValueError(f"--devices and --tp must be at least 1, got {devices} and {tp}")
     if torch.device(device).type == "cuda":
         visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if devices > visible:
-            raise RuntimeError(f"--devices {devices}: this host has {visible} visible CUDA "
+        if devices * tp > visible:
+            what = f"--devices {devices}" + (f" x --tp {tp} = {devices * tp} ranks" if tp > 1
+                                              else "")
+            raise RuntimeError(f"{what}: this host has {visible} visible CUDA "
                                f"device(s); the port runs one rank per card")
 
 
@@ -83,7 +86,7 @@ def _rank_device(device: str, local_rank: int) -> str:
 
 
 def _child(local_rank: int, fn, args, device: str, init_method: str, rank0: int, world: int,
-           threads: int, timeout_s: float, log_dir: str) -> None:
+           threads: int, timeout_s: float, log_dir: str, n_model: int) -> None:
     rank = rank0 + local_rank
     if local_rank > 0 or rank0 > 0:
         # C-level output too: the file descriptors, not just sys.stdout
@@ -93,7 +96,7 @@ def _child(local_rank: int, fn, args, device: str, init_method: str, rank0: int,
         os.dup2(log, 2)
     torch.set_num_threads(threads)
     with process_group(_rank_device(device, local_rank), init_method, rank, world,
-                       timeout_s) as mesh:
+                       timeout_s, n_model) as mesh:
         out = fn(mesh, *args)
     if rank == 0:
         torch.save(out, os.path.join(log_dir, "result.pt"))
@@ -111,32 +114,37 @@ def _tail(path: str, n: int = 4000) -> str:
 
 def run(fn: Callable, args: tuple = (), devices: int = 1, device: str = "cuda",
         multihost: Optional[str] = None, num_hosts: int = 1, host_id: int = 0,
-        timeout_s: float = DEFAULT_TIMEOUT_S, join_timeout_s: Optional[float] = None):
-    """fn(mesh, *args) on every local rank; returns rank 0's result (None
-    on a host other than 0). fn and args must pickle (spawned ranks import
-    fn by its module path). See the module docstring."""
-    _check_devices(devices, device)
+        timeout_s: float = DEFAULT_TIMEOUT_S, join_timeout_s: Optional[float] = None,
+        tp: int = 1):
+    """fn(mesh, *args) on every local rank (devices * tp of them, `tp`
+    along the "model" axis); returns rank 0's result (None on a host other
+    than 0). fn and args must pickle (spawned ranks import fn by its module
+    path). See the module docstring."""
+    _check_devices(devices, tp, device)
     if multihost is None and num_hosts != 1:
         raise ValueError("--num_hosts > 1 needs --multihost HOST:PORT")
+    if multihost is not None and tp != 1:
+        raise ValueError("--multihost shards the batch axis only")
     if not 0 <= host_id < num_hosts:
         raise ValueError(f"--host_id {host_id} is outside [0, {num_hosts})")
-    world = num_hosts * devices
-    rank0 = host_id * devices
+    local = devices * tp
+    world = num_hosts * local
+    rank0 = host_id * local
     if world == 1 and multihost is None:
         return fn(None, *args)
-    if devices == 1:
+    if local == 1:
         with process_group(_rank_device(device, 0), f"tcp://{multihost}", rank0, world,
                            timeout_s) as mesh:
             return fn(mesh, *args)
-    threads = max(1, torch.get_num_threads() // devices)
+    threads = max(1, torch.get_num_threads() // local)
     ctx = torch.multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="tpu_reid_ranks_") as log_dir:
         init_method = (f"tcp://{multihost}" if multihost is not None
                        else "file://" + os.path.join(log_dir, "rendezvous"))
         procs = [ctx.Process(target=_child, args=(r, fn, args, device, init_method, rank0,
-                                                  world, threads, timeout_s, log_dir),
+                                                  world, threads, timeout_s, log_dir, tp),
                              daemon=True)
-                 for r in range(devices)]
+                 for r in range(local)]
         for p in procs:
             p.start()
         t0 = time.monotonic()
@@ -147,7 +155,7 @@ def run(fn: Callable, args: tuple = (), devices: int = 1, device: str = "cuda",
         try:
             while any(p.is_alive() for p in procs) and not failed():
                 if join_timeout_s is not None and time.monotonic() - t0 > join_timeout_s:
-                    raise TimeoutError(f"the {devices} ranks did not finish in "
+                    raise TimeoutError(f"the {local} ranks did not finish in "
                                        f"{join_timeout_s} s")
                 time.sleep(0.05)
             if failed():

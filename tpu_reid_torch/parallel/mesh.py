@@ -1,11 +1,18 @@
-"""The "data" mesh of the port (the counterpart of tpu_reid/parallel/mesh.py).
+"""The ("data", "model") mesh of the port (the counterpart of
+tpu_reid/parallel/mesh.py).
 
 JAX drives every device of a host from one process and lets XLA insert the
 collectives from shardings. PyTorch's idiom is one process per device, so
-here the "data" axis is a torch.distributed process group: rank r of a world
-of n owns device r's share of every batch (`parallel/launch.py` starts the
-ranks). The "model" axis (tensor parallelism) is not ported: a mesh always
-has `shape == {"data": n, "model": 1}`.
+here each mesh axis is a torch.distributed process group (`parallel/launch.py`
+starts the ranks). A world of n_data * n_model ranks is laid out as JAX's
+`devices.reshape(n_data, n_model)`: global rank g has data index
+g // n_model and model index g % n_model. The "data" axis is the one every
+caller knew before the "model" axis existed: `Mesh.rank`, `size` and
+`group` are this rank's index in it, its size and the group of the ranks
+that share this rank's model index. `model_rank`, `model_size` and
+`model_group` are the tensor-parallel axis (parallel/tp.py): the ranks that
+share a data index hold the same rows of every batch and split the tower's
+heads and hidden units.
 
 The layout is JAX's `P("data")`: rank r owns the contiguous rows
 [r*B/n, (r+1)*B/n) of a global batch of B rows. A training step under a mesh
@@ -33,23 +40,24 @@ import torch.distributed as dist
 
 Tensor = torch.Tensor
 
-ITEM_7B = ("tensor parallelism (a 'model' mesh axis, --tp > 1) is not ported yet "
-           "(ROADMAP.md queue 1 item 7b)")
-
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One rank's view of the "data" axis: its rank, the world size, the
-    process group and this rank's device."""
+    """One rank's view of the mesh: its index in the "data" axis, that
+    axis's size and process group, this rank's device, and the same three
+    of the "model" axis."""
 
     rank: int
     size: int
     device: torch.device
     group: object = None
+    model_rank: int = 0
+    model_size: int = 1
+    model_group: object = None
 
     @property
     def shape(self) -> dict:
-        return {"data": self.size, "model": 1}
+        return {"data": self.size, "model": self.model_size}
 
     def row_range(self, rows: int) -> tuple:
         """[start, end) of this rank's share of `rows` rows (which must
@@ -74,17 +82,34 @@ def backend_for(device: torch.device) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
+def _axis_group(ranks: list, world: int):
+    """A process group of `ranks` (every rank of the world must call this
+    with the same lists in the same order: new_group is collective)."""
+    return dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
+
+
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Mesh:
-    """The mesh of the initialised default process group. n_data, when
-    given, must be the world size; n_model must be 1 (item 7b)."""
-    if n_model != 1:
-        raise NotImplementedError(ITEM_7B)
+    """The (n_data, n_model) mesh of the initialised default process group,
+    in JAX's order (global rank g at data index g // n_model, model index
+    g % n_model). n_data defaults to the world size over n_model; n_data *
+    n_model must be the world size. Every rank creates every group of both
+    axes, in the same order."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised torch.distributed default group "
                            "(tpu_reid_torch.parallel.launch starts one per rank)")
     world = dist.get_world_size()
-    if n_data is not None and n_data != world:
-        raise ValueError(f"n_data={n_data}, but the process group has {world} ranks")
+    if n_model < 1:
+        raise ValueError(f"n_model must be at least 1, got {n_model}")
+    if n_data is None:
+        n_data = world // n_model
+    if n_data * n_model != world:
+        raise ValueError(f"n_data={n_data} x n_model={n_model} = {n_data * n_model}, but the "
+                         f"process group has {world} ranks")
+    g = dist.get_rank()
+    data_groups = [_axis_group([d * n_model + m for d in range(n_data)], world)
+                   for m in range(n_model)]
+    model_groups = ([_axis_group([d * n_model + m for m in range(n_model)], world)
+                     for d in range(n_data)] if n_model > 1 else [None] * n_data)
     backend = dist.get_backend()
     if backend == "nccl":
         device = torch.device("cuda", torch.cuda.current_device())
@@ -92,7 +117,8 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1) -> Mesh:
         device = torch.device("cpu")
     else:
         raise ValueError(f"unsupported process-group backend {backend!r}")
-    return Mesh(dist.get_rank(), world, device, dist.group.WORLD)
+    return Mesh(g // n_model, n_data, device, data_groups[g % n_model], g % n_model, n_model,
+                model_groups[g // n_model])
 
 
 def pad_to_multiple(n: int, multiple: int) -> int:
