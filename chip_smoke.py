@@ -31,7 +31,15 @@ exits with code 3.
    K 32 to 3072, N 512 to 3072 and tails; attention at S 1 to 256, 8 and 12
    heads, qkv views and contiguous), LayerNorm in the kernel against
    LayerNorm done beforehand bit for bit, 50 launches bit-equal, and the
-   host time of a wrapper call. The build's ptxas lines are printed; the
+   host time of a wrapper call. Then the fp32 route (the training CLIs'
+   default dtype; 3xTF32 GEMM and attention kernels, the FMA tail): the
+   GEMM at edge shapes in both modes with all three epilogues, the splice
+   and the scalar operands off 16 bytes, attention at S 1 to 444 (77
+   causal), each kernel at B=128 S=211 (attention at S=442 too) against
+   its plain version within 1e-4, 50 launches bit-equal, timed beside its
+   plain version, the fp32 library call (cuBLAS SGEMM with TF32 off, fp32
+   SDPA, F.layer_norm + matmul), the bound of three TF32 passes and the
+   CUDA cores' fp32 FMA figure. The build's ptxas lines are printed; the
    run fails if a wgmma kernel spills, or if the log does not show every
    instantiation of the wgmma kernels.
 4. minsum: the minsum kernel at awkward shapes in fp8, bf16 and fp32, then
@@ -65,12 +73,20 @@ exits with code 3.
 10. train: three live IVLP stage-1 steps and three stage-2 steps of the
    flagship at bs 64 in bf16 activations (ms per step, peak memory, traces,
    launches), an fp32 stage-1 step's peak memory, and an fp32 stage-2 loss
-   and gradient through the kernels against the plain path.
+   and gradient through the kernels against the plain path; then fp32
+   stage-2 and live stage-1 steps, each the median of 6 warm steps on the
+   host loop and as CUDA-graph replays, their launches per step (and the
+   cached coop stage 1's), a trace of each that must show the 3xTF32
+   kernels and no FMA block kernel, and one captured fp32 stage-2 step
+   against its eager step bit for bit.
 11. cli: the zero-shot CLI with --rerank --mm, then the prompt-learning CLI
    (ivlp, one epoch of each stage, --rerank, bf16), at full ViT-B/16 width
    on a synthetic Market1501 directory and a random checkpoint; both must
    launch every kernel; the prompt-learning command again with --resume
-   skips both stages and gives the same mAP within 1e-5.
+   skips both stages and gives the same mAP within 1e-5; the fp32
+   prompt-learning CLI in this process and in a subprocess (torch's
+   defaults, none of this script's flags), their final checkpoints'
+   features within 1e-4.
 12. multitask: the hard_ivlp multitask model at full width (task 0 256x128,
    213 tokens, 751 classes; task 1 256x256, 444 tokens, 576 classes), two
    stage-1 and two stage-2 steps per task at bs 64 in bf16 activations (ms
@@ -145,7 +161,8 @@ exits with code 3.
 It prints the kernels' JSON record on the line before the last (each
 kernel's launches on the main path of the slice that brought it: IVLP
 serving, for minsum the re-ranking path, for the key-tile mha_core kernel
-IVLP serving at the vehicle geometry; and its launches on every path), and
+IVLP serving at the vehicle geometry, for the fp32 route (`*_fp32`) the
+fp32 stage-2 training step; and its launches on every path), and
 as the last line
 {"ok": true, "device": {...}}.
 Any failed phase exits non-zero; with no CUDA device, or without the
@@ -175,6 +192,13 @@ PEAK_BYTES = 3.35e12
 # fp32 instructions on the CUDA cores (132 SMs x 128 lanes x 1.98 GHz): the
 # peak of the minsum kernel, whose fminf and fadd are no tensor-core product
 PEAK_FP32_CUDA_CORE_OPS = 132 * 128 * 1.98e9
+
+# TF32 tensor cores, dense (NVIDIA data sheet): the fp32 block kernels'
+# bound is three TF32 passes (hi*hi + hi*lo + lo*hi), the least an
+# fp32-accurate product takes on the card; the fp32 FMA rate on the CUDA
+# cores (2 x PEAK_FP32_CUDA_CORE_OPS FLOP/s) is printed beside it
+PEAK_TF32_FLOPS = 494.7e12
+TF32_PASSES = 3
 
 # minsum: max|kernel - plain| / max|plain|; only the order of fp32 sums differs
 MINSUM_TOL = 1e-5
@@ -269,6 +293,18 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bound_fp32(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time for an fp32-accurate product: three TF32 passes of
+    `flops` on the tensor cores against `nbytes` at the memory rate."""
+    return bound(TF32_PASSES * flops, nbytes, PEAK_TF32_FLOPS)
+
+
+def fma_peak_ms(flops: float) -> float:
+    """`flops` at the fp32 FMA peak of the CUDA cores, in ms: a figure for
+    PERF.md's table, worked out and not measured, so kept off the kernels line."""
+    return flops / (2 * PEAK_FP32_CUDA_CORE_OPS) * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -650,20 +686,289 @@ def kernel_phase(dev):
         check(f"{kind} block B={bb} S={seq} {str(dt)[6:]} "
               f"{'fast' if fast else 'exact'}{' splice' if splice else ''}"
               f"{' causal' if causal else ''}", got, want, dt)
-    edge_checks(dev, rng, check, failures)
+    edge_checks(dev, rng, check, bf)
+    ln_repeat_host_checks(dev, rng, failures)
+    record.update(fp32_kernels(dev, rng, check, failures))
     torch.cuda.synchronize()
     if failures:
         raise PhaseFailed(f"kernels disagree with their plain versions: {failures}")
     return record
 
 
-def edge_checks(dev, rng, check, failures):
-    """The bf16 GEMM and attention kernels at the shapes that break pipelines
-    and edges: ragged row tiles, N and K tails, rings that wrap many times,
-    one to many tiles per block, every S that changes the attention's tiling;
-    LayerNorm against precomputed LayerNorm bit for bit; 50 launches bit-equal;
-    the host cost of a wrapper call."""
+def fp32_kernels(dev, rng, check, failures, b=128, s=211, d=768, hid=3072, heads=12):
+    """The fp32 route of the block kernels and the tail, the training CLIs'
+    default dtype, at the main path's shapes (B=128, S=211; mha_core at
+    S=442 too): each against its plain version, 50 launches bit-equal, and
+    timed (median of 20 CUDA-event runs) beside its plain version, the fp32
+    library call (F.layer_norm + torch.addmm with TF32 off, i.e. cuBLAS
+    SGEMM; SDPA in fp32; F.layer_norm + matmul for the tail), the bound of
+    three TF32 passes and the fp32 FMA figure of the CUDA cores. Returns the
+    kernels-line records."""
+    from tpu_reid_torch.ops import attention as TA
+    from tpu_reid_torch.ops import fused_attention as FA
+    from tpu_reid_torch.ops import fused_tail as FT
+
+    f32 = torch.float32
+    m = b * s
+    p = block_params(rng, d, hid, f32, dev)
+    x = torch.from_numpy(rng.standard_normal((b, s, d)).astype(np.float32)).to(dev)
+    say(f"fp32 kernels at B={b} S={s} D={d} hid={hid} (median of 20 CUDA-event runs; bound: "
+        f"{TF32_PASSES} TF32 passes at {PEAK_TF32_FLOPS / 1e12:.1f} TF/s or the bytes at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s; FMA figure: the FLOPs at "
+        f"{2 * PEAK_FP32_CUDA_CORE_OPS / 1e12:.1f} TF/s)")
+    record = {}
+
+    def repeat(label, fn):
+        first = fn()
+        first = first if isinstance(first, tuple) else (first,)
+        same = all(all(torch.equal(a, c) for a, c in zip(first, o if isinstance(o, tuple)
+                                                          else (o,)))
+                   for o in (fn() for _ in range(49)))
+        say(f"  {label}: 50 launches on one input {'bit-equal' if same else 'DIFFER'}")
+        if not same:
+            failures.append(f"{label} repeat")
+
+    def entry(name, source, replaces, parts, **extra):
+        """parts: [(label, kernel_fn, plain_fn, library_fn, flops, bytes)],
+        summed as in the bf16 records"""
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
+        errs = []
+        for label, kfn, pfn, lfn, flops, nbytes in parts:
+            errs.append(check(f"{name}[{label}]", kfn(), pfn(), f32))
+            repeat(f"{name}[{label}]", kfn)
+            k_ms, p_ms, l_ms = time_ms(kfn), time_ms(pfn, reps=5, warmup=1), time_ms(lfn)
+            bnd, by = bound_fp32(flops, nbytes)
+            say(f"    {name}[{label}]: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+                f"{l_ms:.4f} ms ({k_ms / l_ms:.2f}x), bound {bnd:.4f} ms ({by}; "
+                f"{100 * bnd / k_ms:.1f}% of it), FMA figure {fma_peak_ms(flops):.4f} ms; "
+                f"{flops / k_ms / 1e9:.1f} TFLOP/s")
+            for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
+                           ("flops", flops), ("bytes", nbytes)):
+                tot[key] += v
+        bnd, by = bound_fp32(tot["flops"], tot["bytes"])
+        record[name] = dict(name=name, route="cuda", source=source, replaces=replaces,
+                            max_abs_err=max(errs), ms=tot["ms"], plain_ms=tot["plain_ms"],
+                            bound_ms=bnd, bound_by=by, library_ms=tot["library_ms"],
+                            dtype="float32", **extra)
+
+    def ln_gemm_part(label, g, gb, w, bias, gelu):
+        k, n = w.shape
+        x2 = x.reshape(-1, k)
+
+        def library():
+            acc = torch.addmm(bias, F.layer_norm(x2, (k,), g, gb), w)
+            return acc * torch.sigmoid(1.702 * acc) if gelu else acc
+
+        return (label, lambda: FA.ln_gemm(x, g, gb, w, bias, gelu),
+                lambda: FA.ln_gemm_reference(x, g, gb, w, bias, gelu), library,
+                2.0 * m * n * k, 4.0 * (m * k + k * n + n + m * n + 2 * k))
+
+    src = "tpu_reid_torch/csrc/block_kernels.cu"
+    entry("ln_gemm_fp32", src, "tpu_reid/ops/fused_attention.py:427", [
+        ln_gemm_part("qkv", p["ln1_scale"], p["ln1_bias"], p["w_in"], p["b_in"], False),
+        ln_gemm_part("c_fc", p["ln2_scale"], p["ln2_bias"], p["w_fc"], p["b_fc"], True)])
+    qkv = FA.ln_gemm(x, p["ln1_scale"], p["ln1_bias"], p["w_in"], p["b_in"])
+    h = FA.ln_gemm(x, p["ln2_scale"], p["ln2_bias"], p["w_fc"], p["b_fc"], True)
+
+    def attention_part(label, qkv_, seq):
+        views = FA._qkv_views(qkv_, heads)
+        q, kk, v = (t.transpose(1, 2).contiguous() for t in views)
+        return (label, lambda: TA.mha_core(*views), lambda: TA.mha_core_reference(*views),
+                lambda: F.scaled_dot_product_attention(q, kk, v),
+                4.0 * b * heads * seq * seq * 64, 4.0 * (b * seq * 3 * d + b * seq * d))
+
+    entry("mha_core_fp32", src, "tpu_reid/ops/attention.py:37",
+          [attention_part(f"exact S={s}, qkv views", qkv, s)])
+    qkv_long = torch.from_numpy(rng.standard_normal((b, 442, 3 * d)).astype(np.float32)).to(dev)
+    long = {}
+    for fast in (False, True):
+        views = FA._qkv_views(qkv_long, heads)
+        label = f"mha_core_fp32[S=442 {'fast' if fast else 'exact'}, qkv views]"
+        check(label, TA.mha_core(*views, fast=fast),
+              TA.mha_core_reference(*views, fast=fast), f32)
+        repeat(label, lambda: TA.mha_core(*views, fast=fast))
+        long["fast_ms" if fast else "ms"] = time_ms(lambda: TA.mha_core(*views, fast=fast))
+    q, kk, v = (t.transpose(1, 2).contiguous() for t in FA._qkv_views(qkv_long, heads))
+    long["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, kk, v))
+    long["bound_ms"], long["bound_by"] = bound_fp32(4.0 * b * heads * 442 * 442 * 64,
+                                                    4.0 * (b * 442 * 4 * d))
+    say(f"    mha_core_fp32 at B={b} S=442: exact {long['ms']:.4f} ms, fast "
+        f"{long['fast_ms']:.4f} ms, library (SDPA fp32) {long['library_ms']:.4f} ms, bound "
+        f"{long['bound_ms']:.4f} ms ({long['bound_by']}), FMA figure "
+        f"{fma_peak_ms(4.0 * b * heads * 442 * 442 * 64):.4f} ms")
+    record["mha_core_fp32"]["s442"] = long
+    del qkv_long, q, kk, v
+    a = TA.mha_core(*FA._qkv_views(qkv, heads)).reshape(b, s, d)
+
+    def gemm_part(label, ain, w, bias):
+        k, n = w.shape
+        a2 = ain.reshape(-1, k)
+        x2 = x.reshape(-1, n)
+        return (label, lambda: FA.gemm_bias_residual(ain, w, bias, x),
+                lambda: FA.gemm_bias_residual_reference(ain, w, bias, x),
+                lambda: torch.addmm(bias, a2, w) + x2,
+                2.0 * m * n * k, 4.0 * (m * k + k * n + n + 2 * m * n))
+
+    entry("gemm_bias_residual_fp32", src, "tpu_reid/ops/fused_attention.py:427", [
+        gemm_part("out_proj", a, p["w_out"], p["b_out"]),
+        gemm_part("c_proj", h, p["w_proj"], p["b_proj"])])
+    del qkv, h, a
+
+    edge_checks(dev, rng, check, f32)
+
+    # the CLS tail in fp32 (the FMA kernel): device time from the profiler,
+    # as its bf16 record reads it (CUDA events around one launch read the host)
+    e = 512
+    xt = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
+    gt = torch.from_numpy(1 + 0.05 * rng.standard_normal(d).astype(np.float32)).to(dev)
+    bt_ = torch.from_numpy(0.05 * rng.standard_normal(d).astype(np.float32)).to(dev)
+    proj = torch.from_numpy(rng.standard_normal((d, e)).astype(np.float32) * d ** -0.5).to(dev)
+    fns = {"kernel": lambda: FT.ln_proj_tail_kernel(xt, gt, bt_, proj),
+           "plain": lambda: FT.ln_proj_tail_reference(xt, gt, bt_, proj),
+           "library": lambda: F.layer_norm(xt, (d,), gt, bt_) @ proj}
+    yk, pk = fns["kernel"]()
+    yr, pr = fns["plain"]()
+    err = max(check("ln_proj_tail_fp32[y]", yk, yr, f32), check("ln_proj_tail_fp32[p]", pk, pr,
+                                                                 f32))
+    repeat("ln_proj_tail_fp32", fns["kernel"])
+    ms = {k: time_ms(fn) for k, fn in fns.items()}
+    us = {k: device_us(fn) for k, fn in fns.items()}
+    bnd, by = bound_fp32(2.0 * b * d * e, 4.0 * (2 * b * d + d * e + b * e + 2 * d))
+    dev_txt = {k: "not measured" if v is None else f"{v:.2f} us" for k, v in us.items()}
+    say(f"    ln_proj_tail_fp32 at B={b}, {d} -> {e}: device kernel {dev_txt['kernel']}, "
+        f"library {dev_txt['library']}, plain {dev_txt['plain']}; events kernel "
+        f"{ms['kernel']:.4f} ms, library {ms['library']:.4f} ms, plain {ms['plain']:.4f} ms; "
+        f"bound {bnd:.5f} ms ({by})")
+    record["ln_proj_tail_fp32"] = dict(
+        name="ln_proj_tail_fp32", route="cuda", source="tpu_reid_torch/csrc/tail_kernel.cu",
+        replaces="tpu_reid/ops/fused_tail.py:31", max_abs_err=err, ms=ms["kernel"],
+        plain_ms=ms["plain"], bound_ms=bnd, bound_by=by, library_ms=ms["library"],
+        device_us=us, dtype="float32")
+    return record
+
+
+# the GEMM and attention kernels' edge shapes, by dtype. ln_gemm: (B, S, K,
+# N, gelu, splice, odd), K <= 768 taking the bf16 kernel's 128-row panel and
+# K = 1024 its 64-row one; ln_gemm without LN: (B, S, K, N, gelu);
+# gemm_bias_residual: (B, S, K, N, residual, splice, odd); attention: the S
+# (causal or not) and the (B, H). odd: the operands the fp32 kernel reads one
+# by one (FP32_SCALAR_OPERANDS) at 4 bytes past a 16-byte boundary.
+EDGE_SHAPES = {
+    torch.bfloat16: dict(
+        ln_gemm=((1, 77, 512, 1536, False, False, False), (3, 77, 512, 2048, True, False, False),
+                 (64, 77, 512, 512, False, False, False), (1, 211, 768, 2304, False, False, False),
+                 (3, 213, 768, 3072, True, True, False), (64, 213, 768, 2304, False, True, False),
+                 (128, 211, 768, 3072, True, False, False),
+                 (512, 213, 768, 2304, False, True, False),
+                 (512, 213, 768, 3072, True, False, False), (3, 211, 768, 776, False, False, False),
+                 (3, 50, 1024, 520, True, False, False), (64, 211, 1024, 768, False, False, False)),
+        no_ln=((3, 77, 2048, 512, False), (64, 211, 3072, 768, True)),
+        gemm=((1, 77, 512, 512, True, False, False), (3, 77, 2048, 512, True, False, False),
+              (64, 213, 768, 768, True, True, False), (128, 211, 3072, 768, True, False, False),
+              (512, 213, 768, 768, True, True, False), (512, 213, 3072, 768, True, False, False),
+              (3, 211, 768, 776, True, False, False), (1, 211, 3072, 1536, False, False, False),
+              (64, 77, 512, 2304, False, False, False), (3, 213, 32, 3072, True, True, False)),
+        attention=(((1, False), (8, False), (50, False), (77, True), (211, False), (213, False),
+                    (256, False), (200, True)), ((3, 8), (64, 12)))),
+    torch.float32: dict(
+        ln_gemm=((1, 77, 512, 1536, False, False, False), (3, 77, 512, 2048, True, False, True),
+                 (64, 213, 768, 2304, False, True, False), (3, 213, 768, 3072, True, True, True),
+                 (128, 211, 768, 3072, True, False, False), (3, 211, 768, 776, False, False, False),
+                 (3, 50, 1024, 520, True, False, True), (2, 5, 32, 8, False, False, False)),
+        no_ln=((3, 77, 2048, 512, False), (64, 211, 3072, 768, True), (1, 3, 64, 24, True)),
+        gemm=((1, 77, 512, 512, True, False, False), (3, 77, 2048, 512, True, False, True),
+              (64, 213, 768, 768, True, True, False), (128, 211, 3072, 768, True, False, False),
+              (3, 211, 768, 776, True, False, True), (1, 211, 3072, 1536, False, False, False),
+              (3, 213, 32, 3072, True, True, True), (5, 7, 96, 40, False, False, True)),
+        attention=(((1, False), (8, False), (50, False), (77, True), (200, True), (211, False),
+                    (213, False), (256, False), (257, False), (442, False), (444, True)),
+                   ((3, 8), (16, 12)))),
+}
+
+
+def edge_checks(dev, rng, check, dtype):
+    """The GEMM and attention kernels of one dtype at the shapes that break
+    pipelines and edges (EDGE_SHAPES), against their plain versions: both
+    GEMM modes (with LayerNorm and without), the three epilogues (bias,
+    QuickGELU, residual), the deep-prompt splice on the LayerNorm's rows and
+    on the residual, ragged row tiles, N and K tails, rings that wrap many
+    times; in fp32 the scalar operands off 16 bytes; attention at every S
+    that changes its tiling (the text tower's causal S = 77 among them),
+    qkv views and contiguous, exact and fast, masked and not."""
     from tpu_reid_torch.models.layers import causal_mask
+    from tpu_reid_torch.ops import attention as TA
+    from tpu_reid_torch.ops import fused_attention as FA
+
+    shapes, name = EDGE_SHAPES[dtype], str(dtype)[6:]
+    tag = "" if dtype == torch.bfloat16 else f" {name}"
+
+    def t(*shape, std=1.0, dt=dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * std).to(dev, dt)
+
+    def off16(v):
+        """v at an address 4 bytes past a 16-byte boundary"""
+        if v is None:
+            return None
+        buf = torch.empty(v.numel() + 1, device=dev, dtype=v.dtype)
+        buf[1:] = v.reshape(-1)
+        return buf[1:].view(v.shape)
+
+    def splice(seq, width):
+        pm = torch.zeros(seq, 1, device=dev)
+        pm[seq - 2:] = 1.0
+        return t(seq, width), pm
+
+    def flags(*named):
+        return "".join(f" {n}" for n, on in named if on)
+
+    say(f"ln_gemm / gemm_bias_residual ({name}) at edge shapes against their plain versions")
+    for b, s, k, n, gelu, sp, odd in shapes["ln_gemm"]:
+        x, w, bias = t(b, s, k), t(k, n, std=k ** -0.5), t(n, std=0.02)
+        g, gb = 1 + t(k, std=0.05, dt=torch.float32), t(k, std=0.05, dt=torch.float32)
+        plane, pm = splice(s, k) if sp else (None, None)
+        if odd:
+            bias, g, gb, pm = off16(bias), off16(g), off16(gb), off16(pm)
+        check(f"ln_gemm{tag}[B={b} S={s} K={k} N={n}"
+              f"{flags(('gelu', gelu), ('splice', sp), ('odd addresses', odd))}]",
+              FA.ln_gemm(x, g, gb, w, bias, gelu, plane, pm),
+              FA.ln_gemm_reference(x, g, gb, w, bias, gelu, plane, pm), dtype)
+        del x, w
+    for b, s, k, n, gelu in shapes["no_ln"]:
+        x, w, bias = t(b, s, k), t(k, n, std=k ** -0.5), t(n, std=0.02)
+        check(f"ln_gemm{tag}[no LN B={b} S={s} K={k} N={n}{flags(('gelu', gelu))}]",
+              FA.ln_gemm(x, None, None, w, bias, gelu),
+              FA.ln_gemm_reference(x, None, None, w, bias, gelu), dtype)
+    for b, s, k, n, res, sp, odd in shapes["gemm"]:
+        a, w, bias = t(b, s, k), t(k, n, std=k ** -0.5), t(n, std=0.02)
+        r = t(b, s, n) if res else None
+        plane, pm = splice(s, n) if sp else (None, None)
+        if odd:
+            bias, r, pm = off16(bias), off16(r), off16(pm)
+        check(f"gemm_bias_residual{tag}[B={b} S={s} K={k} N={n}"
+              f"{flags(('residual', res), ('splice', sp), ('odd addresses', odd))}]",
+              FA.gemm_bias_residual(a, w, bias, r, plane, pm),
+              FA.gemm_bias_residual_reference(a, w, bias, r, plane, pm), dtype)
+        del a, w, r
+
+    say(f"mha_core ({name}) at every S that changes its tiling, qkv views and contiguous")
+    seqs, batches = shapes["attention"]
+    for s, causal in seqs:
+        for b, h in batches:
+            qkv = t(b, s, 3 * h * 64)
+            views = FA._qkv_views(qkv, h)
+            contiguous = tuple(v.contiguous() for v in views)
+            mask = causal_mask(s, device=dev) if causal else None
+            for fast in (False, True):
+                for label, ops in (("qkv views", views), ("contiguous", contiguous)):
+                    check(f"mha_core{tag}[B={b} S={s} H={h}{flags(('causal', causal))} {label} "
+                          f"{'fast' if fast else 'exact'}]",
+                          TA.mha_core(*ops, mask, fast=fast),
+                          TA.mha_core_reference(*ops, mask, fast=fast), dtype)
+
+
+def ln_repeat_host_checks(dev, rng, failures):
+    """The bf16 kernels: LayerNorm against precomputed LayerNorm bit for bit;
+    50 launches bit-equal; the host cost of a wrapper call in both dtypes."""
     from tpu_reid_torch.ops import attention as TA
     from tpu_reid_torch.ops import fused_attention as FA
 
@@ -671,63 +976,6 @@ def edge_checks(dev, rng, check, failures):
 
     def t(*shape, std=1.0, dt=bf):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * std).to(dev, dt)
-
-    def splice(seq, width):
-        pm = torch.zeros(seq, 1, device=dev)
-        pm[seq - 2:] = 1.0
-        return t(seq, width), pm
-
-    say("ln_gemm / gemm_bias_residual (bf16) at edge shapes against their plain versions")
-    # (B, S, K, N, gelu, splice): K <= 768 takes the 128-row panel, K = 1024 the 64-row one
-    for b, s, k, n, gelu, sp in (
-            (1, 77, 512, 1536, False, False), (3, 77, 512, 2048, True, False),
-            (64, 77, 512, 512, False, False), (1, 211, 768, 2304, False, False),
-            (3, 213, 768, 3072, True, True), (64, 213, 768, 2304, False, True),
-            (128, 211, 768, 3072, True, False), (512, 213, 768, 2304, False, True),
-            (512, 213, 768, 3072, True, False), (3, 211, 768, 776, False, False),
-            (3, 50, 1024, 520, True, False), (64, 211, 1024, 768, False, False)):
-        x, w, bias = t(b, s, k), t(k, n, std=k ** -0.5), t(n, std=0.02)
-        g, gb = 1 + t(k, std=0.05, dt=torch.float32), t(k, std=0.05, dt=torch.float32)
-        plane, pm = splice(s, k) if sp else (None, None)
-        check(f"ln_gemm[B={b} S={s} K={k} N={n}{' gelu' if gelu else ''}{' splice' if sp else ''}]",
-              FA.ln_gemm(x, g, gb, w, bias, gelu, plane, pm),
-              FA.ln_gemm_reference(x, g, gb, w, bias, gelu, plane, pm), bf)
-        del x, w
-    for b, s, k, n, gelu in ((3, 77, 2048, 512, False), (64, 211, 3072, 768, True)):
-        x, w, bias = t(b, s, k), t(k, n, std=k ** -0.5), t(n, std=0.02)
-        check(f"ln_gemm[no LN B={b} S={s} K={k} N={n}{' gelu' if gelu else ''}]",
-              FA.ln_gemm(x, None, None, w, bias, gelu),
-              FA.ln_gemm_reference(x, None, None, w, bias, gelu), bf)
-    # (B, S, K, N, residual, splice)
-    for b, s, k, n, res, sp in (
-            (1, 77, 512, 512, True, False), (3, 77, 2048, 512, True, False),
-            (64, 213, 768, 768, True, True), (128, 211, 3072, 768, True, False),
-            (512, 213, 768, 768, True, True), (512, 213, 3072, 768, True, False),
-            (3, 211, 768, 776, True, False), (1, 211, 3072, 1536, False, False),
-            (64, 77, 512, 2304, False, False), (3, 213, 32, 3072, True, True)):
-        a, w, bias = t(b, s, k), t(k, n, std=k ** -0.5), t(n, std=0.02)
-        r = t(b, s, n) if res else None
-        plane, pm = splice(s, n) if sp else (None, None)
-        check(f"gemm_bias_residual[B={b} S={s} K={k} N={n}{' residual' if res else ''}"
-              f"{' splice' if sp else ''}]",
-              FA.gemm_bias_residual(a, w, bias, r, plane, pm),
-              FA.gemm_bias_residual_reference(a, w, bias, r, plane, pm), bf)
-        del a, w, r
-
-    say("mha_core (bf16) at every S that changes its tiling, qkv views and contiguous")
-    for s, causal in ((1, False), (8, False), (50, False), (77, True), (211, False),
-                      (213, False), (256, False), (200, True)):
-        for b, h in ((3, 8), (64, 12)):
-            qkv = t(b, s, 3 * h * 64)
-            views = FA._qkv_views(qkv, h)
-            contiguous = tuple(v.contiguous() for v in views)
-            mask = causal_mask(s, device=dev) if causal else None
-            for fast in (False, True):
-                for label, ops in (("qkv views", views), ("contiguous", contiguous)):
-                    check(f"mha_core[B={b} S={s} H={h}{' causal' if causal else ''} {label} "
-                          f"{'fast' if fast else 'exact'}]",
-                          TA.mha_core(*ops, mask, fast=fast),
-                          TA.mha_core_reference(*ops, mask, fast=fast), bf)
 
     # LayerNorm in the kernel against LayerNorm done beforehand: with W = I and
     # no bias the kernel hands out its own normalised panel exactly (a product
@@ -983,23 +1231,24 @@ def zero_shot_run(params, cfg, tokenizer, ids, templates, data, dtype, bs, dev):
 
 
 KERNEL_GROUPS = (("attention_long_bf16_kernel", "mha_core (S > 256)"),
-                 ("attention_long_f32_kernel", "mha_core fp32 (S > 256)"),
                  ("ln_proj_tail_bf16_kernel", "ln_proj_tail"),
                  ("gemm_bf16_kernel<true", "ln_gemm"),
                  ("gemm_bf16_kernel<(bool)1", "ln_gemm"),
                  ("gemm_bf16_kernel<false", "gemm_bias_residual / no-LN ln_gemm"),
                  ("gemm_bf16_kernel<(bool)0", "gemm_bias_residual / no-LN ln_gemm"),
-                 ("gemm_f32_kernel<true>", "ln_gemm fp32"),
-                 ("gemm_f32_kernel<false>", "gemm_bias_residual fp32"),
+                 ("gemm_tf32x3_kernel<true", "ln_gemm fp32"),
+                 ("gemm_tf32x3_kernel<(bool)1", "ln_gemm fp32"),
+                 ("gemm_tf32x3_kernel<false", "gemm_bias_residual / no-LN ln_gemm fp32"),
+                 ("gemm_tf32x3_kernel<(bool)0", "gemm_bias_residual / no-LN ln_gemm fp32"),
                  ("attention_bf16_kernel", "mha_core"),
-                 ("attention_f32_kernel", "mha_core fp32"),
+                 ("attention_tf32x3_kernel", "mha_core fp32"),
                  ("ln_proj_tail_kernel", "ln_proj_tail (FMA)"),
                  ("minsum_kernel", "minsum"))
 
 
-def trace(fn, label, top=12):
-    """torch.profiler over fn() (run once before, outside the trace): device
-    time by kernel and the device's busy share of the host wall time."""
+def profiled(fn):
+    """torch.profiler over fn() (run once before, outside the trace): the
+    events that ran on the card and the host wall time in microseconds."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1009,7 +1258,13 @@ def trace(fn, label, top=12):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    return report_trace(device_events(prof), wall_us, label, top)
+    return device_events(prof), wall_us
+
+
+def trace(fn, label, top=12):
+    """Device time by kernel of one fn() and the device's busy share of the
+    host wall time."""
+    return report_trace(*profiled(fn), label, top)
 
 
 def busy_us(kernels) -> float:
@@ -1450,7 +1705,125 @@ def cli_phase(counters):
             raise PhaseFailed(f"prompt-learning CLI result out of range: mAP {mAP}")
         resume_cli(pl_cli, argv, os.path.join(tmp, "checkpoints", "ivlp", "market1501"), 2,
                    mAP)
+        fp32_cli_in_subprocess(tmp, ckpt, merges)
     return runs
+
+
+# run in a fresh interpreter: `python -c FIRST_FP32_CONV OUT MODE ARGS...`
+# runs the prompt-learning CLI with ARGS and saves its first fp32
+# convolution (8 images of the input, the weights, the output, cuDNN's TF32
+# flag at that call) to OUT. MODE "control" makes full_fp32_convs a no-op
+# and ends the process after the save.
+FIRST_FP32_CONV = r"""
+import os, sys
+import torch
+import torch.nn.functional as F
+import tpu_reid_torch.device as D
+
+out, mode, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+conv2d = F.conv2d
+
+
+def recorder(x, w, *args, **kwargs):
+    y = conv2d(x, w, *args, **kwargs)
+    if x.dtype == torch.float32 and x.is_cuda and not os.path.exists(out):
+        torch.save(dict(x=x[:8].detach().clone(), w=w.detach().clone(), args=args,
+                        kwargs=kwargs, y=y[:8].detach().clone(),
+                        tf32=torch.backends.cudnn.allow_tf32), out)
+        if mode == "control":
+            os._exit(0)
+    return y
+
+
+F.conv2d = recorder
+if mode == "control":
+    D.full_fp32_convs = lambda: None
+from tpu_reid_torch.cli import prompt_learning
+prompt_learning.main(argv)
+"""
+
+
+def fp32_cli_in_subprocess(root, ckpt, merges, device="cuda"):
+    """The prompt-learning CLI at its default --dtype fp32 in this process
+    and again in a subprocess, a fresh interpreter with torch's defaults
+    (cuDNN's TF32 on) that inherits none of this script's flags: the CLI's
+    main must run its convolutions in full fp32 itself. The subprocess saves
+    its first fp32 convolution (FIRST_FP32_CONV), which must be within the
+    fp32 tolerance of that convolution in fp64; a control subprocess, whose
+    full_fp32_convs does nothing, must miss it, or the check could not see
+    TF32. Both CLI runs train from the same seed; the fp32 IVLP features of
+    32 images under each run's final checkpoint must agree within the fp32
+    tolerance."""
+    from tpu_reid_torch.cli import prompt_learning as pl_cli
+    from tpu_reid_torch.data.datasets import get_dataset
+    from tpu_reid_torch.data.transforms import DevicePreprocess
+    from tpu_reid_torch.models import reid_clip as M
+    from tpu_reid_torch.runtime.checkpoint import CheckpointManager
+
+    common = ["--root", root, "--model_path", ckpt, "--bpe_path", merges, "--training_mode",
+              "ivlp", "--epochs_stage1", "1", "--epochs_stage2", "1", "--height", "256",
+              "--ratio", "0.5", "--stride", "12", "--bs", "64", "--train_dataset", "market1501",
+              "--device", device]
+    dirs = {w: os.path.join(root, f"fp32_{w}") for w in ("in_process", "subprocess", "control")}
+    say("the fp32 prompt-learning CLI (its default dtype) in this process and in a subprocess: "
+        "python -m tpu_reid_torch.cli.prompt_learning " + " ".join(common[6:]))
+    t0 = time.perf_counter()
+    _, map_in = pl_cli.main(common + ["--save_path", dirs["in_process"]])
+    t_in = time.perf_counter() - t0
+    torch.cuda.empty_cache()  # the subprocesses need the card's memory
+    convs, t_sub, tail = {}, {}, {}
+    for mode in ("subprocess", "control"):
+        convs[mode] = os.path.join(root, f"first_fp32_conv_{mode}.pt")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", FIRST_FP32_CONV, convs[mode], mode,
+                               *common, "--save_path", dirs[mode]], cwd=REPO,
+                              capture_output=True, text=True, timeout=900)
+        t_sub[mode] = time.perf_counter() - t0
+        if proc.returncode != 0 or not os.path.exists(convs[mode]):
+            raise PhaseFailed(f"the fp32 prompt-learning CLI in a {mode} subprocess exited "
+                              f"with {proc.returncode}:\n{proc.stderr[-4000:]}")
+        tail[mode] = [ln for ln in proc.stdout.splitlines() if "mAP" in ln][-1:]
+    dev = torch.device(device)
+    conv_rel, tf32_flag = {}, {}
+    for mode, path in convs.items():
+        rec = torch.load(path, map_location=dev)
+        want = F.conv2d(rec["x"].double(), rec["w"].double(), *rec["args"], **rec["kwargs"])
+        conv_rel[mode], tf32_flag[mode] = rel_err(rec["y"], want)[1], rec["tf32"]
+    tol = TOL[torch.float32]
+    conv_ok = conv_rel["subprocess"] <= tol and not tf32_flag["subprocess"]
+    control_seen = conv_rel["control"] > tol
+    say(f"  the first fp32 convolution of the CLI, {rec['x'].shape[0]} of its images against "
+        f"fp64: subprocess rel {conv_rel['subprocess']:.3e} (cudnn.allow_tf32 "
+        f"{tf32_flag['subprocess']}, tol {tol:.0e}) {'ok' if conv_ok else 'FAIL'}; control "
+        f"with full_fp32_convs a no-op rel {conv_rel['control']:.3e} (cudnn.allow_tf32 "
+        f"{tf32_flag['control']}, must exceed {tol:.0e}) "
+        f"{'ok' if control_seen else 'FAIL'}, {t_sub['control']:.1f} s")
+    if not control_seen:
+        raise PhaseFailed("the control subprocess's TF32 convolution is within the fp32 "
+                          "tolerance: the check cannot see TF32")
+    if not conv_ok:
+        raise PhaseFailed("the fp32 CLI in a subprocess runs its convolutions in TF32")
+    args = pl_cli.params_parser(common)
+    ds = get_dataset(root, "market1501")
+    mcfg, _, (h, w) = pl_cli.build_model(args, ds.num_train_pids, ds.car_types_train, device=dev)
+    pp32 = DevicePreprocess((h, w), "vit")
+    images = pp32.eval_batch(torch.randint(0, 255, (32, h, w, 3), dtype=torch.uint8, device=dev,
+                                           generator=torch.Generator(device=dev).manual_seed(4)))
+    feats = {}
+    for k in ("in_process", "subprocess"):
+        mgr = CheckpointManager(os.path.join(dirs[k], "ivlp", "market1501"))
+        params = mgr.restore(device=dev)["params"]
+        mgr.close()
+        with torch.no_grad():
+            feats[k] = M.eval_embed(params, mcfg, images)
+        del params
+    err, rel = rel_err(feats["subprocess"], feats["in_process"])
+    ok = rel <= tol
+    say(f"  in process {t_in:.1f} s (mAP {map_in:.6f}), subprocess {t_sub['subprocess']:.1f} s "
+        f"({tail['subprocess']}); fp32 features of 32 images under each final checkpoint: "
+        f"max|d| {err:.3e}, rel {rel:.3e} (tol {tol:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseFailed("the fp32 CLI in a subprocess trains other weights than in process")
 
 
 def resume_cli(cli, argv, ckpt_dir, last_epoch, mAP):
@@ -1736,6 +2109,179 @@ def timed_steps(stage, step, counters, losses, n=3):
     return dict(ms=ms, peak_gib=peak, launches=launches)
 
 
+def fp32_steps(dev, counters, mcfg, params, images, labels, valid, text, draws, bs, n=6):
+    """fp32 activations over fp32 master weights (the training CLIs' default
+    --dtype): a stage-2 step and a live stage-1 step of the flagship at bs
+    64, each timed as the median of n warm steps (CUDA events around each
+    step, no synchronisation between steps) on the host loop (eager, as
+    run_stage2 / run_stage1 step) and as replays of one CUDA graph
+    (StepGraph, as the cached runners replay); the fp32 kernels' launches
+    per step on both and on the cached coop stage 1 (its text tower); one
+    captured stage-2 step against an eager step from the same state, loss
+    and every updated tensor bit for bit."""
+    from tpu_reid_torch.data.transforms import DevicePreprocess
+    from tpu_reid_torch.models import reid_clip as M
+    from tpu_reid_torch.train import optim as O
+    from tpu_reid_torch.train import trainer as TR
+    from tpu_reid_torch.train.step_graph import StepGraph
+
+    pp32 = DevicePreprocess((256, 128), "vit")
+    tcfg = TR.TrainConfig()
+    batch1 = {"images": pp32.eval_batch(images), "labels": labels, "valid": valid}
+    imgs2 = pp32.train_batch(images, draws)
+
+    def make(stage, capturable):
+        capturable = capturable and dev.type == "cuda"  # Adam's capturable mode is CUDA-only
+        if stage == "stage 2":
+            tr, fr = O.partition(params, lambda q: M.stage2_trainable(q, mcfg))
+            fr, bn = TR._bn_state(fr, mcfg)
+            tr = TR._trainable_copy(tr)
+            opt = O.make_stage_optimizer(tr, tcfg.lr_stage2, tcfg.weight_decay,
+                                         bias_lr_mult=2.0, capturable=capturable)
+            step = TR.make_stage2_step(mcfg, tcfg, opt)
+            return (lambda: step(tr, fr, imgs2, labels, text, valid)), TR._TrainState(
+                tr, opt, bn)
+        tr, fr = O.partition(params, lambda q: M.stage1_trainable(q, mcfg))
+        tr = TR._trainable_copy(tr)
+        opt = O.make_stage_optimizer(tr, tcfg.lr_stage1, tcfg.weight_decay,
+                                     capturable=capturable)
+        step = TR.make_stage1_step(mcfg, opt, cached=False)
+        return (lambda: step(tr, fr, batch1)), TR._TrainState(tr, opt)
+
+    def median_ms(fn):
+        fn()  # warm
+        events = []
+        for _ in range(n):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            events.append((a, b))
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in events]
+
+    say(f"fp32 training steps of the flagship at bs {bs} (fp32 activations and weights; "
+        f"median of {n} warm steps, CUDA events around each)")
+    report = {}
+    for stage in ("stage 2", "live stage 1"):
+        body, state = make(stage, False)
+        body()
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        body()
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        host = median_ms(body)
+        kernels, wall_us = profiled(body)
+        report_trace(kernels, wall_us, f"one fp32 {stage} step (host loop)")
+        names = {e.name for e in kernels}
+        absent = RETIRED_FP32_KERNELS + BF16_BLOCK_KERNELS
+        found = {k: sum(k in n for n in names) for k in FP32_KERNELS + absent}
+        say(f"  the block kernels in that trace (distinct names): {found}")
+        if any(found[k] == 0 for k in FP32_KERNELS) or any(found[k] for k in absent):
+            raise PhaseFailed(f"the fp32 {stage} step's trace shows {found}: the 3xTF32 "
+                              f"kernels must run, and neither the FMA nor the bf16 ones")
+        del body, state
+        body, state = make(stage, True)
+        run = StepGraph(body, state.tensors, dev, name=f"fp32 {stage} step")
+        graph = median_ms(run)
+        run.release(TR._leaves(state.trainable))
+        del body, state, run
+        torch.cuda.empty_cache()
+        report[f"fp32 {stage}"] = dict(host_ms=float(np.median(host)),
+                                       graph_ms=float(np.median(graph)), host_all=host,
+                                       graph_all=graph, launches=launches)
+        say(f"  fp32 {stage} step: host loop {np.median(host):.2f} ms (steps "
+            f"{', '.join(f'{v:.2f}' for v in host)}), CUDA graph {np.median(graph):.2f} ms "
+            f"(replays {', '.join(f'{v:.2f}' for v in graph)}); launches in one step "
+            f"{launches}")
+        missing = [k for k, v in launches.items() if v == 0]
+        if missing:
+            raise PhaseFailed(f"the fp32 {stage} step never launched {missing}")
+
+    # one captured stage-2 step against an eager step from the same state.
+    # cuDNN's default fp32 weight-gradient algorithm of the patch-embed conv
+    # is not deterministic (two eager steps differ in that leaf's Adam
+    # moments by ~1e-9), so the comparison runs with cuDNN's deterministic
+    # algorithms.
+    def named(state):
+        names = {id(t): "/".join(q) for q, t in O.paths(state.trainable) if t is not None}
+        out = list(names.values())
+        out += ["bn/" + "/".join(q) for q, t in O.paths(state.bn) if t is not None]
+        for grp in state.optimizer.param_groups:
+            for t in grp["params"]:
+                out += [f"adam/{names[id(t)]}/{k}" for k, v in state.optimizer.state[t].items()
+                        if isinstance(v, torch.Tensor)]
+        return out
+
+    def differing(sa, sb):
+        return [(n, float((a.float() - b.float()).abs().max()))
+                for n, a, b in zip(named(sa), sa.tensors(), sb.tensors())
+                if not torch.equal(a, b)]
+
+    def eager_and_captured():
+        body_e, state_e = make("stage 2", True)
+        loss_e = body_e()
+        body_g, state_g = make("stage 2", True)
+        run = StepGraph(body_g, state_g.tensors, dev, name="fp32 stage-2 step")
+        loss_g = run()
+        torch.cuda.synchronize()
+        out = (loss_e, loss_g, differing(state_e, state_g), len(state_e.tensors()))
+        run.release(TR._leaves(state_g.trainable))
+        return out
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss_e, loss_g, captured, n_updated = eager_and_captured()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    same = torch.equal(loss_e, loss_g) and not captured
+    say(f"  one captured fp32 stage-2 step against its eager step from the same state "
+        f"(cuDNN deterministic): loss {float(loss_g):.6f} / {float(loss_e):.6f}, {n_updated} "
+        f"updated tensors, {len(captured)} differ {captured}: "
+        f"{'bit-equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise PhaseFailed("a captured fp32 stage-2 step differs from its eager step")
+    return report
+
+
+def coop_stage1_fp32_launches(dev, counters, bs):
+    """The fp32 kernels' launches in one cached coop stage-1 step (the text
+    tower over all classes from precomputed image features) at bs 64."""
+    from tpu_reid_torch.data.transforms import DevicePreprocess
+    from tpu_reid_torch.models import reid_clip as M
+    from tpu_reid_torch.train import optim as O
+    from tpu_reid_torch.train import trainer as TR
+
+    mcfg, params = variant_model(dev, "coop")
+    tcfg = TR.TrainConfig()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    labels = torch.as_tensor(np.repeat(np.random.RandomState(3).choice(
+        mcfg.n_cls, bs // 4, replace=False), 4), device=dev)
+    pp32 = DevicePreprocess((256, 128), "vit")
+    with torch.no_grad():
+        e = M.encode_image_features(params, mcfg, pp32.eval_batch(torch.zeros(
+            1, 256, 128, 3, dtype=torch.uint8, device=dev)))["proj"].shape[-1]
+    batch = {"image_features": torch.randn(bs, e, device=dev, generator=gen), "labels": labels,
+             "valid": torch.ones(bs, dtype=torch.bool, device=dev)}
+    tr, fr = O.partition(params, lambda q: M.stage1_trainable(q, mcfg))
+    tr = TR._trainable_copy(tr)
+    step = TR.make_stage1_step(mcfg, O.make_stage_optimizer(tr, tcfg.lr_stage1,
+                                                            tcfg.weight_decay), cached=True)
+    step(tr, fr, batch)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    step(tr, fr, batch)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    say(f"  fp32 cached coop stage-1 step (bs {bs}): launches in one step {launches}")
+    return launches
+
+
 def training_phase(dev, counters, mcfg, params, bs=64):
     """Three live IVLP stage-1 steps and three stage-2 steps of the flagship
     at bs 64 (PK 16 x 4) in bf16 activations over fp32 master weights: ms
@@ -1830,7 +2376,27 @@ def training_phase(dev, counters, mcfg, params, bs=64):
         f"at {worst_path} (tol 1e-3 of each leaf's max|grad|) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise PhaseFailed("the fp32 stage-2 step through the kernels disagrees with the plain one")
+    del res, gk, gp
+    torch.cuda.empty_cache()
+    counters32 = fp32_counters()
+    report.update(fp32_steps(dev, counters32, mcfg, params, images, labels, valid, text, draws,
+                             bs))
+    report["fp32 cached coop stage 1"] = dict(launches=coop_stage1_fp32_launches(
+        dev, counters32, bs))
     return report
+
+
+def fp32_counters():
+    """The fp32 records' names -> their wrappers' launch counters. The fp32
+    steps, zeroed just before, launch the wrappers in fp32 only (their
+    traces show no bf16 block kernel), so the counters read fp32 launches."""
+    from tpu_reid_torch.ops import attention as TA
+    from tpu_reid_torch.ops import fused_attention as FA
+    from tpu_reid_torch.ops import fused_tail as FT
+
+    return {"ln_gemm_fp32": FA.ln_gemm, "mha_core_fp32": TA.mha_core,
+            "gemm_bias_residual_fp32": FA.gemm_bias_residual,
+            "ln_proj_tail_fp32": FT.ln_proj_tail_kernel}
 
 
 # ---------------------------------------------------------------------------
@@ -4158,9 +4724,17 @@ def tools_phase(dev, counters):
 
 # instantiations of the wgmma kernels that the sources launch: the GEMM as
 # (LN, 128 or 64 rows, epilogue) = 3 without LN + 4 with; the two attention
-# kernels; the CLS tail
+# kernels; the CLS tail; the fp32 route's (LN, epilogue) = 3 without LN + 2
+# with, and its attention kernel
 WGMMA_ENTRIES = {"gemm_bf16_kernel": 7, "attention_bf16_kernel": 1,
-                 "attention_long_bf16_kernel": 1, "ln_proj_tail_bf16_kernel": 1}
+                 "attention_long_bf16_kernel": 1, "ln_proj_tail_bf16_kernel": 1,
+                 "gemm_tf32x3_kernel": 5, "attention_tf32x3_kernel": 1}
+# the fp32 kernels of each wrapper: what an fp32 training step must launch,
+# and the FMA kernels they replaced, which no trace may show
+FP32_KERNELS = ("gemm_tf32x3_kernel", "attention_tf32x3_kernel")
+RETIRED_FP32_KERNELS = ("gemm_f32_kernel", "attention_f32_kernel", "attention_long_f32_kernel")
+BF16_BLOCK_KERNELS = ("gemm_bf16_kernel", "attention_bf16_kernel", "attention_long_bf16_kernel",
+                      "ln_proj_tail_bf16_kernel")
 
 
 def mangled_kernel_name(line: str) -> str:
@@ -4374,12 +4948,14 @@ def main() -> int:
         say(json.dumps({"ok": False, "partial": sorted(only)}))
         return 3
     kernels = []
-    for name in dict(counters, mha_core_long=TA.mha_core_long):
+    for name in dict(counters, mha_core_long=TA.mha_core_long, **fp32_counters()):
         r = dict(record[name])
         # launches: the main path of the slice that brought the kernel: IVLP
         # serving for the block kernels and the tail, the re-ranking path for
-        # minsum, IVLP serving at the vehicle geometry for the key-tile kernel
-        main = {"minsum": "rerank", "mha_core_long": "vehicle_serve"}.get(name, "ivlp_serve")
+        # minsum, IVLP serving at the vehicle geometry for the key-tile kernel,
+        # the fp32 stage-2 training step for the fp32 route
+        main = {"minsum": "rerank", "mha_core_long": "vehicle_serve"}.get(
+            name, "fp32 stage 2" if name.endswith("_fp32") else "ivlp_serve")
         r["launches"] = by_path[main][name]
         r["launches_by_path"] = {p: c[name] for p, c in by_path.items() if name in c}
         kernels.append(r)

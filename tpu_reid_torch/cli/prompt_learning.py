@@ -261,8 +261,10 @@ def sie_table(args, dataset):
 def main(argv=None):
     """Parse the flags and run the CLI on every rank; returns rank 0's
     (cmc, mAP)."""
+    from tpu_reid_torch.device import full_fp32_convs
     from tpu_reid_torch.parallel import launch
 
+    full_fp32_convs()
     args = params_parser(argv)
     check_flags(args)
     args.test_dataset = args.test_dataset or args.train_dataset

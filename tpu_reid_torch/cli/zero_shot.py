@@ -109,8 +109,10 @@ def check_world(args) -> None:
 def main(argv=None):
     """Parse the flags and run the CLI on every rank; returns rank 0's
     (cmc, mAP)."""
+    from tpu_reid_torch.device import full_fp32_convs
     from tpu_reid_torch.parallel import launch
 
+    full_fp32_convs()
     args = params_parser(argv)
     check_world(args)
     return launch.run(run, (args,), devices=args.devices, device=args.device,

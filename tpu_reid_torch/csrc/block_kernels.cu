@@ -15,8 +15,9 @@
 //                       spliced rows are read from the plane instead. Without
 //                       LN parameters the rows are read as they are (fused_mha
 //                       without pre-LN).
-//   mha_core            softmax attention for any S, dh = 64 (whole score rows
-//                       for S <= 256, a loop over key tiles beyond) on
+//   mha_core            softmax attention for any S, dh = 64 (bf16: whole score
+//                       rows for S <= 256, a loop over key tiles beyond; fp32:
+//                       key tiles for every S) on
 //                       q, k and v given as three base pointers and one row
 //                       stride (elements between consecutive tokens): views
 //                       into a packed (B, S, 3D) qkv buffer (stride 3D) and
@@ -82,7 +83,23 @@
 //     head, image); K and V tiles of 64 keys stream through a TMA ring, the
 //     softmax runs online over the tiles; its notes stand above it.
 //
-// The fp32 paths are plain FMA kernels (parity runs, the fp32 text tower).
+// The fp32 route (the training CLIs' default dtype: every forward of every
+// training step) runs two kernels of its own, both 3xTF32 on wgmma: each
+// operand split once into hi = tf32(x) and lo = tf32(x - hi), each k8 step
+// lo*hi + hi*lo + hi*hi into one fp32 accumulator, so every product keeps
+// ~22 of fp32's 24 mantissa bits at a third of the TF32 tensor-core rate
+// (165 TF/s dense against the CUDA cores' 67 TF/s of fp32 FMA). What bounds
+// them is that rate: the least time of an fp32-accurate product on this card
+// is three TF32 passes.
+//
+//   * gemm_tf32x3_kernel behind ln_gemm and gemm_bias_residual; tf32 wgmma
+//     reads its shared operands K-major only, so a splitter warpgroup
+//     writes each TMA-loaded W tile transposed and split, while the
+//     consumers take A from registers (LayerNorm and splice applied there,
+//     before the split); its notes stand above it.
+//   * attention_tf32x3_kernel: mha_core for every S, flash-style over key
+//     tiles of 64 with an online softmax; its notes stand above it.
+//
 // Measured times stand in PERF.md.
 //
 // bf16 rounding points mirror the Pallas kernel: LN output cast back to the
@@ -106,8 +123,7 @@ namespace {
 // GEMM with LayerNorm prologue / bias, QuickGELU or residual epilogue
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 128, BN = 128, BK = 32, GEMM_THREADS = 256;
-constexpr int LN_MAX_K = 1024;  // LayerNorm width the prologue holds
+constexpr int LN_MAX_K = 1024;  // LayerNorm width the kernels take
 constexpr int EPI_BIAS = 0, EPI_GELU = 1, EPI_RESIDUAL = 2;
 
 struct GemmArgs {
@@ -122,92 +138,6 @@ struct GemmArgs {
   void* out;           // (M, N), T
   int M, N, K, S, epi;
 };
-
-// Source row of each tile row (the activation, or the prompt plane where the
-// LN path splices; null past M) and, with LN, the fp32 gamma/beta staged in
-// shared memory (ln_s: [gamma | beta]) and each row's fp32 statistics: a
-// warp loads RG rows into registers at once (K <= LN_MAX_K), then takes two
-// passes over each. Ends with a barrier.
-template <typename T, bool LN>
-__device__ __forceinline__ void gemm_rows(const GemmArgs& g, int m0, const T** row_src,
-                                          float* row_mean, float* row_rstd, float* ln_s) {
-  constexpr int VEC = Vec<T>::N, NV = LN_MAX_K / (32 * VEC), RG = 16 / NV;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (tid < BM) {
-    const int m = m0 + tid;
-    const T* p = nullptr;
-    if (m < g.M) {
-      p = static_cast<const T*>(g.a) + (size_t)m * g.K;
-      if (LN && g.plane != nullptr) {
-        const int s = m % g.S;
-        if (g.pmask[s] > 0.f) p = static_cast<const T*>(g.plane) + (size_t)s * g.K;
-      }
-    }
-    row_src[tid] = p;
-  }
-  if (LN) {
-    for (int k = tid; k < g.K; k += GEMM_THREADS) {
-      ln_s[k] = g.ln_g[k];
-      ln_s[LN_MAX_K + k] = g.ln_b[k];
-    }
-  }
-  __syncthreads();
-  if (!LN) return;
-  for (int r0 = warp * RG; r0 < BM; r0 += (GEMM_THREADS / 32) * RG) {
-    uint4 u[RG][NV];
-#pragma unroll
-    for (int q = 0; q < RG; ++q) {
-      const T* p = row_src[r0 + q];
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const int c = (lane + 32 * i) * VEC;
-        u[q][i] = (p != nullptr && c < g.K) ? *reinterpret_cast<const uint4*>(p + c)
-                                             : make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < RG; ++q) {
-      float f[VEC], s = 0.f;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        unpack_vec<T>(u[q][i], f);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) s += f[e];
-      }
-      const float mean = warp_sum(s) / g.K;
-      float v = 0.f;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        if ((lane + 32 * i) * VEC >= g.K) continue;
-        unpack_vec<T>(u[q][i], f);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) v += (f[e] - mean) * (f[e] - mean);
-      }
-      const float rstd = rsqrtf(warp_sum(v) / g.K + 1e-5f);
-      if (lane == 0) {
-        const bool live = row_src[r0 + q] != nullptr;
-        row_mean[r0 + q] = live ? mean : 0.f;
-        row_rstd[r0 + q] = live ? rstd : 0.f;
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// acc + bias, then QuickGELU (fp32) or + splice(residual), for output (m, n)
-template <typename T>
-__device__ __forceinline__ float epi_value(const GemmArgs& g, int m, int n, float v) {
-  v += to_f(static_cast<const T*>(g.bias)[n]);
-  if (g.epi == EPI_GELU) return v * (1.f / (1.f + expf(-1.702f * v)));
-  if (g.epi == EPI_RESIDUAL) {
-    const int s = m % g.S;
-    const T* r = (g.plane != nullptr && g.pmask[s] > 0.f)
-                     ? static_cast<const T*>(g.plane) + (size_t)s * g.N
-                     : static_cast<const T*>(g.res) + (size_t)m * g.N;
-    v += to_f(r[n]);
-  }
-  return v;
-}
 
 // ---- bf16: TMA-fed wgmma; with LN, a normalised row panel resident in shared memory ----
 //
@@ -602,80 +532,359 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
   }
 }
 
-// ---- fp32: plain FMA --------------------------------------------------------
+// ---- fp32: 3xTF32 on wgmma ---------------------------------------------------
 //
-// 16x16 threads, each an 8x8 strided micro-tile (rows ty+16i, cols tx+16j)
-// so shared reads are broadcasts or consecutive words; one shared stage.
+// fp32 in, fp32 out, every product fp32-accurate: each operand is split once,
+// as it reaches the tensor cores, into hi = tf32(x) and lo = tf32(x - hi),
+// and every k8 step adds lo*hi, hi*lo, then hi*hi into one fp32 accumulator
+// (only lo*lo, about 2^-22 of a product, is dropped): three TF32 passes, a
+// third of the tensor cores' TF32 rate and ~2.5x the CUDA cores' fp32 rate.
+//
+// Block tile 128 x 128, k-stages of 32 (one 128-byte row of fp32), 384
+// threads: two consumer warpgroups (64 rows each) and a splitter warpgroup
+// whose thread 0 also issues the TMA loads. A k-stage arrives raw in a ring
+// of TG_RAW stages: the A tile (128 rows x 32, 128-byte swizzle) and the W
+// tile (32 rows x 128 columns as W is stored, (K, N) row-major: N-major).
+// tf32 wgmma reads both shared operands K-major only, so the splitter writes
+// each W tile transposed, split into hi and lo, in the 128-byte swizzle
+// (one 128-byte row per output column), into a double-buffered split ring;
+// W changes every training step, so no copy of it is made beforehand. The
+// consumers take A from registers: each thread reads its fragment of the
+// raw A tile, applies the LayerNorm (fp32 statistics and affine, before the
+// split) or takes a spliced row from the prompt plane, and splits it; the
+// next stage's values are read while the tensor cores work on this one.
+//
+// LayerNorm: a row panel's statistics are taken once, two-pass in fp32, when
+// a block enters the panel (each warp its 16 rows, two at a time). Blocks
+// take chunks of up to three consecutive N tiles of one panel, chunk c,
+// c + G, ... (without LayerNorm chunks of one tile), so that the ~20 panels
+// in flight stay in L2 while the statistics are paid once per chunk.
+// Epilogue in fp32: bias, QuickGELU or the spliced residual, read one by
+// one (any address: FP32_SCALAR_OPERANDS in ops/fused_attention.py).
 
-template <bool LN>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_f32_kernel(GemmArgs g) {
-  constexpr int VEC = 4, AS = BK + 4, BS = BN + 4;
-  __shared__ __align__(128) float As[BM * AS];
-  __shared__ __align__(128) float Bs[BK * BS];
-  __shared__ const float* row_src[BM];
-  __shared__ float row_mean[BM], row_rstd[BM];
-  __shared__ float ln_s[LN ? 2 * LN_MAX_K : 1];
+constexpr int TG_BM = 128, TG_BN = 128, TG_BK = 32, TG_RAW = 4, TG_THREADS = 384;
+constexpr int TG_TILE = TG_BM * TG_BK * 4;        // 16 KB: an A tile, a W tile, a split half
+constexpr int TG_RAW_STAGE = 2 * TG_TILE;         // [A | W]
+constexpr int TG_SPLIT_STAGE = 2 * TG_TILE;       // [hi | lo]
+constexpr int TG_LN_BYTES = (2 * LN_MAX_K + 3 * TG_BM) * 4;  // gamma, beta; row statistics
+constexpr int TG_SMEM = 1024 + TG_RAW * TG_RAW_STAGE + 2 * TG_SPLIT_STAGE + TG_LN_BYTES +
+                        8 * (2 * TG_RAW + 4);
 
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const float* W = static_cast<const float*>(g.w);
-  gemm_rows<float, LN>(g, m0, row_src, row_mean, row_rstd, ln_s);
+// a shared-memory word read where it is used: the compiler keeps no copy of
+// it in a register across the K loop
+__device__ __forceinline__ float lds_volatile(const float* p) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(smem_addr(p)));
+  return v;
+}
 
-  const int tx = tid & 15, ty = tid >> 4;
-  float facc[8][8];
+// where a block's tiles lie: chunks of consecutive N tiles of one row panel
+struct TileOrder {
+  int n_tiles, cpp;  // N tiles; chunks per panel
+  long long n_chunks;
+  __device__ TileOrder(const GemmArgs& g, bool ln) {
+    n_tiles = (g.N + TG_BN - 1) / TG_BN;
+    cpp = ln ? (n_tiles + 2) / 3 : n_tiles;
+    n_chunks = (long long)((g.M + TG_BM - 1) / TG_BM) * cpp;
+  }
+  // the N tiles [nt0, nt1) of chunk c (never empty: cpp <= n_tiles)
+  __device__ void tiles(long long c, int& nt0, int& nt1) const {
+    const int j = (int)(c % cpp);
+    nt0 = j * n_tiles / cpp;
+    nt1 = (j + 1) * n_tiles / cpp;
+  }
+};
+
+// A walk over a block's k-stages in order: (chunk, N tile, k-stage)
+struct StageWalk {
+  long long c;
+  int nt, nt1, kt;
+  __device__ bool start(const TileOrder& o) {
+    c = blockIdx.x;
+    kt = 0;
+    if (c >= o.n_chunks) return false;
+    o.tiles(c, nt, nt1);
+    return true;
+  }
+  __device__ bool next(const TileOrder& o, int nk) {
+    if (++kt < nk) return true;
+    kt = 0;
+    if (++nt < nt1) return true;
+    c += gridDim.x;
+    if (c >= o.n_chunks) return false;
+    o.tiles(c, nt, nt1);
+    return true;
+  }
+};
+
+// fp32 epilogue value of output (m, n): + bias, then QuickGELU or + residual
+// (already the spliced row's)
+template <int EPI>
+__device__ __forceinline__ float tg_epi(float v, float bias, const float* res_row, int n) {
+  v += bias;
+  if (EPI == EPI_GELU) return v / (1.f + expf(-1.702f * v));
+  if (EPI == EPI_RESIDUAL) v += res_row[n];
+  return v;
+}
+
+template <bool LN, int EPI>
+__global__ void __launch_bounds__(TG_THREADS, 1)
+gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_w, const GemmArgs g) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023u) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - raw);
+  const uint32_t ring = base, split = ring + TG_RAW * TG_RAW_STAGE;
+  float* const ln_s = reinterpret_cast<float*>(gbase + TG_RAW * TG_RAW_STAGE +
+                                               2 * TG_SPLIT_STAGE);  // [gamma | beta]
+  // per tile row of the current panel: mean, rstd, and (as a float) the
+  // position in its sequence where the row is spliced from the plane, or -1
+  float* const row_mean = ln_s + 2 * LN_MAX_K;
+  float* const row_rstd = row_mean + TG_BM;
+  float* const row_plane = row_rstd + TG_BM;
+  const uint32_t raw_full = split + 2 * TG_SPLIT_STAGE + TG_LN_BYTES;
+  const uint32_t raw_empty = raw_full + 8 * TG_RAW, split_full = raw_empty + 8 * TG_RAW,
+                 split_empty = split_full + 16;
+  const TileOrder order(g, LN);
+  const int nk = g.K / TG_BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TG_RAW; ++s) {
+      mbar_init(raw_full + 8 * s, 1);
+      mbar_init(raw_empty + 8 * s, TG_THREADS);  // every thread has read its part
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(split_full + 8 * s, 128);   // the splitters
+      mbar_init(split_empty + 8 * s, 256);  // the consumers
+    }
+    mbar_init_fence();
+  }
+  if (LN) {
+    for (int k = threadIdx.x; k < g.K; k += TG_THREADS) {
+      ln_s[k] = g.ln_g[k];
+      ln_s[LN_MAX_K + k] = g.ln_b[k];
+    }
+  }
+  __syncthreads();
+  if (blockIdx.x >= order.n_chunks) return;
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (wg == 2) {
+    // ---- splitters: W tiles transposed and split; thread 0 keeps the raw ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 88;\n");
+    StageWalk pw;
+    bool pmore = false;
+    long long issued = 0;
+    auto issue = [&]() {
+      const int s = (int)(issued % TG_RAW);
+      mbar_wait(raw_empty + 8 * s, (uint32_t)((issued / TG_RAW) & 1) ^ 1);
+      mbar_arrive_expect_tx(raw_full + 8 * s, TG_RAW_STAGE);
+      const int m0 = (int)(pw.c / order.cpp) * TG_BM, n0 = pw.nt * TG_BN;
+      const uint32_t dst = ring + s * TG_RAW_STAGE;
+      tma_load_2d(dst, &map_a, raw_full + 8 * s, pw.kt * TG_BK, m0);
+      tma_load_2d(dst + TG_TILE, &map_w, raw_full + 8 * s, n0, pw.kt * TG_BK);
+      ++issued;
+      pmore = pw.next(order, nk);
+    };
+    if (tid == 0) {
+      pmore = pw.start(order);
+      for (int s = 0; s < TG_RAW && pmore; ++s) issue();
+    }
+    StageWalk sw;
+    bool more = sw.start(order);
+    for (long long it = 0; more; ++it, more = sw.next(order, nk)) {
+      const int s = (int)(it % TG_RAW), sp = (int)(it & 1);
+      mbar_wait(raw_full + 8 * s, (uint32_t)((it / TG_RAW) & 1));
+      mbar_wait(split_empty + 8 * sp, (uint32_t)((it >> 1) & 1) ^ 1);
+      // column n = tid of the W tile: 32 k values -> one swizzled 128-byte
+      // row of hi and one of lo (chunk kc of row n at ((kc ^ (n & 7)) << 4))
+      const float* wr = reinterpret_cast<const float*>(gbase + s * TG_RAW_STAGE + TG_TILE);
+      unsigned char* hi = gbase + TG_RAW * TG_RAW_STAGE + sp * TG_SPLIT_STAGE + tid * 128;
+      float v[TG_BK];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+      for (int k = 0; k < TG_BK; ++k) v[k] = wr[k * TG_BN + tid];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) facc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < g.K; k0 += BK) {
-    for (int v = tid; v < BM * BK / VEC; v += GEMM_THREADS) {
-      const int r = v / (BK / VEC), c = (v % (BK / VEC)) * VEC;
-      const float* p = row_src[r];
-      float f[VEC] = {0.f, 0.f, 0.f, 0.f};
-      if (p != nullptr) {
-        load_vec<float>(p + k0 + c, f);
-        if (LN) {
-          const float mean = row_mean[r], rstd = row_rstd[r];
+      for (int kc = 0; kc < TG_BK / 4; ++kc) {
+        uint32_t h[4], l[4];
 #pragma unroll
-          for (int i = 0; i < VEC; ++i)
-            f[i] = (f[i] - mean) * rstd * ln_s[k0 + c + i] + ln_s[LN_MAX_K + k0 + c + i];
-        }
+        for (int e = 0; e < 4; ++e) tf32_split(v[4 * kc + e], h[e], l[e]);
+        const int off = (kc ^ (tid & 7)) << 4;
+        *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(hi + TG_TILE + off) = make_uint4(l[0], l[1], l[2], l[3]);
       }
-      store_vec<float>(As + r * AS + c, f);
+      fence_proxy_async();
+      mbar_arrive(split_full + 8 * sp);
+      mbar_arrive(raw_empty + 8 * s);
+      if (tid == 0 && pmore) issue();
     }
-    for (int v = tid; v < BK * BN / VEC; v += GEMM_THREADS) {
-      const int r = v / (BN / VEC), c = (v % (BN / VEC)) * VEC;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + c < g.N) u = *reinterpret_cast<const uint4*>(W + (size_t)(k0 + r) * g.N + n0 + c);
-      *reinterpret_cast<uint4*>(Bs + r * BS + c) = u;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[8], b[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[(ty + 16 * i) * AS + kk];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = Bs[kk * BS + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) facc[i][j] = fmaf(a[i], b[j], facc[i][j]);
-    }
-    __syncthreads();
+    return;
   }
 
-  float* out = static_cast<float*>(g.out);
+  // ---- consumers: A fragments from the raw tile, three passes on wgmma ------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 208;\n");
+  const int warp = tid / 32, lane = tid % 32, gq = lane >> 2, q = lane & 3;
+  const int r_loc = 64 * wg + 16 * warp + gq;  // tile row of the thread's first row
+  uint32_t it = 0;
+  for (long long c = blockIdx.x; c < order.n_chunks; c += gridDim.x) {
+    const int m0 = (int)(c / order.cpp) * TG_BM;
+    int nt0, nt1;
+    order.tiles(c, nt0, nt1);
+    // each warp its 16 rows of the panel: statistics, and where the
+    // LayerNorm input is spliced from the prompt plane (in shared memory,
+    // which only this warp reads: no register holds them over the K loop)
+    if (LN) {
+      const int nchunks = g.K / 4;
+      for (int r0 = 0; r0 < 16; r0 += 2) {
+        float4 u[2][LN_MAX_K / 128];
+        const float* rp[2];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= g.M) continue;
+        for (int rr = 0; rr < 2; ++rr) {
+          const int m = m0 + 64 * wg + 16 * warp + r0 + rr;
+          const float* p = nullptr;
+          int spliced = -1;
+          if (m < g.M) {
+            p = static_cast<const float*>(g.a) + (size_t)m * g.K;
+            if (g.plane != nullptr) {
+              const int s = m % g.S;
+              if (g.pmask[s] > 0.f) {
+                p = static_cast<const float*>(g.plane) + (size_t)s * g.K;
+                spliced = s;
+              }
+            }
+          }
+          rp[rr] = p;
+          if (lane == 0) row_plane[64 * wg + 16 * warp + r0 + rr] = (float)spliced;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < g.N) out[(size_t)m * g.N + n] = epi_value<float>(g, m, n, facc[i][j]);
+          for (int i = 0; i < LN_MAX_K / 128; ++i) {
+            const int ch = lane + 32 * i;
+            u[rr][i] = (p != nullptr && ch < nchunks)
+                           ? *reinterpret_cast<const float4*>(p + 4 * ch)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        }
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          float s1 = 0.f;
+#pragma unroll
+          for (int i = 0; i < LN_MAX_K / 128; ++i)
+            s1 += (u[rr][i].x + u[rr][i].y) + (u[rr][i].z + u[rr][i].w);
+          const float mu = warp_sum(s1) / g.K;
+          float s2 = 0.f;
+#pragma unroll
+          for (int i = 0; i < LN_MAX_K / 128; ++i) {
+            if (lane + 32 * i >= nchunks) continue;
+            const float a0 = u[rr][i].x - mu, a1 = u[rr][i].y - mu, a2 = u[rr][i].z - mu,
+                        a3 = u[rr][i].w - mu;
+            s2 += (a0 * a0 + a1 * a1) + (a2 * a2 + a3 * a3);
+          }
+          const float rs = rsqrtf(warp_sum(s2) / g.K + 1e-5f);
+          const bool live = rp[rr] != nullptr;
+          if (lane == 0) {
+            row_mean[64 * wg + 16 * warp + r0 + rr] = live ? mu : 0.f;
+            row_rstd[64 * wg + 16 * warp + r0 + rr] = live ? rs : 0.f;
+          }
+        }
+      }
+      __syncwarp();
+    }
+    for (int nt = nt0; nt < nt1; ++nt) {
+      const int n0 = nt * TG_BN;
+      // A values of one k-stage, normalised: v[k8][i] becomes the register
+      // operand of the k8 step (i = 0: row r_loc, column 8 k8 + q; 1: row
+      // r_loc + 8; 2, 3: column + 4) once split. The next stage's are read
+      // under this stage's tensor-core work; only 16 fp32 values wait in
+      // registers (their split, 48 ALU operations, follows the wait).
+      auto load_vals = [&](uint32_t st, int kt, float (&vals)[4][4]) {
+        const int s = (int)(st % TG_RAW);
+        mbar_wait(raw_full + 8 * s, (st / TG_RAW) & 1);
+        const unsigned char* at = gbase + s * TG_RAW_STAGE;
+        float mean[2] = {0.f, 0.f}, rstd[2] = {0.f, 0.f};
+        const float* sp_row[2] = {nullptr, nullptr};
+        if (LN) {
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            mean[hr] = lds_volatile(row_mean + r_loc + 8 * hr);
+            rstd[hr] = lds_volatile(row_rstd + r_loc + 8 * hr);
+            const float sp = lds_volatile(row_plane + r_loc + 8 * hr);
+            if (sp >= 0.f) sp_row[hr] = static_cast<const float*>(g.plane) + (size_t)sp * g.K;
+          }
+        }
+#pragma unroll
+        for (int k8 = 0; k8 < 4; ++k8) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int hr = i & 1, col = 8 * k8 + q + 4 * (i >> 1);
+            const int row = r_loc + 8 * hr;
+            float v = *reinterpret_cast<const float*>(
+                at + row * 128 + (((col >> 2) ^ (row & 7)) << 4) + 4 * q);
+            if (LN) {
+              const int kg = kt * TG_BK + col;
+              if (sp_row[hr] != nullptr) v = sp_row[hr][kg];
+              v = (v - mean[hr]) * rstd[hr] * ln_s[kg] + ln_s[LN_MAX_K + kg];
+            }
+            vals[k8][i] = v;
+          }
+        }
+        mbar_arrive(raw_empty + 8 * s);
+      };
+      // cleared at the top of the tile: no accumulator is alive across the
+      // statistics of the next panel
+      float acc[64];
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+      float vals[4][4];
+      uint32_t ch[4][4], cl[4][4];
+      load_vals(it, 0, vals);
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+#pragma unroll
+        for (int k8 = 0; k8 < 4; ++k8)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) tf32_split(vals[k8][i], ch[k8][i], cl[k8][i]);
+        const int sp = (int)(it & 1);
+        mbar_wait(split_full + 8 * sp, (it >> 1) & 1);
+        const uint32_t bh = split + sp * TG_SPLIT_STAGE, bl = bh + TG_TILE;
+        wgmma_fence();
+#pragma unroll
+        for (int k8 = 0; k8 < 4; ++k8) {
+          wgmma_m64n128k8_tf32_ra(acc, cl[k8], wgmma_desc(bh + 32 * k8, 16, 1024), 1);
+          wgmma_m64n128k8_tf32_ra(acc, ch[k8], wgmma_desc(bl + 32 * k8, 16, 1024), 1);
+          wgmma_m64n128k8_tf32_ra(acc, ch[k8], wgmma_desc(bh + 32 * k8, 16, 1024), 1);
+        }
+        wgmma_commit();
+        // the next stage's values while the tensor cores run
+        if (kt + 1 < nk) load_vals(it + 1, kt + 1, vals);
+        wgmma_wait<0>();
+        wgmma_settle(acc);
+#pragma unroll
+        for (int k8 = 0; k8 < 4; ++k8) {
+          wgmma_settle(ch[k8]);
+          wgmma_settle(cl[k8]);
+        }
+        mbar_arrive(split_empty + 8 * sp);
+      }
+      // epilogue: acc[4j + 2hr + e] is row r_loc + 8 hr, column 8j + 2q + e
+      float* out = static_cast<float*>(g.out);
+      const float* bias = static_cast<const float*>(g.bias);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int m = m0 + r_loc + 8 * hr;
+        if (m >= g.M) continue;
+        const float* res_row = nullptr;
+        if (EPI == EPI_RESIDUAL) {
+          const int s = m % g.S;
+          res_row = (g.plane != nullptr && g.pmask[s] > 0.f)
+                        ? static_cast<const float*>(g.plane) + (size_t)s * g.N
+                        : static_cast<const float*>(g.res) + (size_t)m * g.N;
+        }
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int n = n0 + 8 * j + 2 * q;
+          if (n >= g.N) continue;  // N % 8 == 0: n + 1 < N too
+          const float v0 = tg_epi<EPI>(acc[4 * j + 2 * hr], bias[n], res_row, n);
+          const float v1 = tg_epi<EPI>(acc[4 * j + 2 * hr + 1], bias[n + 1], res_row, n + 1);
+          *reinterpret_cast<float2*>(out + (size_t)m * g.N + n) = make_float2(v0, v1);
+        }
+      }
     }
   }
 }
@@ -723,6 +932,34 @@ int launch_gemm_bf16(const GemmArgs& g, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <bool LN, int EPI>
+int launch_gemm_tf32x3(const GemmArgs& g, cudaStream_t stream) {
+  if (g.M == 0) return 0;
+  // A: (M, K), box of 32 columns (one 128-byte row) x 128 rows, swizzled as
+  // the consumers read it; W: (K, N) as stored, box of 128 columns x 32 rows
+  CUtensorMap map_a, map_w;
+  const uint64_t a_dims[2] = {(uint64_t)g.K, (uint64_t)g.M}, a_strides[1] = {(uint64_t)g.K * 4};
+  const uint32_t a_box[2] = {(uint32_t)TG_BK, (uint32_t)TG_BM};
+  int rc = encode_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_SWIZZLE_128B, g.a, 2,
+                      a_dims, a_strides, a_box);
+  if (rc != 0) return rc;
+  const uint64_t w_dims[2] = {(uint64_t)g.N, (uint64_t)g.K}, w_strides[1] = {(uint64_t)g.N * 4};
+  const uint32_t w_box[2] = {(uint32_t)TG_BN, (uint32_t)TG_BK};
+  if ((rc = encode_map(&map_w, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_SWIZZLE_NONE, g.w,
+                       2, w_dims, w_strides, w_box)) != 0)
+    return rc;
+  auto kernel = gemm_tf32x3_kernel<LN, EPI>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       TG_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int n_tiles = (g.N + TG_BN - 1) / TG_BN, cpp = LN ? (n_tiles + 2) / 3 : n_tiles;
+  const long long chunks = (long long)((g.M + TG_BM - 1) / TG_BM) * cpp;
+  // persistent blocks, one per SM (shared memory allows no more)
+  const int grid = (int)min(chunks, (long long)sm_count());
+  kernel<<<grid, TG_THREADS, TG_SMEM, stream>>>(map_a, map_w, g);
+  return (int)cudaGetLastError();
+}
+
 template <bool LN>
 int launch_gemm(const GemmArgs& g, bool is_bf16, cudaStream_t stream) {
   if (is_bf16) {
@@ -739,9 +976,11 @@ int launch_gemm(const GemmArgs& g, bool is_bf16, cudaStream_t stream) {
                         : launch_gemm_bf16<true, 1, EPI_BIAS>(g, stream);
     }
   }
-  dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM);
-  gemm_f32_kernel<LN><<<grid, GEMM_THREADS, 0, stream>>>(g);
-  return (int)cudaGetLastError();
+  if (g.epi == EPI_GELU) return launch_gemm_tf32x3<LN, EPI_GELU>(g, stream);
+  if constexpr (!LN) {
+    if (g.epi == EPI_RESIDUAL) return launch_gemm_tf32x3<false, EPI_RESIDUAL>(g, stream);
+  }
+  return launch_gemm_tf32x3<LN, EPI_BIAS>(g, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -752,31 +991,9 @@ int launch_gemm(const GemmArgs& g, bool is_bf16, cudaStream_t stream) {
 // each, K and V of the head for the whole sequence in shared memory.
 // ---------------------------------------------------------------------------
 
-constexpr int QT = 64, DH = 64, ATT_THREADS = 128;
+constexpr int DH = 64;
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
-// Copy `rows` rows of 64 head elements (row stride ld in global) into shared
-// memory rows of stride st; rows past `valid` are zero. The row stride must
-// keep 16-byte alignment when `vector` (one 16-byte store per vector),
-// otherwise elements are stored one by one.
-template <typename T, bool vector>
-__device__ __forceinline__ void load_head_rows(T* dst, int st, const T* src, size_t ld,
-                                               int rows, int valid) {
-  constexpr int VEC = Vec<T>::N;
-  for (int v = threadIdx.x; v < rows * (DH / VEC); v += ATT_THREADS) {
-    const int r = v / (DH / VEC), c = (v % (DH / VEC)) * VEC;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) u = *reinterpret_cast<const uint4*>(src + (size_t)r * ld + c);
-    if (vector) {
-      *reinterpret_cast<uint4*>(dst + r * st + c) = u;
-    } else {
-      const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) dst[r * st + c + i] = e[i];
-    }
-  }
-}
 
 // ---- bf16: whole heads, TMA-staged operands, wgmma -----------------------------
 //
@@ -996,104 +1213,6 @@ attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     // this warpgroup has read the buffer for the last time
     if (tid == 0) mbar_arrive(bars + 32 + 8 * u);
-  }
-}
-
-// ---- fp32: plain FMA (the fp32 parity runs and the fp32 text tower) --------
-//
-// Shared memory: Q [64][64], K [s_pad][65] (odd stride: the score loop reads
-// K rows across lanes), V [s_pad][64], scores [64][s_pad+4] overwritten in
-// place by the probabilities, and the row reciprocals.
-
-__host__ __device__ inline int attention_f32_smem(int s_pad) {
-  return (QT * DH + s_pad * (DH + 1) + s_pad * DH + QT * (s_pad + 4) + QT) *
-         (int)sizeof(float);
-}
-
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, int ld, const float* __restrict__ mask,
-                     float* __restrict__ out, int S, int H, float scale, int fast) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int s_pad = round_up(S, 16), ss = s_pad + 4;
-  float* sQ = reinterpret_cast<float*>(smem);
-  float* sK = sQ + QT * DH;
-  float* sV = sK + s_pad * (DH + 1);
-  float* sS = sV + s_pad * DH;
-  float* sR = sS + QT * ss;
-
-  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * DH;
-  const size_t head = (size_t)b * S * ld + h * DH;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  load_head_rows<float, true>(sQ, DH, q + head + (size_t)q0 * ld, ld, QT, S - q0);
-  load_head_rows<float, false>(sK, DH + 1, k + head, ld, s_pad, S);
-  load_head_rows<float, true>(sV, DH, v + head, ld, s_pad, S);
-  __syncthreads();
-
-  for (int i = tid; i < QT * s_pad; i += ATT_THREADS) {
-    const int r = i / s_pad, c = i % s_pad;
-    float acc = 0.f;
-#pragma unroll 16
-    for (int k = 0; k < DH; ++k) acc = fmaf(sQ[r * DH + k], sK[c * (DH + 1) + k], acc);
-    sS[r * ss + c] = acc;
-  }
-  __syncthreads();
-
-  for (int r = warp; r < QT; r += ATT_THREADS / 32) {
-    const int q = q0 + r;
-    float* srow = sS + r * ss;
-    if (q >= S) {
-      for (int c = lane; c < s_pad; c += 32) srow[c] = 0.f;
-      if (lane == 0) sR[r] = 0.f;
-      continue;
-    }
-    const float* mrow = mask != nullptr ? mask + (size_t)q * S : nullptr;
-    float denom = 0.f;
-    if (fast) {
-      for (int c = lane; c < s_pad; c += 32) {
-        float p = 0.f;
-        if (c < S) {
-          float v = srow[c] * scale;
-          if (mrow != nullptr) v += mrow[c];
-          p = exp2f(fminf(v, 120.f));
-        }
-        denom += p;
-        srow[c] = p;
-      }
-      denom = fmaxf(warp_sum(denom), 1e-30f);
-    } else {
-      float mx = -3.402823466e38f;
-      for (int c = lane; c < s_pad; c += 32) {
-        float v = -3.402823466e38f;  // padded columns: exp(v - max) = 0
-        if (c < S) {
-          v = srow[c] * scale;
-          if (mrow != nullptr) v += mrow[c];
-        }
-        srow[c] = v;
-        mx = fmaxf(mx, v);
-      }
-      mx = warp_max(mx);
-      for (int c = lane; c < s_pad; c += 32) {
-        const float p = expf(srow[c] - mx);
-        denom += p;
-        srow[c] = p;
-      }
-      denom = warp_sum(denom);
-    }
-    if (lane == 0) sR[r] = 1.f / denom;
-  }
-  __syncthreads();
-
-  float* obase = out + ((size_t)b * S + q0) * D + h * DH;
-  for (int i = tid; i < QT * DH; i += ATT_THREADS) {
-    const int r = i / DH, d = i % DH;
-    if (q0 + r >= S) continue;
-    const float* prow = sS + r * ss;
-    float acc = 0.f;
-    for (int c = 0; c < s_pad; ++c) acc = fmaf(prow[c], sV[c * DH + d], acc);
-    obase[(size_t)r * D + d] = acc * sR[r];
   }
 }
 
@@ -1329,158 +1448,283 @@ attention_long_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-// ---- fp32, S > 256: plain FMA over key tiles (the fp32 parity runs) --------
+// ---- fp32: one key-tile kernel for every S, 3xTF32 on wgmma -------------------
 //
-// One block of four warps per (64 query rows, head, image). Shared memory: Q
-// [64][64], the K tile [64][65] (odd stride: the score loop reads K rows
-// across lanes), the V tile [64][64], the tile's scores [64][68] overwritten
-// by its probabilities, and per query row the running maximum, the running
-// sum and the factor the earlier tiles shrink by. A thread owns one head
-// column of 32 query rows: its 32 output sums stay in registers over the loop.
+// One block per (128 query rows, head, image), the query tiles of a head
+// adjacent in the grid so that its K and V stay in L2; two warpgroups of 64
+// query rows (one whose rows all lie past S computes nothing but still
+// splits and meets the barriers). The block splits Q once, from the strided
+// view, into hi and lo K-major tiles (dh 64 = two 128-byte swizzled column
+// blocks). K and V tiles of 64 keys come by TMA from the strided views into
+// a ring of two raw stages (rows past S arrive as zeros); per tile all 256
+// threads split K (K-major as stored) and V into hi and lo, V transposed
+// (rows of the head dimension, 64 keys each: P V takes V as its K-major B
+// operand), then both warpgroups run S = Q K^T and O += P V, each product
+// three TF32 passes (lo*hi, hi*lo, hi*hi) on wgmma m64n64k8: Q and K from
+// shared memory, P from registers, split there. P's register fragment holds
+// keys 8j + 2q and 8j + 2q + 1 where the wgmma layout expects K columns q
+// and q + 4, so the split of V stores the keys of each group of 8 in the
+// order 0, 2, 4, 6, 1, 3, 5, 7: the sum over keys is the same, and no
+// shuffle is needed. Online softmax in fp32 with late normalisation (expf
+// when exact; exp2f(min(s, 120)) with the 1e-30 floor when fast), padded keys
+// at -FLT_MAX, the additive (S, S) mask read tile by tile (the text tower's
+// causal S = 77 takes it).
 
-constexpr int ATLF_SS = QT + 4;
+constexpr int TA_THREADS = 256, TA_KT = 64;
+constexpr int TA_Q = 128 * 128;           // one column block of Q: 128 rows x 128 bytes
+constexpr int TA_KV = 64 * 128;           // one column block of a K or Vt tile
+constexpr int TA_RAW = 2 * 64 * 64 * 4;   // a raw stage: K tile | V tile, 64 x 64 fp32 each
+constexpr int TA_SMEM = 1024 + 4 * TA_Q + 2 * TA_RAW + 8 * TA_KV + 16;
 
-__host__ __device__ constexpr int attention_long_f32_smem() {
-  return (QT * DH + QT * (DH + 1) + QT * DH + QT * ATLF_SS + 3 * QT) * (int)sizeof(float);
+__global__ void __launch_bounds__(TA_THREADS, 1)
+attention_tf32x3_kernel(const float* __restrict__ q, const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v, int ld,
+                        const float* __restrict__ mask, float* __restrict__ out, int S, int H,
+                        float scale, int fast) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023u) & ~1023u;
+  unsigned char* const gbase = smem_raw + (base - raw);
+  // Q hi | Q lo (each two column blocks), the raw ring, K hi | K lo | Vt hi | Vt lo
+  const uint32_t s_q = base, s_raw = base + 4 * TA_Q, s_kv = s_raw + 2 * TA_RAW;
+  unsigned char* const g_q = gbase;
+  unsigned char* const g_raw = gbase + 4 * TA_Q;
+  unsigned char* const g_kv = g_raw + 2 * TA_RAW;
+  const uint32_t bars = s_kv + 8 * TA_KV;  // raw stage landed, per stage
+  const int nq = (S + 127) / 128, D = H * DH;
+  const int q0 = (int)(blockIdx.x % nq) * 128, h = (int)(blockIdx.x / nq) % H,
+            b = (int)(blockIdx.x / nq) / H;
+  const int n_tiles = (S + TA_KT - 1) / TA_KT;
+  const int tid_b = threadIdx.x;
+
+  if (tid_b == 0) {
+    mbar_init(bars, 1);
+    mbar_init(bars + 8, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  auto fill = [&](int t) {  // thread 0: key tile t into its raw stage
+    const int st = t & 1;
+    const uint32_t dst = s_raw + st * TA_RAW;
+    mbar_arrive_expect_tx(bars + 8 * st, TA_RAW);
+    tma_load_3d(dst, &map_k, bars + 8 * st, h * DH, TA_KT * t, b);
+    tma_load_3d(dst + TA_RAW / 2, &map_v, bars + 8 * st, h * DH, TA_KT * t, b);
+  };
+  if (tid_b == 0) {
+    for (int t = 0; t < n_tiles && t < 2; ++t) fill(t);
+  }
+
+  // Q: row r (query q0 + r), 16-byte chunk c (head columns 4c ..): split into
+  // column block c / 8 of Q hi and Q lo, swizzled
+  const size_t head = (size_t)b * S * ld + (size_t)h * DH;
+  for (int u = tid_b; u < 128 * 16; u += TA_THREADS) {
+    const int r = u >> 4, c = u & 15;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < S) v = *reinterpret_cast<const float4*>(q + head + (size_t)(q0 + r) * ld + 4 * c);
+    uint32_t hi[4], lo[4];
+    tf32_split(v.x, hi[0], lo[0]);
+    tf32_split(v.y, hi[1], lo[1]);
+    tf32_split(v.z, hi[2], lo[2]);
+    tf32_split(v.w, hi[3], lo[3]);
+    const int off = (c >> 3) * TA_Q + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+    *reinterpret_cast<uint4*>(g_q + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(g_q + 2 * TA_Q + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+
+  const int wg = tid_b / 128, tid = tid_b % 128, warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, qq = lane & 3;
+  const bool active = q0 + 64 * wg < S;
+  const int row[2] = {q0 + 64 * wg + 16 * warp + gq, q0 + 64 * wg + 16 * warp + gq + 8};
+  const float* mrow[2] = {nullptr, nullptr};
+  if (mask != nullptr) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) mrow[hr] = mask + (size_t)min(row[hr], S - 1) * S;
+  }
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m_run[2] = {-3.402823466e38f, -3.402823466e38f}, denom[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    mbar_wait(bars + 8 * st, (uint32_t)((t >> 1) & 1));
+    __syncthreads();  // both warpgroups are done with the previous tile's split operands
+    const unsigned char* kr = g_raw + st * TA_RAW;
+    const float* vr = reinterpret_cast<const float*>(kr + TA_RAW / 2);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // K: key n, chunk c of 4 head columns -> row n of K hi / K lo
+      const int u = tid_b + TA_THREADS * i, n = u >> 4, c = u & 15;
+      const float4 v = *reinterpret_cast<const float4*>(kr + n * 256 + 16 * c);
+      uint32_t hi[4], lo[4];
+      tf32_split(v.x, hi[0], lo[0]);
+      tf32_split(v.y, hi[1], lo[1]);
+      tf32_split(v.z, hi[2], lo[2]);
+      tf32_split(v.w, hi[3], lo[3]);
+      const int off = (c >> 3) * TA_KV + n * 128 + (((c & 7) ^ (n & 7)) << 4);
+      *reinterpret_cast<uint4*>(g_kv + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(g_kv + 2 * TA_KV + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      // Vt: head column d, key slots 4 sc .. 4 sc + 3 = keys 8 (sc / 2) + (sc & 1) + 0, 2, 4, 6
+      const int d = tid_b & 63, sc = (tid_b >> 6) + 4 * i;
+      const int k0 = 8 * (sc >> 1) + (sc & 1);
+      float vv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) vv[e] = vr[(k0 + 2 * e) * DH + d];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tf32_split(vv[e], hi[e], lo[e]);
+      const int voff = (sc >> 3) * TA_KV + d * 128 + (((sc & 7) ^ (d & 7)) << 4);
+      *reinterpret_cast<uint4*>(g_kv + 4 * TA_KV + voff) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(g_kv + 6 * TA_KV + voff) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    fence_proxy_async();
+    __syncthreads();  // the split operands are complete; the raw stage is free
+    if (tid_b == 0 && t + 2 < n_tiles) {
+      fence_proxy_async();
+      fill(t + 2);
+    }
+    if (!active) continue;
+
+    // raw scores: key 64t + 8j + 2qq + (e & 1) of row[e >> 1] in sc[4j + e]
+    float sc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DH / 8; ++ks) {
+      const uint32_t qa = s_q + (ks >> 2) * TA_Q + wg * 64 * 128 + 32 * (ks & 3);
+      const uint32_t kb = s_kv + (ks >> 2) * TA_KV + 32 * (ks & 3);
+      wgmma_m64n64k8_tf32(sc, wgmma_desc(qa + 2 * TA_Q, 16, 1024), wgmma_desc(kb, 16, 1024),
+                          ks != 0);
+      wgmma_m64n64k8_tf32(sc, wgmma_desc(qa, 16, 1024),
+                          wgmma_desc(kb + 2 * TA_KV, 16, 1024), 1);
+      wgmma_m64n64k8_tf32(sc, wgmma_desc(qa, 16, 1024), wgmma_desc(kb, 16, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_settle(sc);
+
+    // logits s * scale + mask in place (both in log2e units when fast); padded
+    // key columns hold -FLT_MAX: weight 0 below
+    const bool ragged = TA_KT * (t + 1) > S;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = TA_KT * t + 8 * (i >> 2) + 2 * qq + (i & 1);
+      float v = sc[i] * scale;
+      if (ragged && col >= S) v = -3.402823466e38f;
+      else if (mask != nullptr) v += mrow[(i >> 1) & 1][col];
+      sc[i] = v;
+    }
+    if (fast) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = exp2f(fminf(sc[i], 120.f));
+    } else {
+      // the running maximum (two partial maxima per row, then the quad), and
+      // what the earlier tiles' sums shrink by
+      float m2[2][2] = {{-3.402823466e38f, -3.402823466e38f},
+                        {-3.402823466e38f, -3.402823466e38f}};
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        m2[(i >> 1) & 1][(i >> 2) & 1] = fmaxf(m2[(i >> 1) & 1][(i >> 2) & 1], sc[i]);
+      float alpha[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mx = fmaxf(m2[hr][0], m2[hr][1]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        mx = fmaxf(mx, m_run[hr]);
+        alpha[hr] = expf(m_run[hr] - mx);
+        m_run[hr] = mx;
+        denom[hr] *= alpha[hr];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        o[i] *= alpha[(i >> 1) & 1];
+        sc[i] = expf(sc[i] - m_run[(i >> 1) & 1]);
+      }
+    }
+    // fp32 row sums (two partial sums per row), and P split into the
+    // register fragments of P V: step j takes keys 8j .. 8j + 7 in the order
+    // the split of V stored them
+    float d2[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d2[(i >> 1) & 1][(i >> 2) & 1] += sc[i];
+    denom[0] += d2[0][0] + d2[0][1];
+    denom[1] += d2[1][0] + d2[1][1];
+    uint32_t ph[8][4], pl[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      tf32_split(sc[4 * j], ph[j][0], pl[j][0]);
+      tf32_split(sc[4 * j + 2], ph[j][1], pl[j][1]);
+      tf32_split(sc[4 * j + 1], ph[j][2], pl[j][2]);
+      tf32_split(sc[4 * j + 3], ph[j][3], pl[j][3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t vb = s_kv + 4 * TA_KV + (j >> 2) * TA_KV + 32 * (j & 3);
+      wgmma_m64n64k8_tf32_ra(o, pl[j], wgmma_desc(vb, 16, 1024), 1);
+      wgmma_m64n64k8_tf32_ra(o, ph[j], wgmma_desc(vb + 2 * TA_KV, 16, 1024), 1);
+      wgmma_m64n64k8_tf32_ra(o, ph[j], wgmma_desc(vb, 16, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_settle(o);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      wgmma_settle(ph[j]);
+      wgmma_settle(pl[j]);
+    }
+  }
+  if (!active) return;
+
+  // scale by the row reciprocal, fp32 stores into (B, S, D)
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    denom[hr] += __shfl_xor_sync(0xffffffffu, denom[hr], 1);
+    denom[hr] += __shfl_xor_sync(0xffffffffu, denom[hr], 2);
+    if (fast) denom[hr] = fmaxf(denom[hr], 1e-30f);
+    const float rc = 1.f / denom[hr];
+    if (row[hr] >= S) continue;
+    float* dst = out + ((size_t)b * S + row[hr]) * D + h * DH + 2 * qq;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(o[4 * j + 2 * hr] * rc, o[4 * j + 2 * hr + 1] * rc);
+  }
 }
 
-__global__ void __launch_bounds__(ATT_THREADS)
-attention_long_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, int ld, const float* __restrict__ mask,
-                          float* __restrict__ out, int S, int H, float scale, int fast) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem);
-  float* sK = sQ + QT * DH;
-  float* sV = sK + QT * (DH + 1);
-  float* sS = sV + QT * DH;
-  float* sM = sS + QT * ATLF_SS;  // running maximum (exact)
-  float* sL = sM + QT;            // running sum
-  float* sA = sL + QT;            // e^(m_old - m_new) of this tile (exact)
+// 3-D fp32 map of k or v: element (b, s, column) at base + (b*S + s)*ld +
+// column, H*64 columns; a box is one head (64 columns) of 64 tokens of one
+// image, tokens past S read as zeros; no swizzle (the block splits the tile)
+int head_map_f32(CUtensorMap* map, const void* p, int B, int S, int H, int ld) {
+  const uint64_t dims[3] = {(uint64_t)H * DH, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides[2] = {(uint64_t)ld * sizeof(float), (uint64_t)S * ld * sizeof(float)};
+  const uint32_t box[3] = {(uint32_t)DH, (uint32_t)TA_KT, 1u};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_SWIZZLE_NONE, p, 3, dims,
+                    strides, box);
+}
 
-  const int nq = (S + QT - 1) / QT, D = H * DH;
-  const int q0 = (int)(blockIdx.x % nq) * QT, h = (int)(blockIdx.x / nq) % H,
-            b = (int)(blockIdx.x / nq) / H;
-  const size_t head = (size_t)b * S * ld + h * DH;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  load_head_rows<float, true>(sQ, DH, q + head + (size_t)q0 * ld, ld, QT, S - q0);
-  if (tid < QT) {
-    sM[tid] = -3.402823466e38f;
-    sL[tid] = 0.f;
-    sA[tid] = 1.f;
-  }
-  // output (row (tid >> 6) + 2n, head column tid & 63) in oacc[n]
-  float oacc[QT / 2];
-#pragma unroll
-  for (int n = 0; n < QT / 2; ++n) oacc[n] = 0.f;
-
-  for (int k0 = 0; k0 < S; k0 += QT) {
-    __syncthreads();  // the tile before this one has been read
-    load_head_rows<float, false>(sK, DH + 1, k + head + (size_t)k0 * ld, ld, QT, S - k0);
-    load_head_rows<float, true>(sV, DH, v + head + (size_t)k0 * ld, ld, QT, S - k0);
-    __syncthreads();
-
-    for (int i = tid; i < QT * QT; i += ATT_THREADS) {
-      const int r = i / QT, c = i % QT;
-      float acc = 0.f;
-#pragma unroll 16
-      for (int kk = 0; kk < DH; ++kk) acc = fmaf(sQ[r * DH + kk], sK[c * (DH + 1) + kk], acc);
-      sS[r * ATLF_SS + c] = acc;
-    }
-    __syncthreads();
-
-    for (int r = warp; r < QT; r += ATT_THREADS / 32) {
-      const int qr = q0 + r;
-      float* srow = sS + r * ATLF_SS;
-      if (qr >= S) {
-        for (int c = lane; c < QT; c += 32) srow[c] = 0.f;
-        continue;
-      }
-      const float* mrow = mask != nullptr ? mask + (size_t)qr * S : nullptr;
-      float lg[QT / 32], sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < QT / 32; ++j) {
-        const int c = lane + 32 * j;
-        lg[j] = -3.402823466e38f;  // padded columns: weight 0
-        if (k0 + c < S) {
-          lg[j] = srow[c] * scale;
-          if (mrow != nullptr) lg[j] += mrow[k0 + c];
-        }
-      }
-      if (fast) {
-#pragma unroll
-        for (int j = 0; j < QT / 32; ++j) {
-          const float p = k0 + lane + 32 * j < S ? exp2f(fminf(lg[j], 120.f)) : 0.f;
-          srow[lane + 32 * j] = p;
-          sum += p;
-        }
-        sum = warp_sum(sum);
-        if (lane == 0) sL[r] += sum;
-      } else {
-        float mx = lg[0];
-#pragma unroll
-        for (int j = 1; j < QT / 32; ++j) mx = fmaxf(mx, lg[j]);
-        const float m_old = sM[r];
-        mx = fmaxf(warp_max(mx), m_old);
-#pragma unroll
-        for (int j = 0; j < QT / 32; ++j) {
-          const float p = expf(lg[j] - mx);
-          srow[lane + 32 * j] = p;
-          sum += p;
-        }
-        sum = warp_sum(sum);
-        __syncwarp();  // every lane has read sM[r]
-        if (lane == 0) {
-          const float a = expf(m_old - mx);
-          sA[r] = a;
-          sM[r] = mx;
-          sL[r] = sL[r] * a + sum;
-        }
-      }
-    }
-    __syncthreads();
-
-    const int d = tid & (DH - 1);
-#pragma unroll
-    for (int n = 0; n < QT / 2; ++n) {
-      const int r = (tid >> 6) + 2 * n;
-      const float* prow = sS + r * ATLF_SS;
-      float acc = 0.f;
-#pragma unroll 16
-      for (int c = 0; c < QT; ++c) acc = fmaf(prow[c], sV[c * DH + d], acc);
-      oacc[n] = oacc[n] * sA[r] + acc;
-    }
-  }
-
-  const int d = tid & (DH - 1);
-#pragma unroll
-  for (int n = 0; n < QT / 2; ++n) {
-    const int r = (tid >> 6) + 2 * n;
-    if (q0 + r >= S) continue;
-    float denom = sL[r];
-    if (fast) denom = fmaxf(denom, 1e-30f);
-    out[((size_t)b * S + q0 + r) * D + h * DH + d] = oacc[n] * (1.f / denom);
-  }
+int launch_attention_tf32x3(const void* q, const void* k, const void* v, int ld,
+                            const float* mask, void* out, int B, int S, int H, float scale,
+                            int fast, cudaStream_t stream) {
+  if (B == 0 || S == 0) return 0;
+  const long long blocks = (long long)((S + 127) / 128) * H * B;
+  if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  CUtensorMap mk, mv;
+  int rc;
+  if ((rc = head_map_f32(&mk, k, B, S, H, ld)) != 0) return rc;
+  if ((rc = head_map_f32(&mv, v, B, S, H, ld)) != 0) return rc;
+  cudaError_t e = cudaFuncSetAttribute(attention_tf32x3_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, TA_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  attention_tf32x3_kernel<<<(unsigned)blocks, TA_THREADS, TA_SMEM, stream>>>(
+      static_cast<const float*>(q), mk, mv, ld, mask, static_cast<float*>(out), S, H, scale,
+      fast);
+  return (int)cudaGetLastError();
 }
 
 int launch_attention_long(const void* q, const void* k, const void* v, int ld,
                           const float* mask, void* out, int B, int S, int H, float scale,
-                          int fast, int is_bf16, cudaStream_t stream) {
+                          int fast, cudaStream_t stream) {
   cudaError_t e;
   if (B == 0) return 0;
-  if (!is_bf16) {
-    const long long blocks = (long long)((S + QT - 1) / QT) * H * B;
-    if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
-    e = cudaFuncSetAttribute(attention_long_f32_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             attention_long_f32_smem());
-    if (e != cudaSuccess) return (int)e;
-    attention_long_f32_kernel<<<(unsigned)blocks, ATT_THREADS, attention_long_f32_smem(),
-                                stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), ld, mask, static_cast<float*>(out), S, H, scale, fast);
-    return (int)cudaGetLastError();
-  }
   const long long blocks = (long long)((S + 127) / 128) * H * B;
   if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
@@ -1498,28 +1742,19 @@ int launch_attention_long(const void* q, const void* k, const void* v, int ld,
   return (int)cudaGetLastError();
 }
 
-// The whole-row kernels take S <= 256 (a row of scores in registers or shared
-// memory), the key-tile kernels every longer sequence.
+// In bf16 the whole-row kernel takes S <= 256 (a row of scores in
+// registers), the key-tile kernel every longer sequence; fp32 runs its
+// key-tile kernel for every S.
 constexpr int ATT_WHOLE_ROW_MAX_S = 256;
 
 int launch_attention(const void* q, const void* k, const void* v, int ld, const float* mask,
                      void* out, int B, int S, int H, float scale, int fast, int is_bf16,
                      cudaStream_t stream) {
   cudaError_t e;
+  if (!is_bf16)
+    return launch_attention_tf32x3(q, k, v, ld, mask, out, B, S, H, scale, fast, stream);
   if (S > ATT_WHOLE_ROW_MAX_S)
-    return launch_attention_long(q, k, v, ld, mask, out, B, S, H, scale, fast, is_bf16, stream);
-  if (!is_bf16) {
-    const int s_pad = round_up(S, 16);
-    dim3 grid((S + QT - 1) / QT, H, B);
-    const int bytes = attention_f32_smem(s_pad);
-    e = cudaFuncSetAttribute(attention_f32_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-    attention_f32_kernel<<<grid, ATT_THREADS, bytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), ld, mask, static_cast<float*>(out), S, H, scale, fast);
-    return (int)cudaGetLastError();
-  }
+    return launch_attention_long(q, k, v, ld, mask, out, B, S, H, scale, fast, stream);
   if (B == 0 || S == 0) return 0;
   const int tile_bytes = attention_bf16_tile_bytes(S), rows = tile_bytes / 128;
   CUtensorMap mq, mk, mv;
@@ -1581,7 +1816,8 @@ int gemm_bias_residual(const void* a, const void* w, const void* bias, const voi
 // q, k, v: (B, S, H, 64) with row stride ld (elements between consecutive
 // tokens; batch stride S*ld) -> out (B, S, H*64) contiguous. mask: (S, S)
 // fp32 additive mask (clamped to >= -1e30; in log2e units when fast) or null.
-// S <= 256 runs the whole-row kernels, a longer sequence the key-tile kernels.
+// bf16: S <= 256 runs the whole-row kernel, a longer sequence the key-tile
+// kernel; fp32 runs its key-tile kernel for every S.
 int mha_core(const void* q, const void* k, const void* v, int ld, const void* mask,
              void* out, int B, int S, int H, float scale, int fast, int dtype,
              void* stream) {

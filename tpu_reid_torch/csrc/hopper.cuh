@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the bf16 kernels in block_kernels.cu and
+// Hopper (sm_90a) building blocks of the kernels in block_kernels.cu and
 // tail_kernel.cu:
 // mbarriers, TMA tile loads and their host-side tensor maps, wgmma shared-memory
-// descriptors and the wgmma shapes the kernels issue, the 128-byte swizzle.
+// descriptors and the wgmma shapes the kernels issue (bf16, and tf32 for the
+// fp32 kernels' three passes), the 128-byte swizzle.
 //
 // Shared-memory tiles are rows of 128 bytes (64 bf16) whose 16-byte chunks
 // are permuted by the row: chunk c of row r lies at r*128 + ((c ^ (r & 7)) << 4).
@@ -87,13 +88,15 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// Host: a bf16 tensor map of `rank` dimensions (innermost first), 128-byte
-// swizzle, out-of-bounds elements read as zero. dims/box in elements, strides
-// in bytes for dimensions 1.. (dimension 0 is dense). cuTensorMapEncodeTiled is
-// a symbol of libcuda: it is looked up through the runtime, so nothing links
-// against libcuda. Returns 0 or a cudaError_t.
-inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                           const uint64_t* strides, const uint32_t* box) {
+// Host: a tensor map of `rank` dimensions (innermost first) of element type
+// `type`, with the given swizzle, out-of-bounds elements read as zero.
+// dims/box in elements, strides in bytes for dimensions 1.. (dimension 0 is
+// dense). cuTensorMapEncodeTiled is a symbol of libcuda: it is looked up
+// through the runtime, so nothing links against libcuda. Returns 0 or a
+// cudaError_t.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, CUtensorMapSwizzle swizzle,
+                      const void* base, int rank, const uint64_t* dims, const uint64_t* strides,
+                      const uint32_t* box) {
   typedef CUresult (*EncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -110,11 +113,17 @@ inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const u
     encode = reinterpret_cast<EncodeFn>(fn);
   }
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                      const_cast<void*>(base), dims, strides, box, ones,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  CUresult r = encode(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box,
+                      ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// the bf16 operand tiles: 128-byte swizzle
+inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                           const uint64_t* strides, const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_128B, base, rank,
+                    dims, strides, box);
 }
 
 // ---------------------------------------------------------------------------
@@ -247,6 +256,89 @@ __device__ __forceinline__ void wgmma_m64n64k16_ra_tb(float (&d)[32], const uint
         "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
+
+// ---- tf32 (the fp32 kernels' three passes) ----------------------------------
+//
+// A tf32 operand is an fp32 bit pattern whose low 13 bits are zero. Both
+// operands from shared memory must be K-major (PTX allows the transposed
+// forms for 16-bit types only): rows of 32 tf32 values = one 128-byte
+// swizzle row, k8 steps at +32 bytes, descriptors as above. A from registers
+// (m64k8, per warp 16 rows): a[0] row g, K q; a[1] row g+8, K q; a[2] row g,
+// K q+4; a[3] row g+8, K q+4 (g = lane / 4, q = lane % 4).
+
+// the nearest tf32 value, ties away from zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(x));
+  return u;
+}
+
+// x = hi + lo + (about 2^-22 of x): hi = tf32(x), lo = tf32(x - hi)
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+#define WGMMA_D32                                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31])
+#define WGMMA_D32_REGS                                                                     \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "  \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+
+// d (64x64 fp32) (+)= a (64x8 tf32, K-major tile) * b (8x64 given as 64 rows of K: K-major)
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" WGMMA_D32_REGS
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : WGMMA_D32
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64x64 fp32) (+)= a (64x8 tf32 from registers) * b (8x64, K-major)
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ra(float (&d)[32], const uint32_t (&a)[4],
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" WGMMA_D32_REGS
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : WGMMA_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64x128 fp32) (+)= a (64x8 tf32 from registers) * b (8x128, K-major)
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_ra(float (&d)[64], const uint32_t (&a)[4],
+                                                        uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+#undef WGMMA_D32
+#undef WGMMA_D32_REGS
 
 // ---------------------------------------------------------------------------
 // fragments

@@ -25,6 +25,17 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def full_fp32_convs() -> None:
+    """Run cuDNN's fp32 convolutions in full fp32 in this process. PyTorch
+    lets them round their operands to TF32's 10-bit mantissa by default
+    (`torch.backends.cudnn.allow_tf32`), which the fp32 matmuls never do
+    (`torch.backends.cuda.matmul.allow_tf32` stays False): the patch embed
+    and the ResNet's convolutions would then differ from the JAX package and
+    from the plain path on the host. Every entry point of the port calls it
+    first, and so does each rank that `parallel/launch.run` spawns."""
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def to_device(tree, device: torch.device):
     """A nested dict (or list, as a ResNet's layers) of numpy arrays or
     tensors -> the same structure of tensors on `device` (tensors already

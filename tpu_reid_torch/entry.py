@@ -22,7 +22,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from tpu_reid_torch.device import DeviceLike, resolve_device
+from tpu_reid_torch.device import DeviceLike, full_fp32_convs, resolve_device
 
 # the JAX package's tiny flagship: its tower and text sizes, 16 classes
 TINY = dict(image_hw=(32, 16), n_cls=16, vision_width=64, vision_layers=2, patch=8, grid=4,
@@ -95,6 +95,7 @@ def entry(tiny: bool = False, dtype: torch.dtype = torch.bfloat16,
     (N, H, W, 3) fp32 on `device` (CUDA unless "cpu")."""
     from tpu_reid_torch.models import reid_clip as M
 
+    full_fp32_convs()
     dev = resolve_device(device)
     mcfg, params = flagship(dev, tiny=tiny)
     h, w = TINY["image_hw"] if tiny else (256, 128)

@@ -7,18 +7,22 @@ S and dh = 64 (csrc/block_kernels.cu::mha_core). The kernel takes q, k
 and v as three base pointers and one row stride, so contiguous
 (B, S, H, 64) tensors and the strided views into a packed (B, S, 3D) qkv
 buffer that fused_mha hands it both run without a copy. What bounds it on
-the H100 is its bytes (q, k, v in, the heads out): scores and probabilities
-stay in registers (bf16) or shared memory (fp32) and never reach device
-memory. In bf16, for S <= 256, persistent blocks walk the (image, head)
-pairs: a head's Q, K and V arrive once by TMA from the strided view
-(`head_row_stride` holds what a tensor map needs of it), the next head under
-the work on this one, both products run on wgmma and a thread holds whole
-rows of scores. A longer sequence (the vehicle geometry: 256x256 gives 442
-tokens, 444 with IVLP's prompts) takes a second kernel of the same entry
+the H100 is its bytes (q, k, v in, the heads out) in bf16 and its
+operations in fp32: scores and probabilities stay in registers and never
+reach device memory. In bf16, for S <= 256, persistent blocks walk the
+(image, head) pairs: a head's Q, K and V arrive once by TMA from the strided
+view (`head_row_stride` holds what a tensor map needs of it), the next head
+under the work on this one, both products run on wgmma and a thread holds
+whole rows of scores. A longer sequence (the vehicle geometry: 256x256 gives
+442 tokens, 444 with IVLP's prompts) takes a second kernel of the same entry
 point: one block per 128 query rows of a head, K and V tiles of 64 keys
 streaming through a TMA ring, the softmax taken online over the tiles (a
 running row maximum, the accumulator rescaled when it rises; the fast
-softmax needs no maximum and just accumulates).
+softmax needs no maximum and just accumulates). fp32 (the training CLIs'
+default) runs one such key-tile kernel for every S, both products as three
+TF32 passes on wgmma (each operand split into hi = tf32(x) and
+lo = tf32(x - hi); lo*hi + hi*lo + hi*hi keeps ~22 of fp32's 24 mantissa
+bits).
 
 Normalisation: the kernel multiplies the (S, dh) output by the row-sum
 reciprocal, as the fused kernels' `_attention_heads` does; the Pallas
@@ -160,8 +164,8 @@ def head_row_stride(shape, strides, address: int, itemsize: int) -> int:
     """Elements between consecutive tokens (ld) of one (B, S, H, 64) operand
     of the kernel, from its shape, strides (in elements) and base address
     alone, or ValueError. The kernel reads element (b, s, h, d) at
-    base + (b*S + s)*ld + h*64 + d, through 16-byte vectors (fp32) or a TMA
-    tensor map over (B, S, ld) with a box of one head (bf16), so it needs:
+    base + (b*S + s)*ld + h*64 + d, through TMA tensor maps over (B, S, ld)
+    with a box of one head (and q by 16-byte vectors in fp32), so it needs:
     head width 64 (the box, and the wgmma shapes); S >= 1, and B, S and H
     below 2^31 (the kernels' 32-bit sizes and a tensor map's extents; a
     sequence longer than 256 runs the key-tile kernel, whose grid of
@@ -199,7 +203,8 @@ def mha_core(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor] = None, *,
              fast: bool = False) -> Tensor:
     """(B, S, H, dh) q, k, v -> (B, S, H, dh) softmax attention; `mask` an
     optional additive (S, S) mask. CUDA: csrc/block_kernels.cu::mha_core, for
-    any S and dh = 64 (whole score rows for S <= 256, key tiles beyond), q, k
+    any S and dh = 64 (bf16: whole score rows for S <= 256, key tiles beyond;
+    fp32: key tiles, 3xTF32), q, k
     and v of one dtype sharing one row stride (contiguous tensors, or views
     into one packed qkv buffer); anything else raises. CPU tensors take
     `mha_core_reference`."""
@@ -233,13 +238,13 @@ def mha_core(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor] = None, *,
                       _build.stream(q))
     _build.check(lib, rc, "mha_core")
     mha_core.launches += 1
-    if s > WHOLE_ROW_MAX_SEQ:
+    if q.dtype != torch.float32 and s > WHOLE_ROW_MAX_SEQ:
         mha_core_long.launches += 1
     return out
 
 
 mha_core.launches = 0
-# the launches among them that ran the key-tile kernel (S > WHOLE_ROW_MAX_SEQ)
+# the launches among them that ran the bf16 key-tile kernel (S > WHOLE_ROW_MAX_SEQ)
 mha_core_long = SimpleNamespace(launches=0)
 
 

@@ -38,8 +38,15 @@ hide under mainloops; `mha_core` stages whole heads by TMA, double-buffered,
 and runs both products on wgmma with the score rows in registers. The
 wrappers hold the kernels' domain in plain functions of sizes, strides and
 addresses (`check_gemm_operands`, `attention.head_row_stride`): TMA needs
-16-byte aligned bases and rows. fp32 runs plain FMA kernels. PERF.md holds
-the measured times.
+16-byte aligned bases and rows. fp32 (the training CLIs' default dtype) runs
+the same three entry points on kernels of its own, 3xTF32 on wgmma: each
+operand split once into hi = tf32(x) and lo = tf32(x - hi), and every k8
+step adds lo*hi, hi*lo, then hi*hi into one fp32 accumulator, which keeps
+~22 of fp32's 24 mantissa bits at a third of the TF32 tensor-core rate
+(tests/test_torch_tf32x3.py holds the arithmetic on the CPU). The GEMM's
+splitter warpgroup writes each W tile transposed and split (tf32 wgmma reads
+both shared operands K-major only), its consumers take A from registers,
+normalised and split there. PERF.md holds the measured times.
 
 Each kernel has a wrapper that launches it for CUDA tensors (or raises) and
 takes the plain PyTorch version beside it for CPU tensors; the plain versions
@@ -116,7 +123,8 @@ def _qkv_views(qkv: Tensor, n_heads: int) -> tuple[Tensor, Tensor, Tensor]:
                  for i in range(3))
 
 
-# operands the fp32 GEMM kernel reads element by element: any address will do
+# operands the fp32 GEMM kernel reads element by element (the LayerNorm
+# parameters into shared memory, the rest in its epilogue): any address will do
 FP32_SCALAR_OPERANDS = frozenset({"b", "pmask", "ln_scale", "ln_bias", "residual"})
 
 
@@ -130,10 +138,10 @@ def check_gemm_operands(what: str, m: int, k: int, n: int, has_ln: bool,
     LayerNorm K <= LN_MAX_WIDTH (the row panel a block keeps in shared
     memory), sizes within a tensor map's 32-bit extents, and every operand's
     base (`addresses`: name -> address or None) 16-byte aligned. `fp32`: the
-    fp32 kernel loads only the activation, the LayerNorm plane and W by
-    16-byte vectors, so the bases in FP32_SCALAR_OPERANDS are free there. M
-    is free: the ragged last row tile is zero-filled on load and masked on
-    store."""
+    fp32 kernel reads only the activation and W by TMA and the LayerNorm
+    plane by 16-byte vectors, so the bases in FP32_SCALAR_OPERANDS are free
+    there. M is free: the ragged last row tile is zero-filled on load and
+    masked on store."""
     if k <= 0 or n <= 0 or k % 32 or n % 8:
         raise ValueError(f"{what}: K = {k}, N = {n}; needs K % 32 == 0 and N % 8 == 0")
     if has_ln and k > LN_MAX_WIDTH:

@@ -40,6 +40,7 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
+from tpu_reid_torch.device import full_fp32_convs
 from tpu_reid_torch.parallel.mesh import backend_for, make_mesh
 
 DEFAULT_TIMEOUT_S = 600.0
@@ -95,6 +96,7 @@ def _child(local_rank: int, fn, args, device: str, init_method: str, rank0: int,
         os.dup2(log, 1)
         os.dup2(log, 2)
     torch.set_num_threads(threads)
+    full_fp32_convs()  # a spawned interpreter starts with torch's defaults
     with process_group(_rank_device(device, local_rank), init_method, rank, world,
                        timeout_s, n_model) as mesh:
         out = fn(mesh, *args)

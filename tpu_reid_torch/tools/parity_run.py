@@ -32,6 +32,8 @@ import tempfile
 import numpy as np
 import torch
 
+from tpu_reid_torch.device import full_fp32_convs
+
 # extraction runs in bf16, as the JAX harness's does
 EXTRACT_DTYPE = torch.bfloat16
 
@@ -298,6 +300,7 @@ def params_parser():
 
 
 def main(argv=None):
+    full_fp32_convs()
     args = params_parser().parse_args(argv)
     if args.synthetic:
         out = args.synthetic_dir or tempfile.mkdtemp(prefix="parity_synth_")

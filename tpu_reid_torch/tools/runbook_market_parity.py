@@ -30,6 +30,8 @@ import argparse
 import os
 import sys
 
+from tpu_reid_torch.device import full_fp32_convs
+
 MARKET_HELP = """\
 Market-1501 not found at {path}.
 
@@ -50,6 +52,7 @@ ASSETS = (("model_path", "the OpenAI ViT-B/16 checkpoint (ViT-B-16.pt)"),
 
 
 def main(argv=None):
+    full_fp32_convs()
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--root", type=str, default=None, help="dataset root containing Market1501/")
