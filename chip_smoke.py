@@ -32,16 +32,19 @@ exits with code 3.
    heads, qkv views and contiguous), LayerNorm in the kernel against
    LayerNorm done beforehand bit for bit, 50 launches bit-equal, and the
    host time of a wrapper call. Then the fp32 route (the training CLIs'
-   default dtype; 3xTF32 GEMM and attention kernels, the FMA tail): the
+   default dtype; 3xTF32 GEMM, attention and CLS-tail kernels): the
    GEMM at edge shapes in both modes with all three epilogues, the splice
    and the scalar operands off 16 bytes, attention at S 1 to 444 (77
    causal), each kernel at B=128 S=211 (attention at S=442 too) against
    its plain version within 1e-4, 50 launches bit-equal, timed beside its
    plain version, the fp32 library call (cuBLAS SGEMM with TF32 off, fp32
-   SDPA, F.layer_norm + matmul), the bound of three TF32 passes and the
-   CUDA cores' fp32 FMA figure. The build's ptxas lines are printed; the
-   run fails if a wgmma kernel spills, or if the log does not show every
-   instantiation of the wgmma kernels.
+   SDPA), the bound of three TF32 passes and the CUDA cores' fp32 FMA
+   figure; the tail at B = 1, 37, 64, 128, 512 and edge shapes (the FMA
+   kernel where the route leaves the tf32x3 kernel's domain), timed at
+   B = 64, 128, 512 by device time beside F.layer_norm + matmul, its plain
+   version and the FMA kernel it replaced. The build's ptxas lines are
+   printed; the run fails if a wgmma kernel spills, or if the log does not
+   show every instantiation of the wgmma kernels.
 4. minsum: the minsum kernel at awkward shapes in fp8, bf16 and fp32, then
    timed at the Market-1501 streamed shape (4096 x 16384 x 20480, fp8) and
    on one 1024-row query slab of the MSMT17 shape.
@@ -77,8 +80,9 @@ exits with code 3.
    stage-2 and live stage-1 steps, each the median of 6 warm steps on the
    host loop and as CUDA-graph replays, their launches per step (and the
    cached coop stage 1's), a trace of each that must show the 3xTF32
-   kernels and no FMA block kernel, and one captured fp32 stage-2 step
-   against its eager step bit for bit.
+   kernels and no FMA kernel, one more step of each with its CLS-tail calls
+   held against the plain version on the step's own inputs, and one
+   captured fp32 stage-2 step against its eager step bit for bit.
 11. cli: the zero-shot CLI with --rerank --mm, then the prompt-learning CLI
    (ivlp, one epoch of each stage, --rerank, bf16), at full ViT-B/16 width
    on a synthetic Market1501 directory and a random checkpoint; both must
@@ -222,6 +226,14 @@ def say(msg: str = "") -> None:
     print(msg, flush=True)
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median of `reps` CUDA-event timings of fn() after warm-up."""
     for _ in range(warmup):
@@ -257,23 +269,36 @@ def graph_ms(fn, reps: int = 20) -> float:
         del graph
 
 
-def device_us(fn, reps: int = 20):
+def device_us(fn, kernels: int | None = None, reps: int = 20, tries: int = 5):
     """Device time of one fn() call in microseconds: the durations of the
     kernels the profiler records on the card over `reps` calls, summed and
     divided by reps. No host time and no gap between kernels is in it, so it
-    is what a kernel far below a launch's host cost is held to; None if the
-    profiler recorded no kernel."""
+    is what a kernel far below a launch's host cost is held to. A trace that
+    missed a kernel would read low, so the trace must hold reps x the kernels
+    one call launches (`kernels`, or where None the larger count of two
+    traces of one call: a trace may come back empty); one that does not is
+    taken again, up to `tries` traces. None if no trace was whole."""
     from torch.profiler import ProfilerActivity, profile
+
+    def trace(calls):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return device_events(prof)
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in device_events(prof)]
-    return sum(spans) / reps if spans else None
+    per_call = max(len(trace(1)) for _ in range(2)) if kernels is None else kernels
+    held = []
+    for _ in range(tries if per_call else 0):
+        events = trace(reps)
+        if len(events) == reps * per_call:
+            return sum(e.time_range.end - e.time_range.start for e in events) / reps
+        held.append(len(events))
+    say(f"  device_us: not measured: traces held {held} device events, not {reps} x {per_call}")
+    return None
 
 
 def device_events(prof):
@@ -628,7 +653,8 @@ def kernel_phase(dev):
         for name in order:
             ms.setdefault(name, []).append(time_ms(fns[name]))
             if name != "plain":
-                us.setdefault(name, []).append(device_us(fns[name]))
+                us.setdefault(name, []).append(
+                    device_us(fns[name], 1 if name in ("kernel", "fma") else None))
         tail_times[bt] = (ms, us)
         bnd, by = bound(2.0 * bt * d * e, 2.0 * (bt * d + d * e + bt * d + bt * e) + 8.0 * d)
         say(f"CLS tail alone at B={bt}, {d} -> {e}, bf16 (ms: median of 20 CUDA-event runs of "
@@ -701,8 +727,8 @@ def fp32_kernels(dev, rng, check, failures, b=128, s=211, d=768, hid=3072, heads
     S=442 too): each against its plain version, 50 launches bit-equal, and
     timed (median of 20 CUDA-event runs) beside its plain version, the fp32
     library call (F.layer_norm + torch.addmm with TF32 off, i.e. cuBLAS
-    SGEMM; SDPA in fp32; F.layer_norm + matmul for the tail), the bound of
-    three TF32 passes and the fp32 FMA figure of the CUDA cores. Returns the
+    SGEMM; SDPA in fp32), the bound of three TF32 passes and the fp32 FMA
+    figure of the CUDA cores; the tail as `fp32_tail` says. Returns the
     kernels-line records."""
     from tpu_reid_torch.ops import attention as TA
     from tpu_reid_torch.ops import fused_attention as FA
@@ -816,35 +842,148 @@ def fp32_kernels(dev, rng, check, failures, b=128, s=211, d=768, hid=3072, heads
 
     edge_checks(dev, rng, check, f32)
 
-    # the CLS tail in fp32 (the FMA kernel): device time from the profiler,
-    # as its bf16 record reads it (CUDA events around one launch read the host)
-    e = 512
-    xt = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(dev)
-    gt = torch.from_numpy(1 + 0.05 * rng.standard_normal(d).astype(np.float32)).to(dev)
-    bt_ = torch.from_numpy(0.05 * rng.standard_normal(d).astype(np.float32)).to(dev)
-    proj = torch.from_numpy(rng.standard_normal((d, e)).astype(np.float32) * d ** -0.5).to(dev)
-    fns = {"kernel": lambda: FT.ln_proj_tail_kernel(xt, gt, bt_, proj),
-           "plain": lambda: FT.ln_proj_tail_reference(xt, gt, bt_, proj),
-           "library": lambda: F.layer_norm(xt, (d,), gt, bt_) @ proj}
-    yk, pk = fns["kernel"]()
-    yr, pr = fns["plain"]()
-    err = max(check("ln_proj_tail_fp32[y]", yk, yr, f32), check("ln_proj_tail_fp32[p]", pk, pr,
-                                                                 f32))
-    repeat("ln_proj_tail_fp32", fns["kernel"])
-    ms = {k: time_ms(fn) for k, fn in fns.items()}
-    us = {k: device_us(fn) for k, fn in fns.items()}
-    bnd, by = bound_fp32(2.0 * b * d * e, 4.0 * (2 * b * d + d * e + b * e + 2 * d))
-    dev_txt = {k: "not measured" if v is None else f"{v:.2f} us" for k, v in us.items()}
-    say(f"    ln_proj_tail_fp32 at B={b}, {d} -> {e}: device kernel {dev_txt['kernel']}, "
-        f"library {dev_txt['library']}, plain {dev_txt['plain']}; events kernel "
-        f"{ms['kernel']:.4f} ms, library {ms['library']:.4f} ms, plain {ms['plain']:.4f} ms; "
-        f"bound {bnd:.5f} ms ({by})")
-    record["ln_proj_tail_fp32"] = dict(
-        name="ln_proj_tail_fp32", route="cuda", source="tpu_reid_torch/csrc/tail_kernel.cu",
-        replaces="tpu_reid/ops/fused_tail.py:31", max_abs_err=err, ms=ms["kernel"],
-        plain_ms=ms["plain"], bound_ms=bnd, bound_by=by, library_ms=ms["library"],
-        device_us=us, dtype="float32")
+    record["ln_proj_tail_fp32"] = fp32_tail(dev, rng, check, repeat, failures)
     return record
+
+
+# the fp32 CLS tail's checks, (B, D, E, route): the main path's width at every
+# B the tail meets (1 row, a ragged tile, the training batch of 64, an
+# extraction pass of 128, IVLP serving's 512), the widest row (ViT-L/14's
+# 1024 -> 768), E off the 64-column tile (520, 516: a multiple of 4 and not of
+# 8), D split unevenly over the cluster (640 = 20 K blocks), the narrowest D;
+# and what the tf32x3 kernel does not take: D off the 32-wide K block, E off 4
+FP32_TAIL_SHAPES = ((1, 768, 512, "tf32x3"), (37, 768, 512, "tf32x3"),
+                    (64, 768, 512, "tf32x3"), (128, 768, 512, "tf32x3"),
+                    (512, 768, 512, "tf32x3"), (70, 1024, 768, "tf32x3"),
+                    (130, 768, 520, "tf32x3"), (33, 768, 516, "tf32x3"),
+                    (65, 640, 200, "tf32x3"), (5, 32, 16, "tf32x3"), (9, 80, 24, "fma"),
+                    (9, 768, 514, "fma"))
+
+
+def tail_operands(rng, bb, dd, ee, dev, offset=0):
+    """The CLS tail's fp32 operands from rng: x (bb, dd) `offset` floats past
+    an allocation's base, the LayerNorm's scale and bias, proj (dd, ee)."""
+    flat = torch.from_numpy(rng.standard_normal(bb * dd + offset).astype(np.float32))
+    xt = flat.to(dev)[offset:].view(bb, dd)
+    gt = torch.from_numpy(1 + 0.05 * rng.standard_normal(dd).astype(np.float32)).to(dev)
+    bt_ = torch.from_numpy(0.05 * rng.standard_normal(dd).astype(np.float32)).to(dev)
+    pr = torch.from_numpy(rng.standard_normal((dd, ee)).astype(np.float32) * dd ** -0.5).to(dev)
+    return xt, gt, bt_, pr
+
+
+FP32_TAIL_TIMED_B = (64, 128, 512)
+
+
+def fp32_tail_fns(xt, gt, bt_, pr):
+    """The fp32 tail's timed calls: the kernel, the FMA kernel it replaced,
+    the library call (F.layer_norm + matmul) and the plain version."""
+    from tpu_reid_torch.ops import fused_tail as FT
+
+    return {"kernel": lambda: FT.ln_proj_tail_kernel(xt, gt, bt_, pr),
+            "fma": lambda: FT.ln_proj_tail_fma(xt, gt, bt_, pr),
+            "library": lambda: F.layer_norm(xt, (xt.shape[1],), gt, bt_) @ pr,
+            "plain": lambda: FT.ln_proj_tail_reference(xt, gt, bt_, pr)}
+
+
+def fp32_tail_device_us(seed: int, d: int = 768, e: int = 512) -> dict:
+    """{B: {call: device us or None}} of fp32_tail_fns at FP32_TAIL_TIMED_B,
+    on operands made from `seed` in that order. fp32_tail runs it in a fresh
+    interpreter (FP32_TAIL_DEVICE_US): late in a long process the profiler
+    returned traces with no kernel, or with too few, try after try."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    out = {}
+    for bb in FP32_TAIL_TIMED_B:
+        fns = fp32_tail_fns(*tail_operands(rng, bb, d, e, dev))
+        out[bb] = {name: device_us(fn, 1 if name in ("kernel", "fma") else None)
+                   for name, fn in fns.items()}
+    return out
+
+
+# run in a fresh interpreter: `python -c FP32_TAIL_DEVICE_US SEED` prints
+# fp32_tail_device_us(SEED) as JSON on its last line
+FP32_TAIL_DEVICE_US = r"""
+import json, sys
+import chip_smoke
+print(json.dumps(chip_smoke.fp32_tail_device_us(int(sys.argv[1]))))
+"""
+
+
+def fp32_tail(dev, rng, check, repeat, failures, d=768, e=512):
+    """The CLS tail in fp32 (ln_proj_tail_tf32x3_kernel; the FMA kernel outside
+    its domain) against ln_proj_tail_reference within 1e-4 of max|plain|, y
+    and p, at FP32_TAIL_SHAPES and at the training shape with x 4 bytes off a
+    16-byte boundary (the FMA kernel), each with the route tail_kernel_route
+    gives, which must be the one listed; 50 launches bit-equal at the training
+    shape (B=64); device times from the profiler, read in a fresh interpreter
+    on the same operands (CUDA events around one launch read the host), at
+    FP32_TAIL_TIMED_B beside the library call (F.layer_norm + matmul), the
+    plain version and the FMA kernel it replaced, with the card's name and
+    power limit. Returns the kernels-line record: B=64 (`b`), the fp32
+    training step's CLS rows, with B=128 and 512 inside."""
+    from tpu_reid_torch.ops import _build
+    from tpu_reid_torch.ops import fused_tail as FT
+
+    f32 = torch.float32
+    say("fp32 CLS tail against ln_proj_tail_reference (y and p; route from tail_kernel_route)")
+    errs, wrong_route = {}, []
+    for bb, dd, ee, want, offset in ([c + (0,) for c in FP32_TAIL_SHAPES]
+                                     + [(64, 768, 512, "fma", 1)]):
+        xt, gt, bt_, pr = tail_operands(rng, bb, dd, ee, dev, offset)
+        route = FT.tail_kernel_route(bb, dd, ee, False, {"x": _build.ptr(xt)})
+        tag = f"B={bb} {dd} -> {ee}{', x 4 bytes off' if offset else ''} ({route})"
+        if route != want:
+            wrong_route.append(tag)
+        yk, pk = FT.ln_proj_tail_kernel(xt, gt, bt_, pr)
+        yr, pp = FT.ln_proj_tail_reference(xt, gt, bt_, pr)
+        errs[(bb, dd, ee, offset)] = max(check(f"ln_proj_tail_fp32[{tag} y]", yk, yr, f32),
+                                         check(f"ln_proj_tail_fp32[{tag} p]", pk, pp, f32))
+    if wrong_route:
+        failures.append(f"ln_proj_tail_fp32 routes {wrong_route}")
+        say(f"  FAIL: routes other than listed: {wrong_route}")
+
+    seed = int(rng.integers(2 ** 31))
+    times_rng = np.random.default_rng(seed)
+    inputs = {bb: tail_operands(times_rng, bb, d, e, dev) for bb in FP32_TAIL_TIMED_B}
+    repeat("ln_proj_tail_fp32[B=64]", lambda: FT.ln_proj_tail_kernel(*inputs[64]))
+    torch.cuda.synchronize()
+    proc = subprocess.run([sys.executable, "-c", FP32_TAIL_DEVICE_US, str(seed)], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or not lines:
+        raise PhaseFailed(f"the fp32 tail's device times in a subprocess exited with "
+                          f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    for ln in lines[:-1]:
+        say(f"  (device times) {ln}")
+    device = {int(bb): v for bb, v in json.loads(lines[-1]).items()}
+    say(f"  times on {card_line()} (device us: the kernels' durations in a profiler trace of "
+        f"20 calls, in a fresh interpreter; ms: median of 20 CUDA-event runs of a "
+        f"host-driven launch)")
+    by_batch = {}
+    for bb, ops in inputs.items():
+        fns = fp32_tail_fns(*ops)
+        us = device[bb]
+        ms = {name: time_ms(fns[name]) for name in ("kernel", "library", "plain")}
+        flops = 2.0 * bb * d * e
+        bnd, by = bound_fp32(flops, 4.0 * (2 * bb * d + d * e + bb * e + 2 * d))
+        by_batch[bb] = dict(ms=ms, device_us=us, bound_ms=bnd, bound_by=by)
+        txt = {k: "not measured" if u is None else f"{u:.2f}" for k, u in us.items()}
+        say(f"    B={bb}, {d} -> {e}: device kernel {txt['kernel']} us, FMA kernel {txt['fma']}, "
+            f"library {txt['library']}, plain {txt['plain']}; events kernel "
+            f"{ms['kernel']:.4f} ms, library {ms['library']:.4f}, plain {ms['plain']:.4f}; "
+            f"bound {bnd * 1e3:.2f} us ({by}), FMA figure {fma_peak_ms(flops) * 1e3:.2f} us")
+        k_us, l_us = us["kernel"], us["library"]
+        if k_us is not None and l_us is not None:
+            say(f"    B={bb}: the kernel's device time {k_us:.2f} us against the library "
+                f"call's {l_us:.2f} us ({k_us / l_us:.2f}x): "
+                f"{'at or below' if k_us <= l_us else 'ABOVE'} it")
+    r64 = by_batch[64]
+    return dict(name="ln_proj_tail_fp32", route="cuda", source="tpu_reid_torch/csrc/tail_kernel.cu",
+                replaces="tpu_reid/ops/fused_tail.py:31", max_abs_err=errs[(64, d, e, 0)],
+                ms=r64["ms"]["kernel"], plain_ms=r64["ms"]["plain"], bound_ms=r64["bound_ms"],
+                bound_by=r64["bound_by"], library_ms=r64["ms"]["library"],
+                device_us=r64["device_us"], dtype="float32", b=64,
+                b128=by_batch[128], b512=by_batch[512])
 
 
 # the GEMM and attention kernels' edge shapes, by dtype. ln_gemm: (B, S, K,
@@ -1242,6 +1381,7 @@ KERNEL_GROUPS = (("attention_long_bf16_kernel", "mha_core (S > 256)"),
                  ("gemm_tf32x3_kernel<(bool)0", "gemm_bias_residual / no-LN ln_gemm fp32"),
                  ("attention_bf16_kernel", "mha_core"),
                  ("attention_tf32x3_kernel", "mha_core fp32"),
+                 ("ln_proj_tail_tf32x3_kernel", "ln_proj_tail fp32"),
                  ("ln_proj_tail_kernel", "ln_proj_tail (FMA)"),
                  ("minsum_kernel", "minsum"))
 
@@ -2116,11 +2256,14 @@ def fp32_steps(dev, counters, mcfg, params, images, labels, valid, text, draws, 
     step, no synchronisation between steps) on the host loop (eager, as
     run_stage2 / run_stage1 step) and as replays of one CUDA graph
     (StepGraph, as the cached runners replay); the fp32 kernels' launches
-    per step on both and on the cached coop stage 1 (its text tower); one
-    captured stage-2 step against an eager step from the same state, loss
-    and every updated tensor bit for bit."""
+    per step on both and on the cached coop stage 1 (its text tower); a
+    trace of each step (the 3xTF32 kernels, no FMA or bf16 kernel); one more
+    step of each with every CLS-tail call held against its plain version on
+    the step's own CLS rows; one captured stage-2 step against an eager step
+    from the same state, loss and every updated tensor bit for bit."""
     from tpu_reid_torch.data.transforms import DevicePreprocess
     from tpu_reid_torch.models import reid_clip as M
+    from tpu_reid_torch.ops import fused_tail as FT
     from tpu_reid_torch.train import optim as O
     from tpu_reid_torch.train import trainer as TR
     from tpu_reid_torch.train.step_graph import StepGraph
@@ -2182,6 +2325,20 @@ def fp32_steps(dev, counters, mcfg, params, images, labels, valid, text, draws, 
         if any(found[k] == 0 for k in FP32_KERNELS) or any(found[k] for k in absent):
             raise PhaseFailed(f"the fp32 {stage} step's trace shows {found}: the 3xTF32 "
                               f"kernels must run, and neither the FMA nor the bf16 ones")
+        # one more step with its tail calls held against the plain version on
+        # the step's own CLS rows
+        errs = []
+        with held_against_plain(FT, "ln_proj_tail_kernel", FT.ln_proj_tail_reference, errs):
+            body()
+        torch.cuda.synchronize()
+        worst = max((rel for _, rel in errs), default=float("inf"))
+        tol = TOL[torch.float32]
+        say(f"  the fp32 {stage} step's CLS tail: {len(errs)} outputs, each against its plain "
+            f"version on the step's own inputs: worst rel {worst:.3e} (tol {tol:.0e}) "
+            f"{'ok' if errs and worst <= tol else 'FAIL'}")
+        if not errs or worst > tol:
+            raise PhaseFailed(f"the fp32 {stage} step's CLS tail disagrees with its plain "
+                              f"version ({len(errs)} outputs, worst rel {worst:.3e})")
         del body, state
         body, state = make(stage, True)
         run = StepGraph(body, state.tensors, dev, name=f"fp32 {stage} step")
@@ -4725,14 +4882,17 @@ def tools_phase(dev, counters):
 # instantiations of the wgmma kernels that the sources launch: the GEMM as
 # (LN, 128 or 64 rows, epilogue) = 3 without LN + 4 with; the two attention
 # kernels; the CLS tail; the fp32 route's (LN, epilogue) = 3 without LN + 2
-# with, and its attention kernel
+# with, its attention kernel and its CLS tail
 WGMMA_ENTRIES = {"gemm_bf16_kernel": 7, "attention_bf16_kernel": 1,
                  "attention_long_bf16_kernel": 1, "ln_proj_tail_bf16_kernel": 1,
-                 "gemm_tf32x3_kernel": 5, "attention_tf32x3_kernel": 1}
+                 "gemm_tf32x3_kernel": 5, "attention_tf32x3_kernel": 1,
+                 "ln_proj_tail_tf32x3_kernel": 1}
 # the fp32 kernels of each wrapper: what an fp32 training step must launch,
-# and the FMA kernels they replaced, which no trace may show
-FP32_KERNELS = ("gemm_tf32x3_kernel", "attention_tf32x3_kernel")
-RETIRED_FP32_KERNELS = ("gemm_f32_kernel", "attention_f32_kernel", "attention_long_f32_kernel")
+# and the FMA kernels they replaced, which no trace may show (no name here is
+# a substring of another kernel's name)
+FP32_KERNELS = ("gemm_tf32x3_kernel", "attention_tf32x3_kernel", "ln_proj_tail_tf32x3_kernel")
+RETIRED_FP32_KERNELS = ("gemm_f32_kernel", "attention_f32_kernel", "attention_long_f32_kernel",
+                        "ln_proj_tail_kernel")
 BF16_BLOCK_KERNELS = ("gemm_bf16_kernel", "attention_bf16_kernel", "attention_long_bf16_kernel",
                       "ln_proj_tail_bf16_kernel")
 
@@ -4766,10 +4926,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     say(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")

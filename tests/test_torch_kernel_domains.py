@@ -201,10 +201,19 @@ TAIL_ALIGNED = dict(x=BASE, proj=BASE + 2 ** 20, ln_scale=BASE + 2 ** 21,
     (70, 1024, 768, True, "wgmma"),    # the widest tail: ViT-L/14
     (64, 64, 8, True, "wgmma"),        # the smallest D and E
     (130, 768, 520, True, "wgmma"),    # E a multiple of 8, not of the 64-column tile
-    (128, 768, 512, False, "fma"),     # fp32: the parity runs
+    (128, 768, 512, False, "tf32x3"),  # fp32: an extraction pass, the parity runs
     (33, 96, 40, True, "fma"),         # D off the 64-wide K block
     (33, 768, 516, True, "fma"),       # E not a multiple of 8
-    (5, 32, 16, False, "fma"),         # a narrow fp32 tail
+    (5, 32, 16, False, "tf32x3"),      # the narrowest fp32 tail: one K block of 32
+    (64, 768, 512, False, "tf32x3"),   # fp32 training: the batch's 64 CLS rows
+    (1, 768, 512, False, "tf32x3"),    # fp32, one row
+    (512, 768, 512, False, "tf32x3"),  # fp32, IVLP serving's batch
+    (70, 1024, 768, False, "tf32x3"),  # fp32, the widest tail: ViT-L/14
+    (33, 768, 516, False, "tf32x3"),   # fp32 rows of p are 16 bytes at E % 4 == 0
+    (65, 640, 200, False, "tf32x3"),   # 20 K blocks: the cluster's ranks take 2 or 3
+    (33, 96, 40, False, "tf32x3"),     # D off 64 is a whole number of fp32 K blocks
+    (9, 80, 24, False, "fma"),         # D off the 32-wide fp32 K block
+    (9, 768, 514, False, "fma"),       # E not a multiple of 4
 ])
 def test_tail_route(b, d, e, bf16, route):
     assert FT.tail_kernel_route(b, d, e, bf16, TAIL_ALIGNED) == route
@@ -228,6 +237,56 @@ def test_tail_route_refuses(b, d, e, why):
     for bf16 in (True, False):
         with pytest.raises(ValueError):
             FT.tail_kernel_route(b, d, e, bf16, TAIL_ALIGNED)
+
+
+@pytest.mark.parametrize("name", sorted(TAIL_ALIGNED))
+@pytest.mark.parametrize("offset", [4, 8])
+def test_tail_fp32_route_takes_the_fma_kernel_off_16_bytes(name, offset):
+    # the tf32x3 kernel reads x, gamma and beta and stores y and p as 16-byte
+    # vectors, and TMA reads proj: any base off 16 bytes leaves its domain
+    assert FT.tail_kernel_route(64, 768, 512, False, TAIL_ALIGNED) == "tf32x3"
+    addresses = dict(TAIL_ALIGNED, **{name: TAIL_ALIGNED[name] + offset})
+    assert FT.tail_kernel_route(64, 768, 512, False, addresses) == "fma"
+
+
+def _tail_source_values():
+    """Every `constexpr int NAME = expr;` of csrc/tail_kernel.cu, evaluated in
+    order (integer arithmetic), and `tail_tf32_smem`'s return expression as a
+    function of kb_max."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(FT.__file__), "..", "csrc", "tail_kernel.cu")).read()
+    values = {}
+    for decl in re.findall(r"constexpr int (\w+ = [^;]+);", src):
+        for part in decl.split(","):  # `constexpr int A = 1, B = 2;`
+            name, expr = (t.strip() for t in part.split("="))
+            values[name] = eval(expr.replace("/", "//"), {"__builtins__": {}}, dict(values))
+    body = re.search(r"int tail_tf32_smem\(int kb_max\) \{(.*?)\n\}", src, re.S).group(1)
+    expr = re.search(r"return ([^;]+);", body).group(1)
+    return values, lambda kb_max: eval(expr.replace("/", "//"), {"__builtins__": {}},
+                                       dict(values, kb_max=kb_max))
+
+
+def test_tail_tf32x3_smem_fits_from_the_source_constants():
+    """The fp32 kernel's shared memory, by the source's own constants and
+    formula (per K block of a rank: the proj slice and the split y tiles;
+    the eight ranks' partial slabs, the row sums of both passes, the
+    barriers, up to 1024 bytes of alignment): under the 232448 bytes a block
+    can ask for at D = MAX_WIDTH (D / 32 K blocks over a cluster of 8), and
+    at ViT-B/16's 768 small enough for two blocks on an SM (233472 bytes, 1
+    KB reserved per block), as the kernel's launch bounds ask."""
+    v, smem = _tail_source_values()
+    assert v["TW_MAX_D"] == FT.MAX_WIDTH and v["TF_RANKS"] <= 8  # a portable cluster size
+    assert v["TF_ROWS"] == v["TF_COLS"] == 64 and v["TF_THREADS"] == 256
+    assert v["TF_ROWS"] % v["TF_RANKS"] == 0
+
+    def kb_max(d):
+        return -(-(d // v["TF_KB"]) // v["TF_RANKS"])
+
+    assert kb_max(FT.MAX_WIDTH) == v["TF_MAX_KB"]
+    assert smem(kb_max(FT.MAX_WIDTH)) <= 232448
+    assert 2 * (smem(kb_max(768)) + 1024) <= 233472
 
 
 def test_tail_smem_fits_the_widest_row():

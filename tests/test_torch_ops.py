@@ -160,6 +160,25 @@ def test_ln_proj_tail_reference_matches_pallas_and_xla():
                                atol=2e-2, rtol=2e-2)
 
 
+@pytest.mark.parametrize("b", [64, 37])
+def test_ln_proj_tail_reference_matches_pallas_and_xla_at_the_fp32_kernels_shape(b):
+    """fp32 at the shape the card's 3xTF32 tail kernel runs on every fp32
+    training step (ViT-B/16's 768 -> 512 over the batch of 64 CLS rows) and
+    at a ragged batch: the plain version that kernel is held to on the card
+    agrees with the JAX package's XLA composition and its Pallas kernel."""
+    rng = np.random.RandomState(40 + b)
+    d, e = 768, 512
+    x = rng.randn(b, d).astype(np.float32)
+    s = (1 + 0.1 * rng.randn(d)).astype(np.float32)
+    bb = (0.1 * rng.randn(d)).astype(np.float32)
+    proj = (rng.randn(d, e) * d ** -0.5).astype(np.float32)
+    args = [jnp.asarray(v) for v in (x, s, bb, proj)]
+    got_y, got_p = TFT.ln_proj_tail_reference(*(torch.from_numpy(v) for v in (x, s, bb, proj)))
+    for want_y, want_p in (JFT._tail_xla(*args), JFT._tail_pallas(*args, interpret=True)):
+        np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), atol=ATOL, rtol=RTOL)
+        np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), atol=ATOL, rtol=RTOL)
+
+
 def test_ln_proj_tail_dispatch_follows_kernel_impl():
     rng = np.random.RandomState(2)
     x = torch.from_numpy(rng.randn(3, 16).astype(np.float32))

@@ -12,7 +12,9 @@ operations on an int32 view) runs that product at the block's depths
 (K = 768 and 3072) on operands from a numpy seed, against an fp64
 reference: it stays within 1e-5 of max|ref| (the kernels are held to 1e-4
 of their plain versions on the card) and within 4x of plain fp32
-torch.matmul's own error, where a single TF32 pass misses 1e-4.
+torch.matmul's own error, where a single TF32 pass misses 1e-4. The CLS
+tail's kernel (csrc/tail_kernel.cu) splits D over the eight blocks of a
+cluster, statistics and product alike: its order of sums is emulated too.
 """
 
 import numpy as np
@@ -78,3 +80,63 @@ def test_three_tf32_passes_are_as_good_as_fp32(k):
     assert three <= 1e-5, three
     assert three <= 4 * fp32, (three, fp32)
     assert one > 1e-4, one
+
+
+def tail_tf32x3(x, g, b, proj, ranks=8, k_block=32, eps=1e-5):
+    """The fp32 CLS tail kernel's arithmetic (csrc/tail_kernel.cu,
+    ln_proj_tail_tf32x3_kernel): D is cut into K blocks of 32, rank r of a
+    cluster of 8 takes blocks [r n / 8, (r + 1) n / 8); each statistics pass
+    sums a rank's columns and the eight partial sums are added in rank
+    order; a rank's k8 steps are halved between two warpgroups, each running
+    the three TF32 passes, and the two partial tiles are added, then the
+    eight ranks' tiles in rank order."""
+    d = x.shape[1]
+    nkb = d // k_block
+    cuts = [(r * nkb // ranks * k_block, (r + 1) * nkb // ranks * k_block) for r in range(ranks)]
+
+    def in_rank_order(parts):
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total
+
+    mean = in_rank_order([x[:, lo:hi].sum(1) for lo, hi in cuts]) / d
+    dev = x - mean[:, None]
+    var = in_rank_order([(dev[:, lo:hi] ** 2).sum(1) for lo, hi in cuts]) / d
+    y = dev * torch.rsqrt(var + eps)[:, None] * g + b
+    tiles = []
+    for lo, hi in cuts:
+        mid = lo + (hi - lo) // 16 * 8  # half of the rank's k8 steps
+        tiles.append(tf32x3_matmul(y[:, lo:mid], proj[lo:mid])
+                     + tf32x3_matmul(y[:, mid:hi], proj[mid:hi]))
+    return y, in_rank_order(tiles)
+
+
+@pytest.mark.parametrize("b,d,e", [(64, 768, 512), (37, 1024, 768), (5, 640, 200)])
+def test_the_tail_kernels_split_holds_fp32(b, d, e):
+    """The fp32 tail kernel's K split (statistics and product over the eight
+    ranks of a cluster, the product in three TF32 passes) against fp64 on
+    operands from a numpy seed: y within 1e-6 and p within 1e-5 of max|ref|,
+    and within 4x of the plain fp32 version's own error (the card holds the
+    kernel to that plain version within 1e-4)."""
+    from tpu_reid_torch.ops import fused_tail as FT
+
+    rng = np.random.default_rng(d + b)
+    x = (rng.standard_normal((b, d)) + 0.5).astype(np.float32)
+    g = (1 + 0.05 * rng.standard_normal(d)).astype(np.float32)
+    bb = (0.05 * rng.standard_normal(d)).astype(np.float32)
+    proj = (rng.standard_normal((d, e)) * d ** -0.5).astype(np.float32)
+    x64 = x.astype(np.float64)
+    mu = x64.mean(1, keepdims=True)
+    y64 = (x64 - mu) / np.sqrt(((x64 - mu) ** 2).mean(1, keepdims=True) + 1e-5) * g + bb
+    p64 = y64 @ proj.astype(np.float64)
+    t = [torch.from_numpy(v) for v in (x, g, bb, proj)]
+    got_y, got_p = tail_tf32x3(*t)
+    plain_y, plain_p = FT.ln_proj_tail_reference(*t)
+
+    def rel(got, ref):
+        return float(np.abs(got.double().numpy() - ref).max() / np.abs(ref).max())
+
+    assert rel(got_y, y64) <= 1e-6, rel(got_y, y64)
+    assert rel(got_p, p64) <= 1e-5, rel(got_p, p64)
+    assert rel(got_p, p64) <= 4 * max(rel(plain_p, p64), 1e-7), (rel(got_p, p64), rel(plain_p, p64))

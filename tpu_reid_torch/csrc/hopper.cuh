@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the kernels in block_kernels.cu and
 // tail_kernel.cu:
-// mbarriers, TMA tile loads and their host-side tensor maps, wgmma shared-memory
+// mbarriers, cluster barriers and stores into another block's shared memory,
+// TMA tile loads and their host-side tensor maps, wgmma shared-memory
 // descriptors and the wgmma shapes the kernels issue (bf16, and tf32 for the
 // fp32 kernels' three passes), the 128-byte swizzle.
 //
@@ -64,6 +65,51 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // generic-proxy writes to shared memory -> visible to wgmma / TMA reads
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// thread-block clusters: ranks, the cluster-wide barrier (arrive and wait
+// apart, so that work runs between them), stores into another block's shared
+// memory counted on that block's mbarrier
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster arrives, then waits: what a
+// block did before its arrival (its mbarrier inits above all) is visible to
+// every block of the cluster after its wait
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// this block's shared address `addr` in the shared memory of block `rank`
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 4 or 8 bytes into another block's shared memory at `addr`, counted as
+// bytes on its mbarrier `bar` (both cluster addresses from cluster_map)
+__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+               ::"r"(addr), "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t addr, float v0, float v1, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n"
+      ::"r"(addr), "r"(__float_as_uint(v0)), "r"(__float_as_uint(v1)), "r"(bar)
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -8,8 +8,10 @@ latency, not bytes or operations (0.1 GFLOP over 1.3 MB at the main path's
 shape), so the bf16 kernel is built to be short: blocks of (64 rows, 64
 columns) normalise their rows into a swizzled bf16 panel in shared memory
 while TMA brings their (D, 64) slice of proj in bulk, and two warpgroups run
-the product on wgmma, splitting K. fp32 inputs (and bf16 shapes the wgmma
-kernel does not take) run an FMA kernel; `tail_kernel_route` holds both
+the product on wgmma, splitting K. The fp32 kernel (the training CLIs'
+default dtype) runs 3xTF32 on wgmma in clusters of 8 blocks that split K,
+reduced in a fixed order through distributed shared memory. Shapes and
+addresses neither takes run an FMA kernel; `tail_kernel_route` holds the
 domains as a plain function of sizes and addresses. The plain version
 `ln_proj_tail_reference` mirrors the JAX package's `_tail_xla`, the plain
 layer_norm + dot composition. The kernel wrapper is forward-only: an input
@@ -27,7 +29,7 @@ from tpu_reid_torch.ops.fused_attention import _layer_norm_f32
 
 Tensor = torch.Tensor
 
-MAX_WIDTH = 1024  # both kernels keep whole rows of D values in shared memory
+MAX_WIDTH = 1024  # the kernels keep a block's rows of D values (fp32: its share) in shared memory
 
 
 def ln_proj_tail_reference(x: Tensor, ln_scale: Tensor, ln_bias: Tensor,
@@ -39,20 +41,24 @@ def ln_proj_tail_reference(x: Tensor, ln_scale: Tensor, ln_bias: Tensor,
 
 def tail_kernel_route(b: int, d: int, e: int, bf16: bool, addresses: dict) -> str:
     """Which kernel of csrc/tail_kernel.cu takes x (B, D) and proj (D, E), from
-    sizes and base addresses (`addresses`: name -> address) alone: "wgmma" or
-    "fma", or ValueError where neither does. Both need 1 <= D <= MAX_WIDTH (a
-    block keeps its rows over the whole of D in shared memory) and sizes
-    within 32 bits. The wgmma kernel takes bf16 with D a multiple of 64 (one
-    128-byte swizzled row of a K block), E a multiple of 8 (16-byte rows of
-    proj for its tensor map, 16-byte stores of p) and every base 16-byte
-    aligned (vector loads of x, gamma and beta, TMA's rule for proj, vector
-    stores of y and p). The FMA kernel reads and writes element by element:
-    it takes fp32, and bf16 outside that domain."""
+    sizes and base addresses (`addresses`: name -> address) alone: "wgmma"
+    (bf16), "tf32x3" (fp32) or "fma", or ValueError where none does. All need
+    1 <= D <= MAX_WIDTH (a block keeps its rows over the whole of D, or its
+    share of them, in shared memory) and sizes within 32 bits. The two
+    tensor-core kernels move every operand as 16-byte vectors or by TMA, so
+    every base must be 16-byte aligned, and they read proj and store p in
+    16-byte rows: E a multiple of 8 in bf16, of 4 in fp32. D must fill whole
+    128-byte swizzled rows of a K block: a multiple of 64 in bf16, of 32 in
+    fp32. The FMA kernel reads and writes element by element and takes what
+    lies outside those domains."""
     if not 1 <= d <= MAX_WIDTH or e < 1 or max(b, d, e) >= 2 ** 31:
         raise ValueError(f"ln_proj_tail: x ({b}, {d}), proj ({d}, {e}); needs "
                          f"1 <= D <= {MAX_WIDTH}, E >= 1 and sizes below 2^31")
-    aligned = all(a % 16 == 0 for a in addresses.values())
-    return "wgmma" if bf16 and d % 64 == 0 and e % 8 == 0 and aligned else "fma"
+    if not all(a % 16 == 0 for a in addresses.values()):
+        return "fma"
+    if bf16:
+        return "wgmma" if d % 64 == 0 and e % 8 == 0 else "fma"
+    return "tf32x3" if d % 32 == 0 and e % 4 == 0 else "fma"
 
 
 def _launch_tail(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, proj: Tensor,
@@ -83,9 +89,9 @@ def _launch_tail(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, proj: Tensor,
 
 def ln_proj_tail_kernel(x: Tensor, ln_scale: Tensor, ln_bias: Tensor,
                         proj: Tensor) -> tuple[Tensor, Tensor]:
-    """CUDA: csrc/tail_kernel.cu::ln_proj_tail (the wgmma kernel in bf16, the
-    FMA kernel in fp32: `tail_kernel_route`); CPU tensors take the plain
-    version."""
+    """CUDA: csrc/tail_kernel.cu::ln_proj_tail (the bf16 wgmma kernel, the
+    fp32 3xTF32 kernel, or the FMA kernel outside their domains:
+    `tail_kernel_route`); CPU tensors take the plain version."""
     _build.check_forward_only(x, ln_scale, ln_bias, proj)
     if x.device.type == "cpu":
         return ln_proj_tail_reference(x, ln_scale, ln_bias, proj)
@@ -99,9 +105,9 @@ ln_proj_tail_kernel.launches = 0
 
 def ln_proj_tail_fma(x: Tensor, ln_scale: Tensor, ln_bias: Tensor,
                      proj: Tensor) -> tuple[Tensor, Tensor]:
-    """The FMA kernel on CUDA tensors of either type: the bf16 tail before
-    the wgmma kernel, kept callable so that a run can time the two designs
-    side by side. No path of the package calls it."""
+    """The FMA kernel on CUDA tensors of either type: the tail of both types
+    before the wgmma kernels, kept callable so that a run can time the
+    designs side by side. No path of the package calls it."""
     _build.check_forward_only(x, ln_scale, ln_bias, proj)
     return _launch_tail(x, ln_scale, ln_bias, proj, fma=True)
 
