@@ -1,6 +1,6 @@
-"""The port's runtime/checkpoint.py, the StepWatchdog, the trace and the
-StepTimer (the counterparts of tests/test_runtime.py and
-tests/test_guard.py's watchdog case): torch.save files written atomically
+"""The port's runtime/checkpoint.py, the StepWatchdog and the trace (the
+counterparts of tests/test_runtime.py and tests/test_guard.py's watchdog
+case): torch.save files written atomically
 and read back, the manager's cadence, pruning and latest epoch, the extras
 with their optimizer leaf order, two_stage_cb / two_stage_resume through
 real files, and the missing-extras warning."""
@@ -16,7 +16,7 @@ import torch
 from tpu_reid_torch.parallel import extract as TX
 from tpu_reid_torch.runtime import checkpoint as C
 from tpu_reid_torch.runtime.guard import StepWatchdog
-from tpu_reid_torch.runtime.observe import StepTimer, trace
+from tpu_reid_torch.runtime.observe import span, trace
 from tpu_reid_torch.train import optim as O
 
 
@@ -243,20 +243,18 @@ def test_extraction_watchdog_guards_each_batch():
     assert not hung
 
 
-def test_step_timer_on_the_cpu():
-    t = StepTimer()
-    time.sleep(0.01)
-    dt = t.mark()
-    assert dt >= 0.01 and t.ema == dt
-    t.mark()
-    assert t.ema is not None and t.ema < dt
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     with trace(str(tmp_path)):
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with span("reid.train.step", step=7):
+            torch.ones(64, 64) @ torch.ones(64, 64)
     files = [f for f in os.listdir(tmp_path) if f.endswith(".json")]
     assert len(files) == 1
     with open(tmp_path / files[0]) as f:
         events = json.load(f)["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
+    # the program's span, with its argument, on the host's thread around the op
+    (step,) = [e for e in events if e.get("name") == "reid.train.step"]
+    assert step["args"]["step"] == 7
+    mm = next(e for e in events if e.get("name") == "aten::mm")
+    assert mm["tid"] == step["tid"]
+    assert step["ts"] <= mm["ts"] and mm["ts"] + mm["dur"] <= step["ts"] + step["dur"]

@@ -27,6 +27,7 @@ from tpu_reid_torch.data.transforms import norm_stats
 from tpu_reid_torch.device import clone
 from tpu_reid_torch.models import layers as L
 from tpu_reid_torch.ops.fused_tail import ln_proj_tail
+from tpu_reid_torch.runtime.observe import span
 
 Tensor = torch.Tensor
 
@@ -99,22 +100,23 @@ def apply_vit(
     whole sequence (JPM takes all of it) through the block kernels, and with
     cls_only ln_post and the projection narrow to the CLS row as plain
     LayerNorm and product (no tail kernel, as in the JAX package)."""
-    x = patch_embed(params, cfg, images)
-    b = x.shape[0]
-    cls = params["class_embedding"].to(x.dtype).expand(b, 1, cfg.width)
-    if cv_emb is not None:
-        cls = cls + cv_emb.to(x.dtype)[:, None, :]
-    x = torch.cat([cls, x], dim=1)
-    x = x + params["positional_embedding"].to(x.dtype)
+    with span("reid.vit.stem"):
+        x = patch_embed(params, cfg, images)
+        b = x.shape[0]
+        cls = params["class_embedding"].to(x.dtype).expand(b, 1, cfg.width)
+        if cv_emb is not None:
+            cls = cls + cv_emb.to(x.dtype)[:, None, :]
+        x = torch.cat([cls, x], dim=1)
+        x = x + params["positional_embedding"].to(x.dtype)
 
-    if cfg.design.has_vision_prompts:
-        vpt = (
-            shallow_prompt if shallow_prompt is not None
-            else params["vpt_shallow"]
-        ).to(x.dtype)
-        x = torch.cat([x, vpt.expand((b,) + tuple(vpt.shape))], dim=1)
+        if cfg.design.has_vision_prompts:
+            vpt = (
+                shallow_prompt if shallow_prompt is not None
+                else params["vpt_shallow"]
+            ).to(x.dtype)
+            x = torch.cat([x, vpt.expand((b,) + tuple(vpt.shape))], dim=1)
 
-    x = L.layer_norm(params["ln_pre"], x)
+        x = L.layer_norm(params["ln_pre"], x)
 
     dp = deep_prompts if deep_prompts is not None else params.get("vpt_deep")
     flags = _deep_prompt_flags(cfg) if dp is not None else None

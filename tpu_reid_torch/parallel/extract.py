@@ -20,15 +20,19 @@ from tpu_reid_torch.data.transforms import DevicePreprocess
 from tpu_reid_torch.device import DeviceLike, resolve_device, to_device
 from tpu_reid_torch.parallel.mesh import all_gather_rows, shard_batch
 from tpu_reid_torch.runtime.guard import StepWatchdog
+from tpu_reid_torch.runtime.observe import span
 
 Tensor = torch.Tensor
 
 
 def _embed(embed_fn, pre, params, images_u8, flip_tta, dtype, cv=()):
-    x = pre(images_u8).to(dtype)
+    with span("reid.embed.preprocess"):
+        x = pre(images_u8).to(dtype)
     feats = embed_fn(params, x, *cv)
     if flip_tta:
-        feats = (feats + embed_fn(params, x.flip(2), *cv)) * 0.5
+        with span("reid.embed.preprocess"):
+            flipped = x.flip(2)
+        feats = (feats + embed_fn(params, flipped, *cv)) * 0.5
     return feats.float()
 
 
@@ -70,7 +74,8 @@ def make_extractor(
         cv = tuple(torch.as_tensor(c).to(dev) for c in cv)
         pre = preprocess.eval_batch
         if fold is not None:
-            params = fold(params)
+            with span("reid.embed.preprocess"):
+                params = fold(params)
             pre = preprocess.eval_batch_raw
         return _embed(embed_fn, pre, params, images_u8, flip_tta, dtype, cv)
 
@@ -95,7 +100,8 @@ def make_scan_extractor(
         images_kb = torch.as_tensor(images_kb).to(dev)
         pre = preprocess.eval_batch
         if fold is not None:
-            params = fold(params)
+            with span("reid.embed.preprocess"):
+                params = fold(params)
             pre = preprocess.eval_batch_raw
         return torch.stack([
             _embed(embed_fn, pre, params, images_kb[k], flip_tta, dtype)
@@ -133,6 +139,10 @@ def extract_embeddings(
     ids feeds the extractor's third argument (pair with
     make_extractor(with_cv_ids=True)).
 
+    Each batch is a span `reid.extract.batch` (its index and rows) holding
+    the spans of its upload, its extractor call, the wait on the previous
+    batch and the pull of the next batch from `batches` (runtime/observe).
+
     hang_timeout_s / on_hang: a runtime.guard.StepWatchdog guards the wait
     for each batch's device work. A CUDA launch returns before the device
     has run it, so a CUDA event is recorded after each batch and the
@@ -155,39 +165,50 @@ def extract_embeddings(
     feats, pids, camids, seqids, valids = [], [], [], [], []
     queued = None  # the previous batch's CUDA event
     place = (lambda x: x) if mesh is None else (lambda x: shard_batch(mesh, x))
-    for b in batches:
-        extra = (
-            (torch.as_tensor(place(np.asarray(cv_ids_of(b), np.int64)), device=dev),)
-            if cv_ids_of is not None else ()
-        )
-        with contextlib.nullcontext() if cuda else watchdog:
-            f = extractor(params, torch.as_tensor(place(b.images)).to(dev), *extra)
-        if cuda:
-            done = torch.cuda.Event()
-            done.record()
-            if queued is not None:
-                with watchdog:
-                    queued.synchronize()
-            queued = done
-        valid = np.asarray(b.valid, bool)
-        if mesh is not None:  # masked after the gather
-            feats.append(f)
-            valids.append(valid)
-            pids.append(b.pids[valid])
-            camids.append(b.camids[valid])
-            seqids.append(b.seqids[valid])
-        elif valid.all():
-            feats.append(f)
-            pids.append(b.pids)
-            camids.append(b.camids)
-            seqids.append(b.seqids)
-        else:
-            feats.append(f[torch.from_numpy(valid).to(f.device)])
-            pids.append(b.pids[valid])
-            camids.append(b.camids[valid])
-            seqids.append(b.seqids[valid])
+    it = iter(batches)
+    with span("reid.extract.next"):
+        b = next(it, None)
+    i = 0
+    while b is not None:
+        with span("reid.extract.batch", batch=i, rows=len(b.images)):
+            with span("reid.extract.upload"):
+                extra = (
+                    (torch.as_tensor(place(np.asarray(cv_ids_of(b), np.int64)), device=dev),)
+                    if cv_ids_of is not None else ()
+                )
+                images = torch.as_tensor(place(b.images)).to(dev)
+            with span("reid.extract.embed"), contextlib.nullcontext() if cuda else watchdog:
+                f = extractor(params, images, *extra)
+            with span("reid.extract.wait"):
+                if cuda:
+                    done = torch.cuda.Event()
+                    done.record()
+                    if queued is not None:
+                        with watchdog:
+                            queued.synchronize()
+                    queued = done
+            valid = np.asarray(b.valid, bool)
+            if mesh is not None:  # masked after the gather
+                feats.append(f)
+                valids.append(valid)
+                pids.append(b.pids[valid])
+                camids.append(b.camids[valid])
+                seqids.append(b.seqids[valid])
+            elif valid.all():
+                feats.append(f)
+                pids.append(b.pids)
+                camids.append(b.camids)
+                seqids.append(b.seqids)
+            else:
+                feats.append(f[torch.from_numpy(valid).to(f.device)])
+                pids.append(b.pids[valid])
+                camids.append(b.camids[valid])
+                seqids.append(b.seqids[valid])
+            with span("reid.extract.next"):
+                b = next(it, None)
+        i += 1
     if queued is not None:
-        with watchdog:
+        with span("reid.extract.wait"), watchdog:
             queued.synchronize()
     out = torch.cat(feats, dim=0)
     if mesh is not None:

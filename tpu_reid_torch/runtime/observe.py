@@ -1,12 +1,19 @@
-"""Observability: structured metric logging, traces and step timing (the
-port of tpu_reid/runtime/observe.py).
+"""Observability: structured metric logging, spans and traces (the port of
+tpu_reid/runtime/observe.py).
 
   * MetricLogger — JSONL event stream + console lines, per-phase wall-time
-    accounting (a copy of the JAX package's),
+    accounting (a copy of the JAX package's); each phase is also a span,
   * synced_phase — a MetricLogger phase that waits for the CUDA device
     before it ends, so the phase's seconds hold the device work it queued,
-  * trace — torch.profiler around a code region, written as a Chrome trace,
-  * StepTimer — EMA step timing that waits for the CUDA device at each mark.
+  * span — a named range of the host's work, recorded only while a
+    torch.profiler is recording (one flag check otherwise),
+  * trace — torch.profiler around a code region, written as a Chrome trace.
+
+The program's spans (names in the `reid.` namespace) mark its layers: the
+extraction loop (`reid.extract.*`, `reid.embed.preprocess`,
+`reid.vit.stem`) and the training loops (`reid.train.*`). They have no
+clock and no file of their own: they are events of whatever profiler records, on its clock beside the
+device's events, and leave with its trace.
 """
 
 from __future__ import annotations
@@ -18,8 +25,30 @@ import time
 from typing import Any, Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _profiler
 
-from tpu_reid_torch.device import DeviceLike
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, **ids: int):
+    """A context manager naming the block in a profiler's trace, with `ids`
+    (a batch or step index, a row count) as the record's arguments (in the
+    trace where the profiler records shapes). While no profiler records it
+    is one flag check and a shared null context: nothing is recorded, timed
+    or kept.
+
+    The record is of the profiler's own operator kind (the form torch's
+    compiled code uses), not `record_function`'s user annotation: under
+    CUDA activity a user annotation also leaves an event on the device's
+    timeline, which a reader of the trace would have to tell from device
+    work. Its inputs must be a tuple and its arguments a dict (anything
+    else aborts the process, not raises), and an argument that is not a
+    Python number reaches the trace as NULL, so each id is made an int here
+    (a numpy integer or a one-element tensor included)."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _RecordFunctionFast(name, (), {k: int(v) for k, v in ids.items()})
 
 
 class MetricLogger:
@@ -44,9 +73,12 @@ class MetricLogger:
 
     @contextlib.contextmanager
     def phase(self, name: str):
+        """Logs the block's wall time as a "phase" event, and names it as a
+        span."""
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             self.log("phase", name=name, seconds=time.perf_counter() - t0)
 
@@ -59,8 +91,8 @@ class MetricLogger:
 def synced_phase(log, name: str, device: torch.device):
     """`log.phase(name)` around the block, synchronising `device` (when it
     is a CUDA device) before the phase ends; nothing at all when log is
-    None. `log` is a MetricLogger or anything with a `phase(name)` context
-    manager."""
+    None. `log` is a MetricLogger (whose phase is a span) or anything with a
+    `phase(name)` context manager."""
     if log is None:
         yield
         return
@@ -74,33 +106,16 @@ def synced_phase(log, name: str, device: torch.device):
 def trace(log_dir: str):
     """torch.profiler around the block (CPU activity, and the CUDA device's
     when there is one), written to `log_dir/trace_<ns>.json` as a Chrome
-    trace (chrome://tracing, Perfetto). Yields the profiler."""
+    trace (chrome://tracing, Perfetto): the program's spans on the host's
+    threads, with their arguments, above the device's events. Yields the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, record_shapes=True) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{time.time_ns()}.json"))
 
-
-class StepTimer:
-    """EMA step timer. `mark()` waits for `device` when it is a CUDA device
-    (launches return before the device has run them), then reads the
-    clock; on the CPU it only reads the clock."""
-
-    def __init__(self, alpha: float = 0.1, device: DeviceLike = "cpu"):
-        self.alpha = alpha
-        self.device = torch.device(device)
-        self.ema: Optional[float] = None
-        self._t0 = time.perf_counter()
-
-    def mark(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        dt = time.perf_counter() - self._t0
-        self._t0 = time.perf_counter()
-        self.ema = dt if self.ema is None else self.alpha * dt + (1 - self.alpha) * self.ema
-        return dt

@@ -74,12 +74,19 @@ state stay identical; the guard's rollback decision is checked to agree on
 every rank. On the device-resident paths a mesh runs every step eagerly, as
 the JAX package runs its chunked paths only without a mesh: no CUDA graph
 holds the collectives.
+
+Spans (runtime/observe.span, recorded only under a profiler): every loop's
+step is `reid.train.step` (its global step index), the pull of its input
+`reid.train.next`; inside the step `reid.train.forward` (forward and
+losses), `reid.train.backward` (`loss.backward()` and the zero fills),
+`reid.train.optimizer` (the all-reduce, Adam, the BNNeck statistics) and
+`reid.train.sync` (the host's read of the previous step's loss).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Iterable, Optional, Tuple
+from typing import Callable, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -88,12 +95,14 @@ from tpu_reid_torch.models import reid_clip as M
 from tpu_reid_torch.parallel.mesh import agree, all_reduce_grads, check_replicated, gathered, \
     require_mesh, shard_batch
 from tpu_reid_torch.parallel.prefetch import StreamPlacer, device_prefetch
+from tpu_reid_torch.runtime.observe import span
 from tpu_reid_torch.train import losses as L
 from tpu_reid_torch.train import optim as O
 from tpu_reid_torch.train import schedules as S
 from tpu_reid_torch.train.step_graph import StepGraph
 
 Tensor = torch.Tensor
+_END = object()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,15 +154,17 @@ def _apply_grads(loss: Tensor, trainable: dict, optimizer: torch.optim.Optimizer
     as the JAX chain does), the gradients averaged over a mesh's ranks, then
     the Adam step."""
     leaves = _leaves(trainable)
-    for t in leaves:
-        t.grad = None
-    loss.backward()
-    for t in leaves:
-        if t.grad is None:
-            t.grad = torch.zeros_like(t)
-    if mesh is not None:
-        all_reduce_grads(mesh, leaves)
-    optimizer.step()
+    with span("reid.train.backward"):
+        for t in leaves:
+            t.grad = None
+        loss.backward()
+        for t in leaves:
+            if t.grad is None:
+                t.grad = torch.zeros_like(t)
+    with span("reid.train.optimizer"):
+        if mesh is not None:
+            all_reduce_grads(mesh, leaves)
+        optimizer.step()
 
 
 def sharded_encoder(cfg, mesh, fn):
@@ -173,6 +184,18 @@ def _prefetch(batches: Iterable, placer, mesh):
     if mesh is None:
         return device_prefetch(batches, placer)
     return device_prefetch(batches, placer, 0)
+
+
+def _spanned_next(items: Iterable) -> Iterator:
+    """`items` with each pull (the wait for the next prefetched batch) in a
+    span `reid.train.next`."""
+    it = iter(items)
+    while True:
+        with span("reid.train.next"):
+            item = next(it, _END)
+        if item is _END:
+            return
+        yield item
 
 
 def _check_start(mesh, params: dict, what: str) -> None:
@@ -228,7 +251,8 @@ class LossPipeline:
         self._pending = loss
 
     def _resolve(self) -> bool:
-        lf = float(self._pending)
+        with span("reid.train.sync"):
+            lf = float(self._pending)
         self._pending = None
         if self.guard is not None and self.mesh is not None:
             agree(self.mesh, np.isfinite(lf), "the guard's rollback decision")
@@ -328,27 +352,29 @@ def _replay_epoch(rows: list, chunk: int, bufs: dict, run: StepGraph, pipe: "Los
     buffers). Returns the global step count."""
     for lo in range(0, len(rows), chunk):
         block = rows[lo:lo + chunk]
-        packed = torch.from_numpy(np.stack([np.stack([np.asarray(a, np.int64) for a in r])
-                                            for r in block]))
-        if dev.type == "cuda":
-            packed = packed.pin_memory()
-        packed = packed.to(dev, non_blocking=True)
+        with span("reid.train.next"):
+            packed = torch.from_numpy(np.stack([np.stack([np.asarray(a, np.int64) for a in r])
+                                                for r in block]))
+            if dev.type == "cuda":
+                packed = packed.pin_memory()
+            packed = packed.to(dev, non_blocking=True)
         for j, (_sel, _labels, valid) in enumerate(block):
             draws = draw() if draw is not None else None
             if not np.asarray(valid).any():
                 continue  # a step with no valid row is not run
-            pipe.before_step(gstep)
-            with torch.no_grad():
-                bufs["idx"].copy_(packed[j, 0])
-                bufs["labels"].copy_(packed[j, 1])
-                bufs["valid"].copy_(packed[j, 2])
-                if draws is not None:
-                    if "draws" not in bufs:
-                        bufs["draws"] = {k: torch.empty_like(t) for k, t in draws.items()}
-                    for k, t in draws.items():
-                        bufs["draws"][k].copy_(t)
-            gstep += 1
-            pipe.after_step(run(), redo=run)
+            with span("reid.train.step", step=gstep):
+                pipe.before_step(gstep)
+                with torch.no_grad():
+                    bufs["idx"].copy_(packed[j, 0])
+                    bufs["labels"].copy_(packed[j, 1])
+                    bufs["valid"].copy_(packed[j, 2])
+                    if draws is not None:
+                        if "draws" not in bufs:
+                            bufs["draws"] = {k: torch.empty_like(t) for k, t in draws.items()}
+                        for k, t in draws.items():
+                            bufs["draws"][k].copy_(t)
+                gstep += 1
+                pipe.after_step(run(), redo=run)
     return gstep
 
 
@@ -399,7 +425,8 @@ def make_stage1_step(cfg: M.ReidModelConfig, optimizer: torch.optim.Optimizer, c
     def step(trainable, frozen, batch):
         if cached != ("image_features" in batch):
             raise ValueError("a cached step takes image_features, a live step images")
-        loss = stage1_loss(cfg, O.combine(trainable, frozen), batch, mesh)
+        with span("reid.train.forward"):
+            loss = stage1_loss(cfg, O.combine(trainable, frozen), batch, mesh)
         _apply_grads(loss, trainable, optimizer, mesh)
         return loss.detach()
 
@@ -526,12 +553,13 @@ def run_stage1(
             if cached:
                 gstep = _replay_epoch(cached_rows(epoch), 32, bufs, run, pipe, gstep, dev)
             else:
-                for item in _prefetch(epoch_batches(epoch), placer, mesh):
-                    batch = live_batch(item)
-                    pipe.before_step(gstep)
-                    gstep += 1
-                    pipe.after_step(step(trainable, frozen, batch),
-                                    redo=lambda batch=batch: step(trainable, frozen, batch))
+                for item in _spanned_next(_prefetch(epoch_batches(epoch), placer, mesh)):
+                    with span("reid.train.step", step=gstep):
+                        batch = live_batch(item)
+                        pipe.before_step(gstep)
+                        gstep += 1
+                        pipe.after_step(step(trainable, frozen, batch),
+                                        redo=lambda batch=batch: step(trainable, frozen, batch))
             losses = pipe.drain_epoch()
             if cfg.mode == "promptsrc":
                 gpa = O.gpa_update(gpa, O.combine(_detached(trainable), frozen), gw[epoch - 1])
@@ -594,15 +622,16 @@ def make_stage2_step(cfg: M.ReidModelConfig, tcfg: TrainConfig,
     notes."""
 
     def step(trainable, frozen, images, labels, text_features, valid=None, cv_ids=None):
-        loss, bn_stats = stage2_loss(cfg, tcfg, O.combine(trainable, frozen), images, labels,
-                                     text_features, valid, cv_ids, mesh)
+        with span("reid.train.forward"):
+            loss, bn_stats = stage2_loss(cfg, tcfg, O.combine(trainable, frozen), images,
+                                         labels, text_features, valid, cv_ids, mesh)
         _apply_grads(loss, trainable, optimizer, mesh)
         # thread the BNNeck running stats (state lives in the frozen tree)
         new = [(("head", name), bn_stats[name]) for name in ("bn", "bn_proj")
                if bn_stats[name] is not None]
         if bn_stats.get("jpm") is not None:  # use_jpm: the 4th BNNeck, on the jigsaw branch
             new.append((("jpm_head", "bn"), bn_stats["jpm"]))
-        with torch.no_grad():
+        with span("reid.train.optimizer"), torch.no_grad():
             for (head, name), stats in new:
                 for k in ("mean", "var"):
                     frozen[head][name][k].copy_(stats[k])
@@ -657,19 +686,21 @@ def run_stage2(
     for epoch in range(start_epoch, epochs):
         lr = S.warmup_multistep_lr(epoch, tcfg.lr_stage2)
         O.set_lr(optimizer, lr)
-        for images, labels, valid, *rest in _prefetch(epoch_batches(epoch), placer, mesh):
+        for images, labels, valid, *rest in _spanned_next(
+                _prefetch(epoch_batches(epoch), placer, mesh)):
             if cfg.sie_ids > 0 and not rest:
                 raise ValueError("sie_ids > 0: stage-2 batches must carry camera ids")
-            batch = (_as_tensor(images, dev), _as_tensor(labels, dev),
-                     _as_tensor(valid, dev).bool(),
-                     _as_tensor(rest[0], dev) if cfg.sie_ids > 0 else None)
-            pipe.before_step(gstep)
+            with span("reid.train.step", step=gstep):
+                batch = (_as_tensor(images, dev), _as_tensor(labels, dev),
+                         _as_tensor(valid, dev).bool(),
+                         _as_tensor(rest[0], dev) if cfg.sie_ids > 0 else None)
+                pipe.before_step(gstep)
 
-            def dispatch(batch=batch):
-                return step(trainable, frozen, *batch[:2], text_features, *batch[2:])
+                def dispatch(batch=batch):
+                    return step(trainable, frozen, *batch[:2], text_features, *batch[2:])
 
-            gstep += 1
-            pipe.after_step(dispatch(), redo=dispatch)
+                gstep += 1
+                pipe.after_step(dispatch(), redo=dispatch)
         losses = pipe.drain_epoch()
         if cfg.mode == "promptsrc":
             gpa = O.gpa_update(gpa, O.combine(_detached(trainable), frozen), gw[epoch])
