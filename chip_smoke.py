@@ -2000,10 +2000,11 @@ def resume_cli(cli, argv, ckpt_dir, last_epoch, mAP):
 
 
 def gradient_phase(dev):
-    """The block Function (kernels forward, the plain block's recompute
-    backward) against plain autograd of _block_xla_impl after the splice,
-    at full width, B=16, S=213 with the splice, fp32, under one fixed
-    grad_outputs; then the CLS-tail Function against ln_proj_tail_reference."""
+    """The block Function (kernels forward; backward the recompute with every
+    gradient product on the fp32 GEMM kernel) against plain autograd of
+    _block_xla_impl after the splice, at full width, B=16, S=213 with the
+    splice, fp32, under one fixed grad_outputs; then the CLS-tail Function
+    against ln_proj_tail_reference."""
     from tpu_reid_torch.models.layers import _apply_splice_plane, _block_xla_impl
     from tpu_reid_torch.ops import fused_attention as FA
     from tpu_reid_torch.ops import fused_tail as FT
@@ -2040,7 +2041,8 @@ def gradient_phase(dev):
         if rel > 1e-5:
             failures.append(f"d{name}")
     say(f"  gradients of x, the plane and the 12 block tensors: worst rel {worst:.3e} "
-        f"(tol 1e-5 of max|plain grad|: both backwards are the same recompute) "
+        f"(tol 1e-5 of max|plain grad|: the kernel chain against cuBLAS fp32, both "
+        f"fp32-accurate) "
         f"{'ok' if not failures else 'FAIL ' + str(failures)}")
 
     xt = t(b, d).requires_grad_()
@@ -2448,6 +2450,7 @@ def training_phase(dev, counters, mcfg, params, bs=64):
     from tpu_reid_torch.data.transforms import DevicePreprocess
     from tpu_reid_torch.models import reid_clip as M
     from tpu_reid_torch.models.layers import kernel_impl
+    from tpu_reid_torch.ops import fused_attention as FA
     from tpu_reid_torch.train import optim as O
     from tpu_reid_torch.train import trainer as TR
 
@@ -2535,7 +2538,12 @@ def training_phase(dev, counters, mcfg, params, bs=64):
         raise PhaseFailed("the fp32 stage-2 step through the kernels disagrees with the plain one")
     del res, gk, gp
     torch.cuda.empty_cache()
-    counters32 = fp32_counters()
+    # beside the kernels' counters, the block backward's (no kernel record of
+    # their own): the blocks whose backward ran on the kernels, their
+    # recompute and dgrad products (the wgrads run only where weights train:
+    # not in stage 1)
+    counters32 = dict(fp32_counters(), fused_block_backward=FA.fused_block_backward,
+                      gemm_product=FA.gemm_product, gemm_dgrad=FA.gemm_dgrad)
     report.update(fp32_steps(dev, counters32, mcfg, params, images, labels, valid, text, draws,
                              bs))
     report["fp32 cached coop stage 1"] = dict(launches=coop_stage1_fp32_launches(
@@ -3336,7 +3344,7 @@ def maple_plane_gradients(dev, maple):
     ok = worst <= 1e-5
     say(f"  MaPLe's computed prompt plane through the block Function (B={b}, S={s}, fp32): "
         f"gradients of {', '.join(names)} against plain autograd, worst rel {worst:.3e} (tol "
-        f"1e-5: both backwards are the same recompute) {'ok' if ok else 'FAIL'}")
+        f"1e-5: the kernel chain against cuBLAS fp32) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise PhaseFailed("the gradient of MaPLe's prompt plane disagrees with plain autograd")
 
@@ -4885,7 +4893,7 @@ def tools_phase(dev, counters):
 # with, its attention kernel and its CLS tail
 WGMMA_ENTRIES = {"gemm_bf16_kernel": 7, "attention_bf16_kernel": 1,
                  "attention_long_bf16_kernel": 1, "ln_proj_tail_bf16_kernel": 1,
-                 "gemm_tf32x3_kernel": 5, "attention_tf32x3_kernel": 1,
+                 "gemm_tf32x3_kernel": 9, "attention_tf32x3_kernel": 1,
                  "ln_proj_tail_tf32x3_kernel": 1}
 # the fp32 kernels of each wrapper: what an fp32 training step must launch,
 # and the FMA kernels they replaced, which no trace may show (no name here is

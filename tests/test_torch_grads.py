@@ -2,7 +2,9 @@
 (always taken by residual_block / ln_proj_tail under kernel_impl("kernel");
 on CPU tensors their forward is the kernels' plain
 versions) against jax.vjp of what the JAX package's custom VJPs compute —
-`_block_xla_impl` after the splice, and `_tail_xla` — fp32 within 1e-5; and
+`_block_xla_impl` after the splice, and `_tail_xla` — fp32 within 1e-5; the
+block's written-out fp32 backward chain (`fused_block_backward`, the route
+of fp32 tensors) against autograd of the plain block, and its routing; and
 the raw kernel wrappers, which still refuse autograd."""
 
 import jax
@@ -109,6 +111,83 @@ def test_block_function_bf16_grads_reach_the_fp32_master_weights():
         assert all(gr.dtype == torch.float32 for gr in grads[impl][1:])
     for a, b in zip(grads["kernel"], grads["plain"]):
         assert torch.equal(a, b)
+
+
+def _block_case(rng, b, s, splice, causal):
+    p = _torch_tree(_block_params(rng), requires_grad=False)
+    x = torch.from_numpy(rng.randn(b, s, D).astype(np.float32))
+    g = torch.from_numpy(rng.randn(b, s, D).astype(np.float32))
+    plane = torch.from_numpy(rng.randn(s, D).astype(np.float32)) if splice else None
+    pmask = torch.zeros(s, 1)
+    pmask[s - 2:] = 1.0
+    mask = TL.causal_mask(s) if causal else None
+    weights = [p["ln_1"]["scale"], p["ln_1"]["bias"], p["attn"]["in_proj"]["w"],
+            p["attn"]["in_proj"]["b"], p["attn"]["out_proj"]["w"], p["attn"]["out_proj"]["b"],
+            p["ln_2"]["scale"], p["ln_2"]["bias"], p["mlp"]["c_fc"]["w"], p["mlp"]["c_fc"]["b"],
+            p["mlp"]["c_proj"]["w"], p["mlp"]["c_proj"]["b"]]
+    return x, g, plane, pmask if splice else None, mask, weights
+
+
+@pytest.mark.parametrize("rows", [(3, 10), (4, 8)])  # B·S ragged (30) and a multiple of 32
+@pytest.mark.parametrize("splice", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_block_backward_chain_matches_autograd(rows, splice, causal):
+    """The written-out fp32 chain (the route CUDA tensors take on the
+    kernels, here with the plain versions) against autograd of the plain
+    block after the splice: x, the 12 tensors and the plane."""
+    rng = np.random.RandomState(11 + splice + 2 * causal + 4 * rows[0])
+    x, g, plane, pmask, mask, weights = _block_case(rng, *rows, splice, causal)
+    assert TFA.block_backward_route(x, weights) == "chain"
+    needs = (True, splice, False, False, False, False) + (True,) * 12
+    dx, dplane, dws = TFA.fused_block_backward(g, x, plane, pmask, mask, HEADS, weights, needs)
+
+    xs = x.clone().requires_grad_()
+    ws = [w.clone().requires_grad_() for w in weights]
+    inputs = [xs] + ws
+    xin = xs
+    if splice:
+        ps = plane.clone().requires_grad_()
+        inputs.append(ps)
+        xin = TL._apply_splice_plane(xs, ps, pmask)
+    out = TL._block_xla_impl(TFA._block_params(ws), xin, HEADS, mask)
+    want = torch.autograd.grad(out, inputs, g)
+    got = [dx, *dws] + ([dplane] if splice else [])
+    assert len(got) == len(want) == 13 + splice
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype
+        _rel_close(a, w.numpy())
+
+
+def test_block_backward_takes_only_the_gradients_asked_for():
+    """A frozen tower (stage 1: only the prompts train) asks for x and the
+    plane alone: no weight gradient is computed, and those two are the same
+    as with every gradient asked for."""
+    rng = np.random.RandomState(23)
+    x, g, plane, pmask, mask, weights = _block_case(rng, 2, 9, True, False)
+    every = TFA.fused_block_backward(g, x, plane, pmask, mask, HEADS, weights,
+                                     (True, True) + (False,) * 4 + (True,) * 12)
+    frozen = TFA.fused_block_backward(g, x, plane, pmask, mask, HEADS, weights,
+                                      (True, True) + (False,) * 4 + (False,) * 12)
+    assert all(w is None for w in frozen[2])
+    assert torch.equal(every[0], frozen[0]) and torch.equal(every[1], frozen[1])
+
+
+def test_block_backward_counters_route_by_dtype():
+    """fp32 CPU tensors take the written-out chain on the plain versions (no
+    kernel launched, no fallback counted); bf16 keeps the plain block's
+    recompute, counted in `.plain`."""
+    rng = np.random.RandomState(29)
+    fb = TFA.fused_block_backward
+    p = _block_params(rng)
+    x = torch.from_numpy(rng.randn(2, 9, D).astype(np.float32))
+    for dtype, plain in ((torch.float32, 0), (torch.bfloat16, 1)):
+        before = (fb.launches, fb.plain)
+        tp = _torch_tree(p)
+        xi = x.to(dtype).requires_grad_()
+        with TL.kernel_impl("kernel"):
+            out = TL.residual_block(tp, xi, HEADS)
+        out.float().sum().backward()
+        assert (fb.launches - before[0], fb.plain - before[1]) == (0, plain)
 
 
 def test_tail_function_matches_jax_vjp():

@@ -8,7 +8,9 @@ which the wrappers call before a launch. Here each rule refuses what the
 kernel does not take and accepts the main paths' shapes: vision 211 / 213
 tokens of width 768 (442 / 444 at the vehicle geometry, where mha_core runs
 its key-tile kernel), text 77 tokens of width 512, views of a packed qkv
-buffer; and `ops.fused_tail.tail_kernel_route` picks the CLS tail's kernel.
+buffer; the fp32 block backward's products (`check_wgrad_operands`,
+`wgrad_splits`, `block_backward_route`); and
+`ops.fused_tail.tail_kernel_route` picks the CLS tail's kernel.
 """
 
 import pytest
@@ -157,6 +159,145 @@ def test_wide_layernorm_without_ln_is_in_the_domain():
     FA.check_gemm_operands("gemm", 100, 3072, 768, False, ALIGNED)
     with pytest.raises(ValueError):
         FA.check_gemm_operands("gemm", 100, 3072, 768, True, ALIGNED)
+
+
+# ---------------------------------------------------------------------------
+# the fp32 block backward: gemm_dgrad, gemm_wgrad, the route
+# ---------------------------------------------------------------------------
+
+CELL_ROWS = 64 * 213  # a stage-2 step at bs 64: 13,632 rows, 426 stages of 32
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (CELL_ROWS, 768, 3072),     # c_proj's dgrad (QuickGELU' in its epilogue): K = 768, N = hid
+    (CELL_ROWS, 3072, 768),     # c_fc's
+    (CELL_ROWS, 768, 768),      # out_proj's
+    (CELL_ROWS, 2304, 768),     # in_proj's
+    (64 * 77, 1536, 512),       # the text tower's in_proj
+    (30, 256, 64),              # a ragged M
+])
+def test_dgrad_domain_accepts(m, k, n):
+    # the weight is read as (N, K) rows: the reduction runs along them
+    FA.check_gemm_operands("gemm_dgrad", m, k, n, False,
+                           dict(dy=BASE, w=BASE + 4096, gelu_input=BASE + 8192), fp32=True)
+
+
+@pytest.mark.parametrize("name", ["dy", "w", "gelu_input", "act"])
+def test_dgrad_domain_refuses_an_unaligned_operand(name):
+    # TMA reads dy and w; the epilogue reads the pre-activation and writes
+    # the activation in 8-byte pairs
+    addresses = dict(dy=BASE, w=BASE + 4096, gelu_input=BASE + 8192, act=BASE + 12288)
+    addresses[name] += 4
+    with pytest.raises(ValueError):
+        FA.check_gemm_operands("gemm_dgrad", 100, 768, 3072, False, addresses, fp32=True)
+
+
+@pytest.mark.parametrize("r,m,n", [
+    (CELL_ROWS, 768, 2304),     # in_proj: h1^T dqkv
+    (CELL_ROWS, 768, 768),      # out_proj
+    (CELL_ROWS, 768, 3072),     # c_fc
+    (CELL_ROWS, 3072, 768),     # c_proj: QuickGELU(h)^T g
+    (CELL_ROWS + 1, 768, 768),  # a reduction not a multiple of 32: the last stage zero-filled
+    (30, 64, 192),              # the CPU tests' tiny block, 30 rows
+    (1, 4, 8),                  # one row, the narrowest output
+])
+def test_wgrad_domain_accepts(r, m, n):
+    FA.check_wgrad_operands("gemm_wgrad", r, m, n, dict(x=BASE, dy=BASE + 4096))
+
+
+@pytest.mark.parametrize("r,m,n,addresses,why", [
+    (100, 770, 768, {}, "M not a multiple of 4: x's rows are not 16 bytes"),
+    (100, 768, 772, {}, "N not a multiple of 8"),
+    (0, 768, 768, {}, "no rows"),
+    (100, 0, 768, {}, "M = 0"),
+    (2 ** 31, 768, 768, {}, "R past a tensor map's extent"),
+    (100, 768, 768, dict(x=BASE + 4), "x not 16-byte aligned"),
+    (100, 768, 768, dict(dy=BASE + 8), "dy not 16-byte aligned"),
+])
+def test_wgrad_domain_refuses(r, m, n, addresses, why):
+    with pytest.raises(ValueError):
+        FA.check_wgrad_operands("gemm_wgrad", r, m, n, addresses)
+
+
+def _split_ranges(r, splits):
+    """The kernel's k-stage ranges (TileOrder::kspan): [s nk / S, (s+1) nk / S)."""
+    nk = -(-r // 32)
+    return [(s * nk // splits, (s + 1) * nk // splits) for s in range(splits)]
+
+
+@pytest.mark.parametrize("r,m,n,splits", [
+    (CELL_ROWS, 768, 768, 11),     # 36 tiles x 11 = 3 waves of 132 blocks, 39 stages each
+    (CELL_ROWS, 768, 2304, 6),     # 108 tiles x 6 = 4.9 waves, 71 stages each
+    (CELL_ROWS, 768, 3072, 11),    # 144 tiles x 11 = 12 waves, 39 stages each
+    (CELL_ROWS, 3072, 768, 11),
+    (30, 64, 192, 1),              # one stage: nothing to split
+    (64 * 77, 512, 512, 8),        # the text tower: 16 tiles x 8 = 1 wave, 20 stages
+])
+def test_wgrad_splits_at_the_main_shapes(r, m, n, splits):
+    assert FA.wgrad_splits(r, m, n, 132) == splits
+    # within a tenth of a perfect spread of the tiles' stages over the SMs
+    tiles, nk = -(-m // 128) * -(-n // 128), -(-r // 32)
+    longest = -(-tiles * splits // 132) * -(-nk // splits)
+    assert longest <= 1.1 * tiles * nk / 132 + nk / splits
+
+
+@pytest.mark.parametrize("r", [1, 31, 32, 33, 100, 4095, CELL_ROWS, CELL_ROWS + 17])
+@pytest.mark.parametrize("m,n", [(768, 768), (64, 64), (3072, 768)])
+def test_wgrad_split_ranges_cover_the_reduction_once(r, m, n):
+    splits = FA.wgrad_splits(r, m, n, 132)
+    nk = -(-r // 32)
+    assert 1 <= splits <= min(16, nk)
+    ranges = _split_ranges(r, splits)
+    assert ranges[0][0] == 0 and ranges[-1][1] == nk
+    assert all(k0 < k1 for k0, k1 in ranges)                       # none empty
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))   # contiguous
+
+
+def _route_case(d, hid, rows=(2, 9), dtype=torch.float32):
+    w = [torch.ones(d), torch.zeros(d), torch.zeros(d, 3 * d), torch.zeros(3 * d),
+         torch.zeros(d, d), torch.zeros(d), torch.ones(d), torch.zeros(d),
+         torch.zeros(d, hid), torch.zeros(hid), torch.zeros(hid, d), torch.zeros(d)]
+    return torch.zeros(*rows, d, dtype=dtype), w
+
+
+@pytest.mark.parametrize("d,hid,rows,route", [
+    (64, 256, (2, 9), "chain"),       # fp32 CPU tensors: the chain on the plain versions
+    (768, 3072, (64, 213), "chain"),  # the cell's block, 13,632 rows
+    (512, 2048, (3, 77), "chain"),    # the text tower, 231 rows: ragged
+    (48, 192, (2, 9), "plain"),       # D not a multiple of 32: outside the kernels' domain
+    (64, 200, (2, 9), "plain"),       # the hidden width not a multiple of 32
+])
+def test_block_backward_route(d, hid, rows, route):
+    x, w = _route_case(d, hid, rows)
+    assert FA.block_backward_route(x, w) == route
+    assert FA.block_backward_route(x.bfloat16(), w) == "plain"
+
+
+def test_block_backward_outside_the_domain_counts_a_fallback():
+    """A block whose width leaves the kernels' domain takes the plain block's
+    recompute, counted in `fused_block_backward.plain`, with the gradients
+    of plain autograd."""
+    from tpu_reid_torch.models import layers as TL
+
+    gen = torch.Generator().manual_seed(3)
+    d, hid, heads = 48, 192, 4
+    w = [1 + 0.1 * torch.randn(d, generator=gen), 0.1 * torch.randn(d, generator=gen),
+         0.1 * torch.randn(d, 3 * d, generator=gen), 0.01 * torch.randn(3 * d, generator=gen),
+         0.1 * torch.randn(d, d, generator=gen), 0.01 * torch.randn(d, generator=gen),
+         1 + 0.1 * torch.randn(d, generator=gen), 0.1 * torch.randn(d, generator=gen),
+         0.1 * torch.randn(d, hid, generator=gen), 0.01 * torch.randn(hid, generator=gen),
+         0.05 * torch.randn(hid, d, generator=gen), 0.01 * torch.randn(d, generator=gen)]
+    w = [t.requires_grad_() for t in w]
+    x = torch.randn(2, 5, d, generator=gen).requires_grad_()
+    before = (FA.fused_block_backward.launches, FA.fused_block_backward.plain)
+    out = FA.fused_block_autograd(x, *w, heads)
+    got = torch.autograd.grad(out.sum(), [x, *w])
+    assert (FA.fused_block_backward.launches, FA.fused_block_backward.plain) == (
+        before[0], before[1] + 1)
+    want = torch.autograd.grad(TL._block_xla_impl(FA._block_params(w), x, heads, None).sum(),
+                               [x, *w])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

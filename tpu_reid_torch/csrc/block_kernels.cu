@@ -83,10 +83,10 @@
 //     head, image); K and V tiles of 64 keys stream through a TMA ring, the
 //     softmax runs online over the tiles; its notes stand above it.
 //
-// The fp32 route (the training CLIs' default dtype: every forward of every
-// training step) runs two kernels of its own, both 3xTF32 on wgmma: each
-// operand split once into hi = tf32(x) and lo = tf32(x - hi), each k8 step
-// lo*hi + hi*lo + hi*hi into one fp32 accumulator, so every product keeps
+// The fp32 route (the training CLIs' default dtype: every forward and every
+// backward of every training step) runs two kernels of its own, both 3xTF32
+// on wgmma: each operand split once into hi = tf32(x) and lo = tf32(x - hi),
+// each k8 step lo*hi + hi*lo + hi*hi into one fp32 accumulator, so every product keeps
 // ~22 of fp32's 24 mantissa bits at a third of the TF32 tensor-core rate
 // (165 TF/s dense against the CUDA cores' 67 TF/s of fp32 FMA). What bounds
 // them is that rate: the least time of an fp32-accurate product on this card
@@ -96,7 +96,11 @@
 //     reads its shared operands K-major only, so a splitter warpgroup
 //     writes each TMA-loaded W tile transposed and split, while the
 //     consumers take A from registers (LayerNorm and splice applied there,
-//     before the split); its notes stand above it.
+//     before the split); its notes stand above it. The block's backward
+//     (gemm_tf32x3_backward) runs the same kernel in four more modes: its
+//     recompute's three products, and its eight gradient products (dgrad,
+//     dgrad times QuickGELU', split-K wgrad, reading a forward weight or an
+//     activation transposed by TMA), each stage's sum promoted to fp32.
 //   * attention_tf32x3_kernel: mha_core for every S, flash-style over key
 //     tiles of 64 with an online softmax; its notes stand above it.
 //
@@ -125,18 +129,27 @@ namespace {
 
 constexpr int LN_MAX_K = 1024;  // LayerNorm width the kernels take
 constexpr int EPI_BIAS = 0, EPI_GELU = 1, EPI_RESIDUAL = 2;
+// the fp32 block backward's products (gemm_tf32x3_backward):
+// EPI_DGRAD    out = a @ w^T, w given as (N, K): a forward product's weight
+// EPI_DGELU    the same times QuickGELU'(res), res (M, N) the pre-activation,
+//              and QuickGELU(res) into out2 where given
+// EPI_WGRAD    out[split] = a^T @ w over one range of K, a given as (K, M)
+// EPI_PRODUCT  out = a @ w + bias [+ res]: the recompute of a forward product
+constexpr int EPI_DGRAD = 3, EPI_DGELU = 4, EPI_WGRAD = 5, EPI_PRODUCT = 6;
 
 struct GemmArgs {
-  const void* a;       // (M, K) row-major, T
-  const void* w;       // (K, N) row-major, T
+  const void* a;       // (M, K) row-major, T; EPI_WGRAD: (K, M)
+  const void* w;       // (K, N) row-major, T; EPI_DGRAD, EPI_DGELU: (N, K)
   const void* bias;    // (N,), T
-  const void* res;     // (M, N), T; EPI_RESIDUAL only
+  const void* res;     // (M, N), T; EPI_RESIDUAL and EPI_DGELU only
   const void* plane;   // (S, K) with LN, else (S, N); rows spliced in, or null
   const float* pmask;  // (S,): row s of each sequence comes from the plane if > 0
   const float* ln_g;   // (K,) fp32 LayerNorm scale; null: no LN prologue
   const float* ln_b;   // (K,) fp32 LayerNorm bias
-  void* out;           // (M, N), T
+  void* out;           // (M, N), T; EPI_WGRAD: (splits, M, N)
   int M, N, K, S, epi;
+  int splits = 1;      // EPI_WGRAD: ranges of K, each summed into its own slab of out
+  void* out2 = nullptr;  // EPI_DGELU: (M, N), QuickGELU(res), or null
 };
 
 // ---- bf16: TMA-fed wgmma; with LN, a normalised row panel resident in shared memory ----
@@ -561,6 +574,37 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
 // in flight stay in L2 while the statistics are paid once per chunk.
 // Epilogue in fp32: bias, QuickGELU or the spliced residual, read one by
 // one (any address: FP32_SCALAR_OPERANDS in ops/fused_attention.py).
+//
+// The block backward's products (ops/fused_attention.fused_block_backward)
+// are four more modes of the same kernel. product: the recompute's
+// X W + b [+ residual], operands as the forward's. dgrad (dY W^T):
+// W is a forward product's weight, (K_in, N) as stored, so the reduction
+// runs along its rows: TMA brings each tile K-major already, 128-byte
+// swizzled, and the splitters split it in place, without the transpose.
+// dgelu: dgrad times QuickGELU' of the pre-activation, read in the
+// epilogue. wgrad (X^T dY): A is X, (rows, M) as stored, brought as four
+// 32 x 32 boxes per stage (128-byte swizzle); the reduction runs over the
+// batch's rows (B x S), which need not be a multiple of 32 (both maps
+// zero-fill the last stage). Its outputs are small (768 x 768 is 36 tiles
+// for 132 SMs), so K is split into `splits` ranges, the split outermost in
+// the chunk order (the blocks in flight share one range of A and W in L2);
+// each range writes its own slab of fp32 partials, which the wrapper sums
+// in a fixed order: no atomics, and two runs give equal bits.
+//
+// In these modes the splitters split A too, into the layout of W's halves
+// (gathering the wgrad's transposed rows from the sub-tiles), and the
+// consumers run wgmma on both operands from shared memory: their registers
+// hold only the accumulator and a second 64-float sum. The tensor cores
+// add with truncation, so a long reduction into one accumulator drifts
+// toward zero (1.8e-5 of the result at K = 2304, against float64); the
+// consumers start each stage's 12 passes afresh and add the stage into the
+// sum, rounded to nearest (4e-7 at K = 2304). The forward's modes keep one
+// accumulator (7e-6 at K = 768, 2.4e-5 at K = 3072); the backward recomputes
+// through the product mode, so its gradients are taken at fp32-accurate
+// activations. The splitters round with integer operations
+// (tf32_split_alu: tf32_split's bits, off the conversion unit: +11% in
+// these modes). Two raw stages instead of four make room for the split A
+// tiles in the same shared memory.
 
 constexpr int TG_BM = 128, TG_BN = 128, TG_BK = 32, TG_RAW = 4, TG_THREADS = 384;
 constexpr int TG_TILE = TG_BM * TG_BK * 4;        // 16 KB: an A tile, a W tile, a split half
@@ -579,13 +623,18 @@ __device__ __forceinline__ float lds_volatile(const float* p) {
 }
 
 // where a block's tiles lie: chunks of consecutive N tiles of one row panel
+// and one range of the k-stages (all of them unless the product is split;
+// chunk c = (split * row panels + panel) * chunks per panel + j)
 struct TileOrder {
-  int n_tiles, cpp;  // N tiles; chunks per panel
+  int n_tiles, cpp, panels, splits, nk;  // N tiles; chunks per panel; row panels; K ranges; k-stages
   long long n_chunks;
-  __device__ TileOrder(const GemmArgs& g, bool ln) {
+  __device__ TileOrder(const GemmArgs& g, bool ln, int splits_, int nk_) {
     n_tiles = (g.N + TG_BN - 1) / TG_BN;
     cpp = ln ? (n_tiles + 2) / 3 : n_tiles;
-    n_chunks = (long long)((g.M + TG_BM - 1) / TG_BM) * cpp;
+    panels = (g.M + TG_BM - 1) / TG_BM;
+    splits = splits_;
+    nk = nk_;
+    n_chunks = (long long)panels * cpp * splits;
   }
   // the N tiles [nt0, nt1) of chunk c (never empty: cpp <= n_tiles)
   __device__ void tiles(long long c, int& nt0, int& nt1) const {
@@ -593,35 +642,59 @@ struct TileOrder {
     nt0 = j * n_tiles / cpp;
     nt1 = (j + 1) * n_tiles / cpp;
   }
+  __device__ int row0(long long c) const {
+    const long long p = c / cpp;
+    return (int)(splits == 1 ? p : p % panels) * TG_BM;
+  }
+  __device__ int split(long long c) const {
+    return splits == 1 ? 0 : (int)(c / cpp / panels);
+  }
+  // the k-stages [k0, k1) of chunk c (never empty: splits <= nk)
+  __device__ void kspan(long long c, int& k0, int& k1) const {
+    const int s = split(c);
+    k0 = s * nk / splits;
+    k1 = (s + 1) * nk / splits;
+  }
 };
 
 // A walk over a block's k-stages in order: (chunk, N tile, k-stage)
 struct StageWalk {
   long long c;
-  int nt, nt1, kt;
-  __device__ bool start(const TileOrder& o) {
-    c = blockIdx.x;
-    kt = 0;
+  int nt, nt1, kt, k0, k1;
+  __device__ bool enter(const TileOrder& o) {
     if (c >= o.n_chunks) return false;
     o.tiles(c, nt, nt1);
+    o.kspan(c, k0, k1);
+    kt = k0;
     return true;
   }
-  __device__ bool next(const TileOrder& o, int nk) {
-    if (++kt < nk) return true;
-    kt = 0;
+  __device__ bool start(const TileOrder& o) {
+    c = blockIdx.x;
+    return enter(o);
+  }
+  __device__ bool next(const TileOrder& o) {
+    if (++kt < k1) return true;
+    kt = k0;
     if (++nt < nt1) return true;
     c += gridDim.x;
-    if (c >= o.n_chunks) return false;
-    o.tiles(c, nt, nt1);
-    return true;
+    return enter(o);
   }
 };
 
+// QuickGELU(h) = h s and its derivative s + 1.702 h s (1 - s), s = sigmoid(1.702 h)
+__device__ __forceinline__ float2 quick_gelu_and_grad(float h) {
+  const float s = 1.f / (1.f + expf(-1.702f * h));
+  return make_float2(h * s, s + 1.702f * h * s * (1.f - s));
+}
+
 // fp32 epilogue value of output (m, n): + bias, then QuickGELU or + residual
-// (already the spliced row's)
+// (already the spliced row's); the backward's dgrad and wgrad: as it is;
+// its recompute: + bias [+ residual]
 template <int EPI>
-__device__ __forceinline__ float tg_epi(float v, float bias, const float* res_row, int n) {
-  v += bias;
+__device__ __forceinline__ float tg_epi(float v, const float* bias, const float* res_row, int n) {
+  if (EPI == EPI_DGRAD || EPI == EPI_WGRAD) return v;
+  if (EPI == EPI_PRODUCT) return v + bias[n] + (res_row != nullptr ? __ldg(res_row + n) : 0.f);
+  v += bias[n];
   if (EPI == EPI_GELU) return v / (1.f + expf(-1.702f * v));
   if (EPI == EPI_RESIDUAL) v += res_row[n];
   return v;
@@ -631,10 +704,18 @@ template <bool LN, int EPI>
 __global__ void __launch_bounds__(TG_THREADS, 1)
 gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
                    const __grid_constant__ CUtensorMap map_w, const GemmArgs g) {
+  // the backward's modes: A given transposed (wgrad), W given as (N, K)
+  // (dgrad); both operands split by the splitters, sums promoted
+  constexpr bool A_T = EPI == EPI_WGRAD, W_T = EPI == EPI_DGRAD || EPI == EPI_DGELU;
+  constexpr bool BWD = EPI >= EPI_DGRAD;
+  // raw ring stages, and a split stage's bytes: [W hi | W lo] or, in the
+  // backward's modes, [W hi | W lo | A hi | A lo] (the same shared memory:
+  // 2 x 32 + 2 x 64 = 4 x 32 + 2 x 32 KB)
+  constexpr int RAW = BWD ? 2 : TG_RAW, SPLIT = BWD ? 2 * TG_SPLIT_STAGE : TG_SPLIT_STAGE;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023u) & ~1023u;
   unsigned char* const gbase = smem_raw + (base - raw);
-  const uint32_t ring = base, split = ring + TG_RAW * TG_RAW_STAGE;
+  const uint32_t ring = base, split = ring + RAW * TG_RAW_STAGE;
   float* const ln_s = reinterpret_cast<float*>(gbase + TG_RAW * TG_RAW_STAGE +
                                                2 * TG_SPLIT_STAGE);  // [gamma | beta]
   // per tile row of the current panel: mean, rstd, and (as a float) the
@@ -642,16 +723,17 @@ gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
   float* const row_mean = ln_s + 2 * LN_MAX_K;
   float* const row_rstd = row_mean + TG_BM;
   float* const row_plane = row_rstd + TG_BM;
-  const uint32_t raw_full = split + 2 * TG_SPLIT_STAGE + TG_LN_BYTES;
+  const uint32_t raw_full = ring + TG_RAW * TG_RAW_STAGE + 2 * TG_SPLIT_STAGE + TG_LN_BYTES;
   const uint32_t raw_empty = raw_full + 8 * TG_RAW, split_full = raw_empty + 8 * TG_RAW,
                  split_empty = split_full + 16;
-  const TileOrder order(g, LN);
-  const int nk = g.K / TG_BK;
+  const int nk = A_T ? (g.K + TG_BK - 1) / TG_BK : g.K / TG_BK;
+  const TileOrder order(g, LN, A_T ? g.splits : 1, nk);
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < TG_RAW; ++s) {
+    for (int s = 0; s < RAW; ++s) {
       mbar_init(raw_full + 8 * s, 1);
-      mbar_init(raw_empty + 8 * s, TG_THREADS);  // every thread has read its part
+      // every thread has read its part (the backward's: the splitters alone)
+      mbar_init(raw_empty + 8 * s, BWD ? 128 : TG_THREADS);
     }
     for (int s = 0; s < 2; ++s) {
       mbar_init(split_full + 8 * s, 128);   // the splitters
@@ -670,47 +752,110 @@ gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
 
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   if (wg == 2) {
-    // ---- splitters: W tiles transposed and split; thread 0 keeps the raw ring full
+    // ---- splitters: W tiles transposed and split (the backward's: A tiles
+    // too); thread 0 keeps the raw ring full
     asm volatile("setmaxnreg.dec.sync.aligned.u32 88;\n");
     StageWalk pw;
     bool pmore = false;
     long long issued = 0;
     auto issue = [&]() {
-      const int s = (int)(issued % TG_RAW);
-      mbar_wait(raw_empty + 8 * s, (uint32_t)((issued / TG_RAW) & 1) ^ 1);
+      const int s = (int)(issued % RAW);
+      mbar_wait(raw_empty + 8 * s, (uint32_t)((issued / RAW) & 1) ^ 1);
       mbar_arrive_expect_tx(raw_full + 8 * s, TG_RAW_STAGE);
-      const int m0 = (int)(pw.c / order.cpp) * TG_BM, n0 = pw.nt * TG_BN;
+      const int m0 = order.row0(pw.c), n0 = pw.nt * TG_BN;
       const uint32_t dst = ring + s * TG_RAW_STAGE;
-      tma_load_2d(dst, &map_a, raw_full + 8 * s, pw.kt * TG_BK, m0);
-      tma_load_2d(dst + TG_TILE, &map_w, raw_full + 8 * s, n0, pw.kt * TG_BK);
+      if (A_T) {
+        // four boxes of 32 k rows x 32 m columns: sub-tile j holds rows 32j..
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          tma_load_2d(dst + j * (TG_TILE / 4), &map_a, raw_full + 8 * s, m0 + 32 * j,
+                      pw.kt * TG_BK);
+      } else {
+        tma_load_2d(dst, &map_a, raw_full + 8 * s, pw.kt * TG_BK, m0);
+      }
+      if (W_T)
+        tma_load_2d(dst + TG_TILE, &map_w, raw_full + 8 * s, pw.kt * TG_BK, n0);
+      else
+        tma_load_2d(dst + TG_TILE, &map_w, raw_full + 8 * s, n0, pw.kt * TG_BK);
       ++issued;
-      pmore = pw.next(order, nk);
+      pmore = pw.next(order);
     };
     if (tid == 0) {
       pmore = pw.start(order);
-      for (int s = 0; s < TG_RAW && pmore; ++s) issue();
+      for (int s = 0; s < RAW && pmore; ++s) issue();
     }
     StageWalk sw;
     bool more = sw.start(order);
-    for (long long it = 0; more; ++it, more = sw.next(order, nk)) {
-      const int s = (int)(it % TG_RAW), sp = (int)(it & 1);
-      mbar_wait(raw_full + 8 * s, (uint32_t)((it / TG_RAW) & 1));
+    for (long long it = 0; more; ++it, more = sw.next(order)) {
+      const int s = (int)(it % RAW), sp = (int)(it & 1);
+      mbar_wait(raw_full + 8 * s, (uint32_t)((it / RAW) & 1));
       mbar_wait(split_empty + 8 * sp, (uint32_t)((it >> 1) & 1) ^ 1);
       // column n = tid of the W tile: 32 k values -> one swizzled 128-byte
       // row of hi and one of lo (chunk kc of row n at ((kc ^ (n & 7)) << 4))
-      const float* wr = reinterpret_cast<const float*>(gbase + s * TG_RAW_STAGE + TG_TILE);
-      unsigned char* hi = gbase + TG_RAW * TG_RAW_STAGE + sp * TG_SPLIT_STAGE + tid * 128;
-      float v[TG_BK];
+      unsigned char* hi = gbase + RAW * TG_RAW_STAGE + sp * SPLIT + tid * 128;
+      if (W_T) {
+        // the raw tile is that layout already: split each chunk where it lies
+        const unsigned char* wr = gbase + s * TG_RAW_STAGE + TG_TILE + tid * 128;
 #pragma unroll
-      for (int k = 0; k < TG_BK; ++k) v[k] = wr[k * TG_BN + tid];
+        for (int kc = 0; kc < TG_BK / 4; ++kc) {
+          const int off = (kc ^ (tid & 7)) << 4;
+          const float4 v = *reinterpret_cast<const float4*>(wr + off);
+          uint32_t h[4], l[4];
+          tf32_split_alu(v.x, h[0], l[0]);
+          tf32_split_alu(v.y, h[1], l[1]);
+          tf32_split_alu(v.z, h[2], l[2]);
+          tf32_split_alu(v.w, h[3], l[3]);
+          *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+          *reinterpret_cast<uint4*>(hi + TG_TILE + off) = make_uint4(l[0], l[1], l[2], l[3]);
+        }
+      } else {
+        const float* wr = reinterpret_cast<const float*>(gbase + s * TG_RAW_STAGE + TG_TILE);
+        float v[TG_BK];
 #pragma unroll
-      for (int kc = 0; kc < TG_BK / 4; ++kc) {
-        uint32_t h[4], l[4];
+        for (int k = 0; k < TG_BK; ++k) v[k] = wr[k * TG_BN + tid];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) tf32_split(v[4 * kc + e], h[e], l[e]);
-        const int off = (kc ^ (tid & 7)) << 4;
-        *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
-        *reinterpret_cast<uint4*>(hi + TG_TILE + off) = make_uint4(l[0], l[1], l[2], l[3]);
+        for (int kc = 0; kc < TG_BK / 4; ++kc) {
+          uint32_t h[4], l[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (BWD)
+              tf32_split_alu(v[4 * kc + e], h[e], l[e]);
+            else
+              tf32_split(v[4 * kc + e], h[e], l[e]);
+          }
+          const int off = (kc ^ (tid & 7)) << 4;
+          *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+          *reinterpret_cast<uint4*>(hi + TG_TILE + off) = make_uint4(l[0], l[1], l[2], l[3]);
+        }
+      }
+      if (BWD) {
+        // row m = tid of the A tile, into the same layout behind W's halves:
+        // as it lies (dgrad), or gathered from the four 32 x 32 sub-tiles,
+        // element (m, k) at row k of sub-tile m >> 5 (wgrad)
+        const unsigned char* ar = gbase + s * TG_RAW_STAGE;
+        unsigned char* ah = hi + 2 * TG_TILE;
+#pragma unroll
+        for (int kc = 0; kc < TG_BK / 4; ++kc) {
+          const int off = (kc ^ (tid & 7)) << 4;
+          float v[4];
+          if (A_T) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int k = 4 * kc + e;
+              v[e] = *reinterpret_cast<const float*>(
+                  ar + (tid >> 5) * (TG_TILE / 4) + k * 128 +
+                  ((((tid & 31) >> 2) ^ (k & 7)) << 4) + 4 * (tid & 3));
+            }
+          } else {
+            const float4 u = *reinterpret_cast<const float4*>(ar + tid * 128 + off);
+            v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+          }
+          uint32_t h[4], l[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tf32_split_alu(v[e], h[e], l[e]);
+          *reinterpret_cast<uint4*>(ah + off) = make_uint4(h[0], h[1], h[2], h[3]);
+          *reinterpret_cast<uint4*>(ah + TG_TILE + off) = make_uint4(l[0], l[1], l[2], l[3]);
+        }
       }
       fence_proxy_async();
       mbar_arrive(split_full + 8 * sp);
@@ -720,15 +865,17 @@ gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
     return;
   }
 
-  // ---- consumers: A fragments from the raw tile, three passes on wgmma ------
+  // ---- consumers: A fragments from the raw tile (the backward's: A split in
+  // shared memory), three passes on wgmma ----------------------------------
   asm volatile("setmaxnreg.inc.sync.aligned.u32 208;\n");
   const int warp = tid / 32, lane = tid % 32, gq = lane >> 2, q = lane & 3;
   const int r_loc = 64 * wg + 16 * warp + gq;  // tile row of the thread's first row
   uint32_t it = 0;
   for (long long c = blockIdx.x; c < order.n_chunks; c += gridDim.x) {
-    const int m0 = (int)(c / order.cpp) * TG_BM;
-    int nt0, nt1;
+    const int m0 = order.row0(c);
+    int nt0, nt1, k0, k1;
     order.tiles(c, nt0, nt1);
+    order.kspan(c, k0, k1);
     // each warp its 16 rows of the panel: statistics, and where the
     // LayerNorm input is spliced from the prompt plane (in shared memory,
     // which only this warp reads: no register holds them over the K loop)
@@ -795,8 +942,8 @@ gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
       // under this stage's tensor-core work; only 16 fp32 values wait in
       // registers (their split, 48 ALU operations, follows the wait).
       auto load_vals = [&](uint32_t st, int kt, float (&vals)[4][4]) {
-        const int s = (int)(st % TG_RAW);
-        mbar_wait(raw_full + 8 * s, (st / TG_RAW) & 1);
+        const int s = (int)(st % RAW);
+        mbar_wait(raw_full + 8 * s, (st / RAW) & 1);
         const unsigned char* at = gbase + s * TG_RAW_STAGE;
         float mean[2] = {0.f, 0.f}, rstd[2] = {0.f, 0.f};
         const float* sp_row[2] = {nullptr, nullptr};
@@ -829,41 +976,69 @@ gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
       };
       // cleared at the top of the tile: no accumulator is alive across the
       // statistics of the next panel
-      float acc[64];
+      float acc[64], sum[64];
 #pragma unroll
-      for (int e = 0; e < 64; ++e) acc[e] = 0.f;
-      float vals[4][4];
-      uint32_t ch[4][4], cl[4][4];
-      load_vals(it, 0, vals);
-      for (int kt = 0; kt < nk; ++kt, ++it) {
+      for (int e = 0; e < 64; ++e) acc[e] = sum[e] = 0.f;
+      if constexpr (BWD) {
+        // both operands split in shared memory; a stage's 12 passes summed
+        // afresh into acc, then into `sum` rounded to nearest
+        for (int kt = k0; kt < k1; ++kt, ++it) {
+          const int sp = (int)(it & 1);
+          mbar_wait(split_full + 8 * sp, (it >> 1) & 1);
+          const uint32_t bh = split + sp * SPLIT, bl = bh + TG_TILE;
+          const uint32_t ah = bh + 2 * TG_TILE + wg * (64 * 128), al = ah + TG_TILE;
+          wgmma_fence();
 #pragma unroll
-        for (int k8 = 0; k8 < 4; ++k8)
+          for (int k8 = 0; k8 < 4; ++k8) {
+            wgmma_m64n128k8_tf32(acc, wgmma_desc(al + 32 * k8, 16, 1024),
+                                 wgmma_desc(bh + 32 * k8, 16, 1024), k8 == 0 ? 0 : 1);
+            wgmma_m64n128k8_tf32(acc, wgmma_desc(ah + 32 * k8, 16, 1024),
+                                 wgmma_desc(bl + 32 * k8, 16, 1024), 1);
+            wgmma_m64n128k8_tf32(acc, wgmma_desc(ah + 32 * k8, 16, 1024),
+                                 wgmma_desc(bh + 32 * k8, 16, 1024), 1);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          wgmma_settle(acc);
+          mbar_arrive(split_empty + 8 * sp);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) tf32_split(vals[k8][i], ch[k8][i], cl[k8][i]);
-        const int sp = (int)(it & 1);
-        mbar_wait(split_full + 8 * sp, (it >> 1) & 1);
-        const uint32_t bh = split + sp * TG_SPLIT_STAGE, bl = bh + TG_TILE;
-        wgmma_fence();
-#pragma unroll
-        for (int k8 = 0; k8 < 4; ++k8) {
-          wgmma_m64n128k8_tf32_ra(acc, cl[k8], wgmma_desc(bh + 32 * k8, 16, 1024), 1);
-          wgmma_m64n128k8_tf32_ra(acc, ch[k8], wgmma_desc(bl + 32 * k8, 16, 1024), 1);
-          wgmma_m64n128k8_tf32_ra(acc, ch[k8], wgmma_desc(bh + 32 * k8, 16, 1024), 1);
+          for (int e = 0; e < 64; ++e) sum[e] += acc[e];
         }
-        wgmma_commit();
-        // the next stage's values while the tensor cores run
-        if (kt + 1 < nk) load_vals(it + 1, kt + 1, vals);
-        wgmma_wait<0>();
-        wgmma_settle(acc);
+      } else {
+        float vals[4][4];
+        uint32_t ch[4][4], cl[4][4];
+        load_vals(it, k0, vals);
+        for (int kt = k0; kt < k1; ++kt, ++it) {
 #pragma unroll
-        for (int k8 = 0; k8 < 4; ++k8) {
-          wgmma_settle(ch[k8]);
-          wgmma_settle(cl[k8]);
+          for (int k8 = 0; k8 < 4; ++k8)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) tf32_split(vals[k8][i], ch[k8][i], cl[k8][i]);
+          const int sp = (int)(it & 1);
+          mbar_wait(split_full + 8 * sp, (it >> 1) & 1);
+          const uint32_t bh = split + sp * SPLIT, bl = bh + TG_TILE;
+          wgmma_fence();
+#pragma unroll
+          for (int k8 = 0; k8 < 4; ++k8) {
+            wgmma_m64n128k8_tf32_ra(acc, cl[k8], wgmma_desc(bh + 32 * k8, 16, 1024), 1);
+            wgmma_m64n128k8_tf32_ra(acc, ch[k8], wgmma_desc(bl + 32 * k8, 16, 1024), 1);
+            wgmma_m64n128k8_tf32_ra(acc, ch[k8], wgmma_desc(bh + 32 * k8, 16, 1024), 1);
+          }
+          wgmma_commit();
+          // the next stage's values while the tensor cores run
+          if (kt + 1 < k1) load_vals(it + 1, kt + 1, vals);
+          wgmma_wait<0>();
+          wgmma_settle(acc);
+#pragma unroll
+          for (int k8 = 0; k8 < 4; ++k8) {
+            wgmma_settle(ch[k8]);
+            wgmma_settle(cl[k8]);
+          }
+          mbar_arrive(split_empty + 8 * sp);
         }
-        mbar_arrive(split_empty + 8 * sp);
       }
       // epilogue: acc[4j + 2hr + e] is row r_loc + 8 hr, column 8j + 2q + e
       float* out = static_cast<float*>(g.out);
+      if (A_T) out += (size_t)order.split(c) * g.M * g.N;  // this range's slab
       const float* bias = static_cast<const float*>(g.bias);
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
@@ -875,13 +1050,30 @@ gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
           res_row = (g.plane != nullptr && g.pmask[s] > 0.f)
                         ? static_cast<const float*>(g.plane) + (size_t)s * g.N
                         : static_cast<const float*>(g.res) + (size_t)m * g.N;
+        } else if (EPI == EPI_DGELU || (EPI == EPI_PRODUCT && g.res != nullptr)) {
+          res_row = static_cast<const float*>(g.res) + (size_t)m * g.N;
         }
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
           const int n = n0 + 8 * j + 2 * q;
           if (n >= g.N) continue;  // N % 8 == 0: n + 1 < N too
-          const float v0 = tg_epi<EPI>(acc[4 * j + 2 * hr], bias[n], res_row, n);
-          const float v1 = tg_epi<EPI>(acc[4 * j + 2 * hr + 1], bias[n + 1], res_row, n + 1);
+          const int e = 4 * j + 2 * hr;
+          float v0, v1;
+          if (EPI == EPI_DGELU) {
+            // the pre-activation's pair as one 8-byte load, through the
+            // read-only path: no store to out can alias it, so the loads of
+            // the row need not wait behind the stores
+            const float2 h = __ldg(reinterpret_cast<const float2*>(res_row + n));
+            const float2 f0 = quick_gelu_and_grad(h.x), f1 = quick_gelu_and_grad(h.y);
+            v0 = sum[e] * f0.y;
+            v1 = sum[e + 1] * f1.y;
+            if (g.out2 != nullptr)
+              *reinterpret_cast<float2*>(static_cast<float*>(g.out2) + (size_t)m * g.N + n) =
+                  make_float2(f0.x, f1.x);
+          } else {
+            v0 = tg_epi<EPI>(BWD ? sum[e] : acc[e], bias, res_row, n);
+            v1 = tg_epi<EPI>(BWD ? sum[e + 1] : acc[e + 1], bias, res_row, n + 1);
+          }
           *reinterpret_cast<float2*>(out + (size_t)m * g.N + n) = make_float2(v0, v1);
         }
       }
@@ -934,26 +1126,33 @@ int launch_gemm_bf16(const GemmArgs& g, cudaStream_t stream) {
 
 template <bool LN, int EPI>
 int launch_gemm_tf32x3(const GemmArgs& g, cudaStream_t stream) {
+  constexpr bool A_T = EPI == EPI_WGRAD, W_T = EPI == EPI_DGRAD || EPI == EPI_DGELU;
   if (g.M == 0) return 0;
   // A: (M, K), box of 32 columns (one 128-byte row) x 128 rows, swizzled as
-  // the consumers read it; W: (K, N) as stored, box of 128 columns x 32 rows
+  // the consumers read it (A_T: (K, M), boxes of 32 x 32); W: (K, N) as
+  // stored, box of 128 columns x 32 rows (W_T: (N, K), box of 32 columns x
+  // 128 rows, swizzled as the wgmma operand)
   CUtensorMap map_a, map_w;
-  const uint64_t a_dims[2] = {(uint64_t)g.K, (uint64_t)g.M}, a_strides[1] = {(uint64_t)g.K * 4};
-  const uint32_t a_box[2] = {(uint32_t)TG_BK, (uint32_t)TG_BM};
+  const uint64_t a_dims[2] = {(uint64_t)(A_T ? g.M : g.K), (uint64_t)(A_T ? g.K : g.M)};
+  const uint64_t a_strides[1] = {(uint64_t)a_dims[0] * 4};
+  const uint32_t a_box[2] = {(uint32_t)TG_BK, (uint32_t)(A_T ? TG_BK : TG_BM)};
   int rc = encode_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_SWIZZLE_128B, g.a, 2,
                       a_dims, a_strides, a_box);
   if (rc != 0) return rc;
-  const uint64_t w_dims[2] = {(uint64_t)g.N, (uint64_t)g.K}, w_strides[1] = {(uint64_t)g.N * 4};
-  const uint32_t w_box[2] = {(uint32_t)TG_BN, (uint32_t)TG_BK};
-  if ((rc = encode_map(&map_w, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_SWIZZLE_NONE, g.w,
-                       2, w_dims, w_strides, w_box)) != 0)
+  const uint64_t w_dims[2] = {(uint64_t)(W_T ? g.K : g.N), (uint64_t)(W_T ? g.N : g.K)};
+  const uint64_t w_strides[1] = {(uint64_t)w_dims[0] * 4};
+  const uint32_t w_box[2] = {(uint32_t)(W_T ? TG_BK : TG_BN), (uint32_t)(W_T ? TG_BN : TG_BK)};
+  if ((rc = encode_map(&map_w, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                       W_T ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE, g.w, 2,
+                       w_dims, w_strides, w_box)) != 0)
     return rc;
   auto kernel = gemm_tf32x3_kernel<LN, EPI>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        TG_SMEM);
   if (e != cudaSuccess) return (int)e;
   const int n_tiles = (g.N + TG_BN - 1) / TG_BN, cpp = LN ? (n_tiles + 2) / 3 : n_tiles;
-  const long long chunks = (long long)((g.M + TG_BM - 1) / TG_BM) * cpp;
+  const long long chunks =
+      (long long)((g.M + TG_BM - 1) / TG_BM) * cpp * (A_T ? g.splits : 1);
   // persistent blocks, one per SM (shared memory allows no more)
   const int grid = (int)min(chunks, (long long)sm_count());
   kernel<<<grid, TG_THREADS, TG_SMEM, stream>>>(map_a, map_w, g);
@@ -1811,6 +2010,38 @@ int gemm_bias_residual(const void* a, const void* w, const void* bias, const voi
   if (dtype != DTYPE_BF16 && dtype != DTYPE_F32) return (int)cudaErrorInvalidValue;
   if (res == nullptr && plane != nullptr) return (int)cudaErrorInvalidValue;
   return launch_gemm<false>(g, dtype == DTYPE_BF16, static_cast<cudaStream_t>(stream));
+}
+
+// The fp32 block backward's products, 3xTF32 on wgmma, each stage's sum
+// promoted to fp32 registers; fp32 only.
+// mode 0 (dgrad): out (M, N) = a (M, K) @ w^T, w (N, K): a forward product's
+//   weight as stored; K % 32 == 0.
+// mode 1 (dgelu): the same, times QuickGELU'(res) elementwise, res (M, N);
+//   out2 (M, N), or null: QuickGELU(res).
+// mode 2 (wgrad): a (K, M), w (K, N), out (splits, M, N): slab s holds
+//   a^T @ w over the s-th of `splits` equal ranges of K's 32-row stages;
+//   any K >= 1, 1 <= splits <= ceil(K / 32).
+// mode 3 (product): out = a (M, K) @ w (K, N) + bias [+ res], res (M, N) or
+//   null; K % 32 == 0.
+int gemm_tf32x3_backward(const void* a, const void* w, const void* bias, const void* res,
+                         void* out, void* out2, int M, int N, int K, int splits, int mode,
+                         void* stream) {
+  const int nk = (K + TG_BK - 1) / TG_BK;
+  if (mode < 0 || mode > 3 || K < 1 || (mode != 2 && K % TG_BK) ||
+      (mode == 1 && res == nullptr) || (mode == 3) != (bias != nullptr) ||
+      (mode == 0 && res != nullptr) || (mode == 2 && res != nullptr) ||
+      (mode != 1 && out2 != nullptr) || splits < 1 ||
+      splits > nk || (mode != 2 && splits != 1))
+    return (int)cudaErrorInvalidValue;
+  const int epi = mode == 0 ? EPI_DGRAD : mode == 1 ? EPI_DGELU : mode == 2 ? EPI_WGRAD
+                                                                             : EPI_PRODUCT;
+  GemmArgs g{a, w, bias, res, nullptr, nullptr, nullptr, nullptr, out, M, N, K, 1, epi, splits,
+             out2};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode == 0) return launch_gemm_tf32x3<false, EPI_DGRAD>(g, st);
+  if (mode == 1) return launch_gemm_tf32x3<false, EPI_DGELU>(g, st);
+  if (mode == 2) return launch_gemm_tf32x3<false, EPI_WGRAD>(g, st);
+  return launch_gemm_tf32x3<false, EPI_PRODUCT>(g, st);
 }
 
 // q, k, v: (B, S, H, 64) with row stride ld (elements between consecutive

@@ -12,8 +12,9 @@ hand-written CUDA kernels for CUDA tensors and the plain PyTorch block for
 CPU tensors; "kernel" always goes through the kernel wrappers (which take
 their plain versions on CPU tensors); "plain" always takes the plain block.
 The kernel path always goes through the blocks' autograd Function
-(ops/fused_attention.fused_block_autograd): kernels forward, the plain
-block's recompute backward.
+(ops/fused_attention.fused_block_autograd): kernels forward; backward a
+recompute of the block, in fp32 with its gradient products on the same
+kernels (the chain written out), in bf16 the plain block under autograd.
 """
 
 from __future__ import annotations
@@ -142,9 +143,11 @@ def residual_block(
 
     Under `use_kernels(x)` the block runs as the three hand-written kernels
     (five launches), in fp32 and in bf16, with the deep-prompt splice fused
-    into them, always through the blocks' autograd Function, whose backward
-    recomputes the plain block (with no input needing grad it builds no
-    graph and runs just the kernels). The weight casts to the activation dtype stay outside the Function, so the
+    into them, always through the blocks' autograd Function (with no input
+    needing grad it builds no graph and runs just the kernels). Its backward
+    recomputes the block: in fp32 through the kernels, then every gradient
+    product on the fp32 GEMM kernel (`fused_attention.fused_block_backward`);
+    in bf16 the plain block under autograd. The weight casts to the activation dtype stay outside the Function, so the
     gradients reach fp32 master weights through the cast (bf16-activation
     training). Otherwise the plain block runs after an out-of-kernel
     splice."""

@@ -49,6 +49,8 @@ SIGNATURES = {
         "gemm_bias_residual": [_P] * 7 + [_I] * 5 + [_P],
         # q, k, v, ld, mask, out, B, S, H, scale, fast, dtype, stream
         "mha_core": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
+        # a, w, bias, res, out, out2, M, N, K, splits, mode, stream
+        "gemm_tf32x3_backward": [_P] * 6 + [_I] * 5 + [_P],
     },
     "tail": {
         # x, ln_g, ln_b, proj, y, p, B, D, E, dtype, fma, stream
@@ -160,15 +162,14 @@ def stream(t: torch.Tensor) -> int:
 def check_forward_only(*tensors: Optional[torch.Tensor]) -> None:
     """The kernel wrappers refuse inputs that require grad: training reaches
     the kernels only through the autograd Functions of ops/fused_attention.py
-    and ops/fused_tail.py, whose backward recomputes through the plain
-    block."""
+    and ops/fused_tail.py, which carry the gradients."""
     if torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors
     ):
         raise RuntimeError(
             "the block and tail kernels are forward-only: call them under "
             "torch.no_grad(), or through residual_block / ln_proj_tail, whose "
-            "autograd Functions recompute the backward through the plain block"
+            "autograd Functions take the backward"
         )
 
 

@@ -55,8 +55,12 @@ each of fused_mha / fused_mlp / fused_block, counts the calls in which it
 launched kernels in its `launches` attribute. The wrappers are forward-only:
 an input that requires grad raises. The model's blocks (serving and
 training) go through `fused_block_autograd`, the counterpart of the JAX package's custom VJPs
-(`_block_fused`, `_block_fused_spliced`): the forward runs the kernels, the
-backward recomputes the plain block and differentiates it.
+(`_block_fused`, `_block_fused_spliced`): the forward runs the kernels; the
+backward recomputes the block, as JAX's does, and in fp32 writes the
+gradient chain out on the same GEMM kernel (`gemm_product`, `gemm_dgrad`,
+`gemm_wgrad`: the recompute's three products and the eight gradient
+products, 3xTF32 on wgmma), in bf16 differentiates the plain block under
+autograd (`fused_block_backward`).
 
 Layouts follow the JAX package: activations (B, S, D), linear weights
 (in, out). Weights and biases come in the activations' dtype (float32 or
@@ -424,7 +428,173 @@ fused_block.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# gradients: forward through the kernels, backward through the plain block
+# the fp32 block backward's products: the recompute (X W + b), dgrad (dY W^T)
+# and wgrad (X^T dY)
+# ---------------------------------------------------------------------------
+
+_BACKWARD_MODES = {"dgrad": 0, "dgelu": 1, "wgrad": 2, "product": 3}
+
+
+def gemm_product(a: Tensor, w: Tensor, b: Tensor, residual: Optional[Tensor] = None) -> Tensor:
+    """The backward's recompute of a forward product: a (M, K) @ w (K, N) +
+    b [+ residual (M, N)], fp32, each 32-deep stage's sum promoted to fp32
+    registers (the forward kernels keep one accumulator, whose truncating
+    additions drift ~7e-6 at K = 768). CUDA:
+    csrc/block_kernels.cu::gemm_tf32x3_backward (mode product); CPU tensors
+    take `gemm_bias_residual_reference`."""
+    _build.check_forward_only(a, w, b, residual)
+    if a.device.type == "cpu":
+        return gemm_bias_residual_reference(a, w, b, residual)
+    m, k = a.shape
+    n = w.shape[1]
+    if w.shape != (k, n) or b.shape != (n,) or (
+            residual is not None and residual.shape != (m, n)):
+        raise ValueError(f"gemm_product: a {tuple(a.shape)}, w {tuple(w.shape)}, b "
+                         f"{tuple(b.shape)}, residual "
+                         f"{None if residual is None else tuple(residual.shape)}")
+    _build.require_cuda(torch.float32, a.device, a=a, w=w, b=b, residual=residual)
+    ptr = _build.ptr
+    check_gemm_operands("gemm_product", m, k, n, False,
+                        dict(a=ptr(a), w=ptr(w), b=ptr(b), residual=ptr(residual)), fp32=True)
+    out = torch.empty(m, n, dtype=a.dtype, device=a.device)
+    lib = _build.library("block")
+    rc = lib.gemm_tf32x3_backward(ptr(a), ptr(w), ptr(b), ptr(residual), ptr(out), None, m, n,
+                                  k, 1, _BACKWARD_MODES["product"], _build.stream(a))
+    _build.check(lib, rc, "gemm_product")
+    gemm_product.launches += 1
+    return out
+
+
+gemm_product.launches = 0
+
+
+def quick_gelu_grad(h: Tensor) -> Tensor:
+    """d/dh of QuickGELU, h sigmoid(1.702 h): s + 1.702 h s (1 - s)."""
+    s = torch.sigmoid(1.702 * h)
+    return s + 1.702 * h * s * (1 - s)
+
+
+def gemm_dgrad_reference(dy: Tensor, w: Tensor, h: Optional[Tensor] = None) -> Tensor:
+    """dy @ w^T [* QuickGELU'(h)] in fp32."""
+    out = dy @ w.t()
+    return out if h is None else out * quick_gelu_grad(h)
+
+
+def gemm_dgrad(dy: Tensor, w: Tensor, h: Optional[Tensor] = None,
+               act: Optional[Tensor] = None) -> Tensor:
+    """The gradient of a product's input: dy (M, N) @ w^T -> (M, K), w the
+    forward product's (K, N) weight as stored (the kernel reads it
+    transposed); with h (M, K), the pre-activation of a QuickGELU, times
+    QuickGELU'(h), and `act` (M, K), where given, filled with QuickGELU(h)
+    (the epilogue reads h anyway: the activation c_proj's wgrad takes). fp32.
+    CUDA: csrc/block_kernels.cu::gemm_tf32x3_backward (modes dgrad, dgelu);
+    CPU tensors take the plain version."""
+    _build.check_forward_only(dy, w, h)
+    if act is not None and h is None:
+        raise ValueError("gemm_dgrad: the activation needs its pre-activation h")
+    if dy.device.type == "cpu":
+        if act is not None:
+            from tpu_reid_torch.models.layers import quick_gelu
+
+            act.copy_(quick_gelu(h))
+        return gemm_dgrad_reference(dy, w, h)
+    m, n = dy.shape
+    k = w.shape[0]
+    if w.shape != (k, n) or (h is not None and h.shape != (m, k)) or (
+            act is not None and act.shape != (m, k)):
+        raise ValueError(f"gemm_dgrad: dy {tuple(dy.shape)}, w {tuple(w.shape)}, h "
+                         f"{None if h is None else tuple(h.shape)}; w must be (K, N), h and "
+                         f"the activation (M, K)")
+    _build.require_cuda(torch.float32, dy.device, dy=dy, w=w, h=h, act=act)
+    ptr = _build.ptr
+    # the reduction runs along w's rows: N plays the kernel's K
+    check_gemm_operands("gemm_dgrad", m, n, k, False,
+                        dict(dy=ptr(dy), w=ptr(w), gelu_input=ptr(h), act=ptr(act)),
+                        fp32=True)
+    out = torch.empty(m, k, dtype=dy.dtype, device=dy.device)
+    lib = _build.library("block")
+    rc = lib.gemm_tf32x3_backward(ptr(dy), ptr(w), None, ptr(h), ptr(out), ptr(act), m, k, n,
+                                  1, _BACKWARD_MODES["dgrad" if h is None else "dgelu"],
+                                  _build.stream(dy))
+    _build.check(lib, rc, "gemm_dgrad")
+    gemm_dgrad.launches += 1
+    return out
+
+
+gemm_dgrad.launches = 0
+
+
+def check_wgrad_operands(what: str, r: int, m: int, n: int, addresses: dict) -> None:
+    """What the wgrad mode of the fp32 GEMM kernel takes, x (R, M)^T @ dy
+    (R, N), from sizes and base addresses alone (ValueError otherwise): x is
+    read transposed by TMA in 32 x 32 boxes, so M a multiple of 4 (16-byte
+    rows); N a multiple of 8, as the forward product's; R, the reduction over
+    the batch's rows, is free (the last stage is zero-filled); sizes within
+    a tensor map's 32-bit extents; x and dy at 16-byte aligned bases."""
+    if r <= 0 or m <= 0 or n <= 0 or m % 4 or n % 8:
+        raise ValueError(f"{what}: R, M, N = {r}, {m}, {n}; needs R > 0, M % 4 == 0 and "
+                         f"N % 8 == 0")
+    if max(r, m, n) >= 2 ** 31:
+        raise ValueError(f"{what}: R, M, N = {r}, {m}, {n} exceed a tensor map's extents")
+    for name, address in addresses.items():
+        if address is not None and address % 16:
+            raise ValueError(f"{what}: {name} at address {address:#x} is not 16-byte aligned")
+
+
+def wgrad_splits(r: int, m: int, n: int, sms: int) -> int:
+    """Ranges of the reduction a wgrad of an (M, N) output over R rows is
+    split into, for `sms` persistent blocks: the count of 32-row stages on
+    the longest block's path (waves of (M/128 x N/128 tiles x splits) chunks
+    times the stages of a range), plus one per split for the partials'
+    traffic; the fewest splits among equals. A function of the shapes and
+    the card alone, so one shape always sums its partials in one order."""
+    tiles = -(-m // 128) * -(-n // 128)
+    stages = -(-r // 32)
+
+    def cost(s: int) -> int:
+        return -(-tiles * s // sms) * -(-stages // s) + s
+
+    return min(range(1, min(16, stages) + 1), key=lambda s: (cost(s), s))
+
+
+def gemm_wgrad_reference(x: Tensor, dy: Tensor) -> Tensor:
+    """x^T @ dy in fp32."""
+    return x.t() @ dy
+
+
+def gemm_wgrad(x: Tensor, dy: Tensor) -> Tensor:
+    """The gradient of a product's weight: x (R, M)^T @ dy (R, N) -> (M, N),
+    summed over the R rows of a batch. fp32. CUDA:
+    csrc/block_kernels.cu::gemm_tf32x3_backward (mode wgrad; x read
+    transposed by TMA, R split into `wgrad_splits` ranges whose partials are
+    summed here in one order: equal bits run to run); CPU tensors take the
+    plain version."""
+    _build.check_forward_only(x, dy)
+    if x.device.type == "cpu":
+        return gemm_wgrad_reference(x, dy)
+    r, m = x.shape
+    n = dy.shape[1]
+    if dy.shape != (r, n):
+        raise ValueError(f"gemm_wgrad: x {tuple(x.shape)}, dy {tuple(dy.shape)}; both (R, .)")
+    _build.require_cuda(torch.float32, x.device, x=x, dy=dy)
+    ptr = _build.ptr
+    check_wgrad_operands("gemm_wgrad", r, m, n, dict(x=ptr(x), dy=ptr(dy)))
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    splits = wgrad_splits(r, m, n, sms)
+    out = torch.empty(splits, m, n, dtype=x.dtype, device=x.device)
+    lib = _build.library("block")
+    rc = lib.gemm_tf32x3_backward(ptr(x), ptr(dy), None, None, ptr(out), None, m, n, r,
+                                  splits, _BACKWARD_MODES["wgrad"], _build.stream(x))
+    _build.check(lib, rc, "gemm_wgrad")
+    gemm_wgrad.launches += 1
+    return out[0] if splits == 1 else out.sum(0)
+
+
+gemm_wgrad.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# gradients: forward through the kernels, backward written out
 # ---------------------------------------------------------------------------
 
 
@@ -438,16 +608,184 @@ def _block_params(w) -> dict:
     }
 
 
+def block_backward_route(x: Tensor, weights) -> str:
+    """How `fused_block_backward` takes a block: "kernel" (fp32 CUDA tensors
+    whose every product lies in the kernels' domain: the written-out chain on
+    the kernels), "chain" (the same on fp32 CPU tensors, with the plain
+    versions) or "plain" (bf16, or a shape outside the domain: the plain
+    block's recompute under autograd). Decided from dtype, device and sizes:
+    the chain's operands are its own fresh tensors, aligned."""
+    if x.dtype != torch.float32:
+        return "plain"
+    rows, d = x.shape[0] * x.shape[1], x.shape[2]
+    d3, hid = weights[2].shape[1], weights[8].shape[1]
+    try:
+        # the recompute's (K, N) and the dgrads' (N, K) of the four products
+        for k, n in {(d, d3), (d, d), (d, hid), (hid, d), (d3, d)}:
+            check_gemm_operands("block backward", rows, k, n, False, {}, fp32=True)
+        for m, n in ((d, d3), (d, d), (d, hid), (hid, d)):
+            check_wgrad_operands("block backward", rows, m, n, {})
+    except ValueError:
+        return "plain"
+    return "kernel" if x.is_cuda else "chain"
+
+
+def _aligned(t: Tensor) -> Tensor:
+    """t contiguous at a 16-byte aligned base (a copy where it is not)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _layer_norm_backward(dy: Tensor, x: Tensor, mean: Tensor, rstd: Tensor, scale: Tensor,
+                         bias: Tensor, needs: list) -> tuple:
+    """dx, dscale, dbias of the fp32 LayerNorm (None where `needs` says no)."""
+    return torch.ops.aten.native_layer_norm_backward(dy, x, (x.shape[-1],), mean, rstd, scale,
+                                                     bias, needs)
+
+
+def _written_out_backward(g, x, plane, pmask, mask, n_heads, weights, needs):
+    """The fp32 block's gradients, the chain written out (see
+    `fused_block_backward`); `needs` is ctx.needs_input_grad."""
+    from tpu_reid_torch.ops.attention import xla_mha_core
+
+    ln1_s, ln1_b, w_in, b_in, w_out, b_out, ln2_s, ln2_b, w_fc, b_fc, w_proj, b_proj = weights
+    need_w = needs[6:]
+    bsz, s, d = x.shape
+    rows = bsz * s
+
+    def flat(t):
+        return t.reshape(rows, t.shape[-1])
+
+    def unflat(t):
+        return t.reshape(bsz, s, t.shape[-1])
+
+    # recompute through the kernel, keeping what the gradients read
+    xin = _splice(x, plane, pmask)
+    h1, mu1, rs1 = torch.native_layer_norm(xin, (d,), ln1_s, ln1_b, 1e-5)
+    qkv = unflat(gemm_product(flat(h1), w_in, b_in))
+    with torch.enable_grad():
+        qkv.requires_grad_()
+        a = xla_mha_core(*_qkv_views(qkv, n_heads), mask).reshape(bsz, s, d)
+    a_in = a.detach().contiguous()
+    x1 = unflat(gemm_product(flat(a_in), w_out, b_out, flat(xin)))
+    h2, mu2, rs2 = torch.native_layer_norm(x1, (d,), ln2_s, ln2_b, 1e-5)
+    hpre = gemm_product(flat(h2), w_fc, b_fc)
+
+    dw = [None] * 12
+    g = _aligned(flat(g))
+    # c_proj, then QuickGELU' in the dgrad's epilogue, which also writes the
+    # activation that c_proj's wgrad reads
+    hact = torch.empty_like(hpre) if need_w[10] else None
+    d_hpre = gemm_dgrad(g, w_proj, hpre, hact)
+    if need_w[10]:
+        dw[10] = gemm_wgrad(hact, g)
+    if need_w[11]:
+        dw[11] = g.sum(0)
+    # c_fc, LN2, the residual
+    dh2 = gemm_dgrad(d_hpre, w_fc)
+    if need_w[8]:
+        dw[8] = gemm_wgrad(flat(h2), d_hpre)
+    if need_w[9]:
+        dw[9] = d_hpre.sum(0)
+    dx1_ln, dw[6], dw[7] = _layer_norm_backward(unflat(dh2), x1, mu2, rs2, ln2_s, ln2_b,
+                                                [True, need_w[6], need_w[7]])
+    dx1 = g + flat(dx1_ln)
+    # out_proj, the attention core, in_proj
+    da = gemm_dgrad(dx1, w_out)
+    if need_w[4]:
+        dw[4] = gemm_wgrad(flat(a_in), dx1)
+    if need_w[5]:
+        dw[5] = dx1.sum(0)
+    (dqkv,) = torch.autograd.grad(a, qkv, unflat(da))
+    dqkv = flat(dqkv.contiguous())
+    del a
+    need_x = needs[0] or needs[1]
+    if need_x or need_w[0] or need_w[1]:
+        dh1 = gemm_dgrad(dqkv, w_in)
+    if need_w[2]:
+        dw[2] = gemm_wgrad(flat(h1), dqkv)
+    if need_w[3]:
+        dw[3] = dqkv.sum(0)
+    dx = dplane = None
+    if need_x or need_w[0] or need_w[1]:
+        dxin_ln, dw[0], dw[1] = _layer_norm_backward(unflat(dh1), xin, mu1, rs1, ln1_s, ln1_b,
+                                                     [need_x, need_w[0], need_w[1]])
+    if need_x:
+        dxin = unflat(dx1) + dxin_ln
+        dx = dxin
+        if plane is not None:
+            # the splice: spliced rows' gradient goes to the plane, summed over the batch
+            keep = pmask.reshape(1, -1, 1) > 0
+            dplane = torch.where(keep, dxin, 0.0).sum(0).to(plane.dtype)
+            dx = torch.where(keep, 0.0, dxin)
+    return dx, dplane, dw
+
+
+def _recompute_backward(g, x, plane, pmask, mask, n_heads, weights):
+    """The plain block's recompute under autograd: the gradients of
+    `_block_xla_impl(p, splice(x, plane, pmask), n_heads, mask)` for x, the
+    plane and the 12 tensors."""
+    from tpu_reid_torch.models.layers import _apply_splice_plane, _block_xla_impl
+
+    with torch.enable_grad():
+        xs = x.detach().requires_grad_()
+        ws = [w.detach().requires_grad_() for w in weights]
+        inputs = [xs] + ws
+        xin = xs
+        if plane is not None:
+            ps = plane.detach().requires_grad_()
+            inputs.append(ps)
+            xin = _apply_splice_plane(xs, ps, pmask)
+        out = _block_xla_impl(_block_params(ws), xin, n_heads, mask)
+        grads = torch.autograd.grad(out, inputs, g, allow_unused=True)
+    return grads[0], (grads[13] if plane is not None else None), list(grads[1:13])
+
+
+def fused_block_backward(g, x, plane, pmask, mask, n_heads, weights, needs):
+    """The gradients of one block for `_FusedBlockFn`: (dx, dplane, the 12
+    tensors' list), as `block_backward_route` routes it.
+
+    fp32 (the training CLIs' default): the written-out chain. It recomputes
+    the block (the LayerNorms in plain fp32, keeping their statistics; qkv,
+    x1 and the MLP's pre-activation on the fp32 GEMM kernel, `gemm_product`,
+    whose promoted sums keep them fp32-accurate; the attention core as
+    `xla_mha_core` under autograd, so that its mask and softmax are the
+    plain block's) and then takes every gradient by hand: each of the four
+    products' dgrad (QuickGELU' in c_proj's) and wgrad on the fp32 GEMM
+    kernel (`gemm_dgrad`, `gemm_wgrad`), the bias gradients as column sums,
+    the LayerNorms' through aten's LayerNorm backward, the splice's as a
+    batch sum over the spliced rows; only what `needs` asks for. On CPU
+    tensors the same chain runs the plain versions. bf16, or a shape outside
+    the kernels' domain: `_recompute_backward`.
+
+    `fused_block_backward.launches` counts the calls that ran the chain on
+    the kernels, `.plain` those that took the recompute."""
+    route = block_backward_route(x, weights)
+    if route == "plain":
+        fused_block_backward.plain += 1
+        return _recompute_backward(g, x, plane, pmask, mask, n_heads, weights)
+    grads = _written_out_backward(g, x, plane, pmask, mask, n_heads, weights, needs)
+    if route == "kernel":
+        fused_block_backward.launches += 1
+    return grads
+
+
+fused_block_backward.launches = 0
+fused_block_backward.plain = 0
+
+
 class _FusedBlockFn(torch.autograd.Function):
     """The counterpart of the JAX package's `_block_fused` /
     `_block_fused_spliced` custom VJPs (models/layers.py): the forward runs
     `fused_block` (the kernels on CUDA tensors) and saves only x, the plane,
     the prompt mask, the attention mask and the 12 tensors passed in — no
-    activation of the block. The backward recomputes
-    `_block_xla_impl(p, splice(x, plane, pmask), n_heads, mask)` under
-    autograd and returns its gradients for x, the plane and the 12 tensors.
-    Under the fast softmax the forward takes the kernels' exp2 form and the
-    recompute `xla_mha_core`'s bf16-probability form, as in JAX."""
+    activation of the block. The backward recomputes the block and returns
+    the gradients for x, the plane and the 12 tensors that
+    `_block_xla_impl(p, splice(x, plane, pmask), n_heads, mask)` has:
+    `fused_block_backward`, in fp32 the written-out chain on the kernels, in
+    bf16 the plain block under autograd. Under the fast softmax the forward
+    takes the kernels' exp2 form and the recompute `xla_mha_core`'s
+    bf16-probability form, as in JAX."""
 
     @staticmethod
     def forward(ctx, x, plane, pmask, mask, n_heads, fast, *weights):
@@ -457,22 +795,9 @@ class _FusedBlockFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        from tpu_reid_torch.models.layers import _apply_splice_plane, _block_xla_impl
-
         x, plane, pmask, mask, *weights = ctx.saved_tensors
-        with torch.enable_grad():
-            xs = x.detach().requires_grad_()
-            ws = [w.detach().requires_grad_() for w in weights]
-            inputs = [xs] + ws
-            xin = xs
-            if plane is not None:
-                ps = plane.detach().requires_grad_()
-                inputs.append(ps)
-                xin = _apply_splice_plane(xs, ps, pmask)
-            out = _block_xla_impl(_block_params(ws), xin, ctx.n_heads, mask)
-            grads = torch.autograd.grad(out, inputs, g, allow_unused=True)
-        dx, dws = grads[0], grads[1:13]
-        dplane = grads[13] if plane is not None else None
+        dx, dplane, dws = fused_block_backward(g, x, plane, pmask, mask, ctx.n_heads, weights,
+                                               ctx.needs_input_grad)
         return (dx, dplane, None, None, None, None, *dws)
 
 
@@ -484,7 +809,7 @@ def fused_block_autograd(
     prompt_mask: Optional[Tensor] = None, fast: bool = False,
 ) -> Tensor:
     """`fused_block` with gradients: forward through the kernels, backward
-    through the plain block's recompute; see `_FusedBlockFn`. With no input
+    through `fused_block_backward`; see `_FusedBlockFn`. With no input
     requiring grad (serving) it builds no graph and is `fused_block`. Returns None gradients for the prompt mask and the
     attention mask."""
     return _FusedBlockFn.apply(x, prompt_plane, prompt_mask, mask, n_heads, fast,

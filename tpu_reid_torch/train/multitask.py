@@ -15,7 +15,7 @@ single-task trainers: cli/multitask.py):
 Every step takes one task's batch and applies its own update of the one
 optimizer (reference: one optimizer step per task batch). On CUDA every
 block of both towers runs forward through the hand-written kernels and
-backward through the plain block's recompute, as in train/trainer.py.
+backward through a recompute of the block, as in train/trainer.py.
 
 Input: both runners take their batches through
 parallel/prefetch.device_prefetch (a worker thread and, on CUDA, a copy

@@ -24,8 +24,9 @@ A step takes (trainable, frozen) trees: the trainable leaves are fp32
 master tensors that require grad, updated in place by torch.optim.Adam; the
 input parameter dict is not modified. A batch may carry a 4th element, the
 SIE camera/view ids of its images. On CUDA every block of both towers
-runs forward through the hand-written kernels and backward through the
-plain block's recompute (models/layers.residual_block). Epoch loops read the
+runs forward through the hand-written kernels and backward through a
+recompute of the block (in fp32 with its gradient products on the kernels;
+models/layers.residual_block). Epoch loops read the
 loss on the host one step late (`LossPipeline`), so the card is not
 synchronised every step.
 
