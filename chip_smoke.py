@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--phases kernels,serve,...]
 
 With `--phases` only the named phases run (kernels, minsum, grad, zero_shot,
-rerank, serve, vehicle, train, cli, multitask, resnet, variants, cache,
+rerank, serve, vehicle, eva02, train, cli, multitask, resnet, variants, cache,
 multidevice, tp, tools); such a run
 is no pass: it prints {"ok": false, "partial": [...]} as its last line and
 exits with code 3.
@@ -73,7 +73,20 @@ exits with code 3.
    at 256x256 (batch 256, bf16, fast softmax) as in phase 8; then the
    zero-shot CLI (--rerank --mm) and the prompt-learning CLI on a synthetic
    VeRi directory at full width.
-10. train: three live IVLP stage-1 steps and three stage-2 steps of the
+10. eva02: EVA02-CLIP-L/14 (configs.eva02_l14_reid, IVLP prompts in all
+   24 blocks, 256x256: 327 tokens, random bf16 weights from a seed): each
+   EVA02 mode of the block kernels against its plain version at the
+   eva-veri.embed cell's shapes (B 256, S 327, F 2730 stored as 2752)
+   within one bf16 rounding (ln_rows as LN_1 with the splice and as the
+   sub-LN over the padded hidden width, ln_gemm with RoPE and with SwiGLU,
+   gemm_bias_residual with the sub-LN prologue and the residual); then
+   eval_embed through the extractor (batch 256, bf16, fast softmax, folded
+   input norm, flip-TTA): emb/s, the launch counters (23 EVA02 blocks a
+   pass on the kernels, none plain), every block and the tail of a batch
+   against their plain versions on the run's own inputs, the embeddings
+   against the plain bf16 tower and against the fp32 tower, and an fp32
+   pass counted on the plain path.
+11. train: three live IVLP stage-1 steps and three stage-2 steps of the
    flagship at bs 64 in bf16 activations (ms per step, peak memory, traces,
    launches), an fp32 stage-1 step's peak memory, and an fp32 stage-2 loss
    and gradient through the kernels against the plain path; then fp32
@@ -83,7 +96,7 @@ exits with code 3.
    kernels and no FMA kernel, one more step of each with its CLS-tail calls
    held against the plain version on the step's own inputs, and one
    captured fp32 stage-2 step against its eager step bit for bit.
-11. cli: the zero-shot CLI with --rerank --mm, then the prompt-learning CLI
+12. cli: the zero-shot CLI with --rerank --mm, then the prompt-learning CLI
    (ivlp, one epoch of each stage, --rerank, bf16), at full ViT-B/16 width
    on a synthetic Market1501 directory and a random checkpoint; both must
    launch every kernel; the prompt-learning command again with --resume
@@ -91,7 +104,7 @@ exits with code 3.
    prompt-learning CLI in this process and in a subprocess (torch's
    defaults, none of this script's flags), their final checkpoints'
    features within 1e-4.
-12. multitask: the hard_ivlp multitask model at full width (task 0 256x128,
+13. multitask: the hard_ivlp multitask model at full width (task 0 256x128,
    213 tokens, 751 classes; task 1 256x256, 444 tokens, 576 classes), two
    stage-1 and two stage-2 steps per task at bs 64 in bf16 activations (ms
    per step per task, peak memory, launches: the key-tile mha_core from
@@ -99,14 +112,14 @@ exits with code 3.
    checkpoint files (save and restore seconds, bytes on disk); then the
    multitask CLI (hard_ivlp, Market1501 + VeRi, --rerank) and the same
    command with --resume.
-13. resnet: the RN50 zero-shot tower at full width (random weights from a
+14. resnet: the RN50 zero-shot tower at full width (random weights from a
    seed, 256x128: a 16x8 layer-4 map, 129 tokens in the attention pool) on
    the zero-shot main path's sizes (emb/s, peak memory, a trace), the text
    classifier's blocks against their plain version, the tower in fp32 on
    the card against the CPU (TF32 off), then the zero-shot CLI with an RN50
    checkpoint and --rerank. The convolutions are cuDNN's and the attention
    pool plain PyTorch, as both are plain XLA in the JAX package.
-14. variants: MaPLe (213 tokens): three live stage-1 and three stage-2
+15. variants: MaPLe (213 tokens): three live stage-1 and three stage-2
    steps at bs 64, its spliced blocks forward on the computed prompts
    against their plain version, the gradient of a computed prompt plane
    through the block Function against plain autograd; coop with JPM and SIE
@@ -115,7 +128,7 @@ exits with code 3.
    full-sequence 12th and the JPM block) against its plain version; then
    the prompt-learning CLI with --training_mode maple and with coop --jpm
    --sie_camera --augmented_prompts, one epoch per stage, --rerank.
-15. cache: the device-resident training input. A DeviceImageCache of a
+16. cache: the device-resident training input. A DeviceImageCache of a
    synthetic Market1501 split at Market-1501's scale (751 identities x 17
    training JPEGs at 256x128; upload seconds, MiB, the build's peak memory),
    its gathers of 4 PK batches against BatchLoader's rows bit for bit and
@@ -129,7 +142,7 @@ exits with code 3.
    the graph path (an inf leaf rolled back in place); device_prefetch on a
    copy stream against depth 0; then both training CLIs with --cache_device
    against the same commands without it, and --resume.
-16. multidevice: the data mesh of parallel/mesh.py and parallel/launch.py
+17. multidevice: the data mesh of parallel/mesh.py and parallel/launch.py
    (one process per card, NCCL) in worlds of one rank, started and
    destroyed inside the phase (a world of more ranks needs more cards; the
    CPU tests hold the cross-rank behaviour over gloo): the IVLP flagship
@@ -143,7 +156,7 @@ exits with code 3.
    --host_id 0 against the same commands without it; --devices 2 on a
    one-card host raises and names the visible count. Each prints ms or emb/s
    of both paths.
-17. tp: tensor parallelism (parallel/tp.py) at full ViT-B/16 width from
+18. tp: tensor parallelism (parallel/tp.py) at full ViT-B/16 width from
    random_clip_state_dict(0) (211 tokens, 12 heads of 64, MLP 3072, bf16,
    B=128). The card host has one card, so for T in 2, 4 and 12 every shard
    of a layout runs on it in turn: tp_attn_partial and tp_mlp_partial
@@ -156,7 +169,7 @@ exits with code 3.
    make_tp_extractor over an NCCL world of one rank, 4 x 128 images with
    flip-TTA, against the single-device extractor; the zero-shot CLI with
    --tp 2 on this one-card host raises naming the card count.
-18. tools: tpu_reid_torch.tools.parity_run --synthetic --mm on the card
+19. tools: tpu_reid_torch.tools.parity_run --synthetic --mm on the card
    (both tails' results and their |d|), entry()'s forward on its 8 example
    images against eval_embed's plain path, and the native decoder: built
    or not; if built, its pixels against PIL's on a write_market_dir
@@ -2050,7 +2063,7 @@ def gradient_phase(dev):
     ln_b = t(d, std=0.05).requires_grad_()
     proj = t(d, 512, std=d ** -0.5).requires_grad_()
     gy, gp = t(b, d), t(b, 512)
-    yk, pk = FT._TailFn.apply(xt, ln_s, ln_b, proj)
+    yk, pk = FT._TailFn.apply(xt, ln_s, ln_b, proj, None, 1e-5)
     yp, pp = FT.ln_proj_tail_reference(xt, ln_s, ln_b, proj)
     tk = torch.autograd.grad((yk, pk), [xt, ln_s, ln_b, proj], (gy, gp))
     tp = torch.autograd.grad((yp, pp), [xt, ln_s, ln_b, proj], (gy, gp))
@@ -2802,6 +2815,269 @@ def vehicle_cli_phase(counters):
 # ---------------------------------------------------------------------------
 
 MT_CLASSES = (751, 576)  # Market-1501's and VeRi-776's training identities
+
+
+def eva02_model(dev, image_hw=(256, 256), n_cls=576, seed=0):
+    """EVA02-CLIP-L/14 as the IVLP ReID tower (configs.eva02_l14_reid: 1024 x
+    24, 16 heads, SwiGLU 2730 stored as 2752; prompt depth 24 with 2 tokens;
+    327 tokens at 256x256), random bf16 weights drawn on the card from a
+    seed in EVA-CLIP's layout, converted by weights.convert.eva02_visual_params."""
+    from tpu_reid_torch.configs import PromptDesign, eva02_l14_reid
+    from tpu_reid_torch.models import prompts as P
+    from tpu_reid_torch.models import reid_clip as M
+    from tpu_reid_torch.weights.convert import eva02_visual_params
+
+    design = PromptDesign(trainer="IVLP", vision_depth=24, vision_ctx=2, language_depth=24,
+                          language_ctx=2)
+    clip = eva02_l14_reid(image_hw, design)
+    v = clip.vision
+    mcfg = M.ReidModelConfig(mode="ivlp", clip=clip,
+                             prompt=P.PromptLearnerConfig(n_cls, n_prefix=5, n_cls_ctx=4))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, d, f, f32 = v.layers, v.width, v.hidden, torch.float32
+
+    def t(*shape, std, mean=0.0, dtype=torch.bfloat16):
+        return (mean + std * torch.randn(*shape, generator=gen, device=dev)).to(dtype)
+
+    def ln(*lead):
+        return {"scale": t(*lead, std=0.05, mean=1.0, dtype=f32),
+                "bias": t(*lead, std=0.05, dtype=f32)}
+
+    nat = {"conv": {"w": t(14, 14, 3, d, std=(3 * 196) ** -0.5), "b": t(d, std=0.02)},
+           "class_embedding": t(d, std=d ** -0.5),
+           "positional_embedding": t(1 + v.h_grid * v.w_grid, d, std=0.01),
+           "blocks": {"ln_1": ln(n, d), "ln_2": ln(n, d),
+                      "attn": {"qkv": {"w": t(n, d, 3 * d, std=d ** -0.5)},
+                               "q_bias": t(n, d, std=0.01), "v_bias": t(n, d, std=0.01),
+                               "inner_ln": ln(n, d),
+                               "proj": {"w": t(n, d, d, std=d ** -0.5 / 2),
+                                        "b": t(n, d, std=0.01)}},
+                      "mlp": {"w1": {"w": t(n, d, f, std=d ** -0.5), "b": t(n, f, std=0.01)},
+                              "w2": {"w": t(n, d, f, std=d ** -0.5), "b": t(n, f, std=0.01)},
+                              "ffn_ln": ln(n, f),
+                              "w3": {"w": t(n, f, d, std=f ** -0.5 / 4),
+                                     "b": t(n, d, std=0.01)}}},
+           "ln_post": ln(d), "head": {"w": t(d, 768, std=d ** -0.5), "b": t(768, std=0.01)},
+           "vpt_shallow": t(2, d, std=0.02), "vpt_deep": t(n, 2, d, std=0.02)}
+    return mcfg, {"clip": {"visual": eva02_visual_params(nat)}}
+
+
+def one_rounding(got, want) -> float:
+    """The largest |got - want| over 2^-7 |want| + 2^-9 max|want|: a kernel
+    and its plain version round the same fp32 value, summed in another
+    order, to bf16, so they may land one bf16 step apart (an 8-bit
+    significand), and cancellation leaves values near zero. Above 1: off by
+    more than a rounding."""
+    g, w = got.detach().float(), want.detach().float()
+    if not torch.isfinite(g).all():
+        return float("inf")
+    return float(((g - w).abs() / (2.0 ** -7 * w.abs() + 2.0 ** -9 * w.abs().max())).max())
+
+
+def eva02_mode_checks(dev, b=256):
+    """Each EVA02 mode of the block kernels against its plain version at the
+    eva-veri.embed cell's shapes (B 256, S 327, D 1024, F 2730 stored as
+    2752), within one bf16 rounding: ln_rows as LN_1 with the deep-prompt
+    splice and as the sub-LN over the padded hidden width (statistics of
+    the 2730 real columns), ln_gemm with RoPE (CLS, prompt rows and v left
+    as the unrotated product gives them) and with SwiGLU (the padded columns
+    zero), gemm_bias_residual with the sub-LN prologue, the residual and the
+    splice. Returns {mode: worst ratio to the bound}."""
+    from tpu_reid_torch.configs import PromptDesign, eva02_l14_reid
+    from tpu_reid_torch.models.vit import rope_table
+    from tpu_reid_torch.ops import fused_attention as FA
+    from tpu_reid_torch.ops.fused_eva import padded_hidden
+    from tpu_reid_torch.weights.convert import pack_swiglu
+
+    design = PromptDesign(trainer="IVLP", vision_depth=24, vision_ctx=2, language_depth=24,
+                          language_ctx=2)
+    v = eva02_l14_reid((256, 256), design).vision
+    s, d, f = v.seq_len, v.width, v.hidden
+    fp = padded_hidden(f)
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def t(*shape, std=1.0, mean=0.0, dtype=torch.bfloat16):
+        return (mean + std * torch.randn(*shape, generator=gen, device=dev)).to(dtype)
+
+    def gamma(k):
+        return t(k, std=0.1, mean=1.0, dtype=torch.float32), t(k, std=0.1, dtype=torch.float32)
+
+    eps, worst = v.ln_eps, {}
+    plane, pmask = t(s, d), torch.zeros(s, 1, device=dev)
+    pmask[s - 2:] = 1.0
+    rope = rope_table(v, dev)
+    with torch.no_grad():
+        x = t(b, s, d)
+        g, gb = gamma(d)
+        h = FA.ln_rows(x, g, gb, d, eps, plane, pmask)
+        worst["ln_rows (LN_1, splice)"] = one_rounding(
+            h, FA.ln_rows_reference(x, g, gb, d, eps, plane, pmask))
+        w, bias = t(d, 3 * d, std=d ** -0.5), t(3 * d, std=0.02)
+        kw = dict(rope=rope, rope_cols=2 * d)
+        got = FA.ln_gemm(h, None, None, w, bias, **kw)
+        worst["ln_gemm rope"] = one_rounding(got, FA.ln_gemm_reference(h, None, None, w, bias,
+                                                                       **kw))
+        unrotated = FA.ln_gemm(h, None, None, w, bias)
+        keep = torch.zeros(s, dtype=torch.bool, device=dev)
+        keep[0] = keep[s - 2:] = True
+        if not (torch.equal(got[:, keep], unrotated[:, keep])
+                and torch.equal(got[..., 2 * d:], unrotated[..., 2 * d:])):
+            raise PhaseFailed("eva02: the rope mode rotated CLS, a prompt row or v")
+        del got, unrotated, w, bias
+        w = pack_swiglu(t(d, f, std=d ** -0.5), t(d, f, std=d ** -0.5), fp)
+        bias = pack_swiglu(t(f, std=0.02), t(f, std=0.02), fp)
+        u = FA.ln_gemm(h, None, None, w, bias, swiglu=True)
+        worst["ln_gemm swiglu"] = one_rounding(
+            u, FA.ln_gemm_reference(h, None, None, w, bias, swiglu=True))
+        if u.shape != (b, s, fp) or u[..., f:].any():
+            raise PhaseFailed("eva02: the swiglu mode's padded columns are not zero")
+        del w, bias, h
+        g, gb = t(fp, std=0.1, mean=1.0, dtype=torch.float32), t(fp, std=0.1,
+                                                                  dtype=torch.float32)
+        g[f:] = 0
+        gb[f:] = 0
+        hn = FA.ln_rows(u, g, gb, f, eps)
+        worst["ln_rows (sub-LN over F)"] = one_rounding(hn, FA.ln_rows_reference(u, g, gb, f, eps))
+        if hn[..., f:].any():
+            raise PhaseFailed("eva02: the sub-LN's padded columns are not zero")
+        del u, hn
+        a, w, bias = t(b, s, d), t(d, d, std=d ** -0.5), t(d, std=0.02)
+        g, gb = gamma(d)
+        kw = dict(ln_scale=g, ln_bias=gb, eps=eps)
+        worst["gemm_bias_residual ln_residual"] = one_rounding(
+            FA.gemm_bias_residual(a, w, bias, x, plane, pmask, **kw),
+            FA.gemm_bias_residual_reference(a, w, bias, x, plane, pmask, **kw))
+    for mode, r in worst.items():
+        say(f"  eva02 {mode} at B {b}, S {s}: worst |d| / one bf16 rounding {r:.3f} "
+            f"{'ok' if r <= 1 else 'FAIL'}")
+    bad = [m for m, r in worst.items() if not r <= 1]
+    if bad:
+        raise PhaseFailed(f"eva02: {bad} off their plain versions by more than a rounding")
+    return worst
+
+
+def eva02_phase(dev, k_batches=4, batch=256):
+    """EVA02-CLIP-L/14 on the eva-veri.embed cell's path: the mode checks,
+    then eval_embed through the extractor (batch 256, bf16, fast softmax,
+    the input normalisation folded in, flip-TTA) over k_batches batches:
+    emb/s and the counters (every full block on the kernels: 23 a pass,
+    none plain; three ln_rows a block; the key-tile attention); one batch
+    again with every EVA02 block and the tail held against their plain
+    versions on the run's own inputs, its embeddings against the plain bf16
+    tower and the folded bf16 rows against the program's fp32 tower on
+    normalised images; an fp32 pass, whose blocks take the plain path and
+    are counted there."""
+    from tpu_reid_torch.data.transforms import DevicePreprocess
+    from tpu_reid_torch.models import reid_clip as M
+    from tpu_reid_torch.models.layers import kernel_impl
+    from tpu_reid_torch.ops import attention as TA
+    from tpu_reid_torch.ops import fused_attention as FA
+    from tpu_reid_torch.ops import fused_eva as FE
+    from tpu_reid_torch.ops import fused_tail as FT
+    from tpu_reid_torch.ops.attention import set_fast_softmax
+    from tpu_reid_torch.parallel.extract import make_extractor
+
+    worst = eva02_mode_checks(dev, batch)
+    torch.cuda.empty_cache()
+    mcfg, params = eva02_model(dev)
+    bf, hw = torch.bfloat16, (256, 256)
+    blocks = mcfg.clip.vision.layers - 1
+    counters = {"fused_eva_block": FE.fused_eva_block, "ln_rows": FA.ln_rows,
+                "ln_gemm": FA.ln_gemm, "gemm_bias_residual": FA.gemm_bias_residual,
+                "mha_core": TA.mha_core, "mha_core_long": TA.mha_core_long,
+                "ln_proj_tail": FT.ln_proj_tail_kernel}
+    fold = lambda p: M.fold_input_norm(p, mcfg, "vit")  # noqa: E731
+    embed = lambda p, im: M.eval_embed(p, mcfg, im)  # noqa: E731
+    ext = make_extractor(embed, DevicePreprocess(hw, "vit", dtype=bf), flip_tta=True, dtype=bf,
+                         fold=fold, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    images = torch.randint(0, 255, (k_batches, batch, *hw, 3), dtype=torch.uint8, device=dev,
+                           generator=gen)
+    set_fast_softmax(True)
+    try:
+        ext(params, images[0])  # warm-up
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        FE.fused_eva_block.plain = 0
+        t0 = time.perf_counter()
+        outs = [ext(params, images[k]) for k in range(k_batches)]
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+        plain = FE.fused_eva_block.plain
+        emb_s = k_batches * batch / sec
+        say(f"EVA02-CLIP-L/14 serving (eval_embed, 256x256, {mcfg.clip.vision.seq_len} tokens, "
+            f"batch {batch}, bf16, fast softmax, folded input norm, flip-TTA): {k_batches} "
+            f"batches in {sec:.3f} s, {emb_s:.1f} emb/s")
+        say(f"  launches in the run: {launches}, fused_eva_block.plain {plain}")
+        passes = 2 * k_batches
+        want_counts = {"fused_eva_block": blocks * passes, "ln_rows": 3 * blocks * passes,
+                       "ln_gemm": 2 * blocks * passes, "gemm_bias_residual": 2 * blocks * passes,
+                       "mha_core": blocks * passes, "mha_core_long": blocks * passes,
+                       "ln_proj_tail": passes}
+        if launches != want_counts or plain:
+            raise PhaseFailed(f"eva02: launches {launches} and {plain} plain blocks, expected "
+                              f"{want_counts} and none plain")
+        errs = {"fused_eva_block": [], "ln_proj_tail": []}
+        x = images[0]
+        with held_against_plain(FE, "fused_eva_block", FE.eva_block_reference,
+                                errs["fused_eva_block"]), \
+                held_against_plain(FT, "ln_proj_tail_kernel", FT.ln_proj_tail_reference,
+                                   errs["ln_proj_tail"]):
+            ek = ext(params, x)
+        with kernel_impl("plain"):
+            ep = ext(params, x)
+    finally:
+        set_fast_softmax(False)
+    tol = TOL[bf]
+    for name, es in errs.items():
+        w = max((rel for _, rel in es), default=float("inf"))
+        say(f"  eva02 {name}, {len(es)} outputs of one batch, each against its plain version "
+            f"on the run's own inputs: worst rel {w:.3e} (tol {tol:.0e}) "
+            f"{'ok' if w <= tol else 'FAIL'}")
+        if not es or w > tol:
+            raise PhaseFailed(f"eva02: {name} disagrees with its plain version")
+    same = rel_err(ek, outs[0])[1]
+    rows = lambda a, b: (a.float() - b.float()).norm(dim=1) / b.float().norm(dim=1)  # noqa: E731
+    gap = float(rows(ek, ep).max())
+    say(f"  the held rows against the same rows of the timed run: rel {same:.3e}; kernels "
+        f"against the plain bf16 tower: worst row {gap:.4f} (tol 3e-2: the plain tower rounds "
+        f"elsewhere, 24 blocks deep) {'ok' if gap < 3e-2 else 'FAIL'}")
+    if same > 1e-3 or gap >= 3e-2:
+        raise PhaseFailed("eva02: the held run differs from the timed run or the plain tower")
+    bad = [tuple(o.shape) for o in outs if o.shape != (batch, 1024 + 768)
+           or not torch.isfinite(o).all()]
+    if bad:
+        raise PhaseFailed(f"eva02: embeddings not finite / of the expected shape: {bad[:3]}")
+    del outs, ek, ep
+    torch.cuda.empty_cache()
+
+    # the folded bf16 rows against the program's fp32 tower on normalised
+    # images (TF32 off), and that fp32 pass's blocks on the plain path
+    x = images[0, :32]
+    set_fast_softmax(True)
+    try:
+        eb = ext(params, x)
+    finally:
+        set_fast_softmax(False)
+    p32 = _cast(params, torch.float32)
+    ext32 = make_extractor(embed, DevicePreprocess(hw, "vit"), flip_tta=True,
+                           dtype=torch.float32, device=dev)
+    FE.fused_eva_block.plain = 0
+    e32 = ext32(p32, x)
+    plain32 = FE.fused_eva_block.plain
+    gap32 = rows(eb, e32)
+    say(f"  folded bf16 rows (32 images, flip-TTA) against the fp32 tower: worst "
+        f"{float(gap32.max()):.4f}, median {float(gap32.median()):.4f} (tol 3e-2: bf16 "
+        f"rounding through 24 blocks; a stem that rounds the raw images' mean into its "
+        f"output and bias reads ~6%); fp32 blocks on the plain path: {plain32} (expected "
+        f"{2 * blocks})")
+    if float(gap32.max()) >= 3e-2 or plain32 != 2 * blocks:
+        raise PhaseFailed("eva02: the bf16 tower strays from fp32, or fp32 blocks were not "
+                          "counted plain")
+    numbers = {"emb_s": emb_s, "modes": worst, "bf16_vs_fp32_worst": float(gap32.max())}
+    return launches, numbers
 
 
 def multitask_model(dev):
@@ -4888,10 +5164,11 @@ def tools_phase(dev, counters):
 
 
 # instantiations of the wgmma kernels that the sources launch: the GEMM as
-# (LN, 128 or 64 rows, epilogue) = 3 without LN + 4 with; the two attention
-# kernels; the CLS tail; the fp32 route's (LN, epilogue) = 3 without LN + 2
-# with, its attention kernel and its CLS tail
-WGMMA_ENTRIES = {"gemm_bf16_kernel": 7, "attention_bf16_kernel": 1,
+# (LN, 128 or 64 rows, epilogue) = 3 without LN + 4 with, and EVA02's rope
+# and swiglu modes without LN and its LN prologue with the residual; the two
+# attention kernels; the CLS tail; the fp32 route's (LN, epilogue) = 3
+# without LN + 2 with, its attention kernel and its CLS tail
+WGMMA_ENTRIES = {"gemm_bf16_kernel": 10, "attention_bf16_kernel": 1,
                  "attention_long_bf16_kernel": 1, "ln_proj_tail_bf16_kernel": 1,
                  "gemm_tf32x3_kernel": 9, "attention_tf32x3_kernel": 1,
                  "ln_proj_tail_tf32x3_kernel": 1}
@@ -5019,6 +5296,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         by_path.update(vehicle_cli_phase(dict(vehicle_counters, minsum=MS.minsum_kernel)))
 
+    def run_eva02():
+        state.clear()
+        torch.cuda.empty_cache()
+        by_path["eva02_serve"], numbers = eva02_phase(dev)
+        say("eva02: " + json.dumps(numbers, default=float))
+        torch.cuda.empty_cache()
+
     def run_train():
         for stage, r in training_phase(dev, block_counters, *flagship_once()).items():
             by_path[stage] = r["launches"]
@@ -5085,7 +5369,7 @@ def main() -> int:
     phases = (("kernels", run_kernels), ("minsum", run_minsum),
               ("grad", lambda: gradient_phase(dev)), ("zero_shot", run_zero_shot),
               ("rerank", run_rerank), ("serve", run_serve), ("vehicle", run_vehicle),
-              ("train", run_train), ("cli", run_cli), ("multitask", run_multitask),
+              ("eva02", run_eva02), ("train", run_train), ("cli", run_cli), ("multitask", run_multitask),
               ("resnet", run_resnet), ("variants", run_variants), ("cache", run_cache),
               ("multidevice", run_multidevice), ("tp", run_tp), ("tools", run_tools))
     # `--phases kernels,serve` runs only those phases (for work on one of

@@ -45,6 +45,19 @@ class VisionConfig:
     h_grid/w_grid are the *post-conv* patch-grid dims; with an overlapping
     patch embed (stride < patch) they are (H - patch)//stride + 1 etc. —
     e.g. 256x128 @ patch16/stride12 -> 21x10.
+
+    The block and what differs from OpenAI CLIP's (the defaults are CLIP's):
+      * block: "clip" (pre-LN, QuickGELU MLP of 4 x width, ln_pre after the
+        positional embedding) or "eva02" (EVA-CLIP's EVA02 block: 2D rotary
+        embedding on q and k of the grid tokens, a key projection without
+        bias, LayerNorms on the attention output and over the MLP's hidden
+        width inside the residual branches, a SwiGLU MLP; no ln_pre),
+      * mlp_hidden: the MLP's hidden width (None: 4 x width; EVA02-L
+        int(1024 x 2.6667) = 2730),
+      * rope_grid: the pretraining grid (rope_grid x rope_grid) EVA02's
+        rotary embedding is interpolated from,
+      * ln_eps: every LayerNorm's epsilon (EVA02: 1e-6; the CLIP block takes
+        1e-5 only).
     """
 
     layers: int = 12
@@ -56,6 +69,20 @@ class VisionConfig:
     output_dim: int = 512
     design: PromptDesign = PromptDesign()
     n_heads: Optional[int] = None  # default: width // 64 (CLIP convention)
+    block: str = "clip"
+    mlp_hidden: Optional[int] = None
+    rope_grid: int = 16
+    ln_eps: float = 1e-5
+
+    def __post_init__(self):
+        if self.block not in ("clip", "eva02"):
+            raise ValueError(f"vision block must be clip or eva02: {self.block!r}")
+        if self.block == "clip" and self.ln_eps != 1e-5:
+            raise ValueError("the CLIP block takes LayerNorm epsilon 1e-5")
+
+    @property
+    def hidden(self) -> int:
+        return self.mlp_hidden if self.mlp_hidden is not None else 4 * self.width
 
     @property
     def heads(self) -> int:
@@ -130,6 +157,28 @@ class CLIPConfig:
     def __post_init__(self):
         if (self.vision is None) == (self.resnet is None):
             raise ValueError("exactly one of vision (ViT) / resnet towers must be set")
+
+
+def eva02_l14_reid(
+    image_hw: Tuple[int, int] = (256, 256),
+    design: PromptDesign = PromptDesign(),
+) -> CLIPConfig:
+    """EVA-CLIP's EVA02-CLIP-L/14 (BAAI, arXiv:2303.15389; model config
+    EVA02-CLIP-L-14.json) at a ReID resolution: the vision tower 1024 x 24,
+    16 heads of 64, SwiGLU hidden int(1024 x 2.6667) = 2730 with sub-LNs, 2D
+    RoPE interpolated from the 16 x 16 pretraining grid, LayerNorm epsilon
+    1e-6, no ln_pre, patches of 14 at stride 14 (18 x 18 at 256 x 256); the
+    text tower 768 x 12 with 12 heads; embeddings of 768."""
+    hg, wg = VisionConfig.grid_for(image_hw, 14, 14)
+    return CLIPConfig(
+        vision=VisionConfig(
+            layers=24, width=1024, patch_size=14, stride=14, h_grid=hg, w_grid=wg,
+            output_dim=768, design=design, n_heads=16, block="eva02",
+            mlp_hidden=int(1024 * 2.6667), rope_grid=16, ln_eps=1e-6,
+        ),
+        text=TextConfig(layers=12, width=768, heads=12, output_dim=768, design=design),
+        embed_dim=768,
+    )
 
 
 def vit_b16_reid(

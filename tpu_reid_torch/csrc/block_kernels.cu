@@ -83,6 +83,26 @@
 //     head, image); K and V tiles of 64 keys stream through a TMA ring, the
 //     softmax runs online over the tiles; its notes stand above it.
 //
+// EVA02's block (ops/fused_eva.py; bf16) runs the GEMM kernel in three more
+// modes and one kernel of its own, each placed where it costs least:
+//
+//   * EPI_ROPE (qkv): after the epilogue's column exchange a thread holds 8
+//     consecutive columns of a row, four whole (2p, 2p + 1) pairs of one
+//     head, so the 2D rotary embedding is 8 multiply-adds on values in
+//     registers and two 32-byte table reads (L1-resident, 167 KB), before
+//     the one cast; both attention kernels then read q and k rotated as
+//     they are. Rotating at mha_core's load instead would repeat the table
+//     reads for every query tile on the attention's critical path.
+//   * EPI_SWIGLU (gate | up): the weight is packed so that each 128-column
+//     tile holds 64 gate columns and the matching 64 up columns; a thread
+//     holds gate column c and up column c + 64 (accumulator groups j and
+//     j + 8), so SiLU(gate) * up needs no exchange and u is written once, at
+//     half the product's width.
+//   * LN prologue + EPI_RESIDUAL (the attention output's sub-LN): the LN
+//     mode's row panel with the residual epilogue, one launch.
+//   * ln_rows: LN_1, LN_2 and the MLP's sub-LN as passes of their own; its
+//     notes stand above it.
+//
 // The fp32 route (the training CLIs' default dtype: every forward and every
 // backward of every training step) runs two kernels of its own, both 3xTF32
 // on wgmma: each operand split once into hi = tf32(x) and lo = tf32(x - hi),
@@ -136,6 +156,14 @@ constexpr int EPI_BIAS = 0, EPI_GELU = 1, EPI_RESIDUAL = 2;
 // EPI_WGRAD    out[split] = a^T @ w over one range of K, a given as (K, M)
 // EPI_PRODUCT  out = a @ w + bias [+ res]: the recompute of a forward product
 constexpr int EPI_DGRAD = 3, EPI_DGELU = 4, EPI_WGRAD = 5, EPI_PRODUCT = 6;
+// the EVA02 block's modes (bf16, without the LayerNorm prologue: their
+// input rows come normalised by ln_rows):
+// EPI_SWIGLU   out (M, N / 2) = SiLU(gate) * up, gate and up the two halves of
+//              each 128-column tile (a packed weight: see swiglu_epilogue)
+// EPI_ROPE     out = a @ w + bias, then the 2D rotary embedding on columns
+//              below rope_cols (q and k of a packed qkv), from a (S, 2, 64)
+//              cos / sin table
+constexpr int EPI_SWIGLU = 7, EPI_ROPE = 8;
 
 struct GemmArgs {
   const void* a;       // (M, K) row-major, T; EPI_WGRAD: (K, M)
@@ -150,6 +178,9 @@ struct GemmArgs {
   int M, N, K, S, epi;
   int splits = 1;      // EPI_WGRAD: ranges of K, each summed into its own slab of out
   void* out2 = nullptr;  // EPI_DGELU: (M, N), QuickGELU(res), or null
+  float eps = 1e-5f;     // the LayerNorm prologue's epsilon
+  const float* rope = nullptr;  // EPI_ROPE: (S, 2, 64) fp32, cos then sin of each token
+  int rope_cols = 0;     // EPI_ROPE: the columns rotated, [0, rope_cols)
 };
 
 // ---- bf16: TMA-fed wgmma; with LN, a normalised row panel resident in shared memory ----
@@ -192,7 +223,7 @@ struct GemmShape {
 // whose rows take more registers). A lane owns the
 // 16-byte chunks lane, lane + 32, ... of every row, so its gamma/beta stay in
 // registers. Statistics in two passes in fp32; rows past M are zero.
-template <int MT>
+template <int MT, bool SPLICE = true>
 __device__ __forceinline__ void ln_panel_rows(const GemmArgs& g, int m0, unsigned char* panel,
                                               int warp, int lane) {
     constexpr int ROWS = 64 * MT, PER_WARP = ROWS / 8, NV = MT == 2 ? 3 : 4, RG = MT;
@@ -220,7 +251,7 @@ __device__ __forceinline__ void ln_panel_rows(const GemmArgs& g, int m0, unsigne
       const bf16* p = nullptr;
       if (m < g.M) {
         p = static_cast<const bf16*>(g.a) + (size_t)m * g.K;
-        if (g.plane != nullptr) {
+        if (SPLICE && g.plane != nullptr) {
           const int s = m % g.S;
           if (g.pmask[s] > 0.f) p = static_cast<const bf16*>(g.plane) + (size_t)s * g.K;
         }
@@ -261,7 +292,7 @@ __device__ __forceinline__ void ln_panel_rows(const GemmArgs& g, int m0, unsigne
           v += f[i][e] * f[i][e];
         }
       }
-      const float rstd = rsqrtf(warp_sum(v) / g.K + 1e-5f);
+      const float rstd = rsqrtf(warp_sum(v) / g.K + g.eps);
       const int r = r0 + rr;
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
@@ -310,6 +341,85 @@ __device__ __forceinline__ const bf16* residual_row(const GemmArgs& g, int m) {
              : static_cast<const bf16*>(g.res) + (size_t)m * g.N;
 }
 
+// SiLU(gate) * up of a 64 x 128 tile whose columns n0 .. n0 + 63 are gate and
+// n0 + 64 .. n0 + 127 the matching up columns: gate column c and up column
+// c + 64 lie in the same thread (accumulator column groups j and j + 8), so
+// the product needs no exchange. Bias and the product in fp32, one cast; the
+// 64 columns go to out columns n0 / 2 .., a row N / 2 wide.
+template <int MT>
+__device__ __forceinline__ void swiglu_epilogue(const GemmArgs& g, const float (&acc)[MT][64],
+                                                int row0, int n0, int lane) {
+  const int gq = lane >> 2, q = lane & 3, nh = g.N / 2;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = row0 + 64 * mt + gq + 8 * hr;
+      bf16* dst = static_cast<bf16*>(g.out) + (size_t)m * nh;
+#pragma unroll
+      for (int jq = 0; jq < 2; ++jq) {
+        float x[2][8];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float lo[4], hi[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            lo[i] = acc[mt][4 * (4 * (jq + 2 * half) + i) + 2 * hr];
+            hi[i] = acc[mt][4 * (4 * (jq + 2 * half) + i) + 2 * hr + 1];
+          }
+          quad_transpose(lo, q);
+          quad_transpose(hi, q);
+          const int n = n0 + 64 * half + 8 * (4 * jq + q);
+          const uint4 b4 = n < g.N
+              ? *reinterpret_cast<const uint4*>(static_cast<const bf16*>(g.bias) + n)
+              : make_uint4(0u, 0u, 0u, 0u);
+          const uint32_t b[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float2 bb = unpack_bf16(b[i]);
+            x[half][2 * i] = lo[i] + bb.x;
+            x[half][2 * i + 1] = hi[i] + bb.y;
+          }
+        }
+        // gate / (1 + 2^(-gate log2(e))) * up, a stage at a time over the 8
+        // values so that their chains overlap
+        float e[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) e[i] = ex2_approx(x[0][i] * -1.4426950408889634f);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) e[i] = rcp_approx(1.f + e[i]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) e[i] *= x[0][i] * x[1][i];
+        const int nu = n0 / 2 + 8 * (4 * jq + q);
+        if (m < g.M && nu < nh)
+          *reinterpret_cast<uint4*>(dst + nu) =
+              make_uint4(pack_bf16(e[0], e[1]), pack_bf16(e[2], e[3]), pack_bf16(e[4], e[5]),
+                         pack_bf16(e[6], e[7]));
+      }
+    }
+}
+
+// The rotary embedding of the 8 columns n .. n + 7 (one head's dims d0 .. d0 +
+// 7, d0 = n % 64) of token s: interleaved pairs (2p, 2p + 1) turn by the
+// pair's angle, y0 = x0 cos - x1 sin, y1 = x1 cos + x0 sin, fp32, before the
+// cast. The table holds each pair's cos and sin twice; identity rows (cos 1,
+// sin 0: CLS and the prompt tokens) leave the values as they are, bit for bit.
+__device__ __forceinline__ void rope8(const GemmArgs& g, int s, int n, float (&x)[8]) {
+  const float* cs = g.rope + (size_t)s * 128 + (n & 63);
+  const float4 c0 = __ldg(reinterpret_cast<const float4*>(cs));
+  const float4 c1 = __ldg(reinterpret_cast<const float4*>(cs + 4));
+  const float4 s0 = __ldg(reinterpret_cast<const float4*>(cs + 64));
+  const float4 s1 = __ldg(reinterpret_cast<const float4*>(cs + 68));
+  const float c[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+  const float sn[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float a = x[2 * i], b = x[2 * i + 1];
+    x[2 * i] = a * c[2 * i] - b * sn[2 * i];
+    x[2 * i + 1] = b * c[2 * i + 1] + a * sn[2 * i + 1];
+  }
+}
+
 // MT 64 x 128 accumulators -> out: bias, then QuickGELU (fp32) or the spliced
 // residual, the cast, and 16-byte stores. row0: the first of this warp's 16
 // rows in accumulator 0 (accumulator mt: + 64 mt); res: the residual source
@@ -323,6 +433,10 @@ __device__ __forceinline__ void gemm_epilogue(const GemmArgs& g, const float (&a
                                               const uint4 (&bias4)[4],
                                               const bf16* (&res)[MT][2], int row0, int n0,
                                               int lane) {
+  if constexpr (EPI == EPI_SWIGLU) {
+    swiglu_epilogue<MT>(g, acc, row0, n0, lane);
+    return;
+  }
   const int gq = lane >> 2, q = lane & 3;
   // the residual of (accumulator mt, row half hr) is asked for one such unit
   // before it is used
@@ -345,6 +459,7 @@ __device__ __forceinline__ void gemm_epilogue(const GemmArgs& g, const float (&a
         load_residual((2 * mt + hr + 1) / 2, (2 * mt + hr + 1) % 2, res_next);
       const int m = row0 + 64 * mt + gq + 8 * hr;
       bf16* dst = static_cast<bf16*>(g.out) + (size_t)m * g.N;
+      const int tok = EPI == EPI_ROPE ? m % g.S : 0;
 #pragma unroll
       for (int jq = 0; jq < 4; ++jq) {
         // x[2i], x[2i + 1]: columns n0 + 8 * (4 * jq + q) + 2i, + 1 of the row
@@ -385,6 +500,7 @@ __device__ __forceinline__ void gemm_epilogue(const GemmArgs& g, const float (&a
 #pragma unroll
           for (int i = 0; i < 8; ++i) x[i] *= e[i];
         }
+        if (EPI == EPI_ROPE && n < g.rope_cols && m < g.M) rope8(g, tok, n, x);
         if (m < g.M && n < g.N)
           *reinterpret_cast<uint4*>(dst + n) =
               make_uint4(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]), pack_bf16(x[4], x[5]),
@@ -477,7 +593,10 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
           mbar_arrive(panel_free);
           mbar_wait(panel_free, (panels - 1) & 1);
         }
-        ln_panel_rows<MT>(g, m0, smem_raw + (base - raw), wg * 4 + warp, lane);
+        // with a residual the prompt plane is the residual's: the rows
+        // normalised are the product's input as it is
+        ln_panel_rows<MT, EPI != EPI_RESIDUAL>(g, m0, smem_raw + (base - raw), wg * 4 + warp,
+                                               lane);
         fence_proxy_async();
         mbar_arrive(panel_done);
         mbar_wait(panel_done, panels & 1);
@@ -924,7 +1043,7 @@ gemm_tf32x3_kernel(const __grid_constant__ CUtensorMap map_a,
                         a3 = u[rr][i].w - mu;
             s2 += (a0 * a0 + a1 * a1) + (a2 * a2 + a3 * a3);
           }
-          const float rs = rsqrtf(warp_sum(s2) / g.K + 1e-5f);
+          const float rs = rsqrtf(warp_sum(s2) / g.K + g.eps);
           const bool live = rp[rr] != nullptr;
           if (lane == 0) {
             row_mean[64 * wg + 16 * warp + r0 + rr] = live ? mu : 0.f;
@@ -1163,10 +1282,15 @@ template <bool LN>
 int launch_gemm(const GemmArgs& g, bool is_bf16, cudaStream_t stream) {
   if (is_bf16) {
     if constexpr (!LN) {
+      if (g.epi == EPI_ROPE) return launch_gemm_bf16<false, 2, EPI_ROPE>(g, stream);
+      if (g.epi == EPI_SWIGLU) return launch_gemm_bf16<false, 2, EPI_SWIGLU>(g, stream);
       if (g.epi == EPI_RESIDUAL) return launch_gemm_bf16<false, 2, EPI_RESIDUAL>(g, stream);
       if (g.epi == EPI_GELU) return launch_gemm_bf16<false, 2, EPI_GELU>(g, stream);
       return launch_gemm_bf16<false, 2, EPI_BIAS>(g, stream);
     } else {
+      // EVA02's attention output: its sub-LN and the residual in one launch
+      // (K = 1024: a 64-row panel)
+      if (g.epi == EPI_RESIDUAL) return launch_gemm_bf16<true, 1, EPI_RESIDUAL>(g, stream);
       // a 128-row panel of K <= 768 fits beside the ring; wider rows take 64 rows
       if (g.epi == EPI_GELU)
         return g.K <= 768 ? launch_gemm_bf16<true, 2, EPI_GELU>(g, stream)
@@ -1175,11 +1299,134 @@ int launch_gemm(const GemmArgs& g, bool is_bf16, cudaStream_t stream) {
                         : launch_gemm_bf16<true, 1, EPI_BIAS>(g, stream);
     }
   }
+  if (g.epi == EPI_ROPE || g.epi == EPI_SWIGLU || (LN && g.epi == EPI_RESIDUAL))
+    return (int)cudaErrorInvalidValue;  // the EVA02 modes run in bf16 only
   if (g.epi == EPI_GELU) return launch_gemm_tf32x3<LN, EPI_GELU>(g, stream);
   if constexpr (!LN) {
     if (g.epi == EPI_RESIDUAL) return launch_gemm_tf32x3<false, EPI_RESIDUAL>(g, stream);
   }
   return launch_gemm_tf32x3<LN, EPI_BIAS>(g, stream);
+}
+
+// ---------------------------------------------------------------------------
+// ln_rows: a LayerNorm over rows, as a pass of its own, for EVA02's block:
+// LN_1 (with the deep-prompt splice on load) and LN_2 before the qkv and
+// gate | up products, and the MLP's sub-LN over its hidden width F, stored
+// F_pad = F rounded up to 64 wide. bf16 in and out, statistics two-pass in
+// fp32 over the first n_real columns only, the fp32 affine, the normalised
+// row rounded to bf16 (where ln_gemm's prologue rounds it too); the padded
+// columns come out as their (zero) gamma and beta make them. One warp per
+// row, 8 rows per block: a lane loads its 16-byte chunks lane, lane + 32, ...
+// of the row at once (NV of them, all in flight), so the row is read once
+// and written once. What bounds it is those bytes.
+//
+// Why passes of their own and not ln_gemm's LayerNorm prologue:
+//   * the MLP's sub-LN: the prologue keeps a 64-row panel of the whole K in
+//     shared memory, 64 x 2752 x 2 bytes = 352 KB for EVA02-L's hidden
+//     width, past an SM's 227 KB. Statistics taken in the gate | up
+//     product's epilogue and the normalisation folded into the down
+//     product's epilogue (gamma folded into W, the mean's term subtracted
+//     through W's column sums) would save the pass (~0.9 GB per 256 images
+//     per block, ~5% of the block) but need the weight prepared on every
+//     call and subtract two large terms where a row's mean is large against
+//     its spread.
+//   * LN_1 and LN_2 (K = 1024): the prologue holds 64-row panels at this K
+//     (a 128-row panel is 256 KB), so each W tile that streams through L2
+//     serves 64 rows: the qkv and gate | up products ran at 275-287 TF/s
+//     that way (B 256, S 327), against ~710 TF/s for the kernel's 256-row
+//     mode without the prologue. The pass costs 2 x 171 MB per 256 images
+//     (~0.13 ms), the 256-row mode saves ~2.8 ms a block.
+// The out-projection keeps the prologue (its sub-LN and the residual in one
+// launch): at N = 1024 its W is small, and the pass would save ~0.25 ms.
+// ---------------------------------------------------------------------------
+
+constexpr int LNR_THREADS = 256, LNR_ROWS = LNR_THREADS / 32;
+
+template <int NV>
+__global__ void __launch_bounds__(LNR_THREADS)
+ln_rows_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ plane,
+                    const float* __restrict__ pmask, const float* __restrict__ ln_g,
+                    const float* __restrict__ ln_b, bf16* __restrict__ out, int M, int K, int S,
+                    int n_real, float eps) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * LNR_ROWS + warp;
+  if (row >= M) return;
+  const int nchunks = K / 8;
+  const bf16* xr = x + row * K;
+  if (plane != nullptr) {
+    const int s = (int)(row % S);
+    if (pmask[s] > 0.f) xr = plane + (size_t)s * K;
+  }
+  uint4 u[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = lane + 32 * i;
+    u[i] = c < nchunks ? *reinterpret_cast<const uint4*>(xr + 8 * c) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    float f[8];
+    unpack_vec<bf16>(u[i], f);
+    const int c0 = 8 * (lane + 32 * i);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (c0 + e < n_real) s += f[e];
+  }
+  const float mean = warp_sum(s) / n_real;
+  float v = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    float f[8];
+    unpack_vec<bf16>(u[i], f);
+    const int c0 = 8 * (lane + 32 * i);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (c0 + e < n_real) v += (f[e] - mean) * (f[e] - mean);
+  }
+  const float rstd = rsqrtf(warp_sum(v) / n_real + eps);
+  bf16* orow = out + row * K;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = lane + 32 * i;
+    if (c >= nchunks) continue;
+    float f[8];
+    unpack_vec<bf16>(u[i], f);
+    const float4 g0 = __ldg(reinterpret_cast<const float4*>(ln_g + 8 * c));
+    const float4 g1 = __ldg(reinterpret_cast<const float4*>(ln_g + 8 * c + 4));
+    const float4 b0 = __ldg(reinterpret_cast<const float4*>(ln_b + 8 * c));
+    const float4 b1 = __ldg(reinterpret_cast<const float4*>(ln_b + 8 * c + 4));
+    const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    const float bt[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) f[e] = (f[e] - mean) * rstd * gm[e] + bt[e];
+    store_vec<bf16>(orow + 8 * c, f);
+  }
+}
+
+constexpr int LNR_MAX_K = 4096;  // 16 chunks of 16 bytes per lane
+
+int launch_ln_rows(const void* x, const void* plane, const float* pmask, const float* ln_g,
+                   const float* ln_b, void* out, int M, int K, int S, int n_real, float eps,
+                   cudaStream_t stream) {
+  if (M == 0) return 0;
+  if (K <= 0 || K % 8 || K > LNR_MAX_K || n_real < 1 || n_real > K || S < 1 ||
+      (plane == nullptr) != (pmask == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((M + LNR_ROWS - 1) / LNR_ROWS);
+  auto xs = static_cast<const bf16*>(x);
+  auto ps = static_cast<const bf16*>(plane);
+  auto o = static_cast<bf16*>(out);
+  const int per_lane = (K / 8 + 31) / 32;
+  auto launch = [&](auto kernel) {
+    kernel<<<blocks, LNR_THREADS, 0, stream>>>(xs, ps, pmask, ln_g, ln_b, o, M, K, S, n_real,
+                                               eps);
+  };
+  if (per_lane <= 4) launch(ln_rows_bf16_kernel<4>);
+  else if (per_lane <= 8) launch(ln_rows_bf16_kernel<8>);
+  else if (per_lane <= 12) launch(ln_rows_bf16_kernel<12>);
+  else launch(ln_rows_bf16_kernel<16>);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1980,18 +2227,33 @@ int launch_attention(const void* q, const void* k, const void* v, int ld, const 
 
 extern "C" {
 
-// out = act(LN(splice(x)) @ w + bias); act = QuickGELU when gelu != 0.
-// x (M = B*S, K), w (K, N), bias (N,), out (M, N) in the working type;
-// ln_g/ln_b (K,) fp32, or both null: no LN, the rows are read as they are
-// (and plane must be null); plane (S, K) and pmask (S,) fp32 or both null.
+// out = act(LN(splice(x)) @ w + bias); act 0: none, 1: QuickGELU, 2: SwiGLU
+// (out (M, N / 2) = SiLU(gate) * up, each 128-column tile of w and bias 64
+// gate columns then their 64 up columns; bf16 without LN, N % 128 == 0).
+// rope (S, 2, 64) fp32 or null: the rotary embedding on output columns below
+// rope_cols (bf16 without LN, act 0). x (M = B*S, K), w (K, N), bias (N,), out
+// (M, N) in the working type; ln_g/ln_b (K,) fp32, or both null: no LN, the
+// rows are read as they are (and plane must be null); plane (S, K) and pmask
+// (S,) fp32 or both null; eps the LayerNorm's epsilon.
 int ln_gemm(const void* x, const void* plane, const void* pmask, const void* ln_g,
-            const void* ln_b, const void* w, const void* bias, void* out, int M, int N,
-            int K, int S, int gelu, int dtype, void* stream) {
+            const void* ln_b, const void* w, const void* bias, const void* rope, void* out,
+            int M, int N, int K, int S, int act, int rope_cols, float eps, int dtype,
+            void* stream) {
+  const int epi = rope != nullptr ? EPI_ROPE : act == 2 ? EPI_SWIGLU : act == 1 ? EPI_GELU
+                                                                                : EPI_BIAS;
   GemmArgs g{x, w, bias, nullptr, plane, static_cast<const float*>(pmask),
              static_cast<const float*>(ln_g), static_cast<const float*>(ln_b), out,
-             M, N, K, S, gelu ? EPI_GELU : EPI_BIAS};
+             M, N, K, S, epi};
+  g.eps = eps;
+  g.rope = static_cast<const float*>(rope);
+  g.rope_cols = rope_cols;
   if (dtype != DTYPE_BF16 && dtype != DTYPE_F32) return (int)cudaErrorInvalidValue;
-  if ((ln_g == nullptr) != (ln_b == nullptr)) return (int)cudaErrorInvalidValue;
+  if ((ln_g == nullptr) != (ln_b == nullptr) || act < 0 || act > 2) return (int)cudaErrorInvalidValue;
+  const bool eva = epi == EPI_ROPE || epi == EPI_SWIGLU;
+  if (eva && (ln_g != nullptr || dtype != DTYPE_BF16 || (rope != nullptr && act != 0) ||
+              (epi == EPI_SWIGLU && N % 128) || (epi == EPI_ROPE && (rope_cols < 0 ||
+                                                                    rope_cols > N))))
+    return (int)cudaErrorInvalidValue;
   if (ln_g == nullptr) {
     if (plane != nullptr) return (int)cudaErrorInvalidValue;
     return launch_gemm<false>(g, dtype == DTYPE_BF16, static_cast<cudaStream_t>(stream));
@@ -1999,17 +2261,40 @@ int ln_gemm(const void* x, const void* plane, const void* pmask, const void* ln_
   return launch_gemm<true>(g, dtype == DTYPE_BF16, static_cast<cudaStream_t>(stream));
 }
 
-// out = a @ w + bias [+ splice(res)]. a (M, K), w (K, N), bias (N,), res and
-// out (M, N); res null: no residual (and plane must be null); plane (S, N)
-// and pmask (S,) fp32 or both null.
-int gemm_bias_residual(const void* a, const void* w, const void* bias, const void* res,
-                       const void* plane, const void* pmask, void* out, int M, int N,
-                       int K, int S, int dtype, void* stream) {
-  GemmArgs g{a, w, bias, res, plane, static_cast<const float*>(pmask), nullptr, nullptr,
-             out, M, N, K, S, res != nullptr ? EPI_RESIDUAL : EPI_BIAS};
+// out = [LN(a)] @ w + bias [+ splice(res)]. a (M, K), w (K, N), bias (N,), res
+// and out (M, N); res null: no residual (and plane must be null); plane (S, N)
+// and pmask (S,) fp32 or both null. ln_g / ln_b (K,) fp32, or both null: a
+// LayerNorm (epsilon eps) of a's rows as the product's prologue, with a
+// residual and in bf16 only (the EVA02 attention output's sub-LN); the
+// splice then applies to the residual alone.
+int gemm_bias_residual(const void* a, const void* ln_g, const void* ln_b, const void* w,
+                       const void* bias, const void* res, const void* plane, const void* pmask,
+                       void* out, int M, int N, int K, int S, float eps, int dtype,
+                       void* stream) {
+  GemmArgs g{a, w, bias, res, plane, static_cast<const float*>(pmask),
+             static_cast<const float*>(ln_g), static_cast<const float*>(ln_b), out, M, N, K, S,
+             res != nullptr ? EPI_RESIDUAL : EPI_BIAS};
+  g.eps = eps;
   if (dtype != DTYPE_BF16 && dtype != DTYPE_F32) return (int)cudaErrorInvalidValue;
   if (res == nullptr && plane != nullptr) return (int)cudaErrorInvalidValue;
+  if ((ln_g == nullptr) != (ln_b == nullptr)) return (int)cudaErrorInvalidValue;
+  if (ln_g != nullptr) {
+    if (res == nullptr || dtype != DTYPE_BF16) return (int)cudaErrorInvalidValue;
+    return launch_gemm<true>(g, true, static_cast<cudaStream_t>(stream));
+  }
   return launch_gemm<false>(g, dtype == DTYPE_BF16, static_cast<cudaStream_t>(stream));
+}
+
+// out (M, K) = LN(splice(x)) over each row's first n_real columns
+// (statistics; the affine over all K), bf16 x and out, ln_g / ln_b (K,) fp32;
+// plane (S, K) and pmask (S,) fp32, or both null: row m reads plane[m % S]
+// where pmask[m % S] > 0; K % 8 == 0, K <= 4096, 1 <= n_real <= K.
+int ln_rows(const void* x, const void* plane, const void* pmask, const void* ln_g,
+            const void* ln_b, void* out, int M, int K, int S, int n_real, float eps,
+            void* stream) {
+  return launch_ln_rows(x, plane, static_cast<const float*>(pmask),
+                        static_cast<const float*>(ln_g), static_cast<const float*>(ln_b), out, M,
+                        K, S, n_real, eps, static_cast<cudaStream_t>(stream));
 }
 
 // The fp32 block backward's products, 3xTF32 on wgmma, each stage's sum

@@ -2,8 +2,9 @@
 //
 // Replaces tpu_reid/ops/fused_tail.py::_tail_pallas (Pallas kernel
 // _tail_kernel). Per CLS row: LayerNorm with fp32 statistics and an fp32
-// affine, y cast to the working type and stored, then p = y @ proj with fp32
-// accumulation from the rounded y, cast. (The Pallas kernel rounds the LN
+// affine (epsilon an argument: CLIP's 1e-5, EVA02's 1e-6), y cast to the
+// working type and stored, then p = y @ proj with fp32 accumulation from the
+// rounded y, plus the head's fp32 bias where it has one (EVA02), cast. (The Pallas kernel rounds the LN
 // affine to the working type first; these kernels follow the plain
 // composition _tail_xla instead.)
 //
@@ -72,7 +73,8 @@ template <typename T>
 __global__ void __launch_bounds__(TAIL_THREADS)
 ln_proj_tail_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
                     const float* __restrict__ ln_b, const T* __restrict__ proj,
-                    T* __restrict__ y, T* __restrict__ p, int B, int D, int E) {
+                    const float* __restrict__ bias, T* __restrict__ y, T* __restrict__ p, int B,
+                    int D, int E, float eps) {
   extern __shared__ __align__(16) float ys[];  // [TB][D]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.y * TB;
@@ -97,7 +99,7 @@ ln_proj_tail_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
       const float d = yr[c] - mean;
       q += d * d;
     }
-    const float rstd = rsqrtf(warp_sum(q) / D + 1e-5f);
+    const float rstd = rsqrtf(warp_sum(q) / D + eps);
     for (int c = lane; c < D; c += 32) {
       const T t = from_f<T>((yr[c] - mean) * rstd * ln_g[c] + ln_b[c]);
       yr[c] = to_f(t);
@@ -117,21 +119,25 @@ ln_proj_tail_kernel(const T* __restrict__ x, const float* __restrict__ ln_g,
     for (int r = 0; r < TB; ++r) acc[r] = fmaf(ys[r * D + k], w, acc[r]);
   }
 #pragma unroll
-  for (int r = 0; r < TB; ++r)
-    if (row0 + r < B) p[(size_t)(row0 + r) * E + e] = from_f<T>(acc[r]);
+  for (int r = 0; r < TB; ++r) {
+    float v = acc[r];
+    if (bias != nullptr) v += bias[e];
+    if (row0 + r < B) p[(size_t)(row0 + r) * E + e] = from_f<T>(v);
+  }
 }
 
 template <typename T>
 int launch_tail(const void* x, const float* ln_g, const float* ln_b, const void* proj,
-                void* y, void* p, int B, int D, int E, cudaStream_t stream) {
+                const float* bias, void* y, void* p, int B, int D, int E, float eps,
+                cudaStream_t stream) {
   const int bytes = TB * D * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(ln_proj_tail_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((E + TAIL_THREADS - 1) / TAIL_THREADS, (B + TB - 1) / TB);
   ln_proj_tail_kernel<T><<<grid, TAIL_THREADS, bytes, stream>>>(
-      static_cast<const T*>(x), ln_g, ln_b, static_cast<const T*>(proj), static_cast<T*>(y),
-      static_cast<T*>(p), B, D, E);
+      static_cast<const T*>(x), ln_g, ln_b, static_cast<const T*>(proj), bias,
+      static_cast<T*>(y), static_cast<T*>(p), B, D, E, eps);
   return (int)cudaGetLastError();
 }
 
@@ -152,7 +158,8 @@ __host__ __device__ constexpr int tail_bf16_smem(int D) {
 __global__ void __launch_bounds__(TW_THREADS, 1)
 ln_proj_tail_bf16_kernel(const __grid_constant__ CUtensorMap map_w, const bf16* __restrict__ x,
                          const float* __restrict__ ln_g, const float* __restrict__ ln_b,
-                         bf16* __restrict__ y, bf16* __restrict__ p, int B, int D, int E) {
+                         const float* __restrict__ bias, bf16* __restrict__ y,
+                         bf16* __restrict__ p, int B, int D, int E, float eps) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023u) & ~1023u;
   unsigned char* panel = smem_raw + (base - raw);
@@ -249,7 +256,7 @@ ln_proj_tail_bf16_kernel(const __grid_constant__ CUtensorMap map_w, const bf16* 
     sum4(rstd);
 #pragma unroll
     for (int rr = 0; rr < RG; ++rr) {
-      rstd[rr] = rsqrtf(rstd[rr] / D + 1e-5f);
+      rstd[rr] = rsqrtf(rstd[rr] / D + eps);
       const int r = r0 + rr, m = m0 + r;
 #pragma unroll
       for (int i = 0; i < TW_NV; ++i) {
@@ -316,8 +323,13 @@ ln_proj_tail_bf16_kernel(const __grid_constant__ CUtensorMap map_w, const bf16* 
     for (int j0 = 0; j0 < TW_COLS / 8; j0 += 4) {
       uint32_t v[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        v[i] = pack_bf16(acc[4 * (j0 + i) + 2 * hr], acc[4 * (j0 + i) + 2 * hr + 1]);
+      for (int i = 0; i < 4; ++i) {
+        float a0 = acc[4 * (j0 + i) + 2 * hr], a1 = acc[4 * (j0 + i) + 2 * hr + 1];
+        // the head's bias of columns nc, nc + 1 (E % 8 == 0: both or neither below E)
+        const int nc = n0 + 8 * (j0 + i) + 2 * q;
+        if (bias != nullptr && nc < E) a0 += bias[nc], a1 += bias[nc + 1];
+        v[i] = pack_bf16(a0, a1);
+      }
       quad_transpose(v, q);
       const int n = n0 + 8 * (j0 + q);
       if (m < B && n < E)
@@ -327,7 +339,8 @@ ln_proj_tail_bf16_kernel(const __grid_constant__ CUtensorMap map_w, const bf16* 
 }
 
 int launch_tail_bf16(const void* x, const float* ln_g, const float* ln_b, const void* proj,
-                     void* y, void* p, int B, int D, int E, cudaStream_t stream) {
+                     const float* bias, void* y, void* p, int B, int D, int E, float eps,
+                     cudaStream_t stream) {
   if (B == 0) return 0;
   if (D <= 0 || D % 64 != 0 || D > TW_MAX_D || E <= 0 || E % 8 != 0)
     return (int)cudaErrorInvalidValue;
@@ -343,8 +356,8 @@ int launch_tail_bf16(const void* x, const float* ln_g, const float* ln_b, const 
   if (err != cudaSuccess) return (int)err;
   dim3 grid((E + TW_COLS - 1) / TW_COLS, (B + TW_ROWS - 1) / TW_ROWS);
   ln_proj_tail_bf16_kernel<<<grid, TW_THREADS, smem, stream>>>(
-      map_w, static_cast<const bf16*>(x), ln_g, ln_b, static_cast<bf16*>(y),
-      static_cast<bf16*>(p), B, D, E);
+      map_w, static_cast<const bf16*>(x), ln_g, ln_b, bias, static_cast<bf16*>(y),
+      static_cast<bf16*>(p), B, D, E, eps);
   return (int)cudaGetLastError();
 }
 
@@ -420,8 +433,9 @@ __device__ __forceinline__ float row_total(const float* sums, uint32_t bar, int 
 __global__ void __cluster_dims__(TF_RANKS, 1, 1) __launch_bounds__(TF_THREADS, 2)
 ln_proj_tail_tf32x3_kernel(const __grid_constant__ CUtensorMap map_p,
                            const float* __restrict__ x, const float* __restrict__ ln_g,
-                           const float* __restrict__ ln_b, float* __restrict__ y,
-                           float* __restrict__ p, int B, int D, int E) {
+                           const float* __restrict__ ln_b, const float* __restrict__ bias,
+                           float* __restrict__ y, float* __restrict__ p, int B, int D, int E,
+                           float eps) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023u) & ~1023u;
   unsigned char* const sbase = smem_raw + (base - raw);
@@ -496,7 +510,7 @@ ln_proj_tail_tf32x3_kernel(const __grid_constant__ CUtensorMap map_p,
   }
   push_row_sums(t, sums + TF_RANKS * TF_ROWS, bar_sums + 8, rank, row0, lane);
   const float rs =
-      rsqrtf(row_total(sums + TF_RANKS * TF_ROWS, bar_sums + 8, row0, lane) / D + 1e-5f);
+      rsqrtf(row_total(sums + TF_RANKS * TF_ROWS, bar_sums + 8, row0, lane) / D + eps);
 #pragma unroll
   for (int rr = 0; rr < TF_RW; ++rr) rstd[rr] = __shfl_sync(0xffffffffu, rs, 4 * rr);
   // y: stored by the blocks of the first column tile (each element once), and
@@ -616,12 +630,15 @@ ln_proj_tail_tf32x3_kernel(const __grid_constant__ CUtensorMap map_p,
       s.x += u.x, s.y += u.y;
     }
     const int m = m0 + TF_SLAB * (int)rank + row, n = n0 + col;
+    // the head's bias (E % 4 == 0: n + 1 < E where n < E)
+    if (bias != nullptr && n < E) s.x += bias[n], s.y += bias[n + 1];
     if (m < B && n < E) *reinterpret_cast<float2*>(p + (size_t)m * E + n) = s;
   }
 }
 
 int launch_tail_tf32x3(const void* x, const float* ln_g, const float* ln_b, const void* proj,
-                       void* y, void* p, int B, int D, int E, cudaStream_t stream) {
+                       const float* bias, void* y, void* p, int B, int D, int E, float eps,
+                       cudaStream_t stream) {
   if (B == 0) return 0;
   if (D <= 0 || D % TF_KB != 0 || D > TW_MAX_D || E <= 0 || E % 4 != 0)
     return (int)cudaErrorInvalidValue;
@@ -638,8 +655,8 @@ int launch_tail_tf32x3(const void* x, const float* ln_g, const float* ln_b, cons
   if (err != cudaSuccess) return (int)err;
   dim3 grid(TF_RANKS * ((B + TF_ROWS - 1) / TF_ROWS), (E + TF_COLS - 1) / TF_COLS);
   ln_proj_tail_tf32x3_kernel<<<grid, TF_THREADS, smem, stream>>>(
-      map_p, static_cast<const float*>(x), ln_g, ln_b, static_cast<float*>(y),
-      static_cast<float*>(p), B, D, E);
+      map_p, static_cast<const float*>(x), ln_g, ln_b, bias, static_cast<float*>(y),
+      static_cast<float*>(p), B, D, E, eps);
   return (int)cudaGetLastError();
 }
 
@@ -648,19 +665,22 @@ int launch_tail_tf32x3(const void* x, const float* ln_g, const float* ln_b, cons
 extern "C" {
 
 // x (B, D), proj (D, E), y (B, D), p (B, E) in the working type; ln_g/ln_b
-// (D,) fp32. fma != 0: the FMA kernel whatever the type; else the wgmma
-// kernel of the type (bf16, or 3xTF32 in fp32).
+// (D,) fp32; bias (E,) fp32, the head's bias added to p before the cast, or
+// null; eps the LayerNorm's epsilon. fma != 0: the FMA kernel whatever the
+// type; else the wgmma kernel of the type (bf16, or 3xTF32 in fp32).
 int ln_proj_tail(const void* x, const void* ln_g, const void* ln_b, const void* proj,
-                 void* y, void* p, int B, int D, int E, int dtype, int fma, void* stream) {
+                 const void* bias, void* y, void* p, int B, int D, int E, float eps, int dtype,
+                 int fma, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(ln_g);
   const float* b = static_cast<const float*>(ln_b);
+  const float* hb = static_cast<const float*>(bias);
   if (dtype == DTYPE_BF16)
-    return fma ? launch_tail<bf16>(x, g, b, proj, y, p, B, D, E, st)
-               : launch_tail_bf16(x, g, b, proj, y, p, B, D, E, st);
+    return fma ? launch_tail<bf16>(x, g, b, proj, hb, y, p, B, D, E, eps, st)
+               : launch_tail_bf16(x, g, b, proj, hb, y, p, B, D, E, eps, st);
   if (dtype == DTYPE_F32)
-    return fma ? launch_tail<float>(x, g, b, proj, y, p, B, D, E, st)
-               : launch_tail_tf32x3(x, g, b, proj, y, p, B, D, E, st);
+    return fma ? launch_tail<float>(x, g, b, proj, hb, y, p, B, D, E, eps, st)
+               : launch_tail_tf32x3(x, g, b, proj, hb, y, p, B, D, E, eps, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -199,6 +199,135 @@ def residual_block_cls(p: dict, x: Tensor, n_heads: int) -> Tensor:
     return x0 + mlp(p["mlp"], layer_norm(p["ln_2"], x0))
 
 
+# ---------------------------------------------------------------------------
+# the EVA02 block (EVA-CLIP's EVA02 vision towers)
+# ---------------------------------------------------------------------------
+#
+# Parameters of one block, in the kernels' layout: ln_1, ln_2 {scale, bias};
+# attn {in_proj {w (D, 3D), b (3D,) whose key slice is zero and stays zero},
+# ln {scale, bias} (the sub-LN over D), out_proj {w, b}}; mlp {w12 {w (D,
+# 2 F_pad), b}: gate and up packed by 64-column groups (columns 128t .. 128t +
+# 63 gate columns 64t .., the next 64 the matching up columns), ffn_ln {scale,
+# bias} (F_pad,) (the sub-LN over F), w3 {w (F_pad, D), b}}. F_pad is F rounded up to 64; the padding is zero, and the
+# plain block reads only the F real columns, so it gets no gradient.
+
+
+def eva_block_params(w) -> dict:
+    """The 16 positional EVA block tensors (ops/fused_eva.py) as the
+    parameter dict."""
+    return {
+        "ln_1": {"scale": w[0], "bias": w[1]},
+        "attn": {"in_proj": {"w": w[2], "b": w[3]}, "ln": {"scale": w[4], "bias": w[5]},
+                 "out_proj": {"w": w[6], "b": w[7]}},
+        "ln_2": {"scale": w[8], "bias": w[9]},
+        "mlp": {"w12": {"w": w[10], "b": w[11]}, "ffn_ln": {"scale": w[12], "bias": w[13]},
+                "w3": {"w": w[14], "b": w[15]}},
+    }
+
+
+def _eva_tensors(p: dict, dt: torch.dtype) -> tuple:
+    """The parameter dict as the 16 positional tensors, the products' weights
+    and biases in the activations' dtype (LayerNorm parameters as they are)."""
+    a, m = p["attn"], p["mlp"]
+    ln_a, ln_f = a["ln"], m["ffn_ln"]
+    return (p["ln_1"]["scale"], p["ln_1"]["bias"],
+            a["in_proj"]["w"].to(dt), a["in_proj"]["b"].to(dt), ln_a["scale"], ln_a["bias"],
+            a["out_proj"]["w"].to(dt), a["out_proj"]["b"].to(dt),
+            p["ln_2"]["scale"], p["ln_2"]["bias"],
+            m["w12"]["w"].to(dt), m["w12"]["b"].to(dt), ln_f["scale"], ln_f["bias"],
+            m["w3"]["w"].to(dt), m["w3"]["b"].to(dt))
+
+
+def _qkv_bias(b: Tensor, d: int) -> Tensor:
+    """The packed qkv bias with its key slice held at zero (the key
+    projection has no bias): no gradient reaches that slice."""
+    return torch.cat([b[:d], torch.zeros_like(b[d:2 * d]), b[2 * d:]])
+
+
+def _eva_mlp(m: dict, x: Tensor, eps: float, f_real: int) -> Tensor:
+    """SwiGLU over the packed gate | up, the sub-LN over the F real columns,
+    the down projection: (..., D) -> (..., D), without the residual."""
+    gu = linear(m["w12"], x).unflatten(-1, (-1, 2, 64))
+    u = (torch.nn.functional.silu(gu[..., 0, :].float())
+         * gu[..., 1, :].float()).to(x.dtype).flatten(-2)[..., :f_real]
+    ln = m["ffn_ln"]
+    u = layer_norm({"scale": ln["scale"][:f_real], "bias": ln["bias"][:f_real]}, u, eps)
+    w3 = m["w3"]
+    return u @ w3["w"][:f_real].to(x.dtype) + w3["b"].to(x.dtype)
+
+
+def _eva_attn_out(a: dict, out: Tensor, eps: float) -> Tensor:
+    """The attention output's sub-LN, then the output projection."""
+    return linear(a["out_proj"], layer_norm(a["ln"], out, eps))
+
+
+def _eva_block_xla_impl(p: dict, x: Tensor, n_heads: int, rope: Tensor, eps: float,
+                        f_real: int) -> Tensor:
+    """Plain EVA02 block: x + proj(LN_attn(attn(RoPE q, RoPE k, v of
+    LN_1 x))); then x + W_3 LN_ffn(SiLU(W_1 g) * W_2 g), g = LN_2 x. RoPE
+    from a (S, 2, 64) cos / sin table (identity rows where a token is not
+    rotated), in fp32 on the projected q and k."""
+    from tpu_reid_torch.ops.fused_attention import rotate_pairs
+
+    b, s, d = x.shape
+    dh = d // n_heads
+    h = layer_norm(p["ln_1"], x, eps)
+    w_in = p["attn"]["in_proj"]["w"].to(x.dtype)
+    qkv = h @ w_in + _qkv_bias(p["attn"]["in_proj"]["b"], d).to(x.dtype)
+    q, k, v = (t.reshape(b, s, n_heads, dh) for t in qkv.split(d, dim=-1))
+    q, k = rotate_pairs(q, rope), rotate_pairs(k, rope)
+    attn = A.xla_mha_core(q, k, v, None).reshape(b, s, d)
+    x = x + _eva_attn_out(p["attn"], attn, eps)
+    return x + _eva_mlp(p["mlp"], layer_norm(p["ln_2"], x, eps), eps, f_real)
+
+
+def eva_block(p: dict, x: Tensor, n_heads: int, mask: Optional[Tensor] = None,
+              prompt_plane: Optional[Tensor] = None, prompt_mask: Optional[Tensor] = None, *,
+              rope: Tensor, eps: float = 1e-6, f_real: int) -> Tensor:
+    """The EVA02 block, called as `residual_block` is (no attention mask:
+    the vision tower has none). Under `use_kernels(x)` it goes through
+    `fused_eva.eva_block_autograd`: in bf16 the hand-written kernels (eight
+    launches, the splice fused), with the plain block recomputed under
+    autograd for the backward; fp32, or shapes outside the kernels' domains,
+    the plain block (counted in `fused_eva_block.plain`). Otherwise the plain
+    block after an out-of-kernel splice."""
+    if mask is not None:
+        raise ValueError("eva_block: the EVA02 vision block takes no attention mask")
+    if use_kernels(x):
+        from tpu_reid_torch.ops import fused_eva as FE
+
+        return FE.eva_block_autograd(x, _eva_tensors(p, x.dtype), n_heads, rope, f_real, eps,
+                                     prompt_plane, prompt_mask, fast=A.fast_softmax_enabled())
+    if prompt_plane is not None:
+        x = _apply_splice_plane(x, prompt_plane, prompt_mask)
+    return _eva_block_xla_impl(p, x, n_heads, rope, eps, f_real)
+
+
+def eva_block_cls(p: dict, x: Tensor, n_heads: int, *, rope: Tensor, eps: float = 1e-6,
+                  f_real: int) -> Tensor:
+    """`residual_block_cls` of the EVA02 block: its output at position 0
+    only, (B, 1, D): the CLS query (its table row is the identity: it is not
+    rotated) against every token's rotated key. Plain math throughout."""
+    from tpu_reid_torch.ops.fused_attention import rotate_pairs
+
+    b, s, d = x.shape
+    dh = d // n_heads
+    h = layer_norm(p["ln_1"], x, eps)
+    w_in = p["attn"]["in_proj"]["w"].to(x.dtype)
+    b_in = _qkv_bias(p["attn"]["in_proj"]["b"], d).to(x.dtype)
+    wq, wk, wv = w_in.split(d, dim=1)
+    bq, bk, bv = b_in.split(d)
+    q = (h[:, :1] @ wq + bq).reshape(b, 1, n_heads, dh)
+    k = (h @ wk + bk).reshape(b, s, n_heads, dh)
+    v = (h @ wv + bv).reshape(b, s, n_heads, dh)
+    q, k = rotate_pairs(q, rope[:1]), rotate_pairs(k, rope)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+    probs = torch.softmax(scores * (dh ** -0.5), dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, 1, d)
+    x0 = x[:, :1] + _eva_attn_out(p["attn"], out, eps)
+    return x0 + _eva_mlp(p["mlp"], layer_norm(p["ln_2"], x0, eps), eps, f_real)
+
+
 def splice_prompt_tokens(x: Tensor, prompt: Tensor, text_side: bool) -> Tensor:
     """Replace the prompt-token positions of a sequence with new tokens.
 
@@ -238,17 +367,20 @@ def transformer_stack(
     deep_prompts: Optional[Tensor] = None,
     prompt_flags: Optional[Sequence[bool]] = None,
     text_side: bool = False,
+    block_fn=None,
 ) -> Tensor:
     """Run a stack of residual blocks whose params have a leading layer axis.
 
     deep_prompts: (L, n_ctx, D) per-layer prompt tokens; prompt_flags: (L,)
     bools — layer i splices its tokens before the block iff flags[i]. The
     splice is a (S, D) plane plus an (S, 1) row mask, fused into the block
-    kernels on the kernel path."""
+    kernels on the kernel path. block_fn: the block, called as
+    `residual_block` (the default) is, e.g. a bound `eva_block`."""
+    block_fn = block_fn or residual_block
     n_layers = num_layers(stacked)
     if deep_prompts is None:
         for i in range(n_layers):
-            x = residual_block(slice_layer(stacked, i), x, n_heads, mask)
+            x = block_fn(slice_layer(stacked, i), x, n_heads, mask)
         return x
 
     n_ctx, dim = deep_prompts.shape[1:]
@@ -259,7 +391,7 @@ def transformer_stack(
     rowmask = torch.zeros(s, 1, dtype=torch.float32, device=x.device)
     rowmask[row0: row0 + n_ctx] = 1.0
     for i in range(n_layers):
-        x = residual_block(
+        x = block_fn(
             slice_layer(stacked, i), x, n_heads, mask,
             prompt_plane=planes[i],
             prompt_mask=rowmask * float(bool(prompt_flags[i])),

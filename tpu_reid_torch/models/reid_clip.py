@@ -7,7 +7,8 @@ zero-shot teacher), as separate pure functions:
   * encode_image_features  — CLS triple (x11, x12, xproj)[:, 0]
   * encode_text_features   — prompt learner -> text encoder -> EOT feature
   * forward_train          — heads + features for the stage-2 loss
-  * eval_embed             — cat(non_proj, proj) 1280-d retrieval embedding
+  * eval_embed             — cat(non_proj, proj) retrieval embedding (width
+                             + embed_dim: 1280-d ViT-B/16, 1792-d EVA02-L/14)
 
 Modes:
   coop      — learned per-class text ctx only (prompt_learner trains)
@@ -230,7 +231,8 @@ def forward_train(params: dict, cfg: ReidModelConfig, images: Tensor, train: boo
 
 def eval_embed(params: dict, cfg: ReidModelConfig, images: Tensor, cv_ids=None) -> Tensor:
     """Retrieval embedding: cat(non_proj CLS, proj CLS) — 1280-d for
-    ViT-B/16 — and with use_jpm the JPM CLS too (2048-d). With SIE, cv_ids
+    ViT-B/16, 1792-d for EVA02-L/14 — and with use_jpm the JPM CLS too
+    (2048-d). With SIE, cv_ids
     carries the batch's camera ids (applied at inference too)."""
     feats = encode_image_features(params, cfg, images, cv_ids)
     parts = [feats["non_proj"], feats["proj"]]

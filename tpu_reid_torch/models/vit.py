@@ -9,7 +9,10 @@
     deep prompt replacement for IVLP/MaPLe,
   * the jigsaw patch module (JPM, TransReID): a copy of the last block and
     of ln_post run on the final sequence with its patches shifted and
-    group-shuffled.
+    group-shuffled,
+  * EVA02 towers (cfg.block "eva02", EVA-CLIP): the patch embedding with a
+    bias, no ln_pre, EVA02 blocks (2D RoPE on the grid tokens, SwiGLU,
+    sub-LNs; models/layers.eva_block) and a head with a bias.
 
 Layout is batch-first (B, S, D); images are NHWC and the conv weight HWIO,
 as in the JAX package.
@@ -17,6 +20,7 @@ as in the JAX package.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
 import torch
@@ -31,6 +35,9 @@ from tpu_reid_torch.runtime.observe import span
 
 Tensor = torch.Tensor
 
+# where a folded patch embedding centres its raw 0..255 input
+RAW_CENTER = 128.0
+
 
 def _deep_prompt_flags(cfg: VisionConfig) -> List[bool]:
     """Layer i (>0) splices deep prompts iff i < vision_depth."""
@@ -39,13 +46,60 @@ def _deep_prompt_flags(cfg: VisionConfig) -> List[bool]:
 
 def patch_embed(params: dict, cfg: VisionConfig, images: Tensor) -> Tensor:
     """(B, H, W, 3) -> (B, h_grid*w_grid, width) overlapping patch tokens
-    (a strided conv; NHWC/HWIO in, row-major grid order out)."""
-    w = params["conv"]["w"].to(images.dtype).permute(3, 2, 0, 1)  # HWIO -> OIHW
+    (a strided conv; NHWC/HWIO in, row-major grid order out). The conv's
+    own bias ("bias": EVA02's) is added where present. With the input
+    normalisation folded in (a "b": `fold_visual_input_norm`) the images are
+    raw 0..255 values: the conv reads them centred at RAW_CENTER (exact for
+    uint8 values in bf16) and the bias takes the centre's share in float32,
+    so neither the conv's output nor the bias carries the images' mean, which
+    the folded bias would otherwise cancel after both were rounded."""
+    conv = params["conv"]
+    w = conv["w"].to(images.dtype).permute(3, 2, 0, 1)  # HWIO -> OIHW
+    if "b" in conv:
+        images = images - RAW_CENTER
     x = F.conv2d(images.permute(0, 3, 1, 2), w, stride=cfg.stride)
     x = x.permute(0, 2, 3, 1)  # (B, oh, ow, width)
-    if "b" in params["conv"]:
-        x = x + params["conv"]["b"].to(x.dtype)
+    if "b" in conv:
+        x = x + (conv["b"] + RAW_CENTER * conv["w"].float().sum(dim=(0, 1, 2))).to(x.dtype)
+    elif "bias" in conv:
+        x = x + conv["bias"].to(x.dtype)
     return x.reshape(x.shape[0], cfg.h_grid * cfg.w_grid, cfg.width)
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_table(h_grid: int, w_grid: int, n_after: int, rope_grid: int,
+                device: torch.device) -> Tensor:
+    rows = torch.arange(h_grid, dtype=torch.float64) * (rope_grid / h_grid)
+    cols = torch.arange(w_grid, dtype=torch.float64) * (rope_grid / w_grid)
+    omega = 10000.0 ** (-torch.arange(0, 32, 2, dtype=torch.float64) / 32)  # (16,)
+    ang_r = (rows[:, None] * omega).repeat_interleave(2, dim=-1)  # (hg, 32)
+    ang_c = (cols[:, None] * omega).repeat_interleave(2, dim=-1)  # (wg, 32)
+    ang = torch.cat([ang_r[:, None, :].expand(h_grid, w_grid, 32),
+                     ang_c[None, :, :].expand(h_grid, w_grid, 32)], dim=-1).reshape(-1, 64)
+    table = torch.zeros(1 + h_grid * w_grid + n_after, 2, 64, dtype=torch.float64)
+    table[:, 0] = 1.0  # identity rows: CLS and the prompt tokens
+    table[1:1 + h_grid * w_grid, 0] = ang.cos()
+    table[1:1 + h_grid * w_grid, 1] = ang.sin()
+    return table.float().to(device)
+
+
+def rope_table(cfg: VisionConfig, device) -> Tensor:
+    """EVA02's 2D rotary embedding as a (S, 2, 64) cos / sin table (each
+    pair's angle twice), built once per geometry and device. The grid token
+    at (r, c) turns dims 0-31 by t_r = r * rope_grid / h_grid and dims 32-63
+    by t_c = c * rope_grid / w_grid (EVA's intp_freq), pair p of a half by
+    t * 10000^(-2p / 32); CLS and the prompt tokens after the grid are
+    identity rows (EVA leaves CLS unrotated)."""
+    n_after = cfg.seq_len - 1 - cfg.h_grid * cfg.w_grid
+    return _rope_table(cfg.h_grid, cfg.w_grid, n_after, cfg.rope_grid, torch.device(device))
+
+
+def _blocks(cfg: VisionConfig, device):
+    """The tower's block and its CLS-only form, bound to the config."""
+    if cfg.block == "clip":
+        return L.residual_block, L.residual_block_cls
+    kw = dict(rope=rope_table(cfg, device), eps=cfg.ln_eps, f_real=cfg.hidden)
+    return functools.partial(L.eva_block, **kw), functools.partial(L.eva_block_cls, **kw)
 
 
 def fold_visual_input_norm(visual: dict, model_type: str = "vit") -> dict:
@@ -56,7 +110,10 @@ def fold_visual_input_norm(visual: dict, model_type: str = "vit") -> dict:
     w' = w/(255*std_c), bias_o = -sum_khwc w[..,c,o]*mean_c/std_c — exact.
     Extraction then feeds RAW uint8-scale images (DevicePreprocess raw
     mode). Bicubic resize and flips are linear/permutation ops that commute
-    with the affine, so resized and TTA inputs stay exact."""
+    with the affine, so resized and TTA inputs stay exact. A conv with a bias
+    of its own (EVA02's "bias") carries it into the folded "b". The folded
+    weight stays float32 (the conv rounds it once, to the images' dtype),
+    and `patch_embed` reads the bias against the exact weight."""
     mean, std = norm_stats(model_type)
     conv = visual["conv"]
     if "b" in conv:
@@ -66,11 +123,11 @@ def fold_visual_input_norm(visual: dict, model_type: str = "vit") -> dict:
     s = 1.0 / (255.0 * torch.tensor(std, dtype=torch.float32, device=dev))
     t = -torch.tensor(mean, dtype=torch.float32, device=dev) / torch.tensor(
         std, dtype=torch.float32, device=dev)
+    b = torch.einsum("hwco,c->o", w32, t)
+    if "bias" in conv:
+        b = b + conv["bias"].float()
     out = dict(visual)
-    out["conv"] = {
-        "w": (w32 * s[None, None, :, None]).to(conv["w"].dtype),
-        "b": torch.einsum("hwco,c->o", w32, t),
-    }
+    out["conv"] = {"w": w32 * s[None, None, :, None], "b": b}
     return out
 
 
@@ -116,8 +173,11 @@ def apply_vit(
             ).to(x.dtype)
             x = torch.cat([x, vpt.expand((b,) + tuple(vpt.shape))], dim=1)
 
-        x = L.layer_norm(params["ln_pre"], x)
+        if cfg.block == "clip":
+            x = L.layer_norm(params["ln_pre"], x)
 
+    block, block_cls = _blocks(cfg, x.device)
+    eps, head_bias = cfg.ln_eps, params.get("proj_bias")
     dp = deep_prompts if deep_prompts is not None else params.get("vpt_deep")
     flags = _deep_prompt_flags(cfg) if dp is not None else None
     n_layers = cfg.layers
@@ -133,11 +193,14 @@ def apply_vit(
         deep_prompts=None if dp is None else dp[: n_layers - 1],
         prompt_flags=None if flags is None else flags[: n_layers - 1],
         text_side=False,
+        block_fn=block,
     )
     x_last = x11
     if dp is not None and flags[n_layers - 1]:
         x_last = L.splice_prompt_tokens(x_last, dp[n_layers - 1], text_side=False)
     if jpm_params is not None:
+        if cfg.block != "clip":
+            raise ValueError("JPM runs on CLIP blocks only")
         x12_pre = L.residual_block(tail, x_last, cfg.heads)
         jpm_seq = apply_jpm(jpm_params, cfg, x12_pre)
         if cls_only:
@@ -145,12 +208,14 @@ def apply_vit(
         x12 = L.layer_norm(params["ln_post"], x12_pre)
         return x11, x12, x12 @ params["proj"].to(x12.dtype), jpm_seq
     if cls_only:
-        x12 = L.residual_block_cls(tail, x_last, cfg.heads)
-        y, pr = ln_proj_tail(x12[:, 0], params["ln_post"], params["proj"])
+        x12 = block_cls(tail, x_last, cfg.heads)
+        y, pr = ln_proj_tail(x12[:, 0], params["ln_post"], params["proj"], head_bias, eps)
         return x11, y[:, None], pr[:, None]
-    x12 = L.residual_block(tail, x_last, cfg.heads)
-    x12 = L.layer_norm(params["ln_post"], x12)
+    x12 = block(tail, x_last, cfg.heads)
+    x12 = L.layer_norm(params["ln_post"], x12, eps)
     xproj = x12 @ params["proj"].to(x12.dtype)
+    if head_bias is not None:
+        xproj = xproj + head_bias.to(x12.dtype)
     return x11, x12, xproj
 
 

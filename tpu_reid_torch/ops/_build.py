@@ -43,18 +43,21 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures (argtypes) of each library's entry points
 SIGNATURES = {
     "block": {
-        # x, plane, pmask, ln_g, ln_b, w, bias, out, M, N, K, S, gelu, dtype, stream
-        "ln_gemm": [_P] * 8 + [_I] * 6 + [_P],
-        # a, w, bias, res, plane, pmask, out, M, N, K, S, dtype, stream
-        "gemm_bias_residual": [_P] * 7 + [_I] * 5 + [_P],
+        # x, plane, pmask, ln_g, ln_b, w, bias, rope, out, M, N, K, S, act, rope_cols, eps,
+        # dtype, stream
+        "ln_gemm": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
+        # a, ln_g, ln_b, w, bias, res, plane, pmask, out, M, N, K, S, eps, dtype, stream
+        "gemm_bias_residual": [_P] * 9 + [_I] * 4 + [_F, _I, _P],
+        # x, plane, pmask, ln_g, ln_b, out, M, K, S, n_real, eps, stream
+        "ln_rows": [_P] * 6 + [_I] * 4 + [_F, _P],
         # q, k, v, ld, mask, out, B, S, H, scale, fast, dtype, stream
         "mha_core": [_P] * 3 + [_I] + [_P] * 2 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
         # a, w, bias, res, out, out2, M, N, K, splits, mode, stream
         "gemm_tf32x3_backward": [_P] * 6 + [_I] * 5 + [_P],
     },
     "tail": {
-        # x, ln_g, ln_b, proj, y, p, B, D, E, dtype, fma, stream
-        "ln_proj_tail": [_P] * 6 + [_I] * 5 + [_P],
+        # x, ln_g, ln_b, proj, bias, y, p, B, D, E, eps, dtype, fma, stream
+        "ln_proj_tail": [_P] * 7 + [_I] * 3 + [_F, _I, _I, _P],
     },
     "minsum": {
         # a, a_scale, b, b_scale, out, Na, Nb, C, operand dtype, stream

@@ -48,6 +48,10 @@ splitter warpgroup writes each W tile transposed and split (tf32 wgmma reads
 both shared operands K-major only), its consumers take A from registers,
 normalised and split there. PERF.md holds the measured times.
 
+EVA02's block (ops/fused_eva.py) runs the same kernels in modes of its own
+(RoPE and SwiGLU epilogues, an LN prologue with the residual epilogue) and
+`ln_rows`, a LayerNorm pass over rows.
+
 Each kernel has a wrapper that launches it for CUDA tensors (or raises) and
 takes the plain PyTorch version beside it for CPU tensors; the plain versions
 repeat the kernels' arithmetic and bf16 rounding points. Each wrapper, and
@@ -132,8 +136,16 @@ def _qkv_views(qkv: Tensor, n_heads: int) -> tuple[Tensor, Tensor, Tensor]:
 FP32_SCALAR_OPERANDS = frozenset({"b", "pmask", "ln_scale", "ln_bias", "residual"})
 
 
+# the EVA02 block's modes of the bf16 GEMM kernel (csrc/block_kernels.cu):
+# "rope" (ln_gemm without LN, on rows `ln_rows` normalised, with the rotary
+# embedding on q and k), "swiglu" (the same, writing SiLU(gate) * up of a
+# packed gate | up weight) and "ln_residual" (gemm_bias_residual with a
+# LayerNorm prologue: the attention output's sub-LN)
+EVA_MODES = ("rope", "swiglu", "ln_residual")
+
+
 def check_gemm_operands(what: str, m: int, k: int, n: int, has_ln: bool,
-                        addresses: dict, fp32: bool = False) -> None:
+                        addresses: dict, fp32: bool = False, mode: Optional[str] = None) -> None:
     """What the GEMM kernel behind `ln_gemm` and `gemm_bias_residual` takes,
     from sizes and base addresses alone (ValueError otherwise): K a multiple
     of 32 (a W stage of the LayerNorm mode; also keeps every row of A and W a
@@ -145,7 +157,19 @@ def check_gemm_operands(what: str, m: int, k: int, n: int, has_ln: bool,
     fp32 kernel reads only the activation and W by TMA and the LayerNorm
     plane by 16-byte vectors, so the bases in FP32_SCALAR_OPERANDS are free
     there. M is free: the ragged last row tile is zero-filled on load and
-    masked on store."""
+    masked on store. `mode`, one of EVA_MODES: bf16 only; "ln_residual" with
+    the LayerNorm prologue, "rope" and "swiglu" without it, and "swiglu" with
+    N a multiple of 128 (each 128-column tile is 64 gate columns and their
+    64 up columns)."""
+    if mode is not None:
+        if mode not in EVA_MODES:
+            raise ValueError(f"{what}: mode {mode!r} is not one of {EVA_MODES}")
+        if fp32 or has_ln != (mode == "ln_residual"):
+            raise ValueError(f"{what}: the {mode} mode runs in bf16, "
+                             f"{'with' if mode == 'ln_residual' else 'without'} the LayerNorm "
+                             "prologue")
+        if mode == "swiglu" and n % 128:
+            raise ValueError(f"{what}: N = {n}; the swiglu mode needs N % 128 == 0")
     if k <= 0 or n <= 0 or k % 32 or n % 8:
         raise ValueError(f"{what}: K = {k}, N = {n}; needs K % 32 == 0 and N % 8 == 0")
     if has_ln and k > LN_MAX_WIDTH:
@@ -164,36 +188,75 @@ def check_gemm_operands(what: str, m: int, k: int, n: int, has_ln: bool,
 # ---------------------------------------------------------------------------
 
 
+def rotate_pairs(t: Tensor, rope: Tensor) -> Tensor:
+    """The rotary embedding of (..., S, H, 64) by a (S, 2, 64) cos / sin
+    table (each pair's angle twice): interleaved pairs (2p, 2p + 1) turn,
+    y0 = x0 cos - x1 sin, y1 = x1 cos + x0 sin, in fp32, cast back."""
+    cos, sin = rope[:, 0, None, :].float(), rope[:, 1, None, :].float()
+    x = t.float()
+    pairs = x.unflatten(-1, (-1, 2))
+    turned = torch.stack((-pairs[..., 1], pairs[..., 0]), dim=-1).flatten(-2)
+    return (x * cos + turned * sin).to(t.dtype)
+
+
+def _swiglu_packed(acc: Tensor) -> Tensor:
+    """SiLU(gate) * up of a packed (..., 2F) product whose 128-column groups
+    are 64 gate columns, then their 64 up columns -> (..., F)."""
+    gu = acc.unflatten(-1, (-1, 2, 64))
+    return (torch.nn.functional.silu(gu[..., 0, :]) * gu[..., 1, :]).flatten(-2)
+
+
 def ln_gemm_reference(x: Tensor, ln_scale: Optional[Tensor], ln_bias: Optional[Tensor],
                       w: Tensor, b: Tensor, gelu: bool = False,
                       plane: Optional[Tensor] = None,
-                      pmask: Optional[Tensor] = None) -> Tensor:
+                      pmask: Optional[Tensor] = None, *, swiglu: bool = False,
+                      rope: Optional[Tensor] = None, rope_cols: int = 0,
+                      eps: float = 1e-5) -> Tensor:
     """act(LN(splice(x)) @ w + b): LN output cast to x.dtype, fp32 product,
-    bias and QuickGELU in fp32, then the cast. ln_scale None: no LN (and no
-    splice), the rows as they are."""
+    bias and QuickGELU (or SwiGLU of the packed gate | up, or the rotary
+    embedding of the columns below rope_cols) in fp32, then the cast.
+    ln_scale None: no LN (and no splice), the rows as they are."""
     if ln_scale is None:
         if plane is not None:
             raise ValueError("ln_gemm: the deep-prompt splice needs the LayerNorm prologue")
         h = x
     else:
-        h = _layer_norm_f32(_splice(x, plane, pmask), ln_scale, ln_bias)
+        h = _layer_norm_f32(_splice(x, plane, pmask), ln_scale, ln_bias, eps)
     acc = h.float() @ w.float() + b.float()
     if gelu:
         acc = acc * torch.sigmoid(1.702 * acc)
+    if swiglu:
+        acc = _swiglu_packed(acc)
+    if rope is not None and rope_cols:
+        head = acc[..., :rope_cols].unflatten(-1, (-1, 64))
+        acc = torch.cat([rotate_pairs(head, rope).flatten(-2), acc[..., rope_cols:]], dim=-1)
     return acc.to(x.dtype)
 
 
 def ln_gemm(x: Tensor, ln_scale: Optional[Tensor], ln_bias: Optional[Tensor], w: Tensor,
             b: Tensor, gelu: bool = False, plane: Optional[Tensor] = None,
-            pmask: Optional[Tensor] = None) -> Tensor:
-    """(B, S, K) -> (B, S, N). CUDA: csrc/block_kernels.cu::ln_gemm (with
-    ln_scale None: the same kernel without its LayerNorm prologue)."""
+            pmask: Optional[Tensor] = None, *, swiglu: bool = False,
+            rope: Optional[Tensor] = None, rope_cols: int = 0, eps: float = 1e-5) -> Tensor:
+    """(B, S, K) -> (B, S, N), or (B, S, N / 2) with swiglu. CUDA:
+    csrc/block_kernels.cu::ln_gemm (with ln_scale None: the same kernel
+    without its LayerNorm prologue). EVA02's modes, bf16 without LayerNorm
+    (on rows `ln_rows` normalised): swiglu (w and b packed gate | up by
+    64-column groups) and rope (a (S, 2, 64) fp32 cos / sin table, applied to
+    the columns below rope_cols, a multiple of 64). eps: the LayerNorm's
+    epsilon."""
     _build.check_forward_only(x, ln_scale, ln_bias, w, b, plane)
     if x.device.type == "cpu":
-        return ln_gemm_reference(x, ln_scale, ln_bias, w, b, gelu, plane, pmask)
+        return ln_gemm_reference(x, ln_scale, ln_bias, w, b, gelu, plane, pmask, swiglu=swiglu,
+                                 rope=rope, rope_cols=rope_cols, eps=eps)
     bsz, s, k = x.shape
     n = w.shape[1]
     has_ln = ln_scale is not None
+    mode = "swiglu" if swiglu else "rope" if rope is not None else None
+    if (swiglu and (gelu or rope is not None)) or (rope is not None and (
+            rope.shape != (s, 2, 64) or rope.dtype != torch.float32 or rope_cols % 64
+            or not 0 < rope_cols <= n)):
+        raise ValueError(f"ln_gemm: swiglu takes no other activation; the rope table must be "
+                         f"({s}, 2, 64) fp32 and rope_cols a multiple of 64 in (0, N]")
     if (w.shape != (k, n) or b.shape != (n,) or (has_ln != (ln_bias is not None))
             or (plane is not None and not has_ln)):
         raise ValueError(f"ln_gemm: x {tuple(x.shape)}, w {tuple(w.shape)}, b "
@@ -204,14 +267,16 @@ def ln_gemm(x: Tensor, ln_scale: Optional[Tensor], ln_bias: Optional[Tensor], w:
     gb = ln_bias.float().contiguous() if has_ln else None
     _build.require_cuda(x.dtype, x.device, x=x, w=w, b=b, plane=plane)
     ptr = _build.ptr
+    rope = None if rope is None else rope.contiguous()
     check_gemm_operands("ln_gemm", bsz * s, k, n, has_ln,
                         dict(x=ptr(x), w=ptr(w), b=ptr(b), plane=ptr(plane), pmask=ptr(pmask),
-                             ln_scale=ptr(g), ln_bias=ptr(gb)),
-                        fp32=x.dtype == torch.float32)
-    out = torch.empty(bsz, s, n, dtype=x.dtype, device=x.device)
+                             ln_scale=ptr(g), ln_bias=ptr(gb), rope=ptr(rope)),
+                        fp32=x.dtype == torch.float32, mode=mode)
+    out = torch.empty(bsz, s, n // 2 if swiglu else n, dtype=x.dtype, device=x.device)
     lib = _build.library("block")
-    rc = lib.ln_gemm(ptr(x), ptr(plane), ptr(pmask), ptr(g), ptr(gb), ptr(w), ptr(b),
-                     ptr(out), bsz * s, n, k, s, int(gelu), _build.DTYPE_CODES[x.dtype],
+    rc = lib.ln_gemm(ptr(x), ptr(plane), ptr(pmask), ptr(g), ptr(gb), ptr(w), ptr(b), ptr(rope),
+                     ptr(out), bsz * s, n, k, s, 2 if swiglu else int(gelu),
+                     rope_cols if rope is not None else 0, eps, _build.DTYPE_CODES[x.dtype],
                      _build.stream(x))
     _build.check(lib, rc, "ln_gemm")
     ln_gemm.launches += 1
@@ -256,8 +321,14 @@ def _attention_kernel(qkv: Tensor, n_heads: int, mask: Optional[Tensor] = None,
 def gemm_bias_residual_reference(a: Tensor, w: Tensor, b: Tensor,
                                  residual: Optional[Tensor] = None,
                                  plane: Optional[Tensor] = None,
-                                 pmask: Optional[Tensor] = None) -> Tensor:
-    """a @ w + b [+ splice(residual)] in fp32, then the cast."""
+                                 pmask: Optional[Tensor] = None, *,
+                                 ln_scale: Optional[Tensor] = None,
+                                 ln_bias: Optional[Tensor] = None,
+                                 eps: float = 1e-5) -> Tensor:
+    """[LN(a)] @ w + b [+ splice(residual)] in fp32 (the LN output cast to
+    a.dtype first), then the cast."""
+    if ln_scale is not None:
+        a = _layer_norm_f32(a, ln_scale, ln_bias, eps)
     acc = a.float() @ w.float() + b.float()
     if residual is not None:
         acc = acc + _splice(residual, plane, pmask).float()
@@ -268,34 +339,45 @@ def gemm_bias_residual_reference(a: Tensor, w: Tensor, b: Tensor,
 
 def gemm_bias_residual(a: Tensor, w: Tensor, b: Tensor, residual: Optional[Tensor] = None,
                        plane: Optional[Tensor] = None,
-                       pmask: Optional[Tensor] = None) -> Tensor:
+                       pmask: Optional[Tensor] = None, *, ln_scale: Optional[Tensor] = None,
+                       ln_bias: Optional[Tensor] = None, eps: float = 1e-5) -> Tensor:
     """(B, S, K) -> (B, S, N). CUDA: csrc/block_kernels.cu::gemm_bias_residual
-    (residual None: the same kernel with the bias epilogue alone)."""
-    _build.check_forward_only(a, w, b, residual, plane)
+    (residual None: the same kernel with the bias epilogue alone). With
+    ln_scale / ln_bias (bf16, a residual): a LayerNorm of a's rows first, in
+    the same launch (EVA02's sub-LN on the attention output); the splice then
+    applies to the residual alone."""
+    _build.check_forward_only(a, w, b, residual, plane, ln_scale, ln_bias)
     if a.device.type == "cpu":
-        return gemm_bias_residual_reference(a, w, b, residual, plane, pmask)
+        return gemm_bias_residual_reference(a, w, b, residual, plane, pmask, ln_scale=ln_scale,
+                                            ln_bias=ln_bias, eps=eps)
     bsz, s, k = a.shape
     n = w.shape[1]
+    has_ln = ln_scale is not None
     if (w.shape != (k, n) or b.shape != (n,)
             or (residual is not None and residual.shape != (bsz, s, n))
-            or (residual is None and plane is not None)):
+            or (residual is None and plane is not None)
+            or has_ln != (ln_bias is not None) or (has_ln and residual is None)):
         raise ValueError(
             f"gemm_bias_residual: a {tuple(a.shape)}, w {tuple(w.shape)}, b "
             f"{tuple(b.shape)}, residual "
             f"{None if residual is None else tuple(residual.shape)}; w must be (K, N), "
-            "b (N,), the residual as the output, and the splice needs a residual"
+            "b (N,), the residual as the output, and the splice and the LayerNorm "
+            "need a residual"
         )
     plane, pmask = _splice_args(plane, pmask, s, n, a.dtype)
+    g = ln_scale.float().contiguous() if has_ln else None
+    gb = ln_bias.float().contiguous() if has_ln else None
     _build.require_cuda(a.dtype, a.device, a=a, w=w, b=b, residual=residual, plane=plane)
     ptr = _build.ptr
-    check_gemm_operands("gemm_bias_residual", bsz * s, k, n, False,
+    check_gemm_operands("gemm_bias_residual", bsz * s, k, n, has_ln,
                         dict(a=ptr(a), w=ptr(w), b=ptr(b), residual=ptr(residual),
-                             plane=ptr(plane), pmask=ptr(pmask)),
-                        fp32=a.dtype == torch.float32)
+                             plane=ptr(plane), pmask=ptr(pmask), ln_scale=ptr(g),
+                             ln_bias=ptr(gb)),
+                        fp32=a.dtype == torch.float32, mode="ln_residual" if has_ln else None)
     out = torch.empty(bsz, s, n, dtype=a.dtype, device=a.device)
     lib = _build.library("block")
-    rc = lib.gemm_bias_residual(ptr(a), ptr(w), ptr(b), ptr(residual), ptr(plane),
-                                ptr(pmask), ptr(out), bsz * s, n, k, s,
+    rc = lib.gemm_bias_residual(ptr(a), ptr(g), ptr(gb), ptr(w), ptr(b), ptr(residual),
+                                ptr(plane), ptr(pmask), ptr(out), bsz * s, n, k, s, eps,
                                 _build.DTYPE_CODES[a.dtype], _build.stream(a))
     _build.check(lib, rc, "gemm_bias_residual")
     gemm_bias_residual.launches += 1
@@ -303,6 +385,76 @@ def gemm_bias_residual(a: Tensor, w: Tensor, b: Tensor, residual: Optional[Tenso
 
 
 gemm_bias_residual.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 4: LayerNorm over rows as a pass of its own (EVA02's block,
+# ops/fused_eva.py: LN_1 with the splice, LN_2, the MLP's sub-LN over the
+# padded hidden width)
+# ---------------------------------------------------------------------------
+
+LN_ROWS_MAX_WIDTH = 4096  # a lane holds its row's 16-byte chunks in registers
+
+
+def ln_rows_reference(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, n_real: int,
+                      eps: float = 1e-5, plane: Optional[Tensor] = None,
+                      pmask: Optional[Tensor] = None) -> Tensor:
+    """LN over the last axis of splice(x) with the statistics of its first
+    n_real columns, the fp32 affine over all of them, cast back to x.dtype."""
+    x32 = _splice(x, plane, pmask).float()
+    real = x32[..., :n_real]
+    mean = real.mean(dim=-1, keepdim=True)
+    var = (real - mean).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * ln_scale.float() + ln_bias.float()).to(x.dtype)
+
+
+def check_ln_rows_operands(what: str, m: int, k: int, n_real: int, addresses: dict) -> None:
+    """What the ln_rows kernel takes (ValueError otherwise): K a multiple of
+    8 up to LN_ROWS_MAX_WIDTH (16-byte chunks, a row in a warp's registers),
+    1 <= n_real <= K, M within 32 bits, every base 16-byte aligned."""
+    if k <= 0 or k % 8 or k > LN_ROWS_MAX_WIDTH or not 1 <= n_real <= k or m >= 2 ** 31:
+        raise ValueError(f"{what}: M, K, n_real = {m}, {k}, {n_real}; needs K % 8 == 0, "
+                         f"K <= {LN_ROWS_MAX_WIDTH} and 1 <= n_real <= K")
+    for name, address in addresses.items():
+        if address is not None and address % 16:
+            raise ValueError(f"{what}: {name} at address {address:#x} is not 16-byte aligned")
+
+
+def ln_rows(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, n_real: int,
+            eps: float = 1e-5, plane: Optional[Tensor] = None,
+            pmask: Optional[Tensor] = None) -> Tensor:
+    """(B, S, K) -> (B, S, K): LayerNorm of splice(x) with the statistics of
+    the first n_real columns: EVA02's LN_1 (with the deep-prompt splice) and
+    LN_2 before their products (n_real = K), and its MLP's sub-LN over the
+    hidden width, stored padded to a multiple of 64 with zero gamma and beta
+    past n_real. bf16. CUDA: csrc/block_kernels.cu::ln_rows; CPU tensors take
+    the plain version."""
+    _build.check_forward_only(x, ln_scale, ln_bias, plane)
+    if x.device.type == "cpu":
+        return ln_rows_reference(x, ln_scale, ln_bias, n_real, eps, plane, pmask)
+    bsz, s, k = x.shape
+    if x.dtype != torch.bfloat16 or ln_scale.shape != (k,) or ln_bias.shape != (k,):
+        raise ValueError(f"ln_rows: x {tuple(x.shape)} {x.dtype}, gamma "
+                         f"{tuple(ln_scale.shape)}; bf16 rows and (K,) parameters")
+    plane, pmask = _splice_args(plane, pmask, s, k, x.dtype)
+    g = ln_scale.float().contiguous()
+    gb = ln_bias.float().contiguous()
+    _build.require_cuda(x.dtype, x.device, x=x, plane=plane)
+    ptr = _build.ptr
+    out = torch.empty_like(x)
+    check_ln_rows_operands("ln_rows", bsz * s, k, n_real,
+                           dict(x=ptr(x), out=ptr(out), ln_scale=ptr(g), ln_bias=ptr(gb),
+                                plane=ptr(plane)))
+    lib = _build.library("block")
+    rc = lib.ln_rows(ptr(x), ptr(plane), ptr(pmask), ptr(g), ptr(gb), ptr(out), bsz * s, k, s,
+                     n_real, eps, _build.stream(x))
+    _build.check(lib, rc, "ln_rows")
+    ln_rows.launches += 1
+    return out
+
+
+ln_rows.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,8 @@ kernel, backward through the plain composition's recompute).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from tpu_reid_torch.ops import _build
@@ -32,11 +34,16 @@ Tensor = torch.Tensor
 MAX_WIDTH = 1024  # the kernels keep a block's rows of D values (fp32: its share) in shared memory
 
 
-def ln_proj_tail_reference(x: Tensor, ln_scale: Tensor, ln_bias: Tensor,
-                           proj: Tensor) -> tuple[Tensor, Tensor]:
-    """(B, D) -> (LN(x), LN(x) @ proj), the product accumulated in fp32."""
-    y = _layer_norm_f32(x, ln_scale, ln_bias)
-    return y, (y.float() @ proj.to(y.dtype).float()).to(y.dtype)
+def ln_proj_tail_reference(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, proj: Tensor,
+                           proj_bias: Optional[Tensor] = None,
+                           eps: float = 1e-5) -> tuple[Tensor, Tensor]:
+    """(B, D) -> (LN(x), LN(x) @ proj [+ proj_bias]), the product accumulated
+    in fp32 and the bias added in fp32 before the cast."""
+    y = _layer_norm_f32(x, ln_scale, ln_bias, eps)
+    p = y.float() @ proj.to(y.dtype).float()
+    if proj_bias is not None:
+        p = p + proj_bias.float()
+    return y, p.to(y.dtype)
 
 
 def tail_kernel_route(b: int, d: int, e: int, bf16: bool, addresses: dict) -> str:
@@ -62,7 +69,8 @@ def tail_kernel_route(b: int, d: int, e: int, bf16: bool, addresses: dict) -> st
 
 
 def _launch_tail(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, proj: Tensor,
-                 fma: bool) -> tuple[Tensor, Tensor]:
+                 fma: bool, proj_bias: Optional[Tensor] = None,
+                 eps: float = 1e-5) -> tuple[Tensor, Tensor]:
     b, d = x.shape
     if proj.dim() != 2 or proj.shape[0] != d:
         raise ValueError(f"ln_proj_tail: x {tuple(x.shape)}, proj {tuple(proj.shape)}; "
@@ -72,6 +80,9 @@ def _launch_tail(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, proj: Tensor,
     proj = proj.to(x.dtype).contiguous()
     g = ln_scale.float().contiguous()
     gb = ln_bias.float().contiguous()
+    hb = None if proj_bias is None else proj_bias.float().contiguous()
+    if hb is not None and hb.shape != (e,):
+        raise ValueError(f"ln_proj_tail: the head's bias {tuple(hb.shape)} is not ({e},)")
     _build.require_cuda(x.dtype, x.device, x=x, proj=proj)
     y = torch.empty(b, d, dtype=x.dtype, device=x.device)
     p = torch.empty(b, e, dtype=x.dtype, device=x.device)
@@ -80,22 +91,25 @@ def _launch_tail(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, proj: Tensor,
                               dict(x=ptr(x), proj=ptr(proj), ln_scale=ptr(g), ln_bias=ptr(gb),
                                    y=ptr(y), p=ptr(p)))
     lib = _build.library("tail")
-    rc = lib.ln_proj_tail(ptr(x), ptr(g), ptr(gb), ptr(proj), ptr(y), ptr(p), b, d, e,
-                          _build.DTYPE_CODES[x.dtype], int(fma or route == "fma"),
+    rc = lib.ln_proj_tail(ptr(x), ptr(g), ptr(gb), ptr(proj), ptr(hb), ptr(y), ptr(p), b, d, e,
+                          eps, _build.DTYPE_CODES[x.dtype], int(fma or route == "fma"),
                           _build.stream(x))
     _build.check(lib, rc, "ln_proj_tail")
     return y, p
 
 
-def ln_proj_tail_kernel(x: Tensor, ln_scale: Tensor, ln_bias: Tensor,
-                        proj: Tensor) -> tuple[Tensor, Tensor]:
+def ln_proj_tail_kernel(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, proj: Tensor,
+                        proj_bias: Optional[Tensor] = None,
+                        eps: float = 1e-5) -> tuple[Tensor, Tensor]:
     """CUDA: csrc/tail_kernel.cu::ln_proj_tail (the bf16 wgmma kernel, the
     fp32 3xTF32 kernel, or the FMA kernel outside their domains:
-    `tail_kernel_route`); CPU tensors take the plain version."""
-    _build.check_forward_only(x, ln_scale, ln_bias, proj)
+    `tail_kernel_route`); CPU tensors take the plain version. proj_bias (E,):
+    the head's bias (EVA02's), added in fp32 before the cast; eps the
+    LayerNorm's epsilon."""
+    _build.check_forward_only(x, ln_scale, ln_bias, proj, proj_bias)
     if x.device.type == "cpu":
-        return ln_proj_tail_reference(x, ln_scale, ln_bias, proj)
-    out = _launch_tail(x, ln_scale, ln_bias, proj, fma=False)
+        return ln_proj_tail_reference(x, ln_scale, ln_bias, proj, proj_bias, eps)
+    out = _launch_tail(x, ln_scale, ln_bias, proj, False, proj_bias, eps)
     ln_proj_tail_kernel.launches += 1
     return out
 
@@ -113,30 +127,35 @@ def ln_proj_tail_fma(x: Tensor, ln_scale: Tensor, ln_bias: Tensor,
 
 
 class _TailFn(torch.autograd.Function):
-    """Forward: the kernel (saving only its four inputs); backward: the
+    """Forward: the kernel (saving only its inputs); backward: the
     gradients of `ln_proj_tail_reference` recomputed under autograd, as
     `_tail_fused`'s VJP takes them from `_tail_xla`."""
 
     @staticmethod
-    def forward(ctx, x, ln_scale, ln_bias, proj):
-        ctx.save_for_backward(x, ln_scale, ln_bias, proj)
-        return ln_proj_tail_kernel(x, ln_scale, ln_bias, proj)
+    def forward(ctx, x, ln_scale, ln_bias, proj, proj_bias, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, ln_scale, ln_bias, proj, proj_bias)
+        return ln_proj_tail_kernel(x, ln_scale, ln_bias, proj, proj_bias, eps)
 
     @staticmethod
     def backward(ctx, gy, gp):
+        saved = ctx.saved_tensors
         with torch.enable_grad():
-            inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            y, p = ln_proj_tail_reference(*inputs)
-            return torch.autograd.grad((y, p), inputs, (gy, gp), allow_unused=True)
+            inputs = [t.detach().requires_grad_() for t in saved if t is not None]
+            y, p = ln_proj_tail_reference(*inputs, eps=ctx.eps)
+            grads = iter(torch.autograd.grad((y, p), inputs, (gy, gp), allow_unused=True))
+            return (*[None if t is None else next(grads) for t in saved], None)
 
 
-def ln_proj_tail(x: Tensor, ln_params: dict, proj: Tensor) -> tuple[Tensor, Tensor]:
-    """(B, D) CLS rows -> (ln(x), ln(x) @ proj): the kernel where
-    `layers.kernel_impl` selects kernels (always through `_TailFn`, which
-    builds no graph when no input needs grad), else the plain composition."""
+def ln_proj_tail(x: Tensor, ln_params: dict, proj: Tensor, proj_bias: Optional[Tensor] = None,
+                 eps: float = 1e-5) -> tuple[Tensor, Tensor]:
+    """(B, D) CLS rows -> (ln(x), ln(x) @ proj [+ proj_bias]): the kernel
+    where `layers.kernel_impl` selects kernels (always through `_TailFn`,
+    which builds no graph when no input needs grad), else the plain
+    composition. eps: the LayerNorm's epsilon."""
     from tpu_reid_torch.models.layers import use_kernels
 
-    args = (x, ln_params["scale"], ln_params["bias"], proj)
+    args = (x, ln_params["scale"], ln_params["bias"], proj, proj_bias)
     if use_kernels(x):
-        return _TailFn.apply(*args)
-    return ln_proj_tail_reference(*args)
+        return _TailFn.apply(*args, eps)
+    return ln_proj_tail_reference(*args, eps)

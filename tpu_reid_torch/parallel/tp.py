@@ -253,6 +253,8 @@ def apply_vit_tp(params_tp: dict, cfg: VisionConfig, images: Tensor,
     xproj) triple of apply_vit; with cls_only x12 and xproj are the CLS row,
     (B, 1, ...), the tail through ln_proj_tail. On CUDA inputs the shard is
     checked against the kernels' domain before the first launch."""
+    if cfg.block != "clip":
+        raise ValueError("tensor parallelism shards CLIP blocks only, not EVA02's")
     reduce = reduce or model_reduce(None)
     blocks = params_tp["blocks"]
     heads = blocks["w_out"].shape[-2] // (cfg.width // cfg.heads)  # this rank's

@@ -587,3 +587,66 @@ def random_clip_state_dict(
     sd["text_projection"] = randn(text_width, embed_dim, std=text_width ** -0.5)
     sd["logit_scale"] = np.asarray(np.log(1 / 0.07), np.float32)
     return sd
+
+
+# ---------------------------------------------------------------------------
+# EVA02 vision towers (EVA-CLIP)
+# ---------------------------------------------------------------------------
+
+
+def _pad_last(t: torch.Tensor, width: int) -> torch.Tensor:
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+def pack_swiglu(w1: torch.Tensor, w2: torch.Tensor, f_pad: int) -> torch.Tensor:
+    """Gate (..., F) and up (..., F) as the swiglu mode's packed (..., 2 F_pad):
+    each 128-column group 64 gate columns, then the same 64 up columns; the
+    padding past F zero."""
+    g = _pad_last(w1, f_pad).unflatten(-1, (-1, 64))
+    u = _pad_last(w2, f_pad).unflatten(-1, (-1, 64))
+    return torch.stack([g, u], dim=-2).flatten(-3)
+
+
+def eva02_visual_params(nat: dict) -> dict:
+    """An EVA02 vision tower as EVA-CLIP lays it out (blocks stacked on a
+    leading layer axis, linear weights (in, out)) -> the port's parameter
+    dict (models/layers.py's EVA block layout; models/vit.py's tower).
+
+    nat: conv {w (p, p, 3, D) HWIO, b}; class_embedding; positional_embedding;
+    blocks {ln_1, ln_2 {scale, bias}; attn {qkv {w (L, D, 3D)}, q_bias, v_bias
+    (L, D), inner_ln {scale, bias} or absent, proj {w, b}}; mlp {w1, w2 {w
+    (L, D, F), b}, ffn_ln {scale, bias} (L, F) or absent, w3 {w (L, F, D),
+    b}}}; ln_post; head {w (D, E), b}; optionally vpt_shallow, vpt_deep.
+    Copies: the result shares no storage with `nat`."""
+    from tpu_reid_torch.ops.fused_eva import padded_hidden
+
+    bl = nat["blocks"]
+    a, m = bl["attn"], bl["mlp"]
+    f = m["w1"]["w"].shape[-1]
+    f_pad = padded_hidden(f)
+    q_b, v_b = a["q_bias"], a["v_bias"]
+    attn = {"in_proj": {"w": a["qkv"]["w"].clone(),
+                        "b": torch.cat([q_b, torch.zeros_like(q_b), v_b], dim=-1)},
+            "out_proj": {"w": a["proj"]["w"].clone(), "b": a["proj"]["b"].clone()}}
+    if "inner_ln" in a:
+        attn["ln"] = {k: v.clone() for k, v in a["inner_ln"].items()}
+    mlp = {"w12": {"w": pack_swiglu(m["w1"]["w"], m["w2"]["w"], f_pad),
+                   "b": pack_swiglu(m["w1"]["b"], m["w2"]["b"], f_pad)},
+           "w3": {"w": _pad_last(m["w3"]["w"].transpose(-1, -2), f_pad).transpose(-1, -2)
+                  .contiguous(), "b": m["w3"]["b"].clone()}}
+    if "ffn_ln" in m:
+        mlp["ffn_ln"] = {k: _pad_last(v, f_pad) for k, v in m["ffn_ln"].items()}
+    out = {
+        "conv": {"w": nat["conv"]["w"].clone(), "bias": nat["conv"]["b"].clone()},
+        "class_embedding": nat["class_embedding"].clone(),
+        "positional_embedding": nat["positional_embedding"].clone(),
+        "blocks": {"ln_1": {k: v.clone() for k, v in bl["ln_1"].items()}, "attn": attn,
+                   "ln_2": {k: v.clone() for k, v in bl["ln_2"].items()}, "mlp": mlp},
+        "ln_post": {k: v.clone() for k, v in nat["ln_post"].items()},
+        "proj": nat["head"]["w"].clone(),
+        "proj_bias": nat["head"]["b"].clone(),
+    }
+    for key in ("vpt_shallow", "vpt_deep"):
+        if key in nat:
+            out[key] = nat[key].clone()
+    return out
