@@ -837,6 +837,7 @@ def fp32_kernels(dev, rng, check, failures, b=128, s=211, d=768, hid=3072, heads
         f"{fma_peak_ms(4.0 * b * heads * 442 * 442 * 64):.4f} ms")
     record["mha_core_fp32"]["s442"] = long
     del qkv_long, q, kk, v
+    record["mha_core_backward_fp32"] = fp32_attention_backward(dev, check, repeat)
     a = TA.mha_core(*FA._qkv_views(qkv, heads)).reshape(b, s, d)
 
     def gemm_part(label, ain, w, bias):
@@ -857,6 +858,74 @@ def fp32_kernels(dev, rng, check, failures, b=128, s=211, d=768, hid=3072, heads
 
     record["ln_proj_tail_fp32"] = fp32_tail(dev, rng, check, repeat, failures)
     return record
+
+
+def fp32_attention_backward(dev, check, repeat, b=64):
+    """The fp32 block backward's attention core, q, k and v as views of a
+    packed qkv as the chain hands them over: `mha_core_backward` against its
+    plain version on the card at a stage-2 step's shape (B 64, S 213,
+    ViT-B/16's 12 heads) and at the fp32 live stage-1 step's text tower
+    (B 64, S 77, 8 heads, causal mask), 50 launches bit-equal at each; then,
+    at S 213, timed (median of 20 CUDA-event runs) beside the recompute that
+    feeds it (`mha_core_lse`), the plain version, the core it replaced
+    (`xla_mha_core` differentiated under autograd, with the copy into the
+    qkv layout) and the library yardstick, SDPA's fp32 forward + backward on
+    contiguous heads (never called by the port). Bound: the five products
+    the gradient needs (2 S^2 64 each per image and head) in three TF32
+    passes, or its bytes (q, k, v, o, dO and the log-sum-exp in, dq, dk, dv
+    out). Returns the kernels-line record."""
+    from tpu_reid_torch.models import layers as TL
+    from tpu_reid_torch.ops import attention as TA
+    from tpu_reid_torch.ops import fused_attention as FA
+
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    errs = {}
+    for s, heads, causal in ((77, 8, True), (213, 12, False)):
+        d = 64 * heads
+        qkv = torch.randn(b, s, 3 * d, generator=gen).to(dev)
+        do = torch.randn(b, s, heads, 64, generator=gen).to(dev)
+        mask = TL.causal_mask(s, dev) if causal else None
+        views = FA._qkv_views(qkv, heads)
+        o, lse = TA.mha_core_lse(*views, mask)
+        label = f"mha_core_backward_fp32[S={s}{', causal' if causal else ''}, qkv views]"
+        errs[label] = check(label, TA.mha_core_backward(*views, o, do, lse, mask), torch.cat(
+            [t.reshape(b, s, d)
+             for t in TA.mha_core_backward_reference(*views, o, do, lse, mask)], -1),
+            torch.float32)
+        repeat(label, lambda: TA.mha_core_backward(*views, o, do, lse, mask))
+
+    def replaced():
+        with torch.enable_grad():
+            x = qkv.detach().requires_grad_()
+            a = TA.xla_mha_core(*FA._qkv_views(x, heads))
+            return torch.autograd.grad(a, x, do)[0].contiguous()
+
+    q4, k4, v4 = (t.transpose(1, 2).contiguous().requires_grad_() for t in views)
+    do4 = do.transpose(1, 2).contiguous()
+
+    def library():
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(q4, k4, v4)
+            return torch.autograd.grad(out, (q4, k4, v4), do4)
+
+    k_ms = time_ms(lambda: TA.mha_core_backward(*views, o, do, lse))
+    lse_ms = time_ms(lambda: TA.mha_core_lse(*views))
+    p_ms = time_ms(lambda: TA.mha_core_backward_reference(*views, o, do, lse), reps=5, warmup=1)
+    r_ms = time_ms(replaced, reps=5, warmup=1)
+    l_ms = time_ms(library)
+    flops = 5 * 2.0 * b * heads * s * s * 64
+    bnd, by = bound_fp32(flops, 4.0 * (b * s * 3 * d + 2 * b * s * d + b * heads * s
+                                       + b * s * 3 * d))
+    say(f"    {label}: kernel {k_ms:.4f} ms ({100 * bnd / k_ms:.1f}% of the bound "
+        f"{bnd:.4f} ms, {by}; {TF32_PASSES * flops / k_ms / 1e9:.1f} TF/s of TF32), recompute "
+        f"with its log-sum-exp {lse_ms:.4f} ms, both {k_ms + lse_ms:.4f} ms; plain {p_ms:.4f} "
+        f"ms; the core it replaced (autograd of xla_mha_core) {r_ms:.4f} ms; library (SDPA "
+        f"fp32 forward + backward) {l_ms:.4f} ms")
+    return dict(name="mha_core_backward_fp32", route="cuda",
+                source="tpu_reid_torch/csrc/block_kernels.cu",
+                replaces="none: the JAX package differentiates the plain core",
+                max_abs_err=max(errs.values()), max_abs_errs=errs, ms=k_ms, recompute_ms=lse_ms, plain_ms=p_ms, replaced_ms=r_ms,
+                bound_ms=bnd, bound_by=by, library_ms=l_ms, dtype="float32")
 
 
 # the fp32 CLS tail's checks, (B, D, E, route): the main path's width at every
@@ -1393,6 +1462,7 @@ KERNEL_GROUPS = (("attention_long_bf16_kernel", "mha_core (S > 256)"),
                  ("gemm_tf32x3_kernel<false", "gemm_bias_residual / no-LN ln_gemm fp32"),
                  ("gemm_tf32x3_kernel<(bool)0", "gemm_bias_residual / no-LN ln_gemm fp32"),
                  ("attention_bf16_kernel", "mha_core"),
+                 ("attention_tf32x3_kernel_bwd", "mha_core_backward fp32"),
                  ("attention_tf32x3_kernel", "mha_core fp32"),
                  ("ln_proj_tail_tf32x3_kernel", "ln_proj_tail fp32"),
                  ("ln_proj_tail_kernel", "ln_proj_tail (FMA)"),
@@ -2278,6 +2348,7 @@ def fp32_steps(dev, counters, mcfg, params, images, labels, valid, text, draws, 
     from the same state, loss and every updated tensor bit for bit."""
     from tpu_reid_torch.data.transforms import DevicePreprocess
     from tpu_reid_torch.models import reid_clip as M
+    from tpu_reid_torch.ops import fused_attention as FA
     from tpu_reid_torch.ops import fused_tail as FT
     from tpu_reid_torch.train import optim as O
     from tpu_reid_torch.train import trainer as TR
@@ -2327,9 +2398,21 @@ def fp32_steps(dev, counters, mcfg, params, images, labels, valid, text, draws, 
         torch.cuda.synchronize()
         for c in counters.values():
             c.launches = 0
+        plain = FA.fused_block_backward.plain
         body()
         torch.cuda.synchronize()
         launches = {k: c.launches for k, c in counters.items()}
+        # every block backward on the kernels, each with its attention core's
+        # gradient: the 11 kernel blocks of the vision tower in stage 2 (the
+        # 12th is the CLS block)
+        plain = FA.fused_block_backward.plain - plain
+        got = launches["mha_core_backward_fp32"]
+        want = 11 if stage == "stage 2" else launches["fused_block_backward"]
+        say(f"  fp32 {stage} step: {got} attention backward launches, {plain} plain")
+        if plain or got != want or got != launches["fused_block_backward"]:
+            raise PhaseFailed(f"the fp32 {stage} step ran {got} attention backward kernels in "
+                              f"{launches['fused_block_backward']} block backwards on the "
+                              f"kernels and {plain} plain")
         host = median_ms(body)
         kernels, wall_us = profiled(body)
         report_trace(kernels, wall_us, f"one fp32 {stage} step (host loop)")
@@ -2574,7 +2657,8 @@ def fp32_counters():
 
     return {"ln_gemm_fp32": FA.ln_gemm, "mha_core_fp32": TA.mha_core,
             "gemm_bias_residual_fp32": FA.gemm_bias_residual,
-            "ln_proj_tail_fp32": FT.ln_proj_tail_kernel}
+            "ln_proj_tail_fp32": FT.ln_proj_tail_kernel,
+            "mha_core_backward_fp32": TA.mha_core_backward}
 
 
 # ---------------------------------------------------------------------------
@@ -5170,12 +5254,14 @@ def tools_phase(dev, counters):
 # without LN + 2 with, its attention kernel and its CLS tail
 WGMMA_ENTRIES = {"gemm_bf16_kernel": 10, "attention_bf16_kernel": 1,
                  "attention_long_bf16_kernel": 1, "ln_proj_tail_bf16_kernel": 1,
-                 "gemm_tf32x3_kernel": 9, "attention_tf32x3_kernel": 1,
+                 "gemm_tf32x3_kernel": 9, "attention_tf32x3_kernel": 3,
+                 "attention_tf32x3_kernel_bwd_dq": 1, "attention_tf32x3_kernel_bwd_dkv": 1,
                  "ln_proj_tail_tf32x3_kernel": 1}
 # the fp32 kernels of each wrapper: what an fp32 training step must launch,
 # and the FMA kernels they replaced, which no trace may show (no name here is
 # a substring of another kernel's name)
-FP32_KERNELS = ("gemm_tf32x3_kernel", "attention_tf32x3_kernel", "ln_proj_tail_tf32x3_kernel")
+FP32_KERNELS = ("gemm_tf32x3_kernel", "attention_tf32x3_kernel(", "attention_tf32x3_kernel_bwd",
+                "ln_proj_tail_tf32x3_kernel")
 RETIRED_FP32_KERNELS = ("gemm_f32_kernel", "attention_f32_kernel", "attention_long_f32_kernel",
                         "ln_proj_tail_kernel")
 BF16_BLOCK_KERNELS = ("gemm_bf16_kernel", "attention_bf16_kernel", "attention_long_bf16_kernel",

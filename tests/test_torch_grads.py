@@ -137,7 +137,7 @@ def test_block_backward_chain_matches_autograd(rows, splice, causal):
     block after the splice: x, the 12 tensors and the plane."""
     rng = np.random.RandomState(11 + splice + 2 * causal + 4 * rows[0])
     x, g, plane, pmask, mask, weights = _block_case(rng, *rows, splice, causal)
-    assert TFA.block_backward_route(x, weights) == "chain"
+    assert TFA.block_backward_route(x, weights, HEADS) == "chain"
     needs = (True, splice, False, False, False, False) + (True,) * 12
     dx, dplane, dws = TFA.fused_block_backward(g, x, plane, pmask, mask, HEADS, weights, needs)
 

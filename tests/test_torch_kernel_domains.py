@@ -269,8 +269,9 @@ def _route_case(d, hid, rows=(2, 9), dtype=torch.float32):
 ])
 def test_block_backward_route(d, hid, rows, route):
     x, w = _route_case(d, hid, rows)
-    assert FA.block_backward_route(x, w) == route
-    assert FA.block_backward_route(x.bfloat16(), w) == "plain"
+    heads = max(d // 64, 1)
+    assert FA.block_backward_route(x, w, heads) == route
+    assert FA.block_backward_route(x.bfloat16(), w, heads) == "plain"
 
 
 def test_block_backward_outside_the_domain_counts_a_fallback():

@@ -122,7 +122,11 @@
 //     dgrad times QuickGELU', split-K wgrad, reading a forward weight or an
 //     activation transposed by TMA), each stage's sum promoted to fp32.
 //   * attention_tf32x3_kernel: mha_core for every S, flash-style over key
-//     tiles of 64 with an online softmax; its notes stand above it.
+//     tiles of 64 with an online softmax; its notes stand above it. For the
+//     block backward it also writes each row's log-sum-exp, and
+//     mha_core_backward takes the gradient from there in two more kernels
+//     (attention_tf32x3_kernel_bwd_dq, _bwd_dkv) that recompute the scores
+//     tile by tile; their notes stand above them.
 //
 // Measured times stand in PERF.md.
 //
@@ -1914,7 +1918,8 @@ attention_long_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
 // shuffle is needed. Online softmax in fp32 with late normalisation (expf
 // when exact; exp2f(min(s, 120)) with the 1e-30 floor when fast), padded keys
 // at -FLT_MAX, the additive (S, S) mask read tile by tile (the text tower's
-// causal S = 77 takes it).
+// causal S = 77 takes it). Given an lse pointer (exact softmax only), a row's
+// log-sum-exp m + log(sum) goes there at the end, for the backward.
 
 constexpr int TA_THREADS = 256, TA_KT = 64;
 constexpr int TA_Q = 128 * 128;           // one column block of Q: 128 rows x 128 bytes
@@ -1926,7 +1931,7 @@ __global__ void __launch_bounds__(TA_THREADS, 1)
 attention_tf32x3_kernel(const float* __restrict__ q, const __grid_constant__ CUtensorMap map_k,
                         const __grid_constant__ CUtensorMap map_v, int ld,
                         const float* __restrict__ mask, float* __restrict__ out, int S, int H,
-                        float scale, int fast) {
+                        float scale, int fast, float* __restrict__ lse) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023u) & ~1023u;
   unsigned char* const gbase = smem_raw + (base - raw);
@@ -2128,6 +2133,10 @@ attention_tf32x3_kernel(const float* __restrict__ q, const __grid_constant__ CUt
     if (fast) denom[hr] = fmaxf(denom[hr], 1e-30f);
     const float rc = 1.f / denom[hr];
     if (row[hr] >= S) continue;
+    // the exact softmax's row statistic for the backward: the quad's lanes
+    // hold the same maximum and sum
+    if (lse != nullptr && qq == 0)
+      lse[((size_t)b * H + h) * S + row[hr]] = m_run[hr] + logf(denom[hr]);
     float* dst = out + ((size_t)b * S + row[hr]) * D + h * DH + 2 * qq;
 #pragma unroll
     for (int j = 0; j < DH / 8; ++j)
@@ -2136,33 +2145,34 @@ attention_tf32x3_kernel(const float* __restrict__ q, const __grid_constant__ CUt
   }
 }
 
-// 3-D fp32 map of k or v: element (b, s, column) at base + (b*S + s)*ld +
-// column, H*64 columns; a box is one head (64 columns) of 64 tokens of one
-// image, tokens past S read as zeros; no swizzle (the block splits the tile)
-int head_map_f32(CUtensorMap* map, const void* p, int B, int S, int H, int ld) {
+// 3-D fp32 map of one (B, S, H, 64) operand: element (b, s, column) at base
+// + (b*S + s)*ld + column, H*64 columns; a box is one head (64 columns) of
+// `rows` tokens of one image, tokens past S read as zeros; no swizzle (the
+// block splits the tile)
+int head_map_f32(CUtensorMap* map, const void* p, int B, int S, int H, int ld, int rows) {
   const uint64_t dims[3] = {(uint64_t)H * DH, (uint64_t)S, (uint64_t)B};
   const uint64_t strides[2] = {(uint64_t)ld * sizeof(float), (uint64_t)S * ld * sizeof(float)};
-  const uint32_t box[3] = {(uint32_t)DH, (uint32_t)TA_KT, 1u};
+  const uint32_t box[3] = {(uint32_t)DH, (uint32_t)rows, 1u};
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_SWIZZLE_NONE, p, 3, dims,
                     strides, box);
 }
 
 int launch_attention_tf32x3(const void* q, const void* k, const void* v, int ld,
-                            const float* mask, void* out, int B, int S, int H, float scale,
-                            int fast, cudaStream_t stream) {
+                            const float* mask, void* out, float* lse, int B, int S, int H,
+                            float scale, int fast, cudaStream_t stream) {
   if (B == 0 || S == 0) return 0;
   const long long blocks = (long long)((S + 127) / 128) * H * B;
   if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   CUtensorMap mk, mv;
   int rc;
-  if ((rc = head_map_f32(&mk, k, B, S, H, ld)) != 0) return rc;
-  if ((rc = head_map_f32(&mv, v, B, S, H, ld)) != 0) return rc;
+  if ((rc = head_map_f32(&mk, k, B, S, H, ld, TA_KT)) != 0) return rc;
+  if ((rc = head_map_f32(&mv, v, B, S, H, ld, TA_KT)) != 0) return rc;
   cudaError_t e = cudaFuncSetAttribute(attention_tf32x3_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, TA_SMEM);
   if (e != cudaSuccess) return (int)e;
   attention_tf32x3_kernel<<<(unsigned)blocks, TA_THREADS, TA_SMEM, stream>>>(
       static_cast<const float*>(q), mk, mv, ld, mask, static_cast<float*>(out), S, H, scale,
-      fast);
+      fast, lse);
   return (int)cudaGetLastError();
 }
 
@@ -2190,15 +2200,16 @@ int launch_attention_long(const void* q, const void* k, const void* v, int ld,
 
 // In bf16 the whole-row kernel takes S <= 256 (a row of scores in
 // registers), the key-tile kernel every longer sequence; fp32 runs its
-// key-tile kernel for every S.
+// key-tile kernel for every S (with the rows' log-sum-exp where lse is
+// given).
 constexpr int ATT_WHOLE_ROW_MAX_S = 256;
 
 int launch_attention(const void* q, const void* k, const void* v, int ld, const float* mask,
-                     void* out, int B, int S, int H, float scale, int fast, int is_bf16,
-                     cudaStream_t stream) {
+                     void* out, float* lse, int B, int S, int H, float scale, int fast,
+                     int is_bf16, cudaStream_t stream) {
   cudaError_t e;
   if (!is_bf16)
-    return launch_attention_tf32x3(q, k, v, ld, mask, out, B, S, H, scale, fast, stream);
+    return launch_attention_tf32x3(q, k, v, ld, mask, out, lse, B, S, H, scale, fast, stream);
   if (S > ATT_WHOLE_ROW_MAX_S)
     return launch_attention_long(q, k, v, ld, mask, out, B, S, H, scale, fast, stream);
   if (B == 0 || S == 0) return 0;
@@ -2216,6 +2227,538 @@ int launch_attention(const void* q, const void* k, const void* v, int ld, const 
   if (e != cudaSuccess) return (int)e;
   attention_bf16_kernel<<<min(B * H, sm_count()), ATT_THREADS_BF16, bytes, stream>>>(
       mq, mk, mv, mask, static_cast<bf16*>(out), B, S, H, scale, fast, stage_mask);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The gradient of the exact fp32 mha_core: replaces no TPU kernel. The JAX
+// package's block VJP recomputes the block under XLA and differentiates the
+// plain core (tpu_reid/models/layers.py, _block_fused's backward), and so
+// did the port's fp32 block backward: scores, probabilities and their
+// gradients as (B, H, S, S) fp32 tensors in device memory, six batched
+// products on the CUDA cores. Here the scores never leave the block.
+//
+// The recompute runs attention_tf32x3_kernel (exact) with its lse output:
+// each row's log-sum-exp L = m + log(sum). The gradient of O = softmax(s) V,
+// s = scale Q K^T + mask, with dO given:
+//   P = exp(s - L), dV = P^T dO, dP = dO V^T, delta = rowsum(dO * O),
+//   dS = P * (dP - delta), dQ = scale dS K, dK = scale dS^T Q.
+// Every product is three TF32 passes on wgmma (lo*hi + hi*lo + hi*hi, as the
+// forward), summed in fp32 registers.
+//
+// What bounds it on the H100 is the tensor-core rate of those passes: five
+// products of 2 S^2 64 operations per (image, head), 67 GFLOP of TF32 at B
+// 64, S 213, 12 heads (0.135 ms at 494.7 TF/s); its bytes (q, k, v, o, dO
+// in, dq, dk, dv out, ~0.3 GB) take ~0.1 ms.
+//
+// Determinism: no atomics. dK and dV sum over the queries, dQ over the keys,
+// so the work is two passes, each output row owned by one block that sums in
+// one order: attention_tf32x3_kernel_bwd_dq walks the key tiles for 128 query
+// rows (S = Q K^T and dP = dO V^T again, then dQ), and writes delta for the
+// second pass; attention_tf32x3_kernel_bwd_dkv walks the query tiles for 128
+// keys (S^T = K Q^T, dP^T = V dO^T, dV, dK). Its cost: the two score
+// products run twice, seven products where five would do (+40% of the
+// tensor work), against dQ summed with fp32 atomics in a run-dependent
+// order or a whole head's dQ (up to 112 KB at S = 444) held beside the
+// operands of one block.
+//
+// Both kernels: 256 threads, two warpgroups of 64 own rows, one block per
+// (128 own rows, head, image), the blocks of a head adjacent in the grid so
+// that its operands stay in L2. The own rows arrive once, split into hi and
+// lo K-major swizzled tiles (the A operands of the score products); tiles of
+// 32 streamed rows come by TMA from the strided views into a ring of two raw
+// stages (rows past S arrive as zeros), then all 256 threads split each
+// into hi and lo twice: K-major as stored (the B operand of a score
+// product) and transposed (rows of the head dimension, 32 values each: the B
+// operand of a product whose A, the probabilities or dS, comes from the
+// registers that hold it, in the order 0, 2, 4, 6, 1, 3, 5, 7 of each group
+// of 8, as the forward's V). Score products m64n32k8, gradient products
+// m64n64k8 with A from registers, committed in groups so that the softmax
+// runs under the tensor cores: P (dkv: P^T) is taken while dP's products
+// run, and in the dkv pass dS^T while dV's do. P = 2^(s scale log2 e + mask
+// log2 e - L log2 e) by ex2.approx (about 2 ulp): one FMA and one MUFU
+// instruction in place of expf's range reduction. The
+// streamed tile is 32 rows so that a block's operands fit beside the ring:
+// 210 KB (dq) and 225 KB (dkv) of shared memory, one block per SM.
+// Padded keys weigh 0 (P set to 0); padded query rows of the dkv pass too;
+// rows past S are not stored. The additive mask is read from device memory
+// where it applies (the text tower's causal S = 77).
+// ---------------------------------------------------------------------------
+
+constexpr int TB_THREADS = 256;
+constexpr float TB_LOG2E = 1.4426950408889634f;
+constexpr int TB_ROWS = 128;               // a block's own rows: queries (dq), keys (dkv)
+constexpr int TB_T = 32;                   // the streamed tile: keys (dq), queries (dkv)
+constexpr int TB_OWN = TB_ROWS * 128;      // one column block of the own rows' tile
+constexpr int TB_TILE = TB_T * 128;        // one column block of a streamed tile
+constexpr int TB_TR = DH * 128;            // a streamed tile transposed: 64 rows of 32 values
+constexpr int TB_RAW = 2 * TB_T * DH * 4;  // a raw stage: two 32 x 64 fp32 tiles
+constexpr int TB_LOADS = 4;                // own-row chunks a thread loads before using any
+// dq: Q hi | lo, dO hi | lo; the ring; K hi | lo, V hi | lo, Kt hi | lo; delta of the own rows
+constexpr int TB_DQ_SMEM =
+    1024 + 8 * TB_OWN + 2 * TB_RAW + 8 * TB_TILE + 2 * TB_TR + 4 * TB_ROWS + 16;
+// dkv: K hi | lo, V hi | lo; the ring; Q hi | lo, dO hi | lo, Qt hi | lo, dOt hi | lo; L and
+// delta of a tile
+constexpr int TB_DKV_SMEM =
+    1024 + 8 * TB_OWN + 2 * TB_RAW + 8 * TB_TILE + 4 * TB_TR + 8 * TB_T + 16;
+
+// 4 values of row r (16-byte chunk c of its 64 columns), split, into hi and
+// lo K-major swizzled tiles whose column blocks lie `cb` bytes apart
+__device__ __forceinline__ void store_split(unsigned char* hi, unsigned char* lo, int cb, int r,
+                                            int c, float4 x) {
+  uint32_t h[4], l[4];
+  tf32_split_alu(x.x, h[0], l[0]);
+  tf32_split_alu(x.y, h[1], l[1]);
+  tf32_split_alu(x.z, h[2], l[2]);
+  tf32_split_alu(x.w, h[3], l[3]);
+  const int off = (c >> 3) * cb + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+  *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// A raw 32 x 64 tile transposed, split: row d (a head column), chunk sc
+// holds tile rows 8 (sc / 2) + (sc & 1) + 0, 2, 4, 6
+__device__ __forceinline__ void store_split_t(unsigned char* hi, unsigned char* lo,
+                                              const float* raw, int d, int sc) {
+  const int r0 = 8 * (sc >> 1) + (sc & 1);
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) tf32_split_alu(raw[(r0 + 2 * e) * DH + d], h[e], l[e]);
+  const int off = d * 128 + ((sc ^ (d & 7)) << 4);
+  *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+  *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// A 64 x 32 accumulator as the register A operand of a product over its 32
+// columns: k step j takes columns 8j .. 8j + 7 in store_split_t's order
+__device__ __forceinline__ void a_split(const float (&x)[16], uint32_t (&hi)[4][4],
+                                        uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    tf32_split_alu(x[4 * j], hi[j][0], lo[j][0]);
+    tf32_split_alu(x[4 * j + 2], hi[j][1], lo[j][1]);
+    tf32_split_alu(x[4 * j + 1], hi[j][2], lo[j][2]);
+    tf32_split_alu(x[4 * j + 3], hi[j][3], lo[j][3]);
+  }
+}
+
+// d (64 x 32) (+)= a b over one k8 step in three TF32 passes; a and b are
+// K-major tiles whose lo halves lie a_lo and b_lo bytes on
+__device__ __forceinline__ void mma3_n32(float (&d)[16], uint32_t a, uint32_t a_lo, uint32_t b,
+                                         uint32_t b_lo, bool first) {
+  wgmma_m64n32k8_tf32(d, wgmma_desc(a + a_lo, 16, 1024), wgmma_desc(b, 16, 1024), !first);
+  wgmma_m64n32k8_tf32(d, wgmma_desc(a, 16, 1024), wgmma_desc(b + b_lo, 16, 1024), 1);
+  wgmma_m64n32k8_tf32(d, wgmma_desc(a, 16, 1024), wgmma_desc(b, 16, 1024), 1);
+}
+
+// d (64 x 64) += a b over one k8 step, a from registers, in three passes
+__device__ __forceinline__ void mma3_ra(float (&d)[32], const uint32_t (&hi)[4],
+                                        const uint32_t (&lo)[4], uint32_t b, uint32_t b_lo) {
+  wgmma_m64n64k8_tf32_ra(d, lo, wgmma_desc(b, 16, 1024), 1);
+  wgmma_m64n64k8_tf32_ra(d, hi, wgmma_desc(b + b_lo, 16, 1024), 1);
+  wgmma_m64n64k8_tf32_ra(d, hi, wgmma_desc(b, 16, 1024), 1);
+}
+
+// rows of a warpgroup's 64 x 64 accumulator, times `mul`, as fp32 into
+// (B, S, ld) rows r0, r0 + 8 (the thread's), columns h*64 ..; rows past S
+// are not stored
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, const float (&x)[32],
+                                           const int (&row)[2], int b, int S, int ld, int h,
+                                           int qq, float mul) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (row[hr] >= S) continue;
+    float* p = dst + ((size_t)b * S + row[hr]) * ld + h * DH + 2 * qq;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<float2*>(p + 8 * j) =
+          make_float2(x[4 * j + 2 * hr] * mul, x[4 * j + 2 * hr + 1] * mul);
+  }
+}
+
+__global__ void __launch_bounds__(TB_THREADS, 1)
+attention_tf32x3_kernel_bwd_dq(const float* __restrict__ q,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v, int ld,
+                               const float* __restrict__ o, const float* __restrict__ dout,
+                               int ld_o, const float* __restrict__ lse,
+                               const float* __restrict__ mask, float* __restrict__ delta,
+                               float* __restrict__ dq, int ld_out, int S, int H, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023u) & ~1023u;
+  unsigned char* const g = smem_raw + (base - raw);  // generic address of `base`
+  const uint32_t o_q = 0, o_do = o_q + 4 * TB_OWN, o_raw = o_do + 4 * TB_OWN,
+                 o_k = o_raw + 2 * TB_RAW, o_v = o_k + 4 * TB_TILE, o_kt = o_v + 4 * TB_TILE,
+                 o_delta = o_kt + 2 * TB_TR, o_bars = o_delta + 4 * TB_ROWS;
+  float* const delta_s = reinterpret_cast<float*>(g + o_delta);
+  const uint32_t bars = base + o_bars;  // raw stage landed, per stage
+  const int nq = (S + TB_ROWS - 1) / TB_ROWS;
+  const int q0 = (int)(blockIdx.x % nq) * TB_ROWS, h = (int)(blockIdx.x / nq) % H,
+            b = (int)(blockIdx.x / nq) / H;
+  const int n_tiles = (S + TB_T - 1) / TB_T;
+  const int tid_b = threadIdx.x;
+  const size_t stat = ((size_t)b * H + h) * S;  // (b, h) row of lse and delta
+
+  if (tid_b == 0) {
+    mbar_init(bars, 1);
+    mbar_init(bars + 8, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  auto fill = [&](int t) {  // thread 0: key tile t into its raw stage
+    const int st = t & 1;
+    const uint32_t dst = base + o_raw + st * TB_RAW;
+    mbar_arrive_expect_tx(bars + 8 * st, TB_RAW);
+    tma_load_3d(dst, &map_k, bars + 8 * st, h * DH, TB_T * t, b);
+    tma_load_3d(dst + TB_RAW / 2, &map_v, bars + 8 * st, h * DH, TB_T * t, b);
+  };
+  if (tid_b == 0) {
+    for (int t = 0; t < n_tiles && t < 2; ++t) fill(t);
+  }
+
+  // Q and dO of the own rows, split; delta = rowsum(dO * O) in fp32, the 16
+  // lanes of a row reduced in one order, into shared memory and, for the
+  // dkv pass, device memory
+  {
+    const size_t head = (size_t)b * S * ld + (size_t)h * DH;
+    const size_t head_o = (size_t)b * S * ld_o + (size_t)h * DH;
+    // TB_LOADS chunks of each operand in flight per thread before any is
+    // used: the block waits on these loads alone
+    for (int u0 = tid_b; u0 < TB_ROWS * 16; u0 += TB_LOADS * TB_THREADS) {
+      float4 vq[TB_LOADS], vd[TB_LOADS], vo[TB_LOADS];
+#pragma unroll
+      for (int l = 0; l < TB_LOADS; ++l) {
+        const int u = u0 + l * TB_THREADS, row = q0 + (u >> 4), c = u & 15;
+        vq[l] = vd[l] = vo[l] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row < S) {
+          vq[l] = *reinterpret_cast<const float4*>(q + head + (size_t)row * ld + 4 * c);
+          vd[l] = *reinterpret_cast<const float4*>(dout + head_o + (size_t)row * ld_o + 4 * c);
+          vo[l] = *reinterpret_cast<const float4*>(o + head_o + (size_t)row * ld_o + 4 * c);
+        }
+      }
+#pragma unroll
+      for (int l = 0; l < TB_LOADS; ++l) {
+        const int u = u0 + l * TB_THREADS, r = u >> 4, c = u & 15, row = q0 + r;
+        store_split(g + o_q, g + o_q + 2 * TB_OWN, TB_OWN, r, c, vq[l]);
+        store_split(g + o_do, g + o_do + 2 * TB_OWN, TB_OWN, r, c, vd[l]);
+        float part = vd[l].x * vo[l].x + vd[l].y * vo[l].y + vd[l].z * vo[l].z +
+                     vd[l].w * vo[l].w;
+        part += __shfl_xor_sync(0xffffffffu, part, 8);
+        part += __shfl_xor_sync(0xffffffffu, part, 4);
+        part += __shfl_xor_sync(0xffffffffu, part, 2);
+        part += __shfl_xor_sync(0xffffffffu, part, 1);
+        if (c == 0) {
+          delta_s[r] = part;
+          if (row < S) delta[stat + row] = part;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  const int wg = tid_b / 128, tid = tid_b % 128, warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, qq = lane & 3;
+  const bool active = q0 + 64 * wg < S;
+  int row[2];
+  float nl_r[2], delta_r[2];  // -L in log2 units, delta
+  const float* mrow[2] = {nullptr, nullptr};
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int lr = 64 * wg + 16 * warp + gq + 8 * hr;
+    row[hr] = q0 + lr;
+    nl_r[hr] = row[hr] < S ? -lse[stat + row[hr]] * TB_LOG2E : 0.f;
+    delta_r[hr] = delta_s[lr];
+    if (mask != nullptr) mrow[hr] = mask + (size_t)min(row[hr], S - 1) * S;
+  }
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    mbar_wait(bars + 8 * st, (uint32_t)((t >> 1) & 1));
+    __syncthreads();  // both warpgroups are done with the previous tile's split operands
+    const float* kr = reinterpret_cast<const float*>(g + o_raw + st * TB_RAW);
+    const float* vr = kr + TB_T * DH;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int u = tid_b + TB_THREADS * i, n = u >> 4, c = u & 15;
+      store_split(g + o_k, g + o_k + 2 * TB_TILE, TB_TILE, n, c,
+                  *reinterpret_cast<const float4*>(kr + n * DH + 4 * c));
+      store_split(g + o_v, g + o_v + 2 * TB_TILE, TB_TILE, n, c,
+                  *reinterpret_cast<const float4*>(vr + n * DH + 4 * c));
+      store_split_t(g + o_kt, g + o_kt + TB_TR, kr, u & 63, u >> 6);
+    }
+    fence_proxy_async();
+    __syncthreads();  // the split operands are complete; the raw stage is free
+    if (tid_b == 0 && t + 2 < n_tiles) {
+      fence_proxy_async();
+      fill(t + 2);
+    }
+    if (!active) continue;
+
+    // raw scores, then dP, in two groups, so that P is taken while dP's
+    // products run: key 32t + 8j + 2qq + (e & 1) of row[e >> 1] in [4j + e]
+    float sc[16], dp[16];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DH / 8; ++ks)
+      mma3_n32(sc, base + o_q + (ks >> 2) * TB_OWN + wg * 64 * 128 + 32 * (ks & 3), 2 * TB_OWN,
+               base + o_k + (ks >> 2) * TB_TILE + 32 * (ks & 3), 2 * TB_TILE, ks == 0);
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < DH / 8; ++ks)
+      mma3_n32(dp, base + o_do + (ks >> 2) * TB_OWN + wg * 64 * 128 + 32 * (ks & 3),
+               2 * TB_OWN, base + o_v + (ks >> 2) * TB_TILE + 32 * (ks & 3), 2 * TB_TILE,
+               ks == 0);
+    wgmma_commit();
+    wgmma_settle(dp);
+    wgmma_wait<1>();
+    wgmma_settle(sc);
+    // P = 2^((s * scale + mask - L) log2 e) in place; keys past S weigh 0
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int col = TB_T * t + 8 * (i >> 2) + 2 * qq + (i & 1), hr = (i >> 1) & 1;
+      float p = 0.f;
+      if (col < S) {
+        float x = nl_r[hr];
+        if (mask != nullptr) x = fmaf(mrow[hr][col], TB_LOG2E, x);
+        p = ex2_approx(fmaf(sc[i], scale * TB_LOG2E, x));
+      }
+      sc[i] = p;
+    }
+    wgmma_wait<0>();
+    wgmma_settle(dp);
+    // dS = P (dP - delta) in place
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sc[i] *= dp[i] - delta_r[(i >> 1) & 1];
+    uint32_t sh[4][4], sl[4][4];
+    a_split(sc, sh, sl);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mma3_ra(acc, sh[j], sl[j], base + o_kt + 32 * j, TB_TR);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_settle(acc);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wgmma_settle(sh[j]);
+      wgmma_settle(sl[j]);
+    }
+  }
+  if (!active) return;
+  store_rows(dq, acc, row, b, S, ld_out, h, qq, scale);
+}
+
+__global__ void __launch_bounds__(TB_THREADS, 1)
+attention_tf32x3_kernel_bwd_dkv(const __grid_constant__ CUtensorMap map_q,
+                                const __grid_constant__ CUtensorMap map_do,
+                                const float* __restrict__ k, const float* __restrict__ v,
+                                int ld, const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                const float* __restrict__ mask, float* __restrict__ dk,
+                                float* __restrict__ dv, int ld_out, int S, int H,
+                                float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023u) & ~1023u;
+  unsigned char* const g = smem_raw + (base - raw);
+  const uint32_t o_k = 0, o_v = o_k + 4 * TB_OWN, o_raw = o_v + 4 * TB_OWN,
+                 o_q = o_raw + 2 * TB_RAW, o_do = o_q + 4 * TB_TILE, o_qt = o_do + 4 * TB_TILE,
+                 o_dot = o_qt + 2 * TB_TR, o_stat = o_dot + 2 * TB_TR,
+                 o_bars = o_stat + 8 * TB_T;
+  float* const lse_s = reinterpret_cast<float*>(g + o_stat);  // -L log2 e, then delta, of a tile
+  float* const delta_s = lse_s + TB_T;
+  const uint32_t bars = base + o_bars;
+  const int nk = (S + TB_ROWS - 1) / TB_ROWS;
+  const int k0 = (int)(blockIdx.x % nk) * TB_ROWS, h = (int)(blockIdx.x / nk) % H,
+            b = (int)(blockIdx.x / nk) / H;
+  const int n_tiles = (S + TB_T - 1) / TB_T;
+  const int tid_b = threadIdx.x;
+  const size_t stat = ((size_t)b * H + h) * S;
+
+  if (tid_b == 0) {
+    mbar_init(bars, 1);
+    mbar_init(bars + 8, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  auto fill = [&](int t) {  // thread 0: query tile t of Q and dO into its raw stage
+    const int st = t & 1;
+    const uint32_t dst = base + o_raw + st * TB_RAW;
+    mbar_arrive_expect_tx(bars + 8 * st, TB_RAW);
+    tma_load_3d(dst, &map_q, bars + 8 * st, h * DH, TB_T * t, b);
+    tma_load_3d(dst + TB_RAW / 2, &map_do, bars + 8 * st, h * DH, TB_T * t, b);
+  };
+  if (tid_b == 0) {
+    for (int t = 0; t < n_tiles && t < 2; ++t) fill(t);
+  }
+
+  // K and V of the own keys, split (keys past S as zeros)
+  {
+    const size_t head = (size_t)b * S * ld + (size_t)h * DH;
+    for (int u0 = tid_b; u0 < TB_ROWS * 16; u0 += TB_LOADS * TB_THREADS) {
+      float4 vk[TB_LOADS], vv[TB_LOADS];
+#pragma unroll
+      for (int l = 0; l < TB_LOADS; ++l) {
+        const int u = u0 + l * TB_THREADS, key = k0 + (u >> 4), c = u & 15;
+        vk[l] = vv[l] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (key < S) {
+          vk[l] = *reinterpret_cast<const float4*>(k + head + (size_t)key * ld + 4 * c);
+          vv[l] = *reinterpret_cast<const float4*>(v + head + (size_t)key * ld + 4 * c);
+        }
+      }
+#pragma unroll
+      for (int l = 0; l < TB_LOADS; ++l) {
+        const int u = u0 + l * TB_THREADS;
+        store_split(g + o_k, g + o_k + 2 * TB_OWN, TB_OWN, u >> 4, u & 15, vk[l]);
+        store_split(g + o_v, g + o_v + 2 * TB_OWN, TB_OWN, u >> 4, u & 15, vv[l]);
+      }
+    }
+  }
+
+  const int wg = tid_b / 128, tid = tid_b % 128, warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, qq = lane & 3;
+  const bool active = k0 + 64 * wg < S;
+  int key[2], kc[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    key[hr] = k0 + 64 * wg + 16 * warp + gq + 8 * hr;
+    kc[hr] = min(key[hr], S - 1);  // the mask column a padded key reads
+  }
+  float dka[32], dva[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    dka[i] = 0.f;
+    dva[i] = 0.f;
+  }
+  // -L in log2 units (threads 0-31), then delta (32-63), of one query of
+  // tile t: loaded a tile ahead of its use
+  auto stat_of = [&](int t) {
+    const int qi = TB_T * t + (tid_b & (TB_T - 1));
+    return qi >= S ? 0.f : tid_b < TB_T ? -lse[stat + qi] * TB_LOG2E : delta[stat + qi];
+  };
+  float stat_next = tid_b < 2 * TB_T ? stat_of(0) : 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    mbar_wait(bars + 8 * st, (uint32_t)((t >> 1) & 1));
+    __syncthreads();  // both warpgroups are done with the previous tile's split operands
+    const float* qr = reinterpret_cast<const float*>(g + o_raw + st * TB_RAW);
+    const float* dr = qr + TB_T * DH;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int u = tid_b + TB_THREADS * i, n = u >> 4, c = u & 15;
+      store_split(g + o_q, g + o_q + 2 * TB_TILE, TB_TILE, n, c,
+                  *reinterpret_cast<const float4*>(qr + n * DH + 4 * c));
+      store_split(g + o_do, g + o_do + 2 * TB_TILE, TB_TILE, n, c,
+                  *reinterpret_cast<const float4*>(dr + n * DH + 4 * c));
+      store_split_t(g + o_qt, g + o_qt + TB_TR, qr, u & 63, u >> 6);
+      store_split_t(g + o_dot, g + o_dot + TB_TR, dr, u & 63, u >> 6);
+    }
+    if (tid_b < 2 * TB_T) {
+      lse_s[tid_b] = stat_next;
+      if (t + 1 < n_tiles) stat_next = stat_of(t + 1);
+    }
+    fence_proxy_async();
+    __syncthreads();  // the split operands are complete; the raw stage is free
+    if (tid_b == 0 && t + 2 < n_tiles) {
+      fence_proxy_async();
+      fill(t + 2);
+    }
+    if (!active) continue;
+
+    // S^T, then dP^T, then dV, in three groups, so that P^T is taken while
+    // dP^T's products run and dS^T while dV's do: query 32t + 8j + 2qq +
+    // (e & 1) of key[e >> 1] in [4j + e]
+    float sc[16], dp[16];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DH / 8; ++ks)
+      mma3_n32(sc, base + o_k + (ks >> 2) * TB_OWN + wg * 64 * 128 + 32 * (ks & 3), 2 * TB_OWN,
+               base + o_q + (ks >> 2) * TB_TILE + 32 * (ks & 3), 2 * TB_TILE, ks == 0);
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < DH / 8; ++ks)
+      mma3_n32(dp, base + o_v + (ks >> 2) * TB_OWN + wg * 64 * 128 + 32 * (ks & 3), 2 * TB_OWN,
+               base + o_do + (ks >> 2) * TB_TILE + 32 * (ks & 3), 2 * TB_TILE, ks == 0);
+    wgmma_commit();
+    wgmma_settle(dp);
+    wgmma_wait<1>();
+    wgmma_settle(sc);
+    // P^T = 2^((s * scale + mask - L) log2 e) in sc; queries past S weigh 0
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int c = 8 * (i >> 2) + 2 * qq + (i & 1), qi = TB_T * t + c, hr = (i >> 1) & 1;
+      float p = 0.f;
+      if (qi < S) {
+        float x = lse_s[c];
+        if (mask != nullptr) x = fmaf(mask[(size_t)qi * S + kc[hr]], TB_LOG2E, x);
+        p = ex2_approx(fmaf(sc[i], scale * TB_LOG2E, x));
+      }
+      sc[i] = p;
+    }
+    uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];
+    a_split(sc, ph, pl);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mma3_ra(dva, ph[j], pl[j], base + o_dot + 32 * j, TB_TR);
+    wgmma_commit();
+    wgmma_settle(dva);
+    wgmma_wait<1>();
+    wgmma_settle(dp);
+    // dS^T = P^T (dP^T - delta) in dp
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      dp[i] = sc[i] * (dp[i] - delta_s[8 * (i >> 2) + 2 * qq + (i & 1)]);
+    a_split(dp, sh, sl);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mma3_ra(dka, sh[j], sl[j], base + o_qt + 32 * j, TB_TR);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_settle(dva);
+    wgmma_settle(dka);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wgmma_settle(ph[j]);
+      wgmma_settle(pl[j]);
+      wgmma_settle(sh[j]);
+      wgmma_settle(sl[j]);
+    }
+  }
+  if (!active) return;
+  store_rows(dk, dka, key, b, S, ld_out, h, qq, scale);
+  store_rows(dv, dva, key, b, S, ld_out, h, qq, 1.f);
+}
+
+int launch_attention_backward(const void* q, const void* k, const void* v, int ld,
+                              const float* o, const float* dout, int ld_o, const float* lse,
+                              const float* mask, float* delta, float* dq, float* dk, float* dv,
+                              int ld_out, int B, int S, int H, float scale,
+                              cudaStream_t stream) {
+  if (B == 0 || S == 0) return 0;
+  const long long blocks = (long long)((S + TB_ROWS - 1) / TB_ROWS) * H * B;
+  if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  CUtensorMap mk, mv, mq, mdo;
+  int rc;
+  if ((rc = head_map_f32(&mk, k, B, S, H, ld, TB_T)) != 0) return rc;
+  if ((rc = head_map_f32(&mv, v, B, S, H, ld, TB_T)) != 0) return rc;
+  if ((rc = head_map_f32(&mq, q, B, S, H, ld, TB_T)) != 0) return rc;
+  if ((rc = head_map_f32(&mdo, dout, B, S, H, ld_o, TB_T)) != 0) return rc;
+  cudaError_t e = cudaFuncSetAttribute(attention_tf32x3_kernel_bwd_dq,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, TB_DQ_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(attention_tf32x3_kernel_bwd_dkv,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, TB_DKV_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  // dq first: it writes delta, which the dkv pass reads
+  attention_tf32x3_kernel_bwd_dq<<<(unsigned)blocks, TB_THREADS, TB_DQ_SMEM, stream>>>(
+      static_cast<const float*>(q), mk, mv, ld, o, dout, ld_o, lse, mask, delta, dq, ld_out, S,
+      H, scale);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  attention_tf32x3_kernel_bwd_dkv<<<(unsigned)blocks, TB_THREADS, TB_DKV_SMEM, stream>>>(
+      mq, mdo, static_cast<const float*>(k), static_cast<const float*>(v), ld, lse, delta, mask,
+      dk, dv, ld_out, S, H, scale);
   return (int)cudaGetLastError();
 }
 
@@ -2333,14 +2876,34 @@ int gemm_tf32x3_backward(const void* a, const void* w, const void* bias, const v
 // tokens; batch stride S*ld) -> out (B, S, H*64) contiguous. mask: (S, S)
 // fp32 additive mask (clamped to >= -1e30; in log2e units when fast) or null.
 // bf16: S <= 256 runs the whole-row kernel, a longer sequence the key-tile
-// kernel; fp32 runs its key-tile kernel for every S.
+// kernel; fp32 runs its key-tile kernel for every S. lse: (B, H, S) fp32 or
+// null; where given (fp32 and exact only), each row's log-sum-exp of its
+// scaled, masked scores, what mha_core_backward reads.
 int mha_core(const void* q, const void* k, const void* v, int ld, const void* mask,
-             void* out, int B, int S, int H, float scale, int fast, int dtype,
+             void* out, void* lse, int B, int S, int H, float scale, int fast, int dtype,
              void* stream) {
   if (dtype != DTYPE_BF16 && dtype != DTYPE_F32) return (int)cudaErrorInvalidValue;
-  return launch_attention(q, k, v, ld, static_cast<const float*>(mask), out, B, S, H,
-                          scale, fast, dtype == DTYPE_BF16,
+  if (lse != nullptr && (dtype != DTYPE_F32 || fast)) return (int)cudaErrorInvalidValue;
+  return launch_attention(q, k, v, ld, static_cast<const float*>(mask), out,
+                          static_cast<float*>(lse), B, S, H, scale, fast, dtype == DTYPE_BF16,
                           static_cast<cudaStream_t>(stream));
+}
+
+// The gradient of mha_core's exact fp32 softmax attention for q, k and v:
+// q, k, v as mha_core's (row stride ld); o, its output, and dout, the
+// output's gradient, (B, S, H, 64) with row stride ld_o; lse (B, H, S) from
+// mha_core's lse; mask as mha_core's exact form, or null; delta (B, H, S)
+// fp32 scratch; dq, dk, dv (B, S, H, 64) with row stride ld_out (views into
+// one packed (B, S, 3 * H * 64) gradient). scale 1 / sqrt(64). fp32 only.
+int mha_core_backward(const void* q, const void* k, const void* v, int ld, const void* o,
+                      const void* dout, int ld_o, const void* lse, const void* mask,
+                      void* delta, void* dq, void* dk, void* dv, int ld_out, int B, int S,
+                      int H, float scale, void* stream) {
+  return launch_attention_backward(
+      q, k, v, ld, static_cast<const float*>(o), static_cast<const float*>(dout), ld_o,
+      static_cast<const float*>(lse), static_cast<const float*>(mask),
+      static_cast<float*>(delta), static_cast<float*>(dq), static_cast<float*>(dk),
+      static_cast<float*>(dv), ld_out, B, S, H, scale, static_cast<cudaStream_t>(stream));
 }
 
 

@@ -355,6 +355,20 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (64x32 fp32) (+)= a (64x8 tf32, K-major tile) * b (8x32 given as 32 rows of K: K-major)
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d (64x64 fp32) (+)= a (64x8 tf32 from registers) * b (8x64, K-major)
 __device__ __forceinline__ void wgmma_m64n64k8_tf32_ra(float (&d)[32], const uint32_t (&a)[4],
                                                        uint64_t desc_b, int scale_d) {

@@ -31,10 +31,18 @@ cast, well inside the kernel's tolerances. `mha_core_reference` mirrors
 `_attn_kernel` (division) for the exact softmax, and the fused kernels'
 exp2 form for fast=True, which JAX's mha_core does not have.
 
-Beside it: `xla_mha_core`, the plain core the plain block runs (and the
-recompute of every training backward), `attention_core`, which dispatches
-between the two as the JAX package's does, and the process-wide
-fast-softmax profile.
+The fp32 block backward (ops/fused_attention.py) takes the exact core's
+gradient without a score tensor in device memory: `mha_core_lse` runs the
+fp32 kernel with each row's log-sum-exp as a second output, and
+`mha_core_backward` (csrc/block_kernels.cu, two kernels that replace no
+TPU kernel: the JAX package differentiates the plain core) recomputes the
+scores tile by tile from it and writes dq, dk and dv into one packed
+(B, S, 3D) gradient; `mha_core_backward_reference` is its plain version.
+
+Beside them: `xla_mha_core`, the plain core the plain block runs (and the
+recompute of the bf16 training backward), `attention_core`, which
+dispatches between the kernel and it as the JAX package's does, and the
+process-wide fast-softmax profile.
 """
 
 from __future__ import annotations
@@ -79,7 +87,10 @@ def set_fast_softmax(enabled: bool) -> None:
     * training: the blocks' autograd Function runs the kernels' exp2 form
       forward and recomputes the backward through `xla_mha_core`'s
       bf16-probability form, as the JAX package's custom VJP does — two
-      approximations of one softmax, not bit-equal to each other.
+      approximations of one softmax, not bit-equal to each other. fp32
+      blocks recompute and differentiate the exact softmax
+      (`mha_core_lse`, `mha_core_backward`), as `xla_mha_core` does for
+      fp32 inputs.
 
     Parity-sensitive evals leave this off (default)."""
     global _FAST_SOFTMAX
@@ -211,6 +222,11 @@ def mha_core(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor] = None, *,
     _build.check_forward_only(q, k, v)
     if q.device.type == "cpu":
         return mha_core_reference(q, k, v, mask, fast=fast)
+    return _launch_mha_core(q, k, v, mask, fast, None)
+
+
+def _launch_mha_core(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor], fast: bool,
+                     lse: Optional[Tensor]) -> Tensor:
     b, s, h, dh = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
@@ -233,7 +249,7 @@ def mha_core(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor] = None, *,
     out = torch.empty(b, s, h, dh, dtype=q.dtype, device=q.device)
     lib = _build.library("block")
     ptr = _build.ptr
-    rc = lib.mha_core(ptr(q), ptr(k), ptr(v), ld, ptr(m), ptr(out), b, s, h,
+    rc = lib.mha_core(ptr(q), ptr(k), ptr(v), ld, ptr(m), ptr(out), ptr(lse), b, s, h,
                       attention_scale(HEAD_DIM, fast), int(fast), _build.DTYPE_CODES[q.dtype],
                       _build.stream(q))
     _build.check(lib, rc, "mha_core")
@@ -246,6 +262,109 @@ def mha_core(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor] = None, *,
 mha_core.launches = 0
 # the launches among them that ran the bf16 key-tile kernel (S > WHOLE_ROW_MAX_SEQ)
 mha_core_long = SimpleNamespace(launches=0)
+
+
+# ---------------------------------------------------------------------------
+# the exact fp32 core's gradient: mha_core_backward and its plain version
+# ---------------------------------------------------------------------------
+
+
+def mha_core_lse(q: Tensor, k: Tensor, v: Tensor,
+                 mask: Optional[Tensor] = None) -> tuple[Tensor, Tensor]:
+    """The exact `mha_core`, (B, S, H, dh) out, and each row's log-sum-exp
+    of its scaled, masked fp32 scores, L (B, H, S) with P = exp(s - L), what
+    `mha_core_backward` reads. CUDA: the fp32 kernel with its optional
+    output (float32 only; counted in `mha_core.launches`); CPU tensors take
+    the plain versions."""
+    _build.check_forward_only(q, k, v)
+    if q.device.type == "cpu":
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * attention_scale(
+            q.shape[-1], False)
+        m = attention_mask(mask, False)
+        lse = torch.logsumexp(s if m is None else s + m, dim=-1)
+        return mha_core_reference(q, k, v, mask), lse
+    if q.dtype != torch.float32:
+        raise TypeError(f"mha_core_lse kernel: {q.dtype}; the log-sum-exp is the fp32 "
+                        "kernel's output")
+    b, s, h, _ = q.shape
+    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    return _launch_mha_core(q, k, v, mask, False, lse), lse
+
+
+def mha_core_backward_reference(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor,
+                                lse: Tensor, mask: Optional[Tensor] = None
+                                ) -> tuple[Tensor, Tensor, Tensor]:
+    """Plain version of `mha_core_backward`: (B, S, H, dh) q, k, v, the
+    output o, its gradient do, and the rows' log-sum-exp (B, H, S) ->
+    dq, dk, dv (B, S, H, dh), fp32. P = exp(scale q k^T + mask - L),
+    dv = P^T do, dS = P (do v^T - rowsum(do o)), dq = scale dS k,
+    dk = scale dS^T q."""
+    scale = attention_scale(q.shape[-1], False)
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    m = attention_mask(mask, False)
+    if m is not None:
+        s = s + m
+    p = torch.exp(s - lse.unsqueeze(-1))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (dof * of).sum(-1).transpose(1, 2)
+    ds = p * (dp - delta.unsqueeze(-1)) * scale
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, kf), torch.einsum("bhqk,bqhd->bkhd", ds, qf),
+            dv)
+
+
+def mha_core_backward(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, lse: Tensor,
+                      mask: Optional[Tensor] = None) -> Tensor:
+    """The gradient of the exact softmax attention `mha_core_lse` computed
+    (o, lse) for q, k and v, as one (B, S, 3 * H * dh) tensor [dq | dk | dv]:
+    the layout of a packed qkv's gradient. CUDA:
+    csrc/block_kernels.cu::mha_core_backward (a dQ pass, then a dK / dV pass,
+    3xTF32 on wgmma, the scores recomputed tile by tile from lse; equal bits
+    run to run), float32 only: q, k and v in `mha_core`'s domain (head width
+    64, one row stride), o and do (B, S, H, 64) sharing one row stride;
+    anything else raises. CPU tensors take `mha_core_backward_reference`."""
+    _build.check_forward_only(q, k, v, o, do, lse)
+    b, s, h, dh = q.shape
+    if q.device.type == "cpu":
+        grads = mha_core_backward_reference(q, k, v, o, do, lse, mask)
+        return torch.cat([t.reshape(b, s, h * dh) for t in grads], dim=-1)
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.dtype != torch.float32 or t.device != q.device:
+            raise TypeError(f"mha_core_backward kernel: {name} {t.dtype} on {t.device}")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"mha_core_backward kernel: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}; needs equal shapes")
+    ld = _row_stride(q)
+    if _row_stride(k) != ld or _row_stride(v) != ld:
+        raise ValueError("mha_core_backward kernel: q, k and v must share one row stride")
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, s):
+        raise ValueError(f"mha_core_backward kernel: o {tuple(o.shape)}, do {tuple(do.shape)}, "
+                         f"lse {tuple(lse.shape)} for q {tuple(q.shape)}")
+    _build.require_cuda(torch.float32, q.device, lse=lse)
+    ld_o = _row_stride(o)
+    if _row_stride(do) != ld_o:
+        raise ValueError("mha_core_backward kernel: o and do must share one row stride")
+    m = attention_mask(mask, False)
+    if m is not None:
+        m = m.to(q.device).contiguous()
+        if m.shape != (s, s):
+            raise ValueError(f"mask {tuple(m.shape)} is not ({s}, {s})")
+    d = h * dh
+    out = torch.empty(b, s, 3 * d, dtype=torch.float32, device=q.device)
+    delta = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
+    lib = _build.library("block")
+    ptr = _build.ptr
+    rc = lib.mha_core_backward(ptr(q), ptr(k), ptr(v), ld, ptr(o), ptr(do), ld_o,
+                               ptr(lse), ptr(m), ptr(delta), ptr(out[..., :d]),
+                               ptr(out[..., d:2 * d]), ptr(out[..., 2 * d:]), 3 * d, b, s, h,
+                               attention_scale(HEAD_DIM, False), _build.stream(q))
+    _build.check(lib, rc, "mha_core_backward")
+    mha_core_backward.launches += 1
+    return out
+
+
+mha_core_backward.launches = 0
 
 
 def attention_core(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor] = None) -> Tensor:

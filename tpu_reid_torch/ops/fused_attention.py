@@ -79,7 +79,7 @@ from typing import Optional
 import torch
 
 from tpu_reid_torch.ops import _build
-from tpu_reid_torch.ops.attention import mha_core, softmax_attention
+from tpu_reid_torch.ops.attention import HEAD_DIM, mha_core, softmax_attention
 
 LN_MAX_WIDTH = 1024  # ln_gemm keeps LayerNorm's gamma/beta and a row in fast memory
 
@@ -760,16 +760,19 @@ def _block_params(w) -> dict:
     }
 
 
-def block_backward_route(x: Tensor, weights) -> str:
+def block_backward_route(x: Tensor, weights, n_heads: int) -> str:
     """How `fused_block_backward` takes a block: "kernel" (fp32 CUDA tensors
-    whose every product lies in the kernels' domain: the written-out chain on
-    the kernels), "chain" (the same on fp32 CPU tensors, with the plain
-    versions) or "plain" (bf16, or a shape outside the domain: the plain
-    block's recompute under autograd). Decided from dtype, device and sizes:
-    the chain's operands are its own fresh tensors, aligned."""
+    whose every product, and the attention core, lie in the kernels' domain:
+    the written-out chain on the kernels), "chain" (the same on fp32 CPU
+    tensors, with the plain versions) or "plain" (bf16, or a shape outside
+    the domain: the plain block's recompute under autograd). Decided from
+    dtype, device and sizes: the chain's operands are its own fresh tensors,
+    aligned."""
     if x.dtype != torch.float32:
         return "plain"
     rows, d = x.shape[0] * x.shape[1], x.shape[2]
+    if x.is_cuda and d != n_heads * HEAD_DIM:
+        return "plain"  # the attention kernels' head width
     d3, hid = weights[2].shape[1], weights[8].shape[1]
     try:
         # the recompute's (K, N) and the dgrads' (N, K) of the four products
@@ -798,7 +801,7 @@ def _layer_norm_backward(dy: Tensor, x: Tensor, mean: Tensor, rstd: Tensor, scal
 def _written_out_backward(g, x, plane, pmask, mask, n_heads, weights, needs):
     """The fp32 block's gradients, the chain written out (see
     `fused_block_backward`); `needs` is ctx.needs_input_grad."""
-    from tpu_reid_torch.ops.attention import xla_mha_core
+    from tpu_reid_torch.ops import attention as A
 
     ln1_s, ln1_b, w_in, b_in, w_out, b_out, ln2_s, ln2_b, w_fc, b_fc, w_proj, b_proj = weights
     need_w = needs[6:]
@@ -815,10 +818,9 @@ def _written_out_backward(g, x, plane, pmask, mask, n_heads, weights, needs):
     xin = _splice(x, plane, pmask)
     h1, mu1, rs1 = torch.native_layer_norm(xin, (d,), ln1_s, ln1_b, 1e-5)
     qkv = unflat(gemm_product(flat(h1), w_in, b_in))
-    with torch.enable_grad():
-        qkv.requires_grad_()
-        a = xla_mha_core(*_qkv_views(qkv, n_heads), mask).reshape(bsz, s, d)
-    a_in = a.detach().contiguous()
+    views = _qkv_views(qkv, n_heads)
+    a, lse = A.mha_core_lse(*views, mask)
+    a_in = a.reshape(bsz, s, d).contiguous()
     x1 = unflat(gemm_product(flat(a_in), w_out, b_out, flat(xin)))
     h2, mu2, rs2 = torch.native_layer_norm(x1, (d,), ln2_s, ln2_b, 1e-5)
     hpre = gemm_product(flat(h2), w_fc, b_fc)
@@ -848,8 +850,7 @@ def _written_out_backward(g, x, plane, pmask, mask, n_heads, weights, needs):
         dw[4] = gemm_wgrad(flat(a_in), dx1)
     if need_w[5]:
         dw[5] = dx1.sum(0)
-    (dqkv,) = torch.autograd.grad(a, qkv, unflat(da))
-    dqkv = flat(dqkv.contiguous())
+    dqkv = flat(A.mha_core_backward(*views, a, da.reshape(bsz, s, n_heads, -1), lse, mask))
     del a
     need_x = needs[0] or needs[1]
     if need_x or need_w[0] or need_w[1]:
@@ -900,19 +901,22 @@ def fused_block_backward(g, x, plane, pmask, mask, n_heads, weights, needs):
     fp32 (the training CLIs' default): the written-out chain. It recomputes
     the block (the LayerNorms in plain fp32, keeping their statistics; qkv,
     x1 and the MLP's pre-activation on the fp32 GEMM kernel, `gemm_product`,
-    whose promoted sums keep them fp32-accurate; the attention core as
-    `xla_mha_core` under autograd, so that its mask and softmax are the
-    plain block's) and then takes every gradient by hand: each of the four
+    whose promoted sums keep them fp32-accurate; the attention core on the
+    exact fp32 `mha_core` kernel with each row's log-sum-exp,
+    `mha_core_lse`) and then takes every gradient by hand: each of the four
     products' dgrad (QuickGELU' in c_proj's) and wgrad on the fp32 GEMM
-    kernel (`gemm_dgrad`, `gemm_wgrad`), the bias gradients as column sums,
-    the LayerNorms' through aten's LayerNorm backward, the splice's as a
-    batch sum over the spliced rows; only what `needs` asks for. On CPU
-    tensors the same chain runs the plain versions. bf16, or a shape outside
-    the kernels' domain: `_recompute_backward`.
+    kernel (`gemm_dgrad`, `gemm_wgrad`), the core's for the packed qkv on
+    `mha_core_backward` (the exact softmax's gradient, with the block's
+    mask, whatever the fast-softmax profile says), the bias gradients as
+    column sums, the LayerNorms' through aten's LayerNorm backward, the
+    splice's as a batch sum over the spliced rows; only what `needs` asks
+    for. On CPU tensors the same chain runs the plain versions. bf16, or a
+    shape outside the kernels' domain (a head width other than 64 on the
+    card among them): `_recompute_backward`.
 
     `fused_block_backward.launches` counts the calls that ran the chain on
     the kernels, `.plain` those that took the recompute."""
-    route = block_backward_route(x, weights)
+    route = block_backward_route(x, weights, n_heads)
     if route == "plain":
         fused_block_backward.plain += 1
         return _recompute_backward(g, x, plane, pmask, mask, n_heads, weights)
@@ -936,8 +940,8 @@ class _FusedBlockFn(torch.autograd.Function):
     `_block_xla_impl(p, splice(x, plane, pmask), n_heads, mask)` has:
     `fused_block_backward`, in fp32 the written-out chain on the kernels, in
     bf16 the plain block under autograd. Under the fast softmax the forward
-    takes the kernels' exp2 form and the recompute `xla_mha_core`'s
-    bf16-probability form, as in JAX."""
+    takes the kernels' exp2 form and the recompute the exact softmax in fp32
+    (`xla_mha_core`'s bf16-probability form in bf16), as in JAX."""
 
     @staticmethod
     def forward(ctx, x, plane, pmask, mask, n_heads, fast, *weights):
