@@ -1209,7 +1209,7 @@ def ln_repeat_host_checks(dev, rng, failures):
         g, gb = 1 + t(k, std=0.05, dt=torch.float32), t(k, std=0.05, dt=torch.float32)
         eye = torch.eye(k, device=dev, dtype=bf)
         h_kernel = FA.ln_gemm(x, g, gb, eye, torch.zeros(k, device=dev, dtype=bf))
-        h_plain = FA._layer_norm_f32(x, g, gb)
+        h_plain = FA.layer_norm({"scale": g, "bias": gb}, x)
         with_ln = FA.ln_gemm(x, g, gb, w, bias)
         same = torch.equal(with_ln, FA.ln_gemm(h_kernel, None, None, w, bias))
         differ = int((h_kernel != h_plain).sum())
@@ -1581,7 +1581,7 @@ def zero_shot_prompts(n_ids=16):
 
 
 def main_path_phase(dev, counters):
-    from tpu_reid_torch.models.layers import kernel_impl
+    from tpu_reid_torch.ops._build import kernel_impl
     from tpu_reid_torch.weights.convert import convert_clip, random_clip_state_dict
 
     t0 = time.perf_counter()
@@ -1751,7 +1751,7 @@ def rerank_phase(dev):
     """Evaluator without re-ranking, then the exact and the streamed routes
     (bf16/fp8, and fp32) at Market-1501 scale; returns the minsum launches
     of the two Evaluator routes."""
-    from tpu_reid_torch.models.layers import kernel_impl
+    from tpu_reid_torch.ops._build import kernel_impl
     from tpu_reid_torch.ops import minsum as MS
     from tpu_reid_torch.retrieval.distance import l2_normalize
     from tpu_reid_torch.retrieval.metrics import Evaluator, cmc_map
@@ -2088,7 +2088,6 @@ def gradient_phase(dev):
     _block_xla_impl after the splice, at full width, B=16, S=213 with the
     splice, fp32, under one fixed grad_outputs; then the CLS-tail Function
     against ln_proj_tail_reference."""
-    from tpu_reid_torch.models.layers import _apply_splice_plane, _block_xla_impl
     from tpu_reid_torch.ops import fused_attention as FA
     from tpu_reid_torch.ops import fused_tail as FT
 
@@ -2107,7 +2106,7 @@ def gradient_phase(dev):
     inputs = [x, plane, *w]
     out_k = FA.fused_block_autograd(x, *w, heads, None, prompt_plane=plane, prompt_mask=pm)
     grads_k = torch.autograd.grad(out_k, inputs, g)
-    out_p = _block_xla_impl(FA._block_params(w), _apply_splice_plane(x, plane, pm), heads, None)
+    out_p = FA._block_xla_impl(FA._block_params(w), FA.splice_plane(x, plane, pm), heads, None)
     grads_p = torch.autograd.grad(out_p, inputs, g)
     names = ["x", "plane", "ln1_scale", "ln1_bias", "w_in", "b_in", "w_out", "b_out",
              "ln2_scale", "ln2_bias", "w_fc", "b_fc", "w_proj", "b_proj"]
@@ -2212,7 +2211,7 @@ def ivlp_serving_phase(dev, counters, mcfg, params, k_batches=8, batch=512,
     count are the model's (`hw` 256x128 and 213, or 256x256 and 444)."""
     from tpu_reid_torch.data.transforms import DevicePreprocess
     from tpu_reid_torch.models import reid_clip as M
-    from tpu_reid_torch.models.layers import kernel_impl
+    from tpu_reid_torch.ops._build import kernel_impl
     from tpu_reid_torch.ops import fused_attention as FA
     from tpu_reid_torch.ops import fused_tail as FT
     from tpu_reid_torch.ops.attention import set_fast_softmax
@@ -2545,7 +2544,7 @@ def training_phase(dev, counters, mcfg, params, bs=64):
     gradient through the kernels against kernel_impl("plain")."""
     from tpu_reid_torch.data.transforms import DevicePreprocess
     from tpu_reid_torch.models import reid_clip as M
-    from tpu_reid_torch.models.layers import kernel_impl
+    from tpu_reid_torch.ops._build import kernel_impl
     from tpu_reid_torch.ops import fused_attention as FA
     from tpu_reid_torch.train import optim as O
     from tpu_reid_torch.train import trainer as TR
@@ -3053,7 +3052,7 @@ def eva02_phase(dev, k_batches=4, batch=256):
     are counted there."""
     from tpu_reid_torch.data.transforms import DevicePreprocess
     from tpu_reid_torch.models import reid_clip as M
-    from tpu_reid_torch.models.layers import kernel_impl
+    from tpu_reid_torch.ops._build import kernel_impl
     from tpu_reid_torch.ops import attention as TA
     from tpu_reid_torch.ops import fused_attention as FA
     from tpu_reid_torch.ops import fused_eva as FE
@@ -3666,7 +3665,6 @@ def maple_plane_gradients(dev, maple):
     gradients to those leaves against plain autograd through the plain
     block, under one fixed grad_output."""
     from tpu_reid_torch.device import clone
-    from tpu_reid_torch.models.layers import _apply_splice_plane, _block_xla_impl
     from tpu_reid_torch.models.maple_prompts import maple_prompt_stacks
     from tpu_reid_torch.ops import fused_attention as FA
     from tpu_reid_torch.train.optim import paths
@@ -3694,8 +3692,8 @@ def maple_plane_gradients(dev, maple):
                 out = FA.fused_block_autograd(x, *w, heads, None, prompt_plane=plane,
                                               prompt_mask=pm)
             else:
-                out = _block_xla_impl(FA._block_params(w), _apply_splice_plane(x, plane, pm),
-                                      heads, None)
+                out = FA._block_xla_impl(FA._block_params(w), FA.splice_plane(x, plane, pm),
+                                         heads, None)
             grads[impl] = torch.autograd.grad(out, [leaves[k] for k in reached], g)
         for k, gk, gp in zip(reached, grads["kernel"], grads["plain"]):
             _, rel = rel_err(gk, gp)
@@ -3720,7 +3718,7 @@ def variants_phase(dev, counters, bs=64, batch=512):
     Returns ({path: launches}, {name: number})."""
     from tpu_reid_torch.data.transforms import DevicePreprocess
     from tpu_reid_torch.models import reid_clip as M
-    from tpu_reid_torch.models.layers import kernel_impl
+    from tpu_reid_torch.ops._build import kernel_impl
     from tpu_reid_torch.ops import fused_attention as FA
     from tpu_reid_torch.ops.attention import set_fast_softmax
     from tpu_reid_torch.parallel.extract import make_extractor
@@ -5176,7 +5174,7 @@ def tools_phase(dev, counters):
     from tpu_reid_torch import native
     from tpu_reid_torch.data.datasets import get_dataset
     from tpu_reid_torch.data.loader import BatchLoader
-    from tpu_reid_torch.models import layers as L
+    from tpu_reid_torch.ops._build import kernel_impl
     from tpu_reid_torch.tools import parity_run
 
     runs, numbers = {}, {}
@@ -5200,7 +5198,7 @@ def tools_phase(dev, counters):
     got = fn(params, example)
     torch.cuda.synchronize()
     runs["entry"] = launched(counters)
-    with L.kernel_impl("plain"):  # the same eval_embed through the plain block and tail
+    with kernel_impl("plain"):  # the same eval_embed through the plain block and tail
         want = fn(params, example)
     err, rel = rel_err(got, want)
     ok = got.shape == want.shape and got.shape[0] == 8 and rel <= TOL[torch.bfloat16]

@@ -13,6 +13,7 @@ from tpu_reid.models import layers as JL
 from tpu_reid.ops import attention as JA
 from tpu_reid.ops import fused_attention as JFA
 from tpu_reid_torch.models import layers as TL
+from tpu_reid_torch.ops._build import kernel_impl
 from tpu_reid_torch.ops import attention as TA
 from tpu_reid_torch.ops import fused_attention as TFA
 
@@ -80,7 +81,7 @@ def test_fused_mha_reference_matches_pallas_interpret(pre_ln, fast, mask_kind):
              "out_proj": {"w": _t(a["w_out"]), "b": _t(a["b_out"])}}
         x = _t(a["x"])
         h = TL.layer_norm({"scale": _t(ln[0]), "bias": _t(ln[1])}, x) if pre_ln else x
-        with TL.kernel_impl("plain"):
+        with kernel_impl("plain"):
             plain = TL.multi_head_attention(p, h, 4, finite) + (x if pre_ln else 0)
         np.testing.assert_allclose(got.numpy()[:, 2], plain.numpy()[:, 2], atol=ATOL,
                                    rtol=RTOL)
@@ -151,10 +152,10 @@ def test_mha_core_reference_matches_pallas_interpret(causal, s):
     before = TA.mha_core.launches
     assert torch.equal(TA.mha_core(*(_t(t) for t in (q, k, v)), _t(mask)), got)
     assert TA.mha_core.launches == before
-    with TL.kernel_impl("plain"):
+    with kernel_impl("plain"):
         core = TA.attention_core(*(_t(t) for t in (q, k, v)), _t(mask))
     np.testing.assert_allclose(core.numpy(), np.asarray(xla), atol=2e-6, rtol=1e-5)
-    with TL.kernel_impl("kernel"):
+    with kernel_impl("kernel"):
         assert torch.equal(TA.attention_core(*(_t(t) for t in (q, k, v)), _t(mask)), got)
 
 
@@ -217,7 +218,7 @@ def test_multi_head_attention_matches_jax(impl, causal):
     with JL.attention_impl("xla"):
         want = JL.multi_head_attention(jp, jnp.asarray(x), 4,
                                        JL.causal_mask(s) if causal else None)
-    with TL.kernel_impl(impl):
+    with kernel_impl(impl):
         got = TL.multi_head_attention(tp, torch.from_numpy(x), 4,
                                       TL.causal_mask(s) if causal else None)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)

@@ -40,6 +40,7 @@ from portbench.configs import ivlp_clip_reid as RI
 from tpu_reid_torch.configs import PromptDesign, VisionConfig
 from tpu_reid_torch.models import layers as L
 from tpu_reid_torch.models import vit as V
+from tpu_reid_torch.ops._build import kernel_impl
 from tpu_reid_torch.ops import fused_attention as FA
 from tpu_reid_torch.ops import fused_eva as FE
 from tpu_reid_torch.weights.convert import eva02_visual_params
@@ -105,7 +106,7 @@ def _gap(got, want):
 def test_plain_path_equals_the_reference_in_fp32(weights):
     raw, params = weights
     _, x = _images()
-    with torch.no_grad(), L.kernel_impl("plain"):
+    with torch.no_grad(), kernel_impl("plain"):
         got = _embed(params, x)
     want = _reference(raw, x)
     assert got.shape == (3, D + E)
@@ -119,7 +120,7 @@ def test_bf16_paths_lie_near_the_reference(weights, impl):
     raw, params = weights
     _, x = _images()
     plain0 = FE.fused_eva_block.plain
-    with torch.no_grad(), L.kernel_impl(impl):
+    with torch.no_grad(), kernel_impl(impl):
         got = _embed(_to(params, torch.bfloat16), x.bfloat16())
     assert FE.fused_eva_block.plain == plain0  # bf16 blocks take the kernel route
     gap = _gap(got, _reference(raw, x))
@@ -130,10 +131,10 @@ def test_fp32_kernel_route_takes_the_plain_block_and_counts_it(weights):
     _, params = weights
     _, x = _images()
     plain0 = FE.fused_eva_block.plain
-    with torch.no_grad(), L.kernel_impl("kernel"):
+    with torch.no_grad(), kernel_impl("kernel"):
         got = _embed(params, x)
     assert FE.fused_eva_block.plain == plain0 + LAYERS - 1
-    with torch.no_grad(), L.kernel_impl("plain"):
+    with torch.no_grad(), kernel_impl("plain"):
         want = _embed(params, x)
     assert torch.equal(got, want)
 
@@ -176,7 +177,7 @@ def test_rotating_halves_instead_of_pairs_fails(weights, monkeypatch):
         return (t.float() * cos + torch.cat([-x2, x1], dim=-1) * sin).to(t.dtype)
 
     monkeypatch.setattr(FA, "rotate_pairs", halves)
-    with torch.no_grad(), L.kernel_impl("plain"):
+    with torch.no_grad(), kernel_impl("plain"):
         got = _embed(params, x)
     assert float(_gap(got, _reference(raw, x)).min()) > 1e-3
 
@@ -186,7 +187,7 @@ def test_cls_block_is_row_zero_of_the_full_block(weights):
     tail = L.slice_layer(params["blocks"], LAYERS - 1)
     x = torch.randn(2, VCFG.seq_len, D)
     kw = dict(rope=V.rope_table(VCFG, "cpu"), eps=1e-6, f_real=F)
-    with torch.no_grad(), L.kernel_impl("plain"):
+    with torch.no_grad(), kernel_impl("plain"):
         full = L.eva_block(tail, x, HEADS, **kw)
         cls = L.eva_block_cls(tail, x, HEADS, **kw)
     assert cls.shape == (2, 1, D)
@@ -214,7 +215,7 @@ def test_block_function_in_fp32_equals_autograd_through_the_plain_block(weights)
     16 tensors."""
     _, params = weights
     ws = [t.detach().clone().requires_grad_()
-          for t in L._eva_tensors(L.slice_layer(params["blocks"], 1), torch.float32)]
+          for t in FE._eva_tensors(L.slice_layer(params["blocks"], 1), torch.float32)]
     gen = torch.Generator().manual_seed(11)
     s = VCFG.seq_len
     x = torch.randn(2, s, D, generator=gen).requires_grad_()
@@ -226,8 +227,8 @@ def test_block_function_in_fp32_equals_autograd_through_the_plain_block(weights)
     leaves = [x, plane, *ws]
     got = FE._EvaBlockFn.apply(x, plane, pmask, rope, HEADS, F, 1e-6, False, *ws)
     got_g = torch.autograd.grad(got, leaves, cot)
-    want = L._eva_block_xla_impl(L.eva_block_params(ws), L._apply_splice_plane(x, plane, pmask),
-                                 HEADS, rope, 1e-6, F)
+    want = FE._eva_block_xla_impl(FE.eva_block_params(ws), FA.splice_plane(x, plane, pmask),
+                                  HEADS, rope, 1e-6, F)
     want_g = torch.autograd.grad(want, leaves, cot)
     assert float(_gap(got.detach().flatten(1), want.detach().flatten(1)).max()) < 1e-5
     assert len(got_g) == 2 + FE.N_TENSORS
@@ -302,7 +303,7 @@ def test_stage2_loss_and_gradients_through_the_block_function(weights, monkeypat
     mcfg = M.ReidModelConfig(mode="ivlp", clip=clip,
                              prompt=P.PromptLearnerConfig(cfg["n_cls"], n_prefix=5, n_cls_ctx=4))
     plain0 = FE.fused_eva_block.plain
-    with L.kernel_impl("kernel"):
+    with kernel_impl("kernel"):
         got, _ = TR.stage2_loss(mcfg, TR.TrainConfig(), params, x.bfloat16(), labels, text)
     assert FE.fused_eva_block.plain == plain0
     got_g = torch.autograd.grad(got, [leaves[k] for k in names])

@@ -283,10 +283,10 @@ def test_existing_modes_bit_equal_to_the_parent(cuda):
 
 def test_eval_embed_runs_every_full_block_on_the_kernels(cuda):
     from tpu_reid_torch.configs import eva02_l14_reid
-    from tpu_reid_torch.models import layers as L
     from tpu_reid_torch.models import prompts as P
     from tpu_reid_torch.models import reid_clip as M
     from tpu_reid_torch.ops import fused_eva as FE
+    from tpu_reid_torch.ops._build import kernel_impl
     from tpu_reid_torch.weights.convert import eva02_visual_params
 
     clip = eva02_l14_reid((256, 256), _design())
@@ -323,7 +323,7 @@ def test_eval_embed_runs_every_full_block_on_the_kernels(cuda):
         k0, p0 = FE.fused_eva_block.launches, FE.fused_eva_block.plain
         got = M.eval_embed(params, mcfg, images)
         assert (FE.fused_eva_block.launches - k0, FE.fused_eva_block.plain - p0) == (23, 0)
-        with L.kernel_impl("plain"):
+        with kernel_impl("plain"):
             want = M.eval_embed(params, mcfg, images)
     assert got.shape == (8, 1024 + 768)
     gap = (got.float() - want.float()).norm(dim=1) / want.float().norm(dim=1)

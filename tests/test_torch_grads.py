@@ -16,6 +16,7 @@ import torch
 from tpu_reid.models import layers as JL
 from tpu_reid.ops import fused_tail as JFT
 from tpu_reid_torch.models import layers as TL
+from tpu_reid_torch.ops._build import kernel_impl
 from tpu_reid_torch.ops import attention as TA
 from tpu_reid_torch.ops import fused_attention as TFA
 from tpu_reid_torch.ops import fused_tail as TFT
@@ -75,7 +76,7 @@ def test_block_function_matches_jax_vjp(splice, causal):
     tx = torch.from_numpy(x).requires_grad_()
     tplane = torch.from_numpy(plane).requires_grad_()
     kw = dict(prompt_plane=tplane, prompt_mask=torch.from_numpy(pmask)) if splice else {}
-    with TL.kernel_impl("kernel"):
+    with kernel_impl("kernel"):
         out = TL.residual_block(tp, tx, HEADS, TL.causal_mask(s) if causal else None, **kw)
     assert type(out.grad_fn).__name__ == "_FusedBlockFnBackward"
     _rel_close(out, want)
@@ -104,7 +105,7 @@ def test_block_function_bf16_grads_reach_the_fp32_master_weights():
     for impl in ("kernel", "plain"):
         tp = _torch_tree(p)
         xi = x.clone().requires_grad_()
-        with TL.kernel_impl(impl):
+        with kernel_impl(impl):
             out = TL.residual_block(tp, xi, HEADS)
         leaves = [t for _, t in paths(tp)]
         grads[impl] = torch.autograd.grad(out, [xi] + leaves, g)
@@ -148,8 +149,8 @@ def test_block_backward_chain_matches_autograd(rows, splice, causal):
     if splice:
         ps = plane.clone().requires_grad_()
         inputs.append(ps)
-        xin = TL._apply_splice_plane(xs, ps, pmask)
-    out = TL._block_xla_impl(TFA._block_params(ws), xin, HEADS, mask)
+        xin = TFA.splice_plane(xs, ps, pmask)
+    out = TFA._block_xla_impl(TFA._block_params(ws), xin, HEADS, mask)
     want = torch.autograd.grad(out, inputs, g)
     got = [dx, *dws] + ([dplane] if splice else [])
     assert len(got) == len(want) == 13 + splice
@@ -184,7 +185,7 @@ def test_block_backward_counters_route_by_dtype():
         before = (fb.launches, fb.plain)
         tp = _torch_tree(p)
         xi = x.to(dtype).requires_grad_()
-        with TL.kernel_impl("kernel"):
+        with kernel_impl("kernel"):
             out = TL.residual_block(tp, xi, HEADS)
         out.float().sum().backward()
         assert (fb.launches - before[0], fb.plain - before[1]) == (0, plain)
@@ -201,7 +202,7 @@ def test_tail_function_matches_jax_vjp():
     (wy, wp), vjp = jax.vjp(JFT._tail_xla, *(jnp.asarray(a) for a in (x, s, bb, proj)))
     want = vjp((jnp.asarray(gy), jnp.asarray(gp)))
     ins = [torch.from_numpy(a).requires_grad_() for a in (x, s, bb, proj)]
-    with TL.kernel_impl("kernel"):
+    with kernel_impl("kernel"):
         y, pr = TFT.ln_proj_tail(ins[0], {"scale": ins[1], "bias": ins[2]}, ins[3])
     assert type(y.grad_fn).__name__ == "_TailFnBackward"
     _rel_close(y, wy)

@@ -278,8 +278,6 @@ def test_block_backward_outside_the_domain_counts_a_fallback():
     """A block whose width leaves the kernels' domain takes the plain block's
     recompute, counted in `fused_block_backward.plain`, with the gradients
     of plain autograd."""
-    from tpu_reid_torch.models import layers as TL
-
     gen = torch.Generator().manual_seed(3)
     d, hid, heads = 48, 192, 4
     w = [1 + 0.1 * torch.randn(d, generator=gen), 0.1 * torch.randn(d, generator=gen),
@@ -295,7 +293,7 @@ def test_block_backward_outside_the_domain_counts_a_fallback():
     got = torch.autograd.grad(out.sum(), [x, *w])
     assert (FA.fused_block_backward.launches, FA.fused_block_backward.plain) == (
         before[0], before[1] + 1)
-    want = torch.autograd.grad(TL._block_xla_impl(FA._block_params(w), x, heads, None).sum(),
+    want = torch.autograd.grad(FA._block_xla_impl(FA._block_params(w), x, heads, None).sum(),
                                [x, *w])
     for a, b in zip(got, want):
         assert torch.equal(a, b)

@@ -1,7 +1,9 @@
 """tpu_reid_torch.models.layers against tpu_reid.models.layers (XLA path),
 on the same numpy parameters and inputs, fp32."""
 
+import ast
 import contextlib
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -10,7 +12,9 @@ import pytest
 import torch
 
 from tpu_reid.models import layers as JL
+import tpu_reid_torch
 from tpu_reid_torch.models import layers as TL
+from tpu_reid_torch.ops._build import kernel_impl, set_kernel_impl, use_kernels
 
 ATOL = 2e-4  # tests/test_convert.py's full-tower tolerance
 D, HID, HEADS = 64, 256, 4
@@ -74,7 +78,7 @@ def test_residual_block_matches_jax(impl, causal):
     tmask = TL.causal_mask(s) if causal else None
     with JL.attention_impl("xla"):
         want = JL.residual_block(_j(p), jnp.asarray(x), HEADS, jmask)
-    with TL.kernel_impl(impl):
+    with kernel_impl(impl):
         got = TL.residual_block(_t(p), torch.from_numpy(x), HEADS, tmask)
     _close(got, want)
 
@@ -125,7 +129,7 @@ def test_transformer_stack_matches_jax(impl, text_side, deep):
             None if dp is None else jnp.asarray(dp),
             None if flags is None else jnp.asarray(flags), text_side,
         )
-    with TL.kernel_impl(impl):
+    with kernel_impl(impl):
         got = TL.transformer_stack(
             _t(stacked), torch.from_numpy(x), HEADS, tmask,
             None if dp is None else torch.from_numpy(dp),
@@ -136,18 +140,53 @@ def test_transformer_stack_matches_jax(impl, text_side, deep):
 
 def test_kernel_impl_is_scoped():
     x = torch.zeros(1)
-    assert TL.use_kernels(x) is False  # "auto": a CPU tensor takes the plain block
-    with TL.kernel_impl("kernel"):
-        assert TL.use_kernels(x) is True
-        with TL.kernel_impl("plain"):
-            assert TL.use_kernels(x) is False
-        assert TL.use_kernels(x) is True
-    assert TL.use_kernels(x) is False
+    assert use_kernels(x) is False  # "auto": a CPU tensor takes the plain block
+    with kernel_impl("kernel"):
+        assert use_kernels(x) is True
+        with kernel_impl("plain"):
+            assert use_kernels(x) is False
+        assert use_kernels(x) is True
+    assert use_kernels(x) is False
     with pytest.raises(ValueError):
-        TL.set_kernel_impl("pallas")
-    with contextlib.suppress(RuntimeError), TL.kernel_impl("plain"):
+        set_kernel_impl("pallas")
+    with contextlib.suppress(RuntimeError), kernel_impl("plain"):
         raise RuntimeError
-    assert TL.use_kernels(x) is False
+    assert use_kernels(x) is False
+
+
+def _imported_modules(path: Path, package: str):
+    """Every module an `import` or `from ... import` in the file names, at
+    any depth (inside functions too), relative imports resolved against
+    `package`, the file's own package."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package.split(".")
+            base = base[:len(base) - node.level + 1] if node.level else []
+            yield ".".join(base + ([node.module] if node.module else []))
+
+
+def test_ops_never_import_models_and_the_kernel_policy_is_defined_once():
+    """The layers point one way, models -> ops: no module of ops/ imports
+    tpu_reid_torch.models, at module level or inside a function. And the
+    kernel-or-plain policy has one home: `use_kernels`, `set_kernel_impl`
+    and `kernel_impl` are each defined once in the package, in
+    ops/_build.py."""
+    root = Path(tpu_reid_torch.__file__).parent
+    ops_files = sorted((root / "ops").glob("*.py"))
+    assert len(ops_files) >= 6
+    upward = [(f.name, m) for f in ops_files
+              for m in _imported_modules(f, "tpu_reid_torch.ops")
+              if m == "tpu_reid_torch.models" or m.startswith("tpu_reid_torch.models.")]
+    assert upward == []
+    defined = {}
+    for f in sorted(root.rglob("*.py")):
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                defined.setdefault(node.name, []).append(f.relative_to(root).as_posix())
+    for name in ("use_kernels", "set_kernel_impl", "kernel_impl"):
+        assert defined.get(name) == ["ops/_build.py"], (name, defined.get(name))
 
 
 def test_slice_layer():

@@ -29,9 +29,9 @@ from tpu_reid_torch.cli import prompt_learning as TPCLI
 from tpu_reid_torch.cli import zero_shot as TCLI
 from tpu_reid_torch.data import datasets as TD
 from tpu_reid_torch.data.transforms import DevicePreprocess
-from tpu_reid_torch.models import layers as TL
 from tpu_reid_torch.models import vit as TV
 from tpu_reid_torch.models.tokenizer import write_test_merges
+from tpu_reid_torch.ops._build import kernel_impl
 from tpu_reid_torch.ops import attention as TA
 from tpu_reid_torch.ops import fused_attention as TFA
 from tpu_reid_torch.parallel import extract as TX
@@ -195,7 +195,7 @@ def test_extraction_at_the_vehicle_geometry_matches_jax(clip, impl):
                                  fold=jfold)
         want = np.asarray(jext(jp, jnp.asarray(images)))
     tfold = lambda p: dict(p, visual=TV.fold_visual_input_norm(p["visual"]))  # noqa: E731
-    with TL.kernel_impl(impl):
+    with kernel_impl(impl):
         text = TX.make_extractor(TZ.make_zeroshot_embed(clip["tp"], clip["tcfg"]),
                                  DevicePreprocess(HW, "vit", dtype=torch.float32),
                                  dtype=torch.float32, fold=tfold, device="cpu")

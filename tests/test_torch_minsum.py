@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from tpu_reid.ops import minsum as JM
-from tpu_reid_torch.models import layers as TL
+from tpu_reid_torch.ops._build import kernel_impl
 from tpu_reid_torch.ops import minsum as TM
 from tpu_reid_torch.retrieval import rerank_stream as TS
 
@@ -121,7 +121,7 @@ def test_minsum_dispatch_takes_the_plain_version_on_the_cpu(impl):
     aq, asc, bq, bsc = _operands(6, 5, 7, 40, "fp32")
     args = tuple(map(torch.from_numpy, (aq, asc, bq, bsc)))
     before = TM.minsum_kernel.launches
-    with TL.kernel_impl(impl):
+    with kernel_impl(impl):
         got = TM.minsum(*args)
     assert TM.minsum_kernel.launches == before  # nothing launched on the host
     torch.testing.assert_close(got, TM.minsum_reference(*args))

@@ -13,6 +13,7 @@ from tpu_reid.ops import attention as JA
 from tpu_reid.ops import fused_attention as JFA
 from tpu_reid.ops import fused_tail as JFT
 from tpu_reid_torch.models import layers as TL
+from tpu_reid_torch.ops._build import kernel_impl
 from tpu_reid_torch.ops import attention as TA
 from tpu_reid_torch.ops import fused_attention as TFA
 from tpu_reid_torch.ops import fused_tail as TFT
@@ -186,7 +187,7 @@ def test_ln_proj_tail_dispatch_follows_kernel_impl():
     proj = torch.from_numpy(rng.randn(16, 8).astype(np.float32))
     want = TFT.ln_proj_tail_reference(x, ln["scale"], ln["bias"], proj)
     for impl in ("auto", "kernel", "plain"):
-        with TL.kernel_impl(impl):
+        with kernel_impl(impl):
             got = TFT.ln_proj_tail(x, ln, proj)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
 

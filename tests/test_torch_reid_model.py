@@ -24,9 +24,9 @@ from tpu_reid.train import optim as JO
 from tpu_reid.weights import convert as JW
 from tpu_reid_torch.configs import PromptDesign
 from tpu_reid_torch.models import heads as TH
-from tpu_reid_torch.models import layers as TL
 from tpu_reid_torch.models import prompts as TP
 from tpu_reid_torch.models import reid_clip as TM
+from tpu_reid_torch.ops._build import kernel_impl
 from tpu_reid_torch.train import optim as TO
 from tpu_reid_torch.weights import convert as TW
 
@@ -97,7 +97,7 @@ def test_eval_embed_and_image_features_match_jax(models, impl):
     mode, jcfg, jp, tcfg, tp = models
     x = _images(1)
     want = JM.eval_embed(jp, jcfg, jnp.asarray(x))
-    with TL.kernel_impl(impl):
+    with kernel_impl(impl):
         got = TM.eval_embed(tp, tcfg, torch.from_numpy(x))
     assert tuple(got.shape) == (4, 64 + 32)
     _close(got, want)

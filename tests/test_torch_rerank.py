@@ -18,7 +18,7 @@ from tpu_reid.parallel.mesh import make_mesh
 from tpu_reid.retrieval import metrics as JM
 from tpu_reid.retrieval import rerank as JR
 from tpu_reid.retrieval import rerank_stream as JS
-from tpu_reid_torch.models import layers as TL
+from tpu_reid_torch.ops._build import kernel_impl
 from tpu_reid_torch.pipelines import zero_shot as TZ
 from tpu_reid_torch.retrieval import metrics as TM
 from tpu_reid_torch.retrieval import rerank as TR
@@ -74,7 +74,7 @@ def test_exact_rerank_matches_jax_and_golden(k1, k2):
 def test_exact_rerank_blocks_and_kernel_impl_do_not_change_the_result():
     qf, gf, _, _ = _workload(seed=9, nq=21, ng=70)
     a = TR.k_reciprocal_rerank(*_t(qf, gf), k1=12, k2=4, row_block=8)
-    with TL.kernel_impl("kernel"):  # the kernel wrapper takes its plain version here
+    with kernel_impl("kernel"):  # the kernel wrapper takes its plain version here
         b = TR.k_reciprocal_rerank(*_t(qf, gf), k1=12, k2=4, row_block=128)
     torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
 

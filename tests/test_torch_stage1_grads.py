@@ -23,8 +23,8 @@ from tests.test_torch_reid_model import tiny_models
 from tpu_reid.models import reid_clip as JM
 from tpu_reid.train import optim as JO
 from tpu_reid.train import trainer as JTR
-from tpu_reid_torch.models import layers as TL
 from tpu_reid_torch.models import reid_clip as TM
+from tpu_reid_torch.ops._build import kernel_impl
 from tpu_reid_torch.train import optim as TO
 from tpu_reid_torch.train import trainer as TTR
 
@@ -55,7 +55,7 @@ def port_grads(tp, predicate, loss_fn, impl):
     tt, tf = TO.partition(tp, predicate)
     tt = TTR._trainable_copy(tt)
     named = [(path, t) for path, t in TO.paths(tt) if t is not None]
-    with TL.kernel_impl(impl):
+    with kernel_impl(impl):
         loss = loss_fn(TO.combine(tt, tf))
         grads = torch.autograd.grad(loss, [t for _, t in named])
     return float(loss.detach()), {path: g for (path, _), g in zip(named, grads)}

@@ -34,6 +34,7 @@ from tpu_reid_torch.models import maple_prompts as TMP
 from tpu_reid_torch.models import prompts as TP
 from tpu_reid_torch.models import reid_clip as TM
 from tpu_reid_torch.models import vit as TV
+from tpu_reid_torch.ops._build import kernel_impl
 from tpu_reid_torch.train import optim as TO
 from tpu_reid_torch.weights import convert as TW
 
@@ -145,7 +146,7 @@ def test_eval_embed_matches_jax(models, impl):
     x = _images(1)
     jcv, tcv = _cv(tcfg, 4)
     want = JM.eval_embed(jp, jcfg, jnp.asarray(x), cv_ids=jcv)
-    with TL.kernel_impl(impl):
+    with kernel_impl(impl):
         got = TM.eval_embed(tp, tcfg, torch.from_numpy(x), cv_ids=tcv)
     assert tuple(got.shape) == (4, 64 + 32 + (64 if tcfg.use_jpm else 0))
     _close(got, want)
@@ -230,7 +231,7 @@ def test_apply_jpm_matches_jax():
     x = np.random.RandomState(7).randn(3, tcfg.clip.vision.seq_len, 64).astype(np.float32)
     want = JV.apply_jpm(jp["jpm"], jcfg.clip.vision, jnp.asarray(x))
     for impl in ("plain", "kernel"):
-        with TL.kernel_impl(impl):
+        with kernel_impl(impl):
             got = TV.apply_jpm(tp["jpm"], tcfg.clip.vision, torch.from_numpy(x))
         _close(got, want)
 
@@ -300,7 +301,7 @@ def test_block_function_carries_the_gradient_of_a_computed_prompt_plane():
         leaves = [t.requires_grad_() for _, t in TO.paths(tree)]
         assert len(leaves) == 4
         params = dict(tp, maple=tree)
-        with TL.kernel_impl(impl):
+        with kernel_impl(impl):
             img = TM.encode_image_features(params, tcfg, x)["proj"]
             txt = TM.encode_text_features(params, tcfg, labels)
             loss = (img @ txt.T).square().sum()

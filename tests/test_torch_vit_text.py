@@ -17,9 +17,9 @@ from tpu_reid.models import vit as JV
 from tpu_reid.weights import convert as JW
 from tpu_reid_torch.configs import PromptDesign
 from tpu_reid_torch.models import clip_model as TC
-from tpu_reid_torch.models import layers as TL
 from tpu_reid_torch.models import text as TT
 from tpu_reid_torch.models import vit as TV
+from tpu_reid_torch.ops._build import kernel_impl
 from tpu_reid_torch.weights import convert as TW
 
 ATOL = 2e-4  # tests/test_convert.py's full-tower tolerance
@@ -57,7 +57,7 @@ def test_apply_vit_matches_jax(models, impl, cls_only):
     img = _images(1)
     with JL.attention_impl("xla"):
         want = JV.apply_vit(jp["visual"], jcfg.vision, jnp.asarray(img), cls_only=cls_only)
-    with TL.kernel_impl(impl):
+    with kernel_impl(impl):
         got = TV.apply_vit(tp["visual"], tcfg.vision, torch.from_numpy(img),
                            cls_only=cls_only)
     assert len(got) == 3
@@ -82,7 +82,7 @@ def test_apply_vit_deep_prompts_and_cv_emb(models, impl):
         want = JV.apply_vit(jp["visual"], cfg, jnp.asarray(img), deep_prompts=jnp.asarray(deep),
                             shallow_prompt=jnp.asarray(shallow), cv_emb=jnp.asarray(cv),
                             cls_only=True)
-    with TL.kernel_impl(impl):
+    with kernel_impl(impl):
         got = TV.apply_vit(tp["visual"], tcfg.vision, torch.from_numpy(img),
                            deep_prompts=torch.from_numpy(deep),
                            shallow_prompt=torch.from_numpy(shallow),
@@ -119,7 +119,7 @@ def test_encode_text_tokens_matches_jax(models, impl):
         tokens[i, 1:n] = rng.randint(1, 97, n - 1)
         tokens[i, n] = 99  # EOT: the largest id
     want = JC.encode_text(jp, jcfg, jnp.asarray(tokens))
-    with TL.kernel_impl(impl):
+    with kernel_impl(impl):
         got = TC.encode_text(tp, tcfg, torch.from_numpy(tokens))
     assert tuple(got.shape) == (3, 24)
     _close(got, want)
@@ -138,7 +138,7 @@ def test_encode_text_embeddings_deep_prompts(models, impl):
     with JL.attention_impl("xla"):
         want = JT.encode_text_embeddings(jp["text"], cfg, jnp.asarray(emb), jnp.asarray(eot),
                                          deep_prompts=jnp.asarray(deep))
-    with TL.kernel_impl(impl):
+    with kernel_impl(impl):
         got = TT.encode_text_embeddings(tp["text"], tcfg.text, torch.from_numpy(emb),
                                         torch.from_numpy(eot),
                                         deep_prompts=torch.from_numpy(deep))

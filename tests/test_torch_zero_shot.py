@@ -23,9 +23,9 @@ from tpu_reid.parallel import extract as JX
 from tpu_reid.pipelines import zero_shot as JZ
 from tpu_reid.weights import convert as JW
 from tpu_reid_torch.data.transforms import DevicePreprocess
-from tpu_reid_torch.models import layers as TL
 from tpu_reid_torch.models import tokenizer as TTok
 from tpu_reid_torch.models import vit as TV
+from tpu_reid_torch.ops._build import kernel_impl
 from tpu_reid_torch.parallel import extract as TX
 from tpu_reid_torch.pipelines import zero_shot as TZ
 from tpu_reid_torch.weights import convert as TW
@@ -61,7 +61,7 @@ def test_zeroshot_classifier_matches_jax(setup, augmented, impl):
     templates = s["aug"] if augmented else s["simple"]
     want = JZ.zeroshot_classifier(s["jp"], s["jcfg"], s["jtok"], s["ids"], templates,
                                   augmented=augmented, batch=4)
-    with TL.kernel_impl(impl):
+    with kernel_impl(impl):
         got = TZ.zeroshot_classifier(s["tp"], s["tcfg"], s["ttok"], s["ids"], templates,
                                      augmented=augmented, batch=4, device="cpu")
     assert tuple(got.shape) == (N_IDS, 24)
@@ -117,7 +117,7 @@ def test_slice_matches_jax(setup, impl):
                                  proj_dim=24, multimodal=True, with_minp=True)
 
     tfold = lambda p: dict(p, visual=TV.fold_visual_input_norm(p["visual"]))  # noqa: E731
-    with TL.kernel_impl(impl):
+    with kernel_impl(impl):
         zs_t = TZ.zeroshot_classifier(s["tp"], s["tcfg"], s["ttok"], s["ids"], s["aug"],
                                       augmented=True, batch=4, device="cpu")
         text = TX.make_extractor(TZ.make_zeroshot_embed(s["tp"], s["tcfg"]),

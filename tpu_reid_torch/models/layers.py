@@ -4,14 +4,15 @@ Params are nested dicts of tensors with the JAX package's structure and
 layouts: linear weights are (in, out), a stack of blocks carries a leading
 layer axis. Every function is ``f(params, x, ...) -> y``.
 
-Numerical conventions shared with CLIP: LayerNorm statistics in fp32 even
-under bf16 activations, QuickGELU activation, pre-norm residual blocks.
-
-`kernel_impl` selects how a block runs: "auto" (the default) takes the
-hand-written CUDA kernels for CUDA tensors and the plain PyTorch block for
-CPU tensors; "kernel" always goes through the kernel wrappers (which take
-their plain versions on CPU tensors); "plain" always takes the plain block.
-The kernel path always goes through the blocks' autograd Function
+The model-facing blocks live here; the plain math under them (LayerNorm with
+fp32 statistics, `linear`, QuickGELU, the MLP, the splice and the plain
+blocks) lives in ops/fused_attention.py and ops/fused_eva.py, beside the
+kernels it is held against, and is imported here. `ops._build.kernel_impl`
+selects how a block runs: "auto" (the default) takes the hand-written CUDA
+kernels for CUDA tensors and the plain PyTorch block for CPU tensors;
+"kernel" always goes through the kernel wrappers (which take their plain
+versions on CPU tensors); "plain" always takes the plain block. The kernel
+path always goes through the blocks' autograd Function
 (ops/fused_attention.fused_block_autograd): kernels forward; backward a
 recompute of the block, in fp32 with its gradient products on the same
 kernels (the chain written out), in bf16 the plain block under autograd.
@@ -19,74 +20,19 @@ kernels (the chain written out), in bf16 the plain block under autograd.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Sequence
 
 import torch
 
 from tpu_reid_torch.ops import attention as A
+from tpu_reid_torch.ops import fused_attention as FA
+from tpu_reid_torch.ops import fused_eva as FE
+from tpu_reid_torch.ops._build import use_kernels
+from tpu_reid_torch.ops.fused_attention import (  # noqa: F401  (quick_gelu: for the models)
+    layer_norm, linear, mlp, quick_gelu, splice_plane)
+from tpu_reid_torch.ops.fused_eva import _eva_attn_out, _eva_mlp, _qkv_bias
 
 Tensor = torch.Tensor
-
-
-def layer_norm(p: dict, x: Tensor, eps: float = 1e-5) -> Tensor:
-    """LayerNorm with fp32 statistics and fp32 affine, output cast back to
-    the input dtype."""
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    y = y * p["scale"].float() + p["bias"].float()
-    return y.to(x.dtype)
-
-
-def quick_gelu(x: Tensor) -> Tensor:
-    return x * torch.sigmoid(1.702 * x)
-
-
-def linear(p: dict, x: Tensor) -> Tensor:
-    y = x @ p["w"].to(x.dtype)
-    if "b" in p:
-        y = y + p["b"].to(x.dtype)
-    return y
-
-
-def mlp(p: dict, x: Tensor) -> Tensor:
-    return linear(p["c_proj"], quick_gelu(linear(p["c_fc"], x)))
-
-
-_KERNEL_IMPL = "auto"  # "auto" | "kernel" | "plain"
-
-
-def set_kernel_impl(impl: str) -> None:
-    """Select the block implementation:
-      * "kernel" — the hand-written CUDA kernels (ops/fused_attention.py,
-        ops/fused_tail.py); their wrappers take the plain versions on CPU
-        tensors,
-      * "plain" — the plain PyTorch block (the parity path),
-      * "auto" — kernels for CUDA tensors, plain for CPU tensors (default)."""
-    global _KERNEL_IMPL
-    if impl not in ("auto", "kernel", "plain"):
-        raise ValueError(f"kernel impl must be auto, kernel or plain: {impl!r}")
-    _KERNEL_IMPL = impl
-
-
-@contextlib.contextmanager
-def kernel_impl(impl: str):
-    """Scoped `set_kernel_impl`."""
-    global _KERNEL_IMPL
-    prev = _KERNEL_IMPL
-    set_kernel_impl(impl)
-    try:
-        yield
-    finally:
-        _KERNEL_IMPL = prev
-
-
-def use_kernels(x: Tensor) -> bool:
-    if _KERNEL_IMPL == "auto":
-        return x.is_cuda
-    return _KERNEL_IMPL == "kernel"
 
 
 def multi_head_attention(p: dict, x: Tensor, n_heads: int,
@@ -96,39 +42,16 @@ def multi_head_attention(p: dict, x: Tensor, n_heads: int,
     `use_kernels(x)` it runs as `fused_mha` without LN (three launches on CUDA
     tensors), otherwise the plain einsum path with an fp32 softmax."""
     if use_kernels(x):
-        from tpu_reid_torch.ops.fused_attention import fused_mha
-
         dt = x.dtype
-        return fused_mha(x, p["in_proj"]["w"].to(dt), p["in_proj"]["b"].to(dt),
-                         p["out_proj"]["w"].to(dt), p["out_proj"]["b"].to(dt), n_heads, mask,
-                         fast=A.fast_softmax_enabled())
+        return FA.fused_mha(x, p["in_proj"]["w"].to(dt), p["in_proj"]["b"].to(dt),
+                            p["out_proj"]["w"].to(dt), p["out_proj"]["b"].to(dt), n_heads, mask,
+                            fast=A.fast_softmax_enabled())
     b, s, d = x.shape
     dh = d // n_heads
     q, k, v = linear(p["in_proj"], x).split(d, dim=-1)
     out = A.xla_mha_core(q.reshape(b, s, n_heads, dh), k.reshape(b, s, n_heads, dh),
                          v.reshape(b, s, n_heads, dh), mask)
     return linear(p["out_proj"], out.reshape(b, s, d))
-
-
-def _block_xla_impl(p: dict, x: Tensor, n_heads: int,
-                    mask: Optional[Tensor]) -> Tensor:
-    """Plain pre-norm block body (the name keeps the JAX counterpart's)."""
-    b, s, d = x.shape
-    dh = d // n_heads
-    h = layer_norm(p["ln_1"], x)
-    qkv = linear(p["attn"]["in_proj"], h)
-    q, k, v = qkv.split(d, dim=-1)
-    attn = A.xla_mha_core(
-        q.reshape(b, s, n_heads, dh), k.reshape(b, s, n_heads, dh),
-        v.reshape(b, s, n_heads, dh), mask,
-    )
-    x = x + linear(p["attn"]["out_proj"], attn.reshape(b, s, d))
-    return x + mlp(p["mlp"], layer_norm(p["ln_2"], x))
-
-
-def _apply_splice_plane(x: Tensor, plane: Tensor, pmask: Tensor) -> Tensor:
-    """Out-of-kernel prompt splice: rows where pmask > 0 come from plane."""
-    return torch.where(pmask.reshape(1, -1, 1) > 0, plane.to(x.dtype)[None], x)
 
 
 def residual_block(
@@ -152,8 +75,6 @@ def residual_block(
     training). Otherwise the plain block runs after an out-of-kernel
     splice."""
     if use_kernels(x):
-        from tpu_reid_torch.ops import fused_attention as FA
-
         dt = x.dtype
         a, m = p["attn"], p["mlp"]
         tensors = (
@@ -166,9 +87,7 @@ def residual_block(
         )
         return FA.fused_block_autograd(x, *tensors, n_heads, mask, prompt_plane=prompt_plane,
                                        prompt_mask=prompt_mask, fast=A.fast_softmax_enabled())
-    if prompt_plane is not None:
-        x = _apply_splice_plane(x, prompt_plane, prompt_mask)
-    return _block_xla_impl(p, x, n_heads, mask)
+    return FA._block_xla_impl(p, splice_plane(x, prompt_plane, prompt_mask), n_heads, mask)
 
 
 def residual_block_cls(p: dict, x: Tensor, n_heads: int) -> Tensor:
@@ -200,85 +119,9 @@ def residual_block_cls(p: dict, x: Tensor, n_heads: int) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the EVA02 block (EVA-CLIP's EVA02 vision towers)
+# the EVA02 block (EVA-CLIP's EVA02 vision towers; its parameters and plain
+# block: ops/fused_eva.py)
 # ---------------------------------------------------------------------------
-#
-# Parameters of one block, in the kernels' layout: ln_1, ln_2 {scale, bias};
-# attn {in_proj {w (D, 3D), b (3D,) whose key slice is zero and stays zero},
-# ln {scale, bias} (the sub-LN over D), out_proj {w, b}}; mlp {w12 {w (D,
-# 2 F_pad), b}: gate and up packed by 64-column groups (columns 128t .. 128t +
-# 63 gate columns 64t .., the next 64 the matching up columns), ffn_ln {scale,
-# bias} (F_pad,) (the sub-LN over F), w3 {w (F_pad, D), b}}. F_pad is F rounded up to 64; the padding is zero, and the
-# plain block reads only the F real columns, so it gets no gradient.
-
-
-def eva_block_params(w) -> dict:
-    """The 16 positional EVA block tensors (ops/fused_eva.py) as the
-    parameter dict."""
-    return {
-        "ln_1": {"scale": w[0], "bias": w[1]},
-        "attn": {"in_proj": {"w": w[2], "b": w[3]}, "ln": {"scale": w[4], "bias": w[5]},
-                 "out_proj": {"w": w[6], "b": w[7]}},
-        "ln_2": {"scale": w[8], "bias": w[9]},
-        "mlp": {"w12": {"w": w[10], "b": w[11]}, "ffn_ln": {"scale": w[12], "bias": w[13]},
-                "w3": {"w": w[14], "b": w[15]}},
-    }
-
-
-def _eva_tensors(p: dict, dt: torch.dtype) -> tuple:
-    """The parameter dict as the 16 positional tensors, the products' weights
-    and biases in the activations' dtype (LayerNorm parameters as they are)."""
-    a, m = p["attn"], p["mlp"]
-    ln_a, ln_f = a["ln"], m["ffn_ln"]
-    return (p["ln_1"]["scale"], p["ln_1"]["bias"],
-            a["in_proj"]["w"].to(dt), a["in_proj"]["b"].to(dt), ln_a["scale"], ln_a["bias"],
-            a["out_proj"]["w"].to(dt), a["out_proj"]["b"].to(dt),
-            p["ln_2"]["scale"], p["ln_2"]["bias"],
-            m["w12"]["w"].to(dt), m["w12"]["b"].to(dt), ln_f["scale"], ln_f["bias"],
-            m["w3"]["w"].to(dt), m["w3"]["b"].to(dt))
-
-
-def _qkv_bias(b: Tensor, d: int) -> Tensor:
-    """The packed qkv bias with its key slice held at zero (the key
-    projection has no bias): no gradient reaches that slice."""
-    return torch.cat([b[:d], torch.zeros_like(b[d:2 * d]), b[2 * d:]])
-
-
-def _eva_mlp(m: dict, x: Tensor, eps: float, f_real: int) -> Tensor:
-    """SwiGLU over the packed gate | up, the sub-LN over the F real columns,
-    the down projection: (..., D) -> (..., D), without the residual."""
-    gu = linear(m["w12"], x).unflatten(-1, (-1, 2, 64))
-    u = (torch.nn.functional.silu(gu[..., 0, :].float())
-         * gu[..., 1, :].float()).to(x.dtype).flatten(-2)[..., :f_real]
-    ln = m["ffn_ln"]
-    u = layer_norm({"scale": ln["scale"][:f_real], "bias": ln["bias"][:f_real]}, u, eps)
-    w3 = m["w3"]
-    return u @ w3["w"][:f_real].to(x.dtype) + w3["b"].to(x.dtype)
-
-
-def _eva_attn_out(a: dict, out: Tensor, eps: float) -> Tensor:
-    """The attention output's sub-LN, then the output projection."""
-    return linear(a["out_proj"], layer_norm(a["ln"], out, eps))
-
-
-def _eva_block_xla_impl(p: dict, x: Tensor, n_heads: int, rope: Tensor, eps: float,
-                        f_real: int) -> Tensor:
-    """Plain EVA02 block: x + proj(LN_attn(attn(RoPE q, RoPE k, v of
-    LN_1 x))); then x + W_3 LN_ffn(SiLU(W_1 g) * W_2 g), g = LN_2 x. RoPE
-    from a (S, 2, 64) cos / sin table (identity rows where a token is not
-    rotated), in fp32 on the projected q and k."""
-    from tpu_reid_torch.ops.fused_attention import rotate_pairs
-
-    b, s, d = x.shape
-    dh = d // n_heads
-    h = layer_norm(p["ln_1"], x, eps)
-    w_in = p["attn"]["in_proj"]["w"].to(x.dtype)
-    qkv = h @ w_in + _qkv_bias(p["attn"]["in_proj"]["b"], d).to(x.dtype)
-    q, k, v = (t.reshape(b, s, n_heads, dh) for t in qkv.split(d, dim=-1))
-    q, k = rotate_pairs(q, rope), rotate_pairs(k, rope)
-    attn = A.xla_mha_core(q, k, v, None).reshape(b, s, d)
-    x = x + _eva_attn_out(p["attn"], attn, eps)
-    return x + _eva_mlp(p["mlp"], layer_norm(p["ln_2"], x, eps), eps, f_real)
 
 
 def eva_block(p: dict, x: Tensor, n_heads: int, mask: Optional[Tensor] = None,
@@ -294,13 +137,10 @@ def eva_block(p: dict, x: Tensor, n_heads: int, mask: Optional[Tensor] = None,
     if mask is not None:
         raise ValueError("eva_block: the EVA02 vision block takes no attention mask")
     if use_kernels(x):
-        from tpu_reid_torch.ops import fused_eva as FE
-
-        return FE.eva_block_autograd(x, _eva_tensors(p, x.dtype), n_heads, rope, f_real, eps,
+        return FE.eva_block_autograd(x, FE._eva_tensors(p, x.dtype), n_heads, rope, f_real, eps,
                                      prompt_plane, prompt_mask, fast=A.fast_softmax_enabled())
-    if prompt_plane is not None:
-        x = _apply_splice_plane(x, prompt_plane, prompt_mask)
-    return _eva_block_xla_impl(p, x, n_heads, rope, eps, f_real)
+    return FE._eva_block_xla_impl(p, splice_plane(x, prompt_plane, prompt_mask), n_heads, rope,
+                                  eps, f_real)
 
 
 def eva_block_cls(p: dict, x: Tensor, n_heads: int, *, rope: Tensor, eps: float = 1e-6,
@@ -308,8 +148,6 @@ def eva_block_cls(p: dict, x: Tensor, n_heads: int, *, rope: Tensor, eps: float 
     """`residual_block_cls` of the EVA02 block: its output at position 0
     only, (B, 1, D): the CLS query (its table row is the identity: it is not
     rotated) against every token's rotated key. Plain math throughout."""
-    from tpu_reid_torch.ops.fused_attention import rotate_pairs
-
     b, s, d = x.shape
     dh = d // n_heads
     h = layer_norm(p["ln_1"], x, eps)
@@ -320,7 +158,7 @@ def eva_block_cls(p: dict, x: Tensor, n_heads: int, *, rope: Tensor, eps: float 
     q = (h[:, :1] @ wq + bq).reshape(b, 1, n_heads, dh)
     k = (h @ wk + bk).reshape(b, s, n_heads, dh)
     v = (h @ wv + bv).reshape(b, s, n_heads, dh)
-    q, k = rotate_pairs(q, rope[:1]), rotate_pairs(k, rope)
+    q, k = FA.rotate_pairs(q, rope[:1]), FA.rotate_pairs(k, rope)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
     probs = torch.softmax(scores * (dh ** -0.5), dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, 1, d)

@@ -11,10 +11,15 @@ tests import every module on a machine without `nvcc`.
 Every C entry point takes device pointers and the CUDA stream as `void*`
 (ctypes would otherwise pass them as 32-bit ints) and returns
 `cudaGetLastError()`; `check()` raises on anything but 0.
+
+The rules of where a kernel runs live here too: `kernel_impl` (the one policy
+every dispatcher reads, `use_kernels`), `check_forward_only` and
+`require_cuda`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -193,3 +198,37 @@ def require_cuda(dtype: torch.dtype, device: torch.device,
             raise ValueError(f"{name} must be contiguous")
         if t.dtype != dtype:
             raise TypeError(f"{name} is {t.dtype}, expected {dtype}")
+
+
+_KERNEL_IMPL = "auto"  # "auto" | "kernel" | "plain"
+
+
+def set_kernel_impl(impl: str) -> None:
+    """Select how blocks, the tail, the attention core and minsum run:
+      * "kernel" — the hand-written CUDA kernels; their wrappers take the
+        plain versions on CPU tensors,
+      * "plain" — the plain PyTorch versions (the parity path),
+      * "auto" — kernels for CUDA tensors, plain for CPU tensors (default)."""
+    global _KERNEL_IMPL
+    if impl not in ("auto", "kernel", "plain"):
+        raise ValueError(f"kernel impl must be auto, kernel or plain: {impl!r}")
+    _KERNEL_IMPL = impl
+
+
+@contextlib.contextmanager
+def kernel_impl(impl: str):
+    """Scoped `set_kernel_impl`."""
+    global _KERNEL_IMPL
+    prev = _KERNEL_IMPL
+    set_kernel_impl(impl)
+    try:
+        yield
+    finally:
+        _KERNEL_IMPL = prev
+
+
+def use_kernels(x: torch.Tensor) -> bool:
+    """Whether the kernel path takes x, as `kernel_impl` selects."""
+    if _KERNEL_IMPL == "auto":
+        return x.is_cuda
+    return _KERNEL_IMPL == "kernel"

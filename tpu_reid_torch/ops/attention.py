@@ -369,10 +369,8 @@ mha_core_backward.launches = 0
 
 def attention_core(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor] = None) -> Tensor:
     """Dispatch, as the JAX package's: the `mha_core` kernel where
-    `layers.kernel_impl` selects kernels (CUDA tensors under "auto"), the
+    `_build.kernel_impl` selects kernels (CUDA tensors under "auto"), the
     plain `xla_mha_core` elsewhere."""
-    from tpu_reid_torch.models.layers import use_kernels
-
-    if use_kernels(q):
+    if _build.use_kernels(q):
         return mha_core(q, k, v, mask)
     return xla_mha_core(q, k, v, mask)

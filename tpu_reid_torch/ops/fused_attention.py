@@ -79,7 +79,7 @@ from typing import Optional
 import torch
 
 from tpu_reid_torch.ops import _build
-from tpu_reid_torch.ops.attention import HEAD_DIM, mha_core, softmax_attention
+from tpu_reid_torch.ops.attention import HEAD_DIM, mha_core, softmax_attention, xla_mha_core
 
 LN_MAX_WIDTH = 1024  # ln_gemm keeps LayerNorm's gamma/beta and a row in fast memory
 
@@ -87,25 +87,45 @@ Tensor = torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# shared helpers
+# shared helpers: the plain math of the blocks (CLIP's conventions: LayerNorm
+# statistics in fp32 even under bf16 activations, QuickGELU), over parameter
+# dicts with the JAX package's layouts (linear weights (in, out))
 # ---------------------------------------------------------------------------
 
 
-def _splice(x: Tensor, plane: Optional[Tensor], pmask: Optional[Tensor]) -> Tensor:
-    """Rows s of every sequence where pmask[s] > 0 come from plane[s]."""
+def splice_plane(x: Tensor, plane: Optional[Tensor], pmask: Optional[Tensor]) -> Tensor:
+    """The out-of-kernel deep-prompt splice: rows s of every sequence where
+    pmask[s] > 0 come from plane[s]; plane None: x as it is."""
     if plane is None:
         return x
     keep = pmask.reshape(1, -1, 1) > 0
     return torch.where(keep, plane.to(x.dtype)[None], x)
 
 
-def _layer_norm_f32(x: Tensor, scale: Tensor, bias: Tensor, eps: float = 1e-5) -> Tensor:
-    """fp32 statistics and fp32 affine, cast back to x.dtype."""
+def layer_norm(p: dict, x: Tensor, eps: float = 1e-5) -> Tensor:
+    """LayerNorm with fp32 statistics and fp32 affine (p: scale, bias),
+    output cast back to the input dtype."""
     x32 = x.float()
     mean = x32.mean(dim=-1, keepdim=True)
     var = (x32 - mean).square().mean(dim=-1, keepdim=True)
     y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * scale.float() + bias.float()).to(x.dtype)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def quick_gelu(x: Tensor) -> Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+def linear(p: dict, x: Tensor) -> Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def mlp(p: dict, x: Tensor) -> Tensor:
+    return linear(p["c_proj"], quick_gelu(linear(p["c_fc"], x)))
 
 
 def _splice_args(plane: Optional[Tensor], pmask: Optional[Tensor], s: int, width: int,
@@ -221,10 +241,10 @@ def ln_gemm_reference(x: Tensor, ln_scale: Optional[Tensor], ln_bias: Optional[T
             raise ValueError("ln_gemm: the deep-prompt splice needs the LayerNorm prologue")
         h = x
     else:
-        h = _layer_norm_f32(_splice(x, plane, pmask), ln_scale, ln_bias, eps)
+        h = layer_norm({"scale": ln_scale, "bias": ln_bias}, splice_plane(x, plane, pmask), eps)
     acc = h.float() @ w.float() + b.float()
     if gelu:
-        acc = acc * torch.sigmoid(1.702 * acc)
+        acc = quick_gelu(acc)
     if swiglu:
         acc = _swiglu_packed(acc)
     if rope is not None and rope_cols:
@@ -328,10 +348,10 @@ def gemm_bias_residual_reference(a: Tensor, w: Tensor, b: Tensor,
     """[LN(a)] @ w + b [+ splice(residual)] in fp32 (the LN output cast to
     a.dtype first), then the cast."""
     if ln_scale is not None:
-        a = _layer_norm_f32(a, ln_scale, ln_bias, eps)
+        a = layer_norm({"scale": ln_scale, "bias": ln_bias}, a, eps)
     acc = a.float() @ w.float() + b.float()
     if residual is not None:
-        acc = acc + _splice(residual, plane, pmask).float()
+        acc = acc + splice_plane(residual, plane, pmask).float()
     elif plane is not None:
         raise ValueError("gemm_bias_residual: the deep-prompt splice needs a residual")
     return acc.to(a.dtype)
@@ -401,7 +421,7 @@ def ln_rows_reference(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, n_real: int,
                       pmask: Optional[Tensor] = None) -> Tensor:
     """LN over the last axis of splice(x) with the statistics of its first
     n_real columns, the fp32 affine over all of them, cast back to x.dtype."""
-    x32 = _splice(x, plane, pmask).float()
+    x32 = splice_plane(x, plane, pmask).float()
     real = x32[..., :n_real]
     mean = real.mean(dim=-1, keepdim=True)
     var = (real - mean).square().mean(dim=-1, keepdim=True)
@@ -540,6 +560,24 @@ def fused_mlp(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, w_fc: Tensor, b_fc: 
 fused_mlp.launches = 0
 
 
+def _block_xla_impl(p: dict, x: Tensor, n_heads: int,
+                    mask: Optional[Tensor]) -> Tensor:
+    """Plain pre-norm block body (the name keeps the JAX counterpart's):
+    x + attn(ln1 x); x + mlp(ln2 x), the attention `xla_mha_core`. The
+    parity path, and the recompute that bf16 blocks differentiate."""
+    b, s, d = x.shape
+    dh = d // n_heads
+    h = layer_norm(p["ln_1"], x)
+    qkv = linear(p["attn"]["in_proj"], h)
+    q, k, v = qkv.split(d, dim=-1)
+    attn = xla_mha_core(
+        q.reshape(b, s, n_heads, dh), k.reshape(b, s, n_heads, dh),
+        v.reshape(b, s, n_heads, dh), mask,
+    )
+    x = x + linear(p["attn"]["out_proj"], attn.reshape(b, s, d))
+    return x + mlp(p["mlp"], layer_norm(p["ln_2"], x))
+
+
 def fused_block_reference(
     x: Tensor, ln1_scale: Tensor, ln1_bias: Tensor, w_in: Tensor, b_in: Tensor,
     w_out: Tensor, b_out: Tensor, ln2_scale: Tensor, ln2_bias: Tensor,
@@ -646,8 +684,6 @@ def gemm_dgrad(dy: Tensor, w: Tensor, h: Optional[Tensor] = None,
         raise ValueError("gemm_dgrad: the activation needs its pre-activation h")
     if dy.device.type == "cpu":
         if act is not None:
-            from tpu_reid_torch.models.layers import quick_gelu
-
             act.copy_(quick_gelu(h))
         return gemm_dgrad_reference(dy, w, h)
     m, n = dy.shape
@@ -751,7 +787,7 @@ gemm_wgrad.launches = 0
 
 
 def _block_params(w) -> dict:
-    """The 12 positional block tensors as models.layers' parameter dict."""
+    """The 12 positional block tensors as `_block_xla_impl`'s parameter dict."""
     return {
         "ln_1": {"scale": w[0], "bias": w[1]},
         "attn": {"in_proj": {"w": w[2], "b": w[3]}, "out_proj": {"w": w[4], "b": w[5]}},
@@ -815,7 +851,7 @@ def _written_out_backward(g, x, plane, pmask, mask, n_heads, weights, needs):
         return t.reshape(bsz, s, t.shape[-1])
 
     # recompute through the kernel, keeping what the gradients read
-    xin = _splice(x, plane, pmask)
+    xin = splice_plane(x, plane, pmask)
     h1, mu1, rs1 = torch.native_layer_norm(xin, (d,), ln1_s, ln1_b, 1e-5)
     qkv = unflat(gemm_product(flat(h1), w_in, b_in))
     views = _qkv_views(qkv, n_heads)
@@ -874,24 +910,16 @@ def _written_out_backward(g, x, plane, pmask, mask, n_heads, weights, needs):
     return dx, dplane, dw
 
 
-def _recompute_backward(g, x, plane, pmask, mask, n_heads, weights):
-    """The plain block's recompute under autograd: the gradients of
-    `_block_xla_impl(p, splice(x, plane, pmask), n_heads, mask)` for x, the
-    plane and the 12 tensors."""
-    from tpu_reid_torch.models.layers import _apply_splice_plane, _block_xla_impl
-
+def recompute_grads(fn, inputs, grad_out) -> tuple:
+    """The backward of an autograd Function whose forward ran kernels: fn
+    (the plain version) re-run under autograd on detached copies of
+    `inputs`, and the gradients of its output(s) against `grad_out` for each
+    input, None where an input is None or the output does not use it."""
     with torch.enable_grad():
-        xs = x.detach().requires_grad_()
-        ws = [w.detach().requires_grad_() for w in weights]
-        inputs = [xs] + ws
-        xin = xs
-        if plane is not None:
-            ps = plane.detach().requires_grad_()
-            inputs.append(ps)
-            xin = _apply_splice_plane(xs, ps, pmask)
-        out = _block_xla_impl(_block_params(ws), xin, n_heads, mask)
-        grads = torch.autograd.grad(out, inputs, g, allow_unused=True)
-    return grads[0], (grads[13] if plane is not None else None), list(grads[1:13])
+        ins = [None if t is None else t.detach().requires_grad_() for t in inputs]
+        live = [t for t in ins if t is not None]
+        grads = iter(torch.autograd.grad(fn(*ins), live, grad_out, allow_unused=True))
+    return tuple(None if t is None else next(grads) for t in ins)
 
 
 def fused_block_backward(g, x, plane, pmask, mask, n_heads, weights, needs):
@@ -912,14 +940,19 @@ def fused_block_backward(g, x, plane, pmask, mask, n_heads, weights, needs):
     splice's as a batch sum over the spliced rows; only what `needs` asks
     for. On CPU tensors the same chain runs the plain versions. bf16, or a
     shape outside the kernels' domain (a head width other than 64 on the
-    card among them): `_recompute_backward`.
+    card among them): the plain block's recompute under autograd
+    (`recompute_grads` of `_block_xla_impl` after the splice).
 
     `fused_block_backward.launches` counts the calls that ran the chain on
     the kernels, `.plain` those that took the recompute."""
     route = block_backward_route(x, weights, n_heads)
     if route == "plain":
         fused_block_backward.plain += 1
-        return _recompute_backward(g, x, plane, pmask, mask, n_heads, weights)
+        dx, dplane, *dws = recompute_grads(
+            lambda x, plane, *ws: _block_xla_impl(_block_params(ws),
+                                                  splice_plane(x, plane, pmask), n_heads, mask),
+            (x, plane, *weights), g)
+        return dx, dplane, dws
     grads = _written_out_backward(g, x, plane, pmask, mask, n_heads, weights, needs)
     if route == "kernel":
         fused_block_backward.launches += 1
@@ -937,7 +970,7 @@ class _FusedBlockFn(torch.autograd.Function):
     the prompt mask, the attention mask and the 12 tensors passed in — no
     activation of the block. The backward recomputes the block and returns
     the gradients for x, the plane and the 12 tensors that
-    `_block_xla_impl(p, splice(x, plane, pmask), n_heads, mask)` has:
+    `_block_xla_impl(p, splice_plane(x, plane, pmask), n_heads, mask)` has:
     `fused_block_backward`, in fp32 the written-out chain on the kernels, in
     bf16 the plain block under autograd. Under the fast softmax the forward
     takes the kernels' exp2 form and the recompute the exact softmax in fp32

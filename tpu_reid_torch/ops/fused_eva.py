@@ -49,11 +49,12 @@ details):
 
 The plain versions of the pieces (each wrapper's `_reference`) repeat the
 kernels' arithmetic and rounding points; `eva_block_reference` composes
-them. The model's EVA block (models/layers.eva_block) goes through
-`eva_block_autograd`: the kernels forward, and a backward that recomputes
-the plain EVA block (`layers._eva_block_xla_impl`) under autograd.
-`eva_block_route` sends fp32 blocks, and shapes outside the kernels'
-domains, to the plain block, and `fused_eva_block.plain` counts them.
+them. `_eva_block_xla_impl` is the plain EVA block over its parameter dict
+(the parity path). The model's EVA block (models/layers.eva_block) goes
+through `eva_block_autograd`: the kernels forward, and a backward that
+recomputes the plain EVA block under autograd. `eva_block_route` sends fp32
+blocks, and shapes outside the kernels' domains, to the plain block, and
+`fused_eva_block.plain` counts them.
 
 The 16 positional block tensors: ln_1 scale, bias; W_qkv (D, 3D), b_qkv
 (3D,) with a zero key slice; ln_attn scale, bias; W_o (D, D), b_o; ln_2
@@ -68,6 +69,7 @@ from typing import Optional, Sequence
 import torch
 
 from tpu_reid_torch.ops import fused_attention as FA
+from tpu_reid_torch.ops.attention import xla_mha_core
 
 Tensor = torch.Tensor
 
@@ -155,12 +157,92 @@ def eva_block_route(x: Tensor, weights: Sequence[Tensor], n_heads: int,
     return "kernel"
 
 
+# ---------------------------------------------------------------------------
+# the plain EVA02 block over its parameter dict
+# ---------------------------------------------------------------------------
+#
+# Parameters of one block, in the kernels' layout: ln_1, ln_2 {scale, bias};
+# attn {in_proj {w (D, 3D), b (3D,) whose key slice is zero and stays zero},
+# ln {scale, bias} (the sub-LN over D), out_proj {w, b}}; mlp {w12 {w (D,
+# 2 F_pad), b}: gate and up packed by 64-column groups (columns 128t .. 128t +
+# 63 gate columns 64t .., the next 64 the matching up columns), ffn_ln {scale,
+# bias} (F_pad,) (the sub-LN over F), w3 {w (F_pad, D), b}}. F_pad is F rounded
+# up to 64; the padding is zero, and the plain block reads only the F real
+# columns, so it gets no gradient.
+
+
+def eva_block_params(w) -> dict:
+    """The 16 positional EVA block tensors as the parameter dict."""
+    return {
+        "ln_1": {"scale": w[0], "bias": w[1]},
+        "attn": {"in_proj": {"w": w[2], "b": w[3]}, "ln": {"scale": w[4], "bias": w[5]},
+                 "out_proj": {"w": w[6], "b": w[7]}},
+        "ln_2": {"scale": w[8], "bias": w[9]},
+        "mlp": {"w12": {"w": w[10], "b": w[11]}, "ffn_ln": {"scale": w[12], "bias": w[13]},
+                "w3": {"w": w[14], "b": w[15]}},
+    }
+
+
+def _eva_tensors(p: dict, dt: torch.dtype) -> tuple:
+    """The parameter dict as the 16 positional tensors, the products' weights
+    and biases in the activations' dtype (LayerNorm parameters as they are)."""
+    a, m = p["attn"], p["mlp"]
+    ln_a, ln_f = a["ln"], m["ffn_ln"]
+    return (p["ln_1"]["scale"], p["ln_1"]["bias"],
+            a["in_proj"]["w"].to(dt), a["in_proj"]["b"].to(dt), ln_a["scale"], ln_a["bias"],
+            a["out_proj"]["w"].to(dt), a["out_proj"]["b"].to(dt),
+            p["ln_2"]["scale"], p["ln_2"]["bias"],
+            m["w12"]["w"].to(dt), m["w12"]["b"].to(dt), ln_f["scale"], ln_f["bias"],
+            m["w3"]["w"].to(dt), m["w3"]["b"].to(dt))
+
+
+def _qkv_bias(b: Tensor, d: int) -> Tensor:
+    """The packed qkv bias with its key slice held at zero (the key
+    projection has no bias): no gradient reaches that slice."""
+    return torch.cat([b[:d], torch.zeros_like(b[d:2 * d]), b[2 * d:]])
+
+
+def _eva_mlp(m: dict, x: Tensor, eps: float, f_real: int) -> Tensor:
+    """SwiGLU over the packed gate | up, the sub-LN over the F real columns,
+    the down projection: (..., D) -> (..., D), without the residual."""
+    gu = FA.linear(m["w12"], x).unflatten(-1, (-1, 2, 64))
+    u = (torch.nn.functional.silu(gu[..., 0, :].float())
+         * gu[..., 1, :].float()).to(x.dtype).flatten(-2)[..., :f_real]
+    ln = m["ffn_ln"]
+    u = FA.layer_norm({"scale": ln["scale"][:f_real], "bias": ln["bias"][:f_real]}, u, eps)
+    w3 = m["w3"]
+    return u @ w3["w"][:f_real].to(x.dtype) + w3["b"].to(x.dtype)
+
+
+def _eva_attn_out(a: dict, out: Tensor, eps: float) -> Tensor:
+    """The attention output's sub-LN, then the output projection."""
+    return FA.linear(a["out_proj"], FA.layer_norm(a["ln"], out, eps))
+
+
+def _eva_block_xla_impl(p: dict, x: Tensor, n_heads: int, rope: Tensor, eps: float,
+                        f_real: int) -> Tensor:
+    """Plain EVA02 block: x + proj(LN_attn(attn(RoPE q, RoPE k, v of
+    LN_1 x))); then x + W_3 LN_ffn(SiLU(W_1 g) * W_2 g), g = LN_2 x. RoPE
+    from a (S, 2, 64) cos / sin table (identity rows where a token is not
+    rotated), in fp32 on the projected q and k."""
+    b, s, d = x.shape
+    dh = d // n_heads
+    h = FA.layer_norm(p["ln_1"], x, eps)
+    w_in = p["attn"]["in_proj"]["w"].to(x.dtype)
+    qkv = h @ w_in + _qkv_bias(p["attn"]["in_proj"]["b"], d).to(x.dtype)
+    q, k, v = (t.reshape(b, s, n_heads, dh) for t in qkv.split(d, dim=-1))
+    q, k = FA.rotate_pairs(q, rope), FA.rotate_pairs(k, rope)
+    attn = xla_mha_core(q, k, v, None).reshape(b, s, d)
+    x = x + _eva_attn_out(p["attn"], attn, eps)
+    return x + _eva_mlp(p["mlp"], FA.layer_norm(p["ln_2"], x, eps), eps, f_real)
+
+
 class _EvaBlockFn(torch.autograd.Function):
     """Forward: `fused_eva_block` (the kernels on CUDA tensors), saving only
     x, the plane, the prompt mask, the rope table and the tensors passed in.
-    Backward: the plain EVA block (`layers._eva_block_xla_impl` after the
-    splice) recomputed under autograd, its gradients for x, the plane and
-    the tensors."""
+    Backward: the plain EVA block (`_eva_block_xla_impl` after the splice)
+    recomputed under autograd, its gradients for x, the plane and the
+    tensors."""
 
     @staticmethod
     def forward(ctx, x, plane, pmask, rope, n_heads, f_real, eps, fast, *weights):
@@ -170,25 +252,12 @@ class _EvaBlockFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        from tpu_reid_torch.models.layers import (_apply_splice_plane, _eva_block_xla_impl,
-                                                  eva_block_params)
-
         x, plane, pmask, rope, *weights = ctx.saved_tensors
-        with torch.enable_grad():
-            xs = x.detach().requires_grad_()
-            ws = [w.detach().requires_grad_() for w in weights]
-            xin = xs
-            ps = None
-            if plane is not None:
-                ps = plane.detach().requires_grad_()
-                xin = _apply_splice_plane(xs, ps, pmask)
-            out = _eva_block_xla_impl(eva_block_params(ws), xin, ctx.n_heads, rope, ctx.eps,
-                                      ctx.f_real)
-            inputs = [xs] + ([ps] if ps is not None else []) + ws
-            grads = iter(torch.autograd.grad(out, inputs, g, allow_unused=True))
-        dx = next(grads)
-        dplane = next(grads) if ps is not None else None
-        dws = list(grads)
+        dx, dplane, *dws = FA.recompute_grads(
+            lambda x, plane, *ws: _eva_block_xla_impl(
+                eva_block_params(ws), FA.splice_plane(x, plane, pmask), ctx.n_heads, rope,
+                ctx.eps, ctx.f_real),
+            (x, plane, *weights), g)
         return (dx, dplane, None, None, None, None, None, None, *dws)
 
 
@@ -200,12 +269,9 @@ def eva_block_autograd(x: Tensor, weights: Sequence[Tensor], n_heads: int,
     kernels forward through `_EvaBlockFn` (no graph when nothing needs
     grad), or the plain block (counted in `fused_eva_block.plain`)."""
     if eva_block_route(x, weights, n_heads, f_real) == "plain":
-        from tpu_reid_torch.models.layers import (_apply_splice_plane, _eva_block_xla_impl,
-                                                  eva_block_params)
-
         fused_eva_block.plain += 1
-        if prompt_plane is not None:
-            x = _apply_splice_plane(x, prompt_plane, prompt_mask)
-        return _eva_block_xla_impl(eva_block_params(weights), x, n_heads, rope, eps, f_real)
+        return _eva_block_xla_impl(eva_block_params(weights),
+                                   FA.splice_plane(x, prompt_plane, prompt_mask), n_heads, rope,
+                                   eps, f_real)
     return _EvaBlockFn.apply(x, prompt_plane, prompt_mask, rope, n_heads, f_real, eps, fast,
                              *weights)

@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 
 from tpu_reid_torch.ops import _build
-from tpu_reid_torch.ops.fused_attention import _layer_norm_f32
+from tpu_reid_torch.ops.fused_attention import layer_norm, recompute_grads
 
 Tensor = torch.Tensor
 
@@ -39,7 +39,7 @@ def ln_proj_tail_reference(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, proj: T
                            eps: float = 1e-5) -> tuple[Tensor, Tensor]:
     """(B, D) -> (LN(x), LN(x) @ proj [+ proj_bias]), the product accumulated
     in fp32 and the bias added in fp32 before the cast."""
-    y = _layer_norm_f32(x, ln_scale, ln_bias, eps)
+    y = layer_norm({"scale": ln_scale, "bias": ln_bias}, x, eps)
     p = y.float() @ proj.to(y.dtype).float()
     if proj_bias is not None:
         p = p + proj_bias.float()
@@ -139,23 +139,18 @@ class _TailFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gp):
-        saved = ctx.saved_tensors
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_() for t in saved if t is not None]
-            y, p = ln_proj_tail_reference(*inputs, eps=ctx.eps)
-            grads = iter(torch.autograd.grad((y, p), inputs, (gy, gp), allow_unused=True))
-            return (*[None if t is None else next(grads) for t in saved], None)
+        grads = recompute_grads(lambda *ins: ln_proj_tail_reference(*ins, eps=ctx.eps),
+                                ctx.saved_tensors, (gy, gp))
+        return (*grads, None)
 
 
 def ln_proj_tail(x: Tensor, ln_params: dict, proj: Tensor, proj_bias: Optional[Tensor] = None,
                  eps: float = 1e-5) -> tuple[Tensor, Tensor]:
     """(B, D) CLS rows -> (ln(x), ln(x) @ proj [+ proj_bias]): the kernel
-    where `layers.kernel_impl` selects kernels (always through `_TailFn`,
+    where `_build.kernel_impl` selects kernels (always through `_TailFn`,
     which builds no graph when no input needs grad), else the plain
     composition. eps: the LayerNorm's epsilon."""
-    from tpu_reid_torch.models.layers import use_kernels
-
     args = (x, ln_params["scale"], ln_params["bias"], proj, proj_bias)
-    if use_kernels(x):
+    if _build.use_kernels(x):
         return _TailFn.apply(*args, eps)
     return ln_proj_tail_reference(*args, eps)

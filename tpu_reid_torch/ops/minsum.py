@@ -9,7 +9,7 @@ and the output is (Na, Nb) fp32.
     `_minsum_kernel`); CPU tensors take the plain version;
   * `minsum_reference` — the plain version, chunked over rows, columns and
     C so that no temporary exceeds `_CHUNK_ELEMS` fp32 values;
-  * `minsum` — the dispatcher: the kernel where `layers.kernel_impl`
+  * `minsum` — the dispatcher: the kernel where `_build.kernel_impl`
     selects kernels (CUDA tensors under "auto"), else the plain version.
 """
 
@@ -88,10 +88,8 @@ minsum_kernel.launches = 0
 
 
 def minsum(a: Tensor, a_scale: Tensor, b: Tensor, b_scale: Tensor) -> Tensor:
-    """(Na, Nb) fp32 min-sum: the kernel where `layers.kernel_impl` selects
+    """(Na, Nb) fp32 min-sum: the kernel where `_build.kernel_impl` selects
     kernels (the JAX package's `use_pallas`), else the plain version."""
-    from tpu_reid_torch.models.layers import use_kernels
-
-    if use_kernels(a):
+    if _build.use_kernels(a):
         return minsum_kernel(a, a_scale, b, b_scale)
     return minsum_reference(a, a_scale, b, b_scale)
