@@ -727,6 +727,7 @@ def kernel_phase(dev):
               f"{' causal' if causal else ''}", got, want, dt)
     edge_checks(dev, rng, check, bf)
     ln_repeat_host_checks(dev, rng, failures)
+    ln_prologue_times(dev)
     record.update(fp32_kernels(dev, rng, check, failures))
     torch.cuda.synchronize()
     if failures:
@@ -1198,11 +1199,11 @@ def ln_repeat_host_checks(dev, rng, failures):
     def t(*shape, std=1.0, dt=bf):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * std).to(dev, dt)
 
-    # LayerNorm in the kernel against LayerNorm done beforehand: with W = I and
-    # no bias the kernel hands out its own normalised panel exactly (a product
+    # LayerNorm in the call against LayerNorm done beforehand: with W = I and
+    # no bias the call hands out its own normalised rows exactly (a product
     # with the identity adds only zeros); fed back without LN, the same
     # mainloop runs on the same bf16 operands, so the outputs must be
-    # bit-equal. That panel is also held against the plain version's rule.
+    # bit-equal. Those rows are also held against the plain version's rule.
     say("ln_gemm with LN against ln_gemm without LN on the precomputed LayerNorm output")
     for b, s, k, n in ((128, 211, 768, 2304), (64, 77, 512, 1536), (16, 50, 1024, 1024)):
         x, w, bias = t(b, s, k), t(k, n, std=k ** -0.5), t(n, std=0.02)
@@ -1263,6 +1264,82 @@ def ln_repeat_host_checks(dev, rng, failures):
             torch.cuda.synchronize()
             say(f"  host time of one {label} call at B=1 S=77 width 512, {str(dt)[6:]}: "
                 f"{host_us:.1f} us")
+
+
+# the bf16 LayerNorm products' shapes: (label, B, S, K, N, mode); mode qkv
+# (the deep-prompt splice), gelu, bias, or residual (EVA02's sub-LN with the
+# residual, epsilon 1e-6, through gemm_bias_residual); the TP shards' at
+# market.embed's batch, N split T ways
+LN_PROLOGUE_SHAPES = (
+    ("kernel phase qkv", 128, 211, 768, 2304, "qkv"),
+    ("kernel phase c_fc", 128, 211, 768, 3072, "gelu"),
+    ("market.embed qkv", 512, 213, 768, 2304, "qkv"),
+    ("market.embed c_fc", 512, 213, 768, 3072, "gelu"),
+    ("veri.embed qkv", 256, 444, 768, 2304, "qkv"),
+    ("veri.embed c_fc", 256, 444, 768, 3072, "gelu"),
+    ("eva-veri.embed out-projection", 256, 327, 1024, 1024, "residual"),
+    ("text tower qkv", 751, 77, 512, 1536, "bias"),
+    ("one query qkv", 1, 213, 768, 2304, "qkv"),
+    ("one query c_fc", 1, 213, 768, 3072, "gelu"),
+    ("one query, flipped, qkv", 2, 213, 768, 2304, "qkv"),
+    ("TP 2 qkv shard", 512, 213, 768, 1152, "qkv"),
+    ("TP 2 c_fc shard", 512, 213, 768, 1536, "gelu"),
+    ("TP 4 qkv shard", 512, 213, 768, 576, "qkv"),
+    ("TP 4 c_fc shard", 512, 213, 768, 768, "gelu"),
+    ("TP 12 qkv shard", 512, 213, 768, 192, "qkv"),
+    ("TP 12 c_fc shard", 512, 213, 768, 256, "gelu"),
+)
+
+
+def ln_prologue_operands(b, s, k, n, mode, dev):
+    """Seeded operands of one LN_PROLOGUE_SHAPES entry: x, gamma, beta, w,
+    bias, the plane and mask (qkv: of the input; residual: of the residual)
+    and the residual (or None)."""
+    gen = torch.Generator(device="cpu").manual_seed(0)
+
+    def t(*shape, std=1.0, mean=0.0, dt=torch.bfloat16):
+        return (mean + std * torch.randn(*shape, generator=gen)).to(dt).to(dev)
+
+    x = t(b, s, k)
+    g, gb = t(k, std=0.1, mean=1.0, dt=torch.float32), t(k, std=0.1, dt=torch.float32)
+    w, bias = t(k, n, std=k ** -0.5), t(n, std=0.02)
+    plane = pmask = None
+    if mode in ("qkv", "residual"):
+        plane, pmask = t(s, k if mode == "qkv" else n), torch.zeros(s, device=dev)
+        pmask[1:3] = 1.0
+    res = t(b, s, n) if mode == "residual" else None
+    return x, g, gb, w, bias, plane, pmask, res
+
+
+def ln_prologue_times(dev):
+    """The bf16 LayerNorm products (ln_gemm and gemm_bias_residual with
+    LayerNorm: `ln_rows`' kernel, then the product without LN) at the shapes
+    that run them: CUDA-event medians of 20 (one call each, host time
+    included where it is the longer), beside the product alone on rows
+    normalised beforehand, with the operations' bound against 989 TF/s."""
+    from tpu_reid_torch.ops import fused_attention as FA
+
+    say("the bf16 LayerNorm products: ln_rows + the product in one call, and the product alone")
+    for label, b, s, k, n, mode in LN_PROLOGUE_SHAPES:
+        x, g, gb, w, bias, plane, pmask, res = ln_prologue_operands(b, s, k, n, mode, dev)
+        eps = 1e-6 if mode == "residual" else 1e-5
+        if mode == "residual":
+            h = FA.ln_rows(x, g, gb, k, eps)
+            with_ln = lambda: FA.gemm_bias_residual(x, w, bias, res, plane, pmask,  # noqa: E731
+                                                    ln_scale=g, ln_bias=gb, eps=eps)
+            alone = lambda: FA.gemm_bias_residual(h, w, bias, res, plane, pmask)  # noqa: E731
+        else:
+            gelu, lp, lm = mode == "gelu", (plane if mode == "qkv" else None), pmask
+            h = FA.ln_rows(x, g, gb, k, eps, lp, lm)
+            with_ln = lambda: FA.ln_gemm(x, g, gb, w, bias, gelu, lp, lm, eps=eps)  # noqa: E731
+            alone = lambda: FA.ln_gemm(h, None, None, w, bias, gelu)  # noqa: E731
+        ms, ms_alone = time_ms(with_ln), time_ms(alone)
+        flops = 2.0 * b * s * k * n
+        bnd, by = bound(flops, 2.0 * (b * s * k + k * n + b * s * n))
+        say(f"  {label} (B={b} S={s} K={k} N={n}): {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+            f"bound {bnd:.4f} ms by {by}); the product alone {ms_alone:.4f} ms")
+        del x, w, plane, h, res
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1453,10 +1530,8 @@ def zero_shot_run(params, cfg, tokenizer, ids, templates, data, dtype, bs, dev):
 
 KERNEL_GROUPS = (("attention_long_bf16_kernel", "mha_core (S > 256)"),
                  ("ln_proj_tail_bf16_kernel", "ln_proj_tail"),
-                 ("gemm_bf16_kernel<true", "ln_gemm"),
-                 ("gemm_bf16_kernel<(bool)1", "ln_gemm"),
-                 ("gemm_bf16_kernel<false", "gemm_bias_residual / no-LN ln_gemm"),
-                 ("gemm_bf16_kernel<(bool)0", "gemm_bias_residual / no-LN ln_gemm"),
+                 ("gemm_bf16_kernel", "ln_gemm / gemm_bias_residual"),
+                 ("ln_rows_bf16_kernel", "ln_rows (bf16 LayerNorm)"),
                  ("gemm_tf32x3_kernel<true", "ln_gemm fp32"),
                  ("gemm_tf32x3_kernel<(bool)1", "ln_gemm fp32"),
                  ("gemm_tf32x3_kernel<false", "gemm_bias_residual / no-LN ln_gemm fp32"),
@@ -5245,12 +5320,11 @@ def tools_phase(dev, counters):
     return runs, numbers
 
 
-# instantiations of the wgmma kernels that the sources launch: the GEMM as
-# (LN, 128 or 64 rows, epilogue) = 3 without LN + 4 with, and EVA02's rope
-# and swiglu modes without LN and its LN prologue with the residual; the two
+# instantiations of the wgmma kernels that the sources launch: the GEMM's
+# epilogues (bias, QuickGELU, residual, and EVA02's rope and swiglu); the two
 # attention kernels; the CLS tail; the fp32 route's (LN, epilogue) = 3
 # without LN + 2 with, its attention kernel and its CLS tail
-WGMMA_ENTRIES = {"gemm_bf16_kernel": 10, "attention_bf16_kernel": 1,
+WGMMA_ENTRIES = {"gemm_bf16_kernel": 5, "attention_bf16_kernel": 1,
                  "attention_long_bf16_kernel": 1, "ln_proj_tail_bf16_kernel": 1,
                  "gemm_tf32x3_kernel": 9, "attention_tf32x3_kernel": 3,
                  "attention_tf32x3_kernel_bwd_dq": 1, "attention_tf32x3_kernel_bwd_dkv": 1,
@@ -5268,7 +5342,7 @@ BF16_BLOCK_KERNELS = ("gemm_bf16_kernel", "attention_bf16_kernel", "attention_lo
 
 def mangled_kernel_name(line: str) -> str:
     """`<name>_kernel` and its template arguments out of a mangled entry name
-    (`...16gemm_bf16_kernelILb1ELi2ELi0EEEv...` -> gemm_bf16_kernelILb1ELi2ELi0E)."""
+    (`...16gemm_bf16_kernelILi2EEEv...` -> gemm_bf16_kernelILi2EE)."""
     for m in re.finditer("_kernel", line):
         for n in range(7, 48):  # the identifier is preceded by its length
             name = line[m.end() - n:m.end()]

@@ -326,6 +326,91 @@ def test_whole_row_limit_matches_the_kernel_source():
     assert m and int(m.group(1)) == TA.WHOLE_ROW_MAX_SEQ == 256
 
 
+def _block_source_values(struct=None):
+    """Every `constexpr int NAME = expr;` of csrc/block_kernels.cu (or of its
+    `struct <struct> { ... };` alone) whose expression is integer arithmetic
+    of earlier ones, evaluated in order."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(FA.__file__), "..", "csrc",
+                            "block_kernels.cu")).read()
+    if struct is not None:
+        src = re.search(r"struct " + struct + r" \{(.*?)\n\};", src, re.S).group(1)
+    values = {}
+    for decl in re.findall(r"constexpr int (\w+\s*=[^;]+);", src, re.S):
+        for part in decl.split(","):
+            name, expr = (t.strip() for t in part.split("=", 1))
+            try:
+                values[name] = eval(expr.replace("/", "//"), {"__builtins__": {}}, dict(values))
+            except (NameError, SyntaxError):
+                pass  # an expression of a function's arguments
+    return values
+
+
+def test_ln_gemm_smem_fits_the_widest_row():
+    """The bf16 GEMM behind ln_gemm and gemm_bias_residual, by its source's
+    constants: the ring of four stages (256-row A tiles, two 64-column halves
+    of a 64-deep W stage) and the barriers, with 1024 bytes of alignment,
+    stay under the 232448 bytes a block can ask for, at every K; a bf16
+    LayerNorm runs first in ln_rows' kernel, whose widest row covers
+    LN_MAX_K."""
+    v, sh = _block_source_values(), _block_source_values("GemmShape")
+    assert v["LN_MAX_K"] == FA.LN_MAX_WIDTH == 1024
+    assert v["LNR_MAX_K"] == FA.LN_ROWS_MAX_WIDTH >= v["LN_MAX_K"]
+    assert sh["ROWS"] == 256 and sh["STAGES"] == 4 and sh["BK"] == 64
+    assert sh["STAGE"] == sh["ROWS"] * 128 + 2 * sh["BK"] * 128
+    assert sh["SMEM"] == 1024 + sh["STAGES"] * sh["STAGE"] + 256 <= v["SMEM_MAX"] == 232448
+    assert 2 * 8 * sh["STAGES"] <= 256  # a full and an empty barrier per stage
+
+
+@pytest.mark.parametrize("mode", ["qkv", "gelu", "residual"])
+def test_bf16_layer_norm_is_ln_rows_then_the_plain_product(mode):
+    """The bf16 LayerNorm of ln_gemm and gemm_bias_residual is ln_rows'
+    LayerNorm followed by the product without it, bit for bit, which is how
+    the card runs it: the qkv splice goes into the LayerNorm's input, the
+    residual's stays with the residual (plain versions, CPU)."""
+    gen = torch.Generator().manual_seed(7)
+
+    def t(*shape, std=1.0, mean=0.0, dtype=torch.bfloat16):
+        return (mean + std * torch.randn(*shape, generator=gen)).to(dtype)
+
+    b, s, k, n = 2, 13, 64, 48
+    x = t(b, s, k, mean=3.0)
+    g, gb = t(k, mean=1.0, std=0.1, dtype=torch.float32), t(k, std=0.1, dtype=torch.float32)
+    w, bias = t(k, n, std=k ** -0.5), t(n, std=0.02)
+    pmask = torch.zeros(s)
+    pmask[1:3] = 1.0
+    if mode == "residual":
+        res, plane = t(b, s, n), t(s, n)
+        got = FA.gemm_bias_residual(x, w, bias, res, plane, pmask, ln_scale=g, ln_bias=gb,
+                                    eps=1e-6)
+        want = FA.gemm_bias_residual(FA.ln_rows(x, g, gb, k, 1e-6), w, bias, res, plane, pmask)
+    else:
+        plane = t(s, k) if mode == "qkv" else None
+        mask = pmask if mode == "qkv" else None
+        gelu = mode == "gelu"
+        got = FA.ln_gemm(x, g, gb, w, bias, gelu, plane, mask)
+        want = FA.ln_gemm(FA.ln_rows(x, g, gb, k, 1e-5, plane, mask), None, None, w, bias, gelu)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,has_ln,made", [
+    (torch.bfloat16, True, True),
+    (torch.bfloat16, False, False),
+    (torch.float32, True, False),
+])
+def test_ln_scratch_only_for_the_bf16_prologue(dtype, has_ln, made):
+    # the normalised rows of a bf16 LayerNorm, which ln_rows' kernel writes
+    # and the product reads by TMA; the fp32 kernel normalises in registers
+    x = torch.zeros(3, 213, 64, dtype=dtype)
+    scratch = FA._ln_scratch(x, has_ln)
+    if not made:
+        assert scratch is None
+        return
+    assert scratch.dtype == x.dtype and scratch.shape == x.shape and scratch.is_contiguous()
+
+
 # ---------------------------------------------------------------------------
 # ln_proj_tail: tail_kernel_route
 # ---------------------------------------------------------------------------

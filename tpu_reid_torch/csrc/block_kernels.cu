@@ -10,10 +10,10 @@
 //
 //   ln_gemm             [LN ->] GEMM + bias [+ QuickGELU]: LN1 -> qkv, LN2 ->
 //                       c_fc. LayerNorm statistics in fp32, fp32 affine, the
-//                       normalised rows rounded to the working type on the
-//                       way into shared memory; with a deep-prompt plane,
-//                       spliced rows are read from the plane instead. Without
-//                       LN parameters the rows are read as they are (fused_mha
+//                       normalised rows rounded to the working type before
+//                       the product; with a deep-prompt plane, spliced rows
+//                       are read from the plane instead. Without LN
+//                       parameters the rows are read as they are (fused_mha
 //                       without pre-LN).
 //   mha_core            softmax attention for any S, dh = 64 (bf16: whole score
 //                       rows for S <= 256, a loop over key tiles beyond; fp32:
@@ -50,21 +50,19 @@
 //     one producer thread and two consumer warpgroups (setmaxnreg hands the
 //     producer's registers over). TMA's zero fill covers the ragged M, N and
 //     K edges; stores are masked.
-//   * With LayerNorm a block keeps a panel of 128 rows over the whole K
-//     (64 rows where K > 768) in shared memory: its consumers read each row
-//     once, take the two-pass fp32 statistics once, normalise once, round to
-//     bf16 and write the panel in the swizzled layout wgmma reads; then the
-//     block walks N tiles while only W streams in. The K loop holds no
-//     LayerNorm arithmetic, and the normalised rows never reach device
-//     memory. The two consumer warpgroups take every other N tile over all
-//     the panel's rows, so one's epilogue runs under the other's mainloop.
-//     Blocks take equal contiguous ranges of the (row panel, N tile) list, so
-//     the last wave is not ragged; a range that enters a new panel
-//     normalises it.
-//   * Without LayerNorm the A tiles come by TMA too, 256 rows per block
-//     (each consumer warpgroup two 64-row accumulators of every stage), and
-//     blocks walk the output tiles, so the ring fills for the next tile
-//     under a tile's epilogue.
+//   * The A tiles come by TMA too, 256 rows per block (each consumer
+//     warpgroup two 64-row accumulators of every stage), and blocks walk
+//     the output tiles, so the ring fills for the next tile under a tile's
+//     epilogue.
+//   * In bf16 the LayerNorm runs before the product, in ln_rows (below):
+//     each row read once, two-pass fp32 statistics, the fp32 affine, the
+//     row written once in bf16 to the caller's scratch, which the product
+//     then reads as its A: one launch more and one more read and write of
+//     the rows. Every design that kept the LayerNorm inside the GEMM
+//     measured slower at the serving shapes (PERF.md): a resident
+//     normalised panel leaves W a ring of four 8 KB stages, A fragments
+//     normalised in registers serialise wgmma for registers, and
+//     normalisers beside the mainloop take its issue slots.
 //   * Epilogues add the bias, take QuickGELU or the spliced residual in
 //     fp32 with the row's source decided once per row, and exchange column
 //     pairs inside each quad so that bias, residual and output move as
@@ -83,7 +81,7 @@
 //     head, image); K and V tiles of 64 keys stream through a TMA ring, the
 //     softmax runs online over the tiles; its notes stand above it.
 //
-// EVA02's block (ops/fused_eva.py; bf16) runs the GEMM kernel in three more
+// EVA02's block (ops/fused_eva.py; bf16) runs the GEMM kernel in two more
 // modes and one kernel of its own, each placed where it costs least:
 //
 //   * EPI_ROPE (qkv): after the epilogue's column exchange a thread holds 8
@@ -98,10 +96,8 @@
 //     holds gate column c and up column c + 64 (accumulator groups j and
 //     j + 8), so SiLU(gate) * up needs no exchange and u is written once, at
 //     half the product's width.
-//   * LN prologue + EPI_RESIDUAL (the attention output's sub-LN): the LN
-//     mode's row panel with the residual epilogue, one launch.
-//   * ln_rows: LN_1, LN_2 and the MLP's sub-LN as passes of their own; its
-//     notes stand above it.
+//   * ln_rows: LN_1, LN_2, the attention output's sub-LN and the MLP's
+//     sub-LN as passes of their own; its notes stand above it.
 //
 // The fp32 route (the training CLIs' default dtype: every forward and every
 // backward of every training step) runs two kernels of its own, both 3xTF32
@@ -187,144 +183,33 @@ struct GemmArgs {
   int rope_cols = 0;     // EPI_ROPE: the columns rotated, [0, rope_cols)
 };
 
-// ---- bf16: TMA-fed wgmma; with LN, a normalised row panel resident in shared memory ----
+// ---- bf16: TMA-fed wgmma ---------------------------------------------------
 //
 // Threads: two consumer warpgroups, then one producer warpgroup of which one
 // thread issues TMA loads; all blocks are persistent, one per SM. Shared
-// memory (from a 1024-byte aligned base): with LN the panel, ceil(K / 64)
-// k-blocks of [ROWS rows][128 bytes]; the ring of four stages, each [A tile:
-// 256 rows x 128 bytes, without LN only][W tile: two [BK rows][128 bytes]
-// halves, columns n0.. and n0 + 64..]; then the barriers. With LN a stage is
-// 32 rows of W (8 KB): four stages are what fits beside a 192 KB panel, and
-// the W stream is bound by that ring's depth over the L2 latency. Without LN
-// a stage is 64 deep (48 KB).
+// memory (from a 1024-byte aligned base): the ring of four stages, each [A
+// tile: 256 rows x 128 bytes][W tile: two [64 rows][128 bytes] halves,
+// columns n0.. and n0 + 64..] (48 KB); then the barriers.
 
 constexpr int TBN = 128;     // output tile width: one wgmma m64n128k16 per 64 rows
 constexpr int SMEM_MAX = 232448;
 
-// MT: 64-row accumulators per consumer warpgroup
-template <bool LN, int MT>
 struct GemmShape {
-  static constexpr int BK = LN ? 32 : 64;        // rows of W per stage
+  static constexpr int MT = 2;                   // 64-row accumulators per consumer warpgroup
+  static constexpr int BK = 64;                  // rows of W per stage
   static constexpr int STAGES = 4;               // ring depth
-  static constexpr int ROWS = LN ? 64 * MT : 128 * MT;  // rows of the block's tile
-  static constexpr int A_STAGE = LN ? 0 : ROWS * 128;
+  static constexpr int ROWS = 128 * MT;          // rows of the block's tile
+  static constexpr int A_STAGE = ROWS * 128;
   static constexpr int W_HALF = BK * 128;
   static constexpr int STAGE = A_STAGE + 2 * W_HALF;
   static constexpr int THREADS = 384;            // two consumer warpgroups and the producer's
-  __host__ __device__ static int panel_bytes(int K) {
-    return LN ? (K + 63) / 64 * ROWS * 128 : 0;
-  }
   // 1024 for the alignment of the base, 256 for the barriers
-  __host__ __device__ static int smem_bytes(int K) {
-    return 1024 + panel_bytes(K) + STAGES * STAGE + 256;
-  }
+  static constexpr int SMEM = 1024 + STAGES * STAGE + 256;
 };
 
-// The LN prologue: the 8 consumer warps share the panel's ROWS rows, RG rows
-// at a time per warp (their loads in flight together, and the next rows'
-// while these are normalised; one row at a time for the wide 64-row panel,
-// whose rows take more registers). A lane owns the
-// 16-byte chunks lane, lane + 32, ... of every row, so its gamma/beta stay in
-// registers. Statistics in two passes in fp32; rows past M are zero.
-template <int MT, bool SPLICE = true>
-__device__ __forceinline__ void ln_panel_rows(const GemmArgs& g, int m0, unsigned char* panel,
-                                              int warp, int lane) {
-    constexpr int ROWS = 64 * MT, PER_WARP = ROWS / 8, NV = MT == 2 ? 3 : 4, RG = MT;
-  const int nchunks = g.K / 8;
-  float gm[NV][8], bt[NV][8];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int c = lane + 32 * i;
-#pragma unroll
-    for (int e = 0; e < 8; e += 4) {
-      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
-      if (c < nchunks) {
-        a = *reinterpret_cast<const float4*>(g.ln_g + 8 * c + e);
-        b = *reinterpret_cast<const float4*>(g.ln_b + 8 * c + e);
-      }
-      gm[i][e] = a.x, gm[i][e + 1] = a.y, gm[i][e + 2] = a.z, gm[i][e + 3] = a.w;
-      bt[i][e] = b.x, bt[i][e + 1] = b.y, bt[i][e + 2] = b.z, bt[i][e + 3] = b.w;
-    }
-  }
-  // the rows r0 .. r0 + RG - 1 of the panel, as loaded (zero past M or K)
-  auto load_rows = [&](int r0, uint4 (&u)[RG][NV], bool (&live)[RG]) {
-#pragma unroll
-    for (int rr = 0; rr < RG; ++rr) {
-      const int m = m0 + r0 + rr;
-      const bf16* p = nullptr;
-      if (m < g.M) {
-        p = static_cast<const bf16*>(g.a) + (size_t)m * g.K;
-        if (SPLICE && g.plane != nullptr) {
-          const int s = m % g.S;
-          if (g.pmask[s] > 0.f) p = static_cast<const bf16*>(g.plane) + (size_t)s * g.K;
-        }
-      }
-      live[rr] = p != nullptr;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const int c = lane + 32 * i;
-        u[rr][i] = (p != nullptr && c < nchunks) ? *reinterpret_cast<const uint4*>(p + 8 * c)
-                                                 : make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-  };
-  const int r_end = (warp + 1) * PER_WARP;
-  uint4 u[RG][NV], u_next[RG][NV];
-  bool live[RG], live_next[RG];
-  load_rows(warp * PER_WARP, u, live);
-  for (int r0 = warp * PER_WARP; r0 < r_end; r0 += RG) {
-    // the next rows' loads fly while these rows are normalised
-    if (r0 + RG < r_end) load_rows(r0 + RG, u_next, live_next);
-#pragma unroll
-    for (int rr = 0; rr < RG; ++rr) {
-      float f[NV][8], s = 0.f;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        unpack_vec<bf16>(u[rr][i], f[i]);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) s += f[i][e];
-      }
-      const float mean = warp_sum(s) / g.K;
-      float v = 0.f;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        if (lane + 32 * i >= nchunks) continue;
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          f[i][e] -= mean;
-          v += f[i][e] * f[i][e];
-        }
-      }
-      const float rstd = rsqrtf(warp_sum(v) / g.K + g.eps);
-      const int r = r0 + rr;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const int c = lane + 32 * i;
-        if (c >= nchunks) continue;
-        unsigned char* dst = panel + (size_t)(c >> 3) * (ROWS * 128) + r * 128 +
-                             (((c & 7) ^ (r & 7)) << 4);
-        if (live[rr]) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) f[i][e] = f[i][e] * rstd * gm[i][e] + bt[i][e];
-          store_vec<bf16>(reinterpret_cast<bf16*>(dst), f[i]);
-        } else {
-          *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-        }
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < RG; ++rr) {
-      live[rr] = live_next[rr];
-#pragma unroll
-      for (int i = 0; i < NV; ++i) u[rr][i] = u_next[rr][i];
-    }
-  }
-}
-
 // The bias of the 8 columns lane q stores in each of the epilogue's four
-// rounds: columns n0 + 8 * (4 * round + q) ..., zero past N. Without LN it is
-// loaded at the start of a tile so that the epilogue never waits for it.
+// rounds: columns n0 + 8 * (4 * round + q) ..., zero past N, loaded at the
+// start of a tile so that the epilogue never waits for it.
 __device__ __forceinline__ void load_tile_bias(const GemmArgs& g, int n0, int q,
                                                uint4 (&bias4)[4]) {
 #pragma unroll
@@ -432,7 +317,7 @@ __device__ __forceinline__ void rope8(const GemmArgs& g, int s, int n, float (&x
 // their column pairs (in fp32, before any arithmetic) so that each owns 8
 // consecutive columns of a row: bias, residual and output then move as
 // 16-byte vectors.
-template <int EPI, int MT, bool BIAS_LOADED>
+template <int EPI, int MT>
 __device__ __forceinline__ void gemm_epilogue(const GemmArgs& g, const float (&acc)[MT][64],
                                               const uint4 (&bias4)[4],
                                               const bf16* (&res)[MT][2], int row0, int n0,
@@ -476,10 +361,7 @@ __device__ __forceinline__ void gemm_epilogue(const GemmArgs& g, const float (&a
         quad_transpose(lo, q);
         quad_transpose(hi, q);
         const int n = n0 + 8 * (4 * jq + q);
-        uint4 b4 = bias4[jq];
-        if (!BIAS_LOADED)
-          b4 = n < g.N ? *reinterpret_cast<const uint4*>(static_cast<const bf16*>(g.bias) + n)
-                       : make_uint4(0u, 0u, 0u, 0u);
+        const uint4 b4 = bias4[jq];
         const uint32_t b[4] = {b4.x, b4.y, b4.z, b4.w};
         const uint32_t r[4] = {res_now[jq].x, res_now[jq].y, res_now[jq].z, res_now[jq].w};
 #pragma unroll
@@ -515,32 +397,24 @@ __device__ __forceinline__ void gemm_epilogue(const GemmArgs& g, const float (&a
     }
 }
 
-template <bool LN, int MT, int EPI>
-__global__ void __launch_bounds__(GemmShape<LN, MT>::THREADS, 1)
+template <int EPI>
+__global__ void __launch_bounds__(GemmShape::THREADS, 1)
 gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_w, const GemmArgs g) {
-  using Sh = GemmShape<LN, MT>;
-  constexpr int BK = Sh::BK, ROWS = Sh::ROWS, STAGE = Sh::STAGE, G_STAGES = Sh::STAGES;
+  using Sh = GemmShape;
+  constexpr int MT = Sh::MT, BK = Sh::BK, ROWS = Sh::ROWS, STAGE = Sh::STAGE,
+                G_STAGES = Sh::STAGES;
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023u) & ~1023u;
-  const uint32_t ring = base + Sh::panel_bytes(g.K);
+  const uint32_t raw = smem_addr(smem_raw), ring = (raw + 1023u) & ~1023u;
   const uint32_t full = ring + G_STAGES * STAGE, empty = full + 8 * G_STAGES;
-  // with LN: order + 8w lets warpgroup w into its next mainloop; panel_free:
-  // nobody reads the panel any more; panel_done: all its rows are written
-  const uint32_t order = empty + 8 * G_STAGES, panel_free = order + 16, panel_done = order + 24;
 
-  // Output tiles are numbered row tile by row tile, N fastest. With LN block c
-  // of G takes the contiguous range [c T / G, (c + 1) T / G) of the T tiles: a
-  // range spans a few row panels, each normalised when the range enters it,
-  // and every SM gets the same number of tiles (to within one). Without LN
-  // the block takes tiles c, c + G, ...
+  // Output tiles are numbered row tile by row tile, N fastest; block c of G
+  // takes tiles c, c + G, ...
   const int n_tiles = (g.N + TBN - 1) / TBN;
-  const long long all_tiles = (long long)((g.M + ROWS - 1) / ROWS) * n_tiles;
-  const long long first = LN ? all_tiles * blockIdx.x / gridDim.x : 0;
-  const int total = LN ? (int)(all_tiles * (blockIdx.x + 1) / gridDim.x - first) : (int)all_tiles;
+  const long long total = (long long)((g.M + ROWS - 1) / ROWS) * n_tiles;
   auto tile = [&](int i, int& m0, int& n0) {
-    const long long t = LN ? first + i : (long long)blockIdx.x + (long long)i * gridDim.x;
-    if (LN ? i >= total : t >= total) return false;
+    const long long t = (long long)blockIdx.x + (long long)i * gridDim.x;
+    if (t >= total) return false;
     m0 = (int)(t / n_tiles) * ROWS;
     n0 = (int)(t % n_tiles) * TBN;
     return true;
@@ -551,12 +425,8 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
   if (threadIdx.x == 0) {
     for (int s = 0; s < G_STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, LN ? 1 : 2);
+      mbar_init(empty + 8 * s, 2);
     }
-    mbar_init(order, 1);
-    mbar_init(order + 8, 1);
-    mbar_init(panel_free, 256);
-    mbar_init(panel_done, 256);
     mbar_init_fence();
   }
   __syncthreads();
@@ -574,46 +444,19 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
         mbar_wait(empty + 8 * s, phase ^ 1);
         mbar_arrive_expect_tx(full + 8 * s, STAGE);
         const uint32_t dst = ring + s * STAGE;
-        if (!LN) tma_load_2d(dst, &map_a, full + 8 * s, kt * BK, m0);
+        tma_load_2d(dst, &map_a, full + 8 * s, kt * BK, m0);
         tma_load_2d(dst + Sh::A_STAGE, &map_w, full + 8 * s, n0, kt * BK);
         tma_load_2d(dst + Sh::A_STAGE + Sh::W_HALF, &map_w, full + 8 * s, n0 + 64, kt * BK);
         if (++s == G_STAGES) s = 0, phase ^= 1;
       }
     }
   } else {
-    // ---- consumers: [LN panel,] wgmma over the ring, epilogue ---------------
-    // Without LN the two warpgroups share every stage (128 rows each). With
-    // LN each takes every other N tile over all the panel's rows, so one's
-    // epilogue runs under the other's mainloop and the W stream never stops.
+    // ---- consumers: wgmma over the ring, epilogue ---------------------------
+    // The two warpgroups share every stage, 128 rows each.
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int warp = tid / 32, lane = tid % 32;
     int it = 0;  // stages gone by since the kernel began: stage it % G_STAGES
-    int panels = 0;  // row panels normalised so far
     for (int i = 0; tile(i, m0, n0); ++i) {
-      if (LN && (i == 0 || n0 == 0)) {
-        // a new row panel: once neither warpgroup reads the old one, both
-        // write their halves of the new one
-        if (i > 0) {
-          mbar_arrive(panel_free);
-          mbar_wait(panel_free, (panels - 1) & 1);
-        }
-        // with a residual the prompt plane is the residual's: the rows
-        // normalised are the product's input as it is
-        ln_panel_rows<MT, EPI != EPI_RESIDUAL>(g, m0, smem_raw + (base - raw), wg * 4 + warp,
-                                               lane);
-        fence_proxy_async();
-        mbar_arrive(panel_done);
-        mbar_wait(panel_done, panels & 1);
-        ++panels;
-      }
-      if (LN && (i & 1) != wg) {
-        it += nk;
-        continue;
-      }
-      // a full barrier tells neighbouring fills apart, no more: wait for the
-      // other warpgroup to have drained its tile before looking at this one's
-      // (its tiles 0, 1, 2, ... of these waits end phases 0, 1, 0, ... of the barrier)
-      if (LN && i > 0) mbar_wait(order + 8 * wg, ((i - 1) >> 1) & 1);
       // cleared, although the first wgmma of a tile overwrites it: the compiler
       // then keeps no accumulator alive from one tile to the next
       float acc[MT][64];
@@ -621,11 +464,10 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int e = 0; e < 64; ++e) acc[mt][e] = 0.f;
-      // without LN the epilogue is not hidden: its bias is asked for here; with
-      // LN it runs under the other warpgroup's mainloop and loads its own
+      // the epilogue is not hidden: its bias is asked for here
       uint4 bias4[4] = {};
-      if (!LN) load_tile_bias(g, n0, lane & 3, bias4);
-      const int row0 = m0 + (LN ? 0 : wg * MT * 64) + warp * 16;
+      load_tile_bias(g, n0, lane & 3, bias4);
+      const int row0 = m0 + wg * MT * 64 + warp * 16;
       const bf16* res[MT][2] = {};
       if (EPI == EPI_RESIDUAL) {
 #pragma unroll
@@ -645,9 +487,7 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
           const uint64_t db = wgmma_desc(stage + Sh::A_STAGE + j * 2048, Sh::W_HALF, 1024);
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
-            const uint32_t a = LN ? base + (kt >> 1) * (ROWS * 128) + mt * 8192 +
-                                        ((kt & 1) * 2 + j) * 32
-                                  : stage + (wg * MT + mt) * 8192 + j * 32;
+            const uint32_t a = stage + (wg * MT + mt) * 8192 + j * 32;
             wgmma_m64n128k16_tb(acc[mt], wgmma_desc(a, 16, 1024), db, (kt | j) != 0);
           }
         }
@@ -662,8 +502,7 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) wgmma_settle(acc[mt]);
       if (tid == 0) mbar_arrive(empty + 8 * prev);
-      if (LN && i + 1 < total && tid == 0) mbar_arrive(order + 8 * (wg ^ 1));
-      gemm_epilogue<EPI, MT, !LN>(g, acc, bias4, res, row0, n0, lane);
+      gemm_epilogue<EPI, MT>(g, acc, bias4, res, row0, n0, lane);
     }
   }
 }
@@ -1224,26 +1063,23 @@ int sm_count() {
   return n;
 }
 
-template <bool LN, int MT, int EPI>
+template <int EPI>
 int launch_gemm_bf16(const GemmArgs& g, cudaStream_t stream) {
-  using Sh = GemmShape<LN, MT>;
+  using Sh = GemmShape;
+  static_assert(Sh::SMEM <= SMEM_MAX, "the bf16 GEMM's ring outgrows an SM");
   if (g.M == 0) return 0;
   CUtensorMap map_a, map_w;
   int rc = matrix_map(&map_w, g.w, g.K, g.N, Sh::BK);
   if (rc != 0) return rc;
-  if (LN)
-    map_a = map_w;  // unused: the A panel is written by the block itself
-  else if ((rc = matrix_map(&map_a, g.a, g.M, g.K, Sh::ROWS)) != 0)
-    return rc;
-  const int smem = Sh::smem_bytes(g.K);
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  auto kernel = gemm_bf16_kernel<LN, MT, EPI>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if ((rc = matrix_map(&map_a, g.a, g.M, g.K, Sh::ROWS)) != 0) return rc;
+  auto kernel = gemm_bf16_kernel<EPI>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM);
   if (e != cudaSuccess) return (int)e;
   const int n_tiles = (g.N + TBN - 1) / TBN, row_tiles = (g.M + Sh::ROWS - 1) / Sh::ROWS;
   // persistent blocks: at most one per SM (shared memory allows no more)
   const int grid = (int)min((long long)row_tiles * n_tiles, (long long)sm_count());
-  kernel<<<grid, Sh::THREADS, smem, stream>>>(map_a, map_w, g);
+  kernel<<<grid, Sh::THREADS, Sh::SMEM, stream>>>(map_a, map_w, g);
   return (int)cudaGetLastError();
 }
 
@@ -1282,26 +1118,17 @@ int launch_gemm_tf32x3(const GemmArgs& g, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// bf16 takes no LayerNorm here: ln_gemm and gemm_bias_residual run ln_rows
+// first (launch_ln_rows_then_gemm)
 template <bool LN>
 int launch_gemm(const GemmArgs& g, bool is_bf16, cudaStream_t stream) {
   if (is_bf16) {
-    if constexpr (!LN) {
-      if (g.epi == EPI_ROPE) return launch_gemm_bf16<false, 2, EPI_ROPE>(g, stream);
-      if (g.epi == EPI_SWIGLU) return launch_gemm_bf16<false, 2, EPI_SWIGLU>(g, stream);
-      if (g.epi == EPI_RESIDUAL) return launch_gemm_bf16<false, 2, EPI_RESIDUAL>(g, stream);
-      if (g.epi == EPI_GELU) return launch_gemm_bf16<false, 2, EPI_GELU>(g, stream);
-      return launch_gemm_bf16<false, 2, EPI_BIAS>(g, stream);
-    } else {
-      // EVA02's attention output: its sub-LN and the residual in one launch
-      // (K = 1024: a 64-row panel)
-      if (g.epi == EPI_RESIDUAL) return launch_gemm_bf16<true, 1, EPI_RESIDUAL>(g, stream);
-      // a 128-row panel of K <= 768 fits beside the ring; wider rows take 64 rows
-      if (g.epi == EPI_GELU)
-        return g.K <= 768 ? launch_gemm_bf16<true, 2, EPI_GELU>(g, stream)
-                          : launch_gemm_bf16<true, 1, EPI_GELU>(g, stream);
-      return g.K <= 768 ? launch_gemm_bf16<true, 2, EPI_BIAS>(g, stream)
-                        : launch_gemm_bf16<true, 1, EPI_BIAS>(g, stream);
-    }
+    if (LN) return (int)cudaErrorInvalidValue;
+    if (g.epi == EPI_ROPE) return launch_gemm_bf16<EPI_ROPE>(g, stream);
+    if (g.epi == EPI_SWIGLU) return launch_gemm_bf16<EPI_SWIGLU>(g, stream);
+    if (g.epi == EPI_RESIDUAL) return launch_gemm_bf16<EPI_RESIDUAL>(g, stream);
+    if (g.epi == EPI_GELU) return launch_gemm_bf16<EPI_GELU>(g, stream);
+    return launch_gemm_bf16<EPI_BIAS>(g, stream);
   }
   if (g.epi == EPI_ROPE || g.epi == EPI_SWIGLU || (LN && g.epi == EPI_RESIDUAL))
     return (int)cudaErrorInvalidValue;  // the EVA02 modes run in bf16 only
@@ -1313,35 +1140,28 @@ int launch_gemm(const GemmArgs& g, bool is_bf16, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// ln_rows: a LayerNorm over rows, as a pass of its own, for EVA02's block:
-// LN_1 (with the deep-prompt splice on load) and LN_2 before the qkv and
-// gate | up products, and the MLP's sub-LN over its hidden width F, stored
-// F_pad = F rounded up to 64 wide. bf16 in and out, statistics two-pass in
-// fp32 over the first n_real columns only, the fp32 affine, the normalised
-// row rounded to bf16 (where ln_gemm's prologue rounds it too); the padded
-// columns come out as their (zero) gamma and beta make them. One warp per
-// row, 8 rows per block: a lane loads its 16-byte chunks lane, lane + 32, ...
-// of the row at once (NV of them, all in flight), so the row is read once
-// and written once. What bounds it is those bytes.
+// ln_rows: a LayerNorm over rows, as a pass of its own: every bf16 LayerNorm
+// of the block kernels. For ln_gemm and gemm_bias_residual with LayerNorm
+// (LN_1 -> qkv with the deep-prompt splice on load, LN_2 -> c_fc, EVA02's
+// attention-output sub-LN before the out-projection) the entry points run it
+// into the caller's scratch and then the GEMM without LayerNorm
+// (launch_ln_rows_then_gemm); EVA02's block also calls it for LN_1 and LN_2
+// and for the MLP's sub-LN over its hidden width F, stored F_pad = F rounded
+// up to 64 wide. bf16 in and out, statistics two-pass in fp32 over the first
+// n_real columns only, the fp32 affine, the normalised row rounded to bf16;
+// the padded columns come out as their (zero) gamma and beta make them. One
+// warp per row, 8 rows per block: a lane loads its 16-byte chunks lane, lane
+// + 32, ... of the row at once (NV of them, all in flight), so the row is
+// read once and written once. What bounds it is those bytes.
 //
-// Why passes of their own and not ln_gemm's LayerNorm prologue:
-//   * the MLP's sub-LN: the prologue keeps a 64-row panel of the whole K in
-//     shared memory, 64 x 2752 x 2 bytes = 352 KB for EVA02-L's hidden
-//     width, past an SM's 227 KB. Statistics taken in the gate | up
-//     product's epilogue and the normalisation folded into the down
-//     product's epilogue (gamma folded into W, the mean's term subtracted
-//     through W's column sums) would save the pass (~0.9 GB per 256 images
-//     per block, ~5% of the block) but need the weight prepared on every
-//     call and subtract two large terms where a row's mean is large against
-//     its spread.
-//   * LN_1 and LN_2 (K = 1024): the prologue holds 64-row panels at this K
-//     (a 128-row panel is 256 KB), so each W tile that streams through L2
-//     serves 64 rows: the qkv and gate | up products ran at 275-287 TF/s
-//     that way (B 256, S 327), against ~710 TF/s for the kernel's 256-row
-//     mode without the prologue. The pass costs 2 x 171 MB per 256 images
-//     (~0.13 ms), the 256-row mode saves ~2.8 ms a block.
-// The out-projection keeps the prologue (its sub-LN and the residual in one
-// launch): at N = 1024 its W is small, and the pass would save ~0.25 ms.
+// The MLP's sub-LN could not be a prologue of any kind that keeps rows in
+// shared memory: a 64-row panel of EVA02-L's hidden width is 64 x 2752 x 2
+// bytes = 352 KB, past an SM's 227 KB. Statistics taken in the gate | up
+// product's epilogue and the normalisation folded into the down product's
+// epilogue (gamma folded into W, the mean's term subtracted through W's
+// column sums) would save the pass (~0.9 GB per 256 images per block, ~5% of
+// the block) but need the weight prepared on every call and subtract two
+// large terms where a row's mean is large against its spread.
 // ---------------------------------------------------------------------------
 
 constexpr int LNR_THREADS = 256, LNR_ROWS = LNR_THREADS / 32;
@@ -1431,6 +1251,21 @@ int launch_ln_rows(const void* x, const void* plane, const float* pmask, const f
   else if (per_lane <= 12) launch(ln_rows_bf16_kernel<12>);
   else launch(ln_rows_bf16_kernel<16>);
   return (int)cudaGetLastError();
+}
+
+// bf16 with LayerNorm: ln_rows writes LN(splice(a)) to scratch (M, K), then
+// the GEMM without LN reads it as its A. splice: the prompt plane is the
+// input rows' (ln_gemm) and the product takes none; otherwise it stays the
+// residual's (gemm_bias_residual).
+int launch_ln_rows_then_gemm(GemmArgs g, void* scratch, bool splice, cudaStream_t stream) {
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  int rc = launch_ln_rows(g.a, splice ? g.plane : nullptr, splice ? g.pmask : nullptr, g.ln_g,
+                          g.ln_b, scratch, g.M, g.K, g.S, g.K, g.eps, stream);
+  if (rc != 0) return rc;
+  g.a = scratch;
+  g.ln_g = g.ln_b = nullptr;
+  if (splice) g.plane = nullptr, g.pmask = nullptr;
+  return launch_gemm<false>(g, true, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -2777,11 +2612,12 @@ extern "C" {
 // rope_cols (bf16 without LN, act 0). x (M = B*S, K), w (K, N), bias (N,), out
 // (M, N) in the working type; ln_g/ln_b (K,) fp32, or both null: no LN, the
 // rows are read as they are (and plane must be null); plane (S, K) and pmask
-// (S,) fp32 or both null; eps the LayerNorm's epsilon.
+// (S,) fp32 or both null; eps the LayerNorm's epsilon. scratch (M, K) bf16:
+// the normalised rows of a bf16 LN (ln_rows), else null.
 int ln_gemm(const void* x, const void* plane, const void* pmask, const void* ln_g,
             const void* ln_b, const void* w, const void* bias, const void* rope, void* out,
-            int M, int N, int K, int S, int act, int rope_cols, float eps, int dtype,
-            void* stream) {
+            void* scratch, int M, int N, int K, int S, int act, int rope_cols, float eps,
+            int dtype, void* stream) {
   const int epi = rope != nullptr ? EPI_ROPE : act == 2 ? EPI_SWIGLU : act == 1 ? EPI_GELU
                                                                                 : EPI_BIAS;
   GemmArgs g{x, w, bias, nullptr, plane, static_cast<const float*>(pmask),
@@ -2801,19 +2637,22 @@ int ln_gemm(const void* x, const void* plane, const void* pmask, const void* ln_
     if (plane != nullptr) return (int)cudaErrorInvalidValue;
     return launch_gemm<false>(g, dtype == DTYPE_BF16, static_cast<cudaStream_t>(stream));
   }
-  return launch_gemm<true>(g, dtype == DTYPE_BF16, static_cast<cudaStream_t>(stream));
+  if (dtype == DTYPE_BF16)
+    return launch_ln_rows_then_gemm(g, scratch, true, static_cast<cudaStream_t>(stream));
+  return launch_gemm<true>(g, false, static_cast<cudaStream_t>(stream));
 }
 
 // out = [LN(a)] @ w + bias [+ splice(res)]. a (M, K), w (K, N), bias (N,), res
 // and out (M, N); res null: no residual (and plane must be null); plane (S, N)
 // and pmask (S,) fp32 or both null. ln_g / ln_b (K,) fp32, or both null: a
 // LayerNorm (epsilon eps) of a's rows as the product's prologue, with a
-// residual and in bf16 only (the EVA02 attention output's sub-LN); the
-// splice then applies to the residual alone.
+// residual and in bf16 only (the EVA02 attention output's sub-LN), ln_rows
+// into scratch (M, K) bf16 (else null) before the product; the splice then
+// applies to the residual alone.
 int gemm_bias_residual(const void* a, const void* ln_g, const void* ln_b, const void* w,
                        const void* bias, const void* res, const void* plane, const void* pmask,
-                       void* out, int M, int N, int K, int S, float eps, int dtype,
-                       void* stream) {
+                       void* out, void* scratch, int M, int N, int K, int S, float eps,
+                       int dtype, void* stream) {
   GemmArgs g{a, w, bias, res, plane, static_cast<const float*>(pmask),
              static_cast<const float*>(ln_g), static_cast<const float*>(ln_b), out, M, N, K, S,
              res != nullptr ? EPI_RESIDUAL : EPI_BIAS};
@@ -2823,7 +2662,7 @@ int gemm_bias_residual(const void* a, const void* ln_g, const void* ln_b, const 
   if ((ln_g == nullptr) != (ln_b == nullptr)) return (int)cudaErrorInvalidValue;
   if (ln_g != nullptr) {
     if (res == nullptr || dtype != DTYPE_BF16) return (int)cudaErrorInvalidValue;
-    return launch_gemm<true>(g, true, static_cast<cudaStream_t>(stream));
+    return launch_ln_rows_then_gemm(g, scratch, false, static_cast<cudaStream_t>(stream));
   }
   return launch_gemm<false>(g, dtype == DTYPE_BF16, static_cast<cudaStream_t>(stream));
 }

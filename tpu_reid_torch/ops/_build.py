@@ -48,11 +48,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures (argtypes) of each library's entry points
 SIGNATURES = {
     "block": {
-        # x, plane, pmask, ln_g, ln_b, w, bias, rope, out, M, N, K, S, act, rope_cols, eps,
-        # dtype, stream
-        "ln_gemm": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
-        # a, ln_g, ln_b, w, bias, res, plane, pmask, out, M, N, K, S, eps, dtype, stream
-        "gemm_bias_residual": [_P] * 9 + [_I] * 4 + [_F, _I, _P],
+        # x, plane, pmask, ln_g, ln_b, w, bias, rope, out, scratch, M, N, K, S, act,
+        # rope_cols, eps, dtype, stream
+        "ln_gemm": [_P] * 10 + [_I] * 6 + [_F, _I, _P],
+        # a, ln_g, ln_b, w, bias, res, plane, pmask, out, scratch, M, N, K, S, eps, dtype,
+        # stream
+        "gemm_bias_residual": [_P] * 10 + [_I] * 4 + [_F, _I, _P],
         # x, plane, pmask, ln_g, ln_b, out, M, K, S, n_real, eps, stream
         "ln_rows": [_P] * 6 + [_I] * 4 + [_F, _P],
         # q, k, v, ld, mask, out, lse, B, S, H, scale, fast, dtype, stream

@@ -31,10 +31,10 @@ bound, in bf16 (csrc/block_kernels.cu, csrc/hopper.cuh): one GEMM kernel
 behind `ln_gemm` and `gemm_bias_residual` runs wgmma on 128-byte-swizzled
 shared tiles that TMA fills through a ring of mbarrier-guarded stages (one
 producer thread, two consumer warpgroups, persistent blocks); with LayerNorm
-a block normalises a panel of 128 rows once (fp32 statistics and affine),
-keeps it in shared memory in the layout wgmma reads and walks N tiles while
-only W streams in, the two warpgroups on alternate tiles so that epilogues
-hide under mainloops; `mha_core` stages whole heads by TMA, double-buffered,
+the same entry point first runs `ln_rows`' kernel, which takes each row's
+statistics once (two-pass, fp32) and writes it normalised (fp32 affine, then
+bf16) into a copy in device memory, and the product reads its A tiles from
+the copy; `mha_core` stages whole heads by TMA, double-buffered,
 and runs both products on wgmma with the score rows in registers. The
 wrappers hold the kernels' domain in plain functions of sizes, strides and
 addresses (`check_gemm_operands`, `attention.head_row_stride`): TMA needs
@@ -168,12 +168,13 @@ def check_gemm_operands(what: str, m: int, k: int, n: int, has_ln: bool,
                         addresses: dict, fp32: bool = False, mode: Optional[str] = None) -> None:
     """What the GEMM kernel behind `ln_gemm` and `gemm_bias_residual` takes,
     from sizes and base addresses alone (ValueError otherwise): K a multiple
-    of 32 (a W stage of the LayerNorm mode; also keeps every row of A and W a
+    of 32 (a k-stage of the fp32 kernel; also keeps every row of A and W a
     multiple of 16 bytes, which TMA and the 16-byte loads need), N a multiple
     of 8 (16-byte rows of W, the bias, the residual and the output), with
-    LayerNorm K <= LN_MAX_WIDTH (the row panel a block keeps in shared
-    memory), sizes within a tensor map's 32-bit extents, and every operand's
-    base (`addresses`: name -> address or None) 16-byte aligned. `fp32`: the
+    LayerNorm K <= LN_MAX_WIDTH (the fp32 kernel's gamma and beta in shared
+    memory, a row in a warp's registers in `ln_rows`' kernel), sizes within
+    a tensor map's 32-bit extents, and every operand's base (`addresses`:
+    name -> address or None) 16-byte aligned. `fp32`: the
     fp32 kernel reads only the activation and W by TMA and the LayerNorm
     plane by 16-byte vectors, so the bases in FP32_SCALAR_OPERANDS are free
     there. M is free: the ragged last row tile is zero-filled on load and
@@ -259,8 +260,10 @@ def ln_gemm(x: Tensor, ln_scale: Optional[Tensor], ln_bias: Optional[Tensor], w:
             rope: Optional[Tensor] = None, rope_cols: int = 0, eps: float = 1e-5) -> Tensor:
     """(B, S, K) -> (B, S, N), or (B, S, N / 2) with swiglu. CUDA:
     csrc/block_kernels.cu::ln_gemm (with ln_scale None: the same kernel
-    without its LayerNorm prologue). EVA02's modes, bf16 without LayerNorm
-    (on rows `ln_rows` normalised): swiglu (w and b packed gate | up by
+    without its LayerNorm prologue; in bf16 the LayerNorm is `ln_rows`' kernel
+    into B S K bf16 of scratch, `_ln_scratch`, before the product). EVA02's
+    modes, bf16 without LayerNorm (on rows `ln_rows` normalised): swiglu (w
+    and b packed gate | up by
     64-column groups) and rope (a (S, 2, 64) fp32 cos / sin table, applied to
     the columns below rope_cols, a multiple of 64). eps: the LayerNorm's
     epsilon."""
@@ -293,9 +296,10 @@ def ln_gemm(x: Tensor, ln_scale: Optional[Tensor], ln_bias: Optional[Tensor], w:
                              ln_scale=ptr(g), ln_bias=ptr(gb), rope=ptr(rope)),
                         fp32=x.dtype == torch.float32, mode=mode)
     out = torch.empty(bsz, s, n // 2 if swiglu else n, dtype=x.dtype, device=x.device)
+    scratch = _ln_scratch(x, has_ln)
     lib = _build.library("block")
     rc = lib.ln_gemm(ptr(x), ptr(plane), ptr(pmask), ptr(g), ptr(gb), ptr(w), ptr(b), ptr(rope),
-                     ptr(out), bsz * s, n, k, s, 2 if swiglu else int(gelu),
+                     ptr(out), ptr(scratch), bsz * s, n, k, s, 2 if swiglu else int(gelu),
                      rope_cols if rope is not None else 0, eps, _build.DTYPE_CODES[x.dtype],
                      _build.stream(x))
     _build.check(lib, rc, "ln_gemm")
@@ -304,6 +308,12 @@ def ln_gemm(x: Tensor, ln_scale: Optional[Tensor], ln_bias: Optional[Tensor], w:
 
 
 ln_gemm.launches = 0
+
+
+def _ln_scratch(x: Tensor, has_ln: bool) -> Optional[Tensor]:
+    """Where a bf16 LayerNorm writes x's normalised rows for the product to
+    read (x's shape and type); None otherwise."""
+    return torch.empty_like(x) if has_ln and x.dtype == torch.bfloat16 else None
 
 
 # ---------------------------------------------------------------------------
@@ -363,9 +373,9 @@ def gemm_bias_residual(a: Tensor, w: Tensor, b: Tensor, residual: Optional[Tenso
                        ln_bias: Optional[Tensor] = None, eps: float = 1e-5) -> Tensor:
     """(B, S, K) -> (B, S, N). CUDA: csrc/block_kernels.cu::gemm_bias_residual
     (residual None: the same kernel with the bias epilogue alone). With
-    ln_scale / ln_bias (bf16, a residual): a LayerNorm of a's rows first, in
-    the same launch (EVA02's sub-LN on the attention output); the splice then
-    applies to the residual alone."""
+    ln_scale / ln_bias (bf16, a residual): a LayerNorm of a's rows first,
+    `ln_rows`' kernel into scratch in the same call (EVA02's sub-LN on the
+    attention output); the splice then applies to the residual alone."""
     _build.check_forward_only(a, w, b, residual, plane, ln_scale, ln_bias)
     if a.device.type == "cpu":
         return gemm_bias_residual_reference(a, w, b, residual, plane, pmask, ln_scale=ln_scale,
@@ -395,10 +405,11 @@ def gemm_bias_residual(a: Tensor, w: Tensor, b: Tensor, residual: Optional[Tenso
                              ln_bias=ptr(gb)),
                         fp32=a.dtype == torch.float32, mode="ln_residual" if has_ln else None)
     out = torch.empty(bsz, s, n, dtype=a.dtype, device=a.device)
+    scratch = _ln_scratch(a, has_ln)
     lib = _build.library("block")
     rc = lib.gemm_bias_residual(ptr(a), ptr(g), ptr(gb), ptr(w), ptr(b), ptr(residual),
-                                ptr(plane), ptr(pmask), ptr(out), bsz * s, n, k, s, eps,
-                                _build.DTYPE_CODES[a.dtype], _build.stream(a))
+                                ptr(plane), ptr(pmask), ptr(out), ptr(scratch), bsz * s, n, k, s,
+                                eps, _build.DTYPE_CODES[a.dtype], _build.stream(a))
     _build.check(lib, rc, "gemm_bias_residual")
     gemm_bias_residual.launches += 1
     return out
