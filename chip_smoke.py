@@ -3238,6 +3238,331 @@ def eva02_phase(dev, k_batches=4, batch=256):
     return launches, numbers
 
 
+EVAE_SHAPES = dict(s=165, d=1792, heads=16, dh=112, f=15360)  # the evae-market.embed cell's
+
+
+def evae_model(dev, seed=10, n_cls=751):
+    """EVA02-CLIP-E/14 as the IVLP ReID tower at the evae-market.embed cell's
+    geometry (configs.eva02_e14_reid: 1792 x 64, 16 heads of 112, an
+    exact-GELU MLP of 15360, post-norm; prompt depth 64 with 2 tokens; 165
+    tokens at 256x128), random bf16 weights drawn on the card from a seed in
+    EVA-CLIP's layout, converted by weights.convert.eva_e_params. The
+    post-norm gains are drawn near 0.1, as the benchmark's stand-in draws
+    them: at 1 the residual stream, which no LayerNorm precedes into q and k,
+    saturates every softmax."""
+    from tpu_reid_torch.configs import PromptDesign, eva02_e14_reid
+    from tpu_reid_torch.models import prompts as P
+    from tpu_reid_torch.models import reid_clip as M
+    from tpu_reid_torch.weights.convert import eva_e_params
+
+    design = PromptDesign(trainer="IVLP", vision_depth=64, vision_ctx=2, language_depth=64,
+                          language_ctx=2)
+    clip = eva02_e14_reid((256, 128), design)
+    v = clip.vision
+    mcfg = M.ReidModelConfig(mode="ivlp", clip=clip,
+                             prompt=P.PromptLearnerConfig(n_cls, n_prefix=5, n_cls_ctx=4))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, d, f = v.layers, v.width, v.hidden
+
+    def t(*shape, std=1.0, mean=0.0, dtype=torch.bfloat16):
+        return (mean + std * torch.randn(*shape, generator=gen, device=dev)).to(dtype)
+
+    def ln(*lead, mean=1.0):
+        return {"scale": t(*lead, std=0.01, mean=mean, dtype=torch.float32),
+                "bias": t(*lead, std=0.02, dtype=torch.float32)}
+
+    nat = {"conv": {"w": t(14, 14, 3, d, std=(3 * 196) ** -0.5), "b": t(d, std=0.02)},
+           "class_embedding": t(d, std=d ** -0.5),
+           "positional_embedding": t(1 + v.h_grid * v.w_grid, d, std=0.02),
+           "blocks": {"norm1": ln(n, d, mean=0.1), "norm2": ln(n, d, mean=0.1),
+                      "attn": {"qkv": {"w": t(n, d, 3 * d, std=d ** -0.5)},
+                               "q_bias": t(n, d, std=0.02), "v_bias": t(n, d, std=0.02),
+                               "proj": {"w": t(n, d, d, std=d ** -0.5), "b": t(n, d, std=0.02)}},
+                      "mlp": {"fc1": {"w": t(n, d, f, std=d ** -0.5), "b": t(n, f, std=0.02)},
+                              "fc2": {"w": t(n, f, d, std=f ** -0.5), "b": t(n, d, std=0.02)}}},
+           "norm": ln(d), "head": {"w": t(d, 1024, std=d ** -0.5), "b": t(1024, std=0.02)},
+           "vpt_shallow": t(2, d, std=0.02), "vpt_deep": t(n, 2, d, std=0.02)}
+    params = {"clip": {"visual": eva_e_params(nat)}}
+    del nat
+    torch.cuda.empty_cache()
+    return mcfg, params
+
+
+def evae_mode_checks(dev, b=256):
+    """Each launch of EVA02-CLIP-E/14's post-norm block against its plain
+    version (the wrapper's `_reference`, which rounds where the kernel does)
+    at the evae-market.embed cell's shapes (B 256, S 165, D 1792, 16 heads of
+    112, F 15360), within one bf16 rounding (`one_rounding`): the qkv product
+    without LayerNorm; mha_core on heads of 112 from the qkv buffer's strided
+    views, exact and fast; the out-projection; ln_residual, plain and with
+    the next block's prompt rows spliced on store; fc1 with the exact GELU
+    (QuickGELU's curve must miss the bound: the bound tells the two apart);
+    fc2 over K 15360; the CLS tail at D 1792 (bf16: the wgmma kernel; fp32:
+    the FMA kernel, within 1e-5 relative). The whole seven-launch block
+    within 4e-3 relative L2 (seven roundings chained through two
+    LayerNorms). Then each launch timed by CUDA-graph replay (`graph_ms`)
+    beside what bounds it, and mha_core at heads of 112 on key tiles (S 259:
+    EVA-CLIP's own 224 x 224 input) beside SDPA. Returns ({check: worst ratio
+    to its bound}, [timing lines])."""
+    from tpu_reid_torch.ops import attention as TA
+    from tpu_reid_torch.ops import fused_attention as FA
+    from tpu_reid_torch.ops import fused_eva_e as FEE
+    from tpu_reid_torch.ops import fused_tail as FT
+
+    s, d, h, dh, f = (EVAE_SHAPES[k] for k in ("s", "d", "heads", "dh", "f"))
+    m, eps = b * s, 1e-6
+    gen = torch.Generator(device=dev).manual_seed(31)
+
+    def t(*shape, std=1.0, mean=0.0, dtype=torch.bfloat16):
+        return (mean + std * torch.randn(*shape, generator=gen, device=dev)).to(dtype)
+
+    x = t(b, s, d)
+    w_qkv, b_qkv = t(d, 3 * d, std=d ** -0.5), t(3 * d, std=0.02)
+    b_qkv[d:2 * d] = 0
+    w_o, b_o = t(d, d, std=d ** -0.5), t(d, std=0.02)
+    w_1, b_1 = t(d, f, std=d ** -0.5), t(f, std=0.02)
+    w_2, b_2 = t(f, d, std=f ** -0.5), t(d, std=0.02)
+    ln = [t(d, std=0.01, mean=0.1, dtype=torch.float32), t(d, std=0.02, dtype=torch.float32)]
+    weights = [w_qkv, b_qkv, w_o, b_o, *ln, w_1, b_1, w_2, b_2, *ln]
+    plane, pmask = t(s, d), torch.zeros(s, 1, device=dev)
+    pmask[s - 2:] = 1.0
+    worst = {}
+    with torch.no_grad():
+        qkv = FA.ln_gemm(x, None, None, w_qkv, b_qkv)
+        worst["qkv"] = one_rounding(qkv, FA.ln_gemm_reference(x, None, None, w_qkv, b_qkv))
+        for fast in (False, True):
+            n0 = TA.mha_core_wide.launches
+            a = FA._attention_kernel(qkv, h, None, fast)
+            if TA.mha_core_wide.launches != n0 + 1:
+                raise PhaseFailed("evae: mha_core on heads of 112 was not counted as such")
+            worst[f"mha_core dh112 fast{int(fast)}"] = one_rounding(
+                a, FA.attention_reference(qkv, h, None, fast))
+        y = FA.ln_gemm(a, None, None, w_o, b_o)
+        worst["out_proj"] = one_rounding(y, FA.ln_gemm_reference(a, None, None, w_o, b_o))
+        x1 = FA.ln_residual(y, x, *ln, eps)
+        worst["ln_residual"] = one_rounding(x1, FA.ln_residual_reference(y, x, *ln, eps))
+        spliced = FA.ln_residual(y, x, *ln, eps, plane, pmask)
+        worst["ln_residual splice"] = one_rounding(
+            spliced, FA.ln_residual_reference(y, x, *ln, eps, plane, pmask))
+        if not torch.equal(spliced[:, s - 2:], plane[s - 2:].expand(b, 2, d)):
+            raise PhaseFailed("evae: ln_residual did not store the prompt rows in place")
+        del spliced, y
+        hid = FA.ln_gemm(x1, None, None, w_1, b_1, gelu_erf=True)
+        want = FA.ln_gemm_reference(x1, None, None, w_1, b_1, gelu_erf=True)
+        worst["fc1 gelu_erf"] = one_rounding(hid, want)
+        quick = one_rounding(FA.ln_gemm_reference(x1, None, None, w_1, b_1, gelu=True), want)
+        if not quick > 1:
+            raise PhaseFailed(f"evae: QuickGELU lies within one rounding of the exact GELU "
+                              f"({quick:.3f}): the bound cannot tell them apart")
+        del want
+        torch.cuda.empty_cache()
+        worst["fc2"] = one_rounding(FA.ln_gemm(hid, None, None, w_2, b_2),
+                                    FA.ln_gemm_reference(hid, None, None, w_2, b_2))
+        del hid
+        torch.cuda.empty_cache()
+        got = FEE.fused_eva_e_block(x, weights, h, eps, plane, pmask, fast=True)
+        want = FEE.eva_e_block_reference(x, weights, h, eps, plane, pmask, fast=True)
+        block_gap = float((got.float() - want.float()).norm() / want.float().norm())
+        del got, want
+        torch.cuda.empty_cache()
+        # the CLS tail at D 1792: 2b rows (a batch and its flips), E 1024
+        xt, proj, hb = t(2 * b, d), t(d, 1024, std=d ** -0.5), t(1024, std=0.02,
+                                                                dtype=torch.float32)
+        g, gb = t(d, std=0.1, mean=1.0, dtype=torch.float32), t(d, std=0.1, dtype=torch.float32)
+        if FT.tail_kernel_route(2 * b, d, 1024, True, {}) != "wgmma":
+            raise PhaseFailed("evae: the tail at D 1792 is not on the wgmma kernel's route")
+        yk, pk = FT.ln_proj_tail_kernel(xt, g, gb, proj, hb, eps)
+        yr, pr = FT.ln_proj_tail_reference(xt, g, gb, proj, hb, eps)
+        worst["tail y"], worst["tail p"] = one_rounding(yk, yr), one_rounding(pk, pr)
+        x32, p32 = xt.float(), proj.float()
+        tail32 = [rel_err(k_, r_)[1] for k_, r_ in zip(
+            FT.ln_proj_tail_kernel(x32, g, gb, p32, hb, eps),
+            FT.ln_proj_tail_reference(x32, g, gb, p32, hb, eps))]
+    for mode, r in worst.items():
+        say(f"  evae {mode} at B {b}, S {s}: worst |d| / one bf16 rounding {r:.3f} "
+            f"{'ok' if r <= 1 else 'FAIL'}")
+    say(f"  evae fc1: QuickGELU against the exact GELU: {quick:.1f} roundings (must pass 1)")
+    say(f"  evae whole block (seven launches) against eva_e_block_reference: rel L2 "
+        f"{block_gap:.2e} (tol 4e-3) {'ok' if block_gap < 4e-3 else 'FAIL'}")
+    say(f"  evae fp32 tail at D 1792 (FMA kernel): worst rel {max(tail32):.2e} (tol 1e-5) "
+        f"{'ok' if max(tail32) <= 1e-5 else 'FAIL'}")
+    bad = [k for k, r in worst.items() if not r <= 1]
+    if bad or not block_gap < 4e-3 or not max(tail32) <= 1e-5:
+        raise PhaseFailed(f"evae: {bad or 'the block or the fp32 tail'} off the plain versions")
+    worst["block_rel_l2"], worst["tail_fp32_rel"] = block_gap, max(tail32)
+
+    card = card_line()
+    lines = []
+
+    def report(name, ms, **bounds):
+        line = {"card": card, "name": name, "ms": ms}
+        for key, seconds in bounds.items():
+            line[key + "_ms"] = seconds * 1e3
+            line[key + "_pct"] = 100.0 * seconds * 1e3 / ms if ms else None
+        say("  evae time " + json.dumps(line))
+        lines.append(line)
+
+    def gemm_bound(k_, n_):
+        return max(2.0 * m * k_ * n_ / PEAK_BF16_FLOPS,
+                   2.0 * (m * k_ + k_ * n_ + m * n_) / PEAK_BYTES)
+
+    with torch.no_grad():
+        q, k, v = FA._qkv_views(qkv, h)
+        qc, kc, vc = (z.transpose(1, 2).contiguous() for z in (q, k, v))  # (B, H, S, dh)
+        att_flops = 4.0 * b * h * s * s * dh
+        att_bound = max(att_flops / PEAK_BF16_FLOPS, 2.0 * 4 * m * d / PEAK_BYTES)
+        for fast in (True, False):
+            report(f"mha_core.dh112.fast{int(fast)}",
+                   graph_ms(lambda: FA._attention_kernel(qkv, h, None, fast)), roofline=att_bound)
+        report("sdpa.dh112", graph_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(qc, kc, vc)),
+            roofline=att_bound)
+        report("plain_core.dh112", graph_ms(lambda: TA.xla_mha_core(q, k, v)), roofline=att_bound)
+        del qc, kc, vc
+        # the key-tile kernel at EVA-CLIP's own 224 x 224 input (257 tokens, 259 with prompts)
+        sl = 259
+        ql, kl, vl = (t(b, sl, h, dh) for _ in range(3))
+        long_bound = max(4.0 * b * h * sl * sl * dh / PEAK_BF16_FLOPS,
+                         2.0 * 4 * b * sl * d / PEAK_BYTES)
+        report(f"mha_core.dh112.s{sl}.fast1", graph_ms(lambda: TA.mha_core(ql, kl, vl, fast=True)),
+               roofline=long_bound)
+        qt, kt, vt = (z.transpose(1, 2).contiguous() for z in (ql, kl, vl))
+        report(f"sdpa.dh112.s{sl}", graph_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)),
+            roofline=long_bound)
+        del ql, kl, vl, qt, kt, vt
+        report("qkv", graph_ms(lambda: FA.ln_gemm(x, None, None, w_qkv, b_qkv)),
+               roofline=gemm_bound(d, 3 * d))
+        report("out_proj", graph_ms(lambda: FA.ln_gemm(a, None, None, w_o, b_o)),
+               roofline=gemm_bound(d, d))
+        report("fc1.gelu_erf", graph_ms(
+            lambda: FA.ln_gemm(x, None, None, w_1, b_1, gelu_erf=True)), roofline=gemm_bound(d, f))
+        report("fc1.bias_only", graph_ms(lambda: FA.ln_gemm(x, None, None, w_1, b_1)),
+               roofline=gemm_bound(d, f))
+        report("fc1.cublas", graph_ms(lambda: x @ w_1), roofline=gemm_bound(d, f))
+        hid = FA.ln_gemm(x, None, None, w_1, b_1, gelu_erf=True)
+        report("fc2", graph_ms(lambda: FA.ln_gemm(hid, None, None, w_2, b_2)),
+               roofline=gemm_bound(f, d))
+        report("fc2.cublas", graph_ms(lambda: hid @ w_2), roofline=gemm_bound(f, d))
+        del hid
+        y = FA.ln_gemm(a, None, None, w_o, b_o)
+        res_bytes = 2.0 * 3 * m * d / PEAK_BYTES
+        report("ln_residual", graph_ms(lambda: FA.ln_residual(y, x, *ln, eps)),
+               bytes_bound=res_bytes)
+        report("ln_residual.splice", graph_ms(
+            lambda: FA.ln_residual(y, x, *ln, eps, plane, pmask)), bytes_bound=res_bytes)
+        block_flops = 2.0 * m * d * (3 * d + d + 2 * f) + att_flops
+        report("block", graph_ms(
+            lambda: FEE.fused_eva_e_block(x, weights, h, eps, plane, pmask, fast=True)),
+            peak=block_flops / PEAK_BF16_FLOPS)
+        tail_bound = max(2.0 * 2 * b * d * 1024 / PEAK_BF16_FLOPS,
+                         2.0 * (2 * b * d * 2 + d * 1024 + 2 * b * 1024) / PEAK_BYTES)
+        report("tail.d1792", graph_ms(lambda: FT.ln_proj_tail_kernel(xt, g, gb, proj, hb, eps)),
+               roofline=tail_bound)
+        report("tail.d1792.plain", graph_ms(
+            lambda: FT.ln_proj_tail_reference(xt, g, gb, proj, hb, eps)), roofline=tail_bound)
+    return worst, lines
+
+
+def evae_phase(dev, batch=256):
+    """EVA02-CLIP-E/14 on the evae-market.embed cell's path: the mode checks
+    and times at B 256, S 165 (`evae_mode_checks`); then one batch of 256
+    Market crops through the extractor (eval_embed, bf16, fast softmax, the
+    input normalisation folded in, flip-TTA: two passes) with the counters
+    zeroed just before it and read just after: every full block on the
+    kernels (63 a pass, none plain), each on heads of 112 (`mha_core_wide`),
+    four products and two ln_residual passes a block, the tail on its kernel
+    once a pass; the same batch again with every block and the tail held
+    against their plain versions on the run's own inputs; 32 of its rows
+    against the plain bf16 tower."""
+    from tpu_reid_torch.data.transforms import DevicePreprocess
+    from tpu_reid_torch.models import reid_clip as M
+    from tpu_reid_torch.ops import attention as TA
+    from tpu_reid_torch.ops import fused_attention as FA
+    from tpu_reid_torch.ops import fused_eva_e as FEE
+    from tpu_reid_torch.ops import fused_tail as FT
+    from tpu_reid_torch.ops._build import kernel_impl
+    from tpu_reid_torch.ops.attention import set_fast_softmax
+    from tpu_reid_torch.parallel.extract import make_extractor
+
+    worst, times = evae_mode_checks(dev, batch)
+    torch.cuda.empty_cache()
+    mcfg, params = evae_model(dev)
+    bf, hw = torch.bfloat16, (256, 128)
+    blocks = mcfg.clip.vision.layers - 1
+    counters = {"fused_eva_e_block": FEE.fused_eva_e_block, "mha_core": TA.mha_core,
+                "mha_core_wide": TA.mha_core_wide, "ln_gemm": FA.ln_gemm,
+                "ln_residual": FA.ln_residual, "ln_rows": FA.ln_rows,
+                "ln_proj_tail": FT.ln_proj_tail_kernel}
+    fold = lambda p: M.fold_input_norm(p, mcfg, "vit")  # noqa: E731
+    embed = lambda p, im: M.eval_embed(p, mcfg, im)  # noqa: E731
+    ext = make_extractor(embed, DevicePreprocess(hw, "vit", dtype=bf), flip_tta=True, dtype=bf,
+                         fold=fold, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    images = torch.randint(0, 255, (batch, *hw, 3), dtype=torch.uint8, device=dev,
+                           generator=gen)
+    set_fast_softmax(True)
+    try:
+        ext(params, images)  # warm-up
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        FEE.fused_eva_e_block.plain = 0
+        t0 = time.perf_counter()
+        out = ext(params, images)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+        plain = FEE.fused_eva_e_block.plain
+        passes = 2
+        say(f"EVA02-CLIP-E/14 serving (eval_embed, 256x128, {mcfg.clip.vision.seq_len} tokens, "
+            f"batch {batch}, bf16, fast softmax, folded input norm, flip-TTA): one batch in "
+            f"{sec:.3f} s ({batch / sec:.1f} emb/s, one batch: not the cell's figure)")
+        say(f"  launches in the batch ({passes} passes): {launches}, fused_eva_e_block.plain "
+            f"{plain}")
+        want_counts = {"fused_eva_e_block": blocks * passes, "mha_core": blocks * passes,
+                       "mha_core_wide": blocks * passes, "ln_gemm": 4 * blocks * passes,
+                       "ln_residual": 2 * blocks * passes, "ln_rows": 0,
+                       "ln_proj_tail": passes}
+        if launches != want_counts or plain:
+            raise PhaseFailed(f"evae: launches {launches} and {plain} plain blocks, expected "
+                              f"{want_counts} and none plain")
+        errs = {"fused_eva_e_block": [], "ln_proj_tail": []}
+        with held_against_plain(FEE, "fused_eva_e_block", FEE.eva_e_block_reference,
+                                errs["fused_eva_e_block"]), \
+                held_against_plain(FT, "ln_proj_tail_kernel", FT.ln_proj_tail_reference,
+                                   errs["ln_proj_tail"]):
+            held = ext(params, images)
+        x = images[:32]
+        with kernel_impl("plain"):
+            ep = ext(params, x)
+    finally:
+        set_fast_softmax(False)
+    tol = TOL[bf]
+    for name, es in errs.items():
+        w = max((rel for _, rel in es), default=float("inf"))
+        say(f"  evae {name}, {len(es)} outputs of one batch, each against its plain version "
+            f"on the run's own inputs: worst rel {w:.3e} (tol {tol:.0e}) "
+            f"{'ok' if w <= tol else 'FAIL'}")
+        if not es or w > tol:
+            raise PhaseFailed(f"evae: {name} disagrees with its plain version")
+        worst[f"held {name}"] = w
+    same = rel_err(held, out)[1]
+    rows = lambda a, b: (a.float() - b.float()).norm(dim=1) / b.float().norm(dim=1)  # noqa: E731
+    gap = float(rows(out[:32], ep).max())
+    say(f"  the held batch against the counted one: rel {same:.3e}; kernels against the plain "
+        f"bf16 tower on 32 rows: worst row {gap:.4f} (tol 3e-2: the plain tower rounds "
+        f"elsewhere, 64 blocks deep) {'ok' if gap < 3e-2 else 'FAIL'}")
+    if same > 1e-3 or gap >= 3e-2:
+        raise PhaseFailed("evae: the held run differs from the counted run or the plain tower")
+    if out.shape != (batch, 1792 + 1024) or not torch.isfinite(out).all():
+        raise PhaseFailed(f"evae: embeddings not finite or of shape {tuple(out.shape)}")
+    worst["rows_vs_plain_tower"] = gap
+    del params, out, held, ep
+    torch.cuda.empty_cache()
+    return launches, {"checks": worst, "times": times}
+
+
 def multitask_model(dev):
     """The hard_ivlp multitask model: IVLP ViT-B/16 (prompt depth 12, 2
     context tokens) shared by task 0 at 256x128 (213 tokens, 751 classes)
@@ -5321,11 +5646,13 @@ def tools_phase(dev, counters):
 
 
 # instantiations of the wgmma kernels that the sources launch: the GEMM's
-# epilogues (bias, QuickGELU, residual, and EVA02's rope and swiglu); the two
-# attention kernels; the CLS tail; the fp32 route's (LN, epilogue) = 3
-# without LN + 2 with, its attention kernel and its CLS tail
-WGMMA_ENTRIES = {"gemm_bf16_kernel": 5, "attention_bf16_kernel": 1,
-                 "attention_long_bf16_kernel": 1, "ln_proj_tail_bf16_kernel": 1,
+# epilogues (bias, QuickGELU, residual, EVA02's rope and swiglu, EVA02-E's
+# exact GELU); the whole-row and the key-tile attention kernels, each at
+# heads of 64 and 112; the CLS tail up to D 1024 and up to 2048; the fp32
+# route's (LN, epilogue) = 3 without LN + 2 with, its attention kernel and its
+# CLS tail
+WGMMA_ENTRIES = {"gemm_bf16_kernel": 6, "attention_bf16_kernel": 2,
+                 "attention_long_bf16_kernel": 2, "ln_proj_tail_bf16_kernel": 2,
                  "gemm_tf32x3_kernel": 9, "attention_tf32x3_kernel": 3,
                  "attention_tf32x3_kernel_bwd_dq": 1, "attention_tf32x3_kernel_bwd_dkv": 1,
                  "ln_proj_tail_tf32x3_kernel": 1}
@@ -5461,6 +5788,13 @@ def main() -> int:
         say("eva02: " + json.dumps(numbers, default=float))
         torch.cuda.empty_cache()
 
+    def run_evae():
+        state.clear()
+        torch.cuda.empty_cache()
+        by_path["evae_serve"], numbers = evae_phase(dev)
+        say("evae: " + json.dumps(numbers, default=float))
+        torch.cuda.empty_cache()
+
     def run_train():
         for stage, r in training_phase(dev, block_counters, *flagship_once()).items():
             by_path[stage] = r["launches"]
@@ -5527,7 +5861,7 @@ def main() -> int:
     phases = (("kernels", run_kernels), ("minsum", run_minsum),
               ("grad", lambda: gradient_phase(dev)), ("zero_shot", run_zero_shot),
               ("rerank", run_rerank), ("serve", run_serve), ("vehicle", run_vehicle),
-              ("eva02", run_eva02), ("train", run_train), ("cli", run_cli), ("multitask", run_multitask),
+              ("eva02", run_eva02), ("evae", run_evae), ("train", run_train), ("cli", run_cli), ("multitask", run_multitask),
               ("resnet", run_resnet), ("variants", run_variants), ("cache", run_cache),
               ("multidevice", run_multidevice), ("tp", run_tp), ("tools", run_tools))
     # `--phases kernels,serve` runs only those phases (for work on one of

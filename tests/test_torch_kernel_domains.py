@@ -423,7 +423,9 @@ TAIL_ALIGNED = dict(x=BASE, proj=BASE + 2 ** 20, ln_scale=BASE + 2 ** 21,
     (128, 768, 512, True, "wgmma"),    # ViT-B/16, one extraction pass
     (512, 768, 512, True, "wgmma"),    # IVLP serving
     (1, 768, 512, True, "wgmma"),      # one row: B is free
-    (70, 1024, 768, True, "wgmma"),    # the widest tail: ViT-L/14
+    (70, 1024, 768, True, "wgmma"),    # ViT-L/14
+    (256, 1792, 1024, True, "wgmma"),  # EVA02-CLIP-E/14
+    (3, 2048, 64, True, "wgmma"),      # the widest bf16 tail
     (64, 64, 8, True, "wgmma"),        # the smallest D and E
     (130, 768, 520, True, "wgmma"),    # E a multiple of 8, not of the 64-column tile
     (128, 768, 512, False, "tf32x3"),  # fp32: an extraction pass, the parity runs
@@ -433,7 +435,9 @@ TAIL_ALIGNED = dict(x=BASE, proj=BASE + 2 ** 20, ln_scale=BASE + 2 ** 21,
     (64, 768, 512, False, "tf32x3"),   # fp32 training: the batch's 64 CLS rows
     (1, 768, 512, False, "tf32x3"),    # fp32, one row
     (512, 768, 512, False, "tf32x3"),  # fp32, IVLP serving's batch
-    (70, 1024, 768, False, "tf32x3"),  # fp32, the widest tail: ViT-L/14
+    (70, 1024, 768, False, "tf32x3"),  # fp32, the 3xTF32 kernel's widest: ViT-L/14
+    (256, 1792, 1024, False, "fma"),   # fp32 past it: EVA02-CLIP-E/14
+    (9, 1056, 64, False, "fma"),       # one fp32 K block past it
     (33, 768, 516, False, "tf32x3"),   # fp32 rows of p are 16 bytes at E % 4 == 0
     (65, 640, 200, False, "tf32x3"),   # 20 K blocks: the cluster's ranks take 2 or 3
     (33, 96, 40, False, "tf32x3"),     # D off 64 is a whole number of fp32 K blocks
@@ -453,7 +457,7 @@ def test_tail_route_takes_the_fma_kernel_for_an_unaligned_base(name):
 
 
 @pytest.mark.parametrize("b,d,e,why", [
-    (128, 1088, 512, "D wider than the rows a block keeps"),
+    (128, 2112, 512, "D wider than the rows a block keeps"),
     (128, 0, 512, "D = 0"),
     (128, 768, 0, "E = 0"),
     (2 ** 31, 768, 512, "B past 32 bits"),
@@ -498,34 +502,34 @@ def test_tail_tf32x3_smem_fits_from_the_source_constants():
     formula (per K block of a rank: the proj slice and the split y tiles;
     the eight ranks' partial slabs, the row sums of both passes, the
     barriers, up to 1024 bytes of alignment): under the 232448 bytes a block
-    can ask for at D = MAX_WIDTH (D / 32 K blocks over a cluster of 8), and
-    at ViT-B/16's 768 small enough for two blocks on an SM (233472 bytes, 1
-    KB reserved per block), as the kernel's launch bounds ask."""
+    can ask for at D = TF32_MAX_WIDTH (D / 32 K blocks over a cluster of 8,
+    a lane of a rank owning one 16-byte chunk of the rank's share), and at
+    ViT-B/16's 768 small enough for two blocks on an SM (233472 bytes, 1 KB
+    reserved per block), as the kernel's launch bounds ask."""
     v, smem = _tail_source_values()
-    assert v["TW_MAX_D"] == FT.MAX_WIDTH and v["TF_RANKS"] <= 8  # a portable cluster size
+    assert v["TF_MAX_D"] == FT.TF32_MAX_WIDTH and v["TF_RANKS"] <= 8  # a portable cluster
     assert v["TF_ROWS"] == v["TF_COLS"] == 64 and v["TF_THREADS"] == 256
     assert v["TF_ROWS"] % v["TF_RANKS"] == 0
 
     def kb_max(d):
         return -(-(d // v["TF_KB"]) // v["TF_RANKS"])
 
-    assert kb_max(FT.MAX_WIDTH) == v["TF_MAX_KB"]
-    assert smem(kb_max(FT.MAX_WIDTH)) <= 232448
+    assert kb_max(FT.TF32_MAX_WIDTH) == v["TF_MAX_KB"]
+    assert 8 * v["TF_MAX_KB"] <= 32  # 16-byte chunks of a rank's columns, one per lane
+    assert smem(kb_max(FT.TF32_MAX_WIDTH)) <= 232448
     assert 2 * (smem(kb_max(768)) + 1024) <= 233472
 
 
 def test_tail_smem_fits_the_widest_row():
     """The wgmma kernel's shared memory at D = MAX_WIDTH, from the constants
-    of its source: the panel, the ring and the barriers stay under the
-    232448 bytes a block can ask for."""
-    import os
-    import re
-
-    src = open(os.path.join(os.path.dirname(FT.__file__), "..", "csrc", "tail_kernel.cu")).read()
-    stages = int(re.search(r"TW_STAGES = (\d+);", src).group(1))
-    max_d = int(re.search(r"TW_MAX_D = (\d+);", src).group(1))
+    of its source: the panel (32 rows per K block of 64), the ring of 64-row
+    proj stages and the barriers stay under the 232448 bytes a block can ask
+    for; a lane's chunks of a row cover the widest row."""
+    v, _ = _tail_source_values()
+    stages, max_d = v["TW_STAGES"], v["TW_MAX_D"]
     assert max_d == FT.MAX_WIDTH and stages % 2 == 0
-    kb = 64 * 128
-    assert 1024 + max_d // 64 * kb + stages * kb + 8 * stages <= 232448
+    assert v["TW_PB"] == v["TW_ROWS"] * 128 and v["TW_KB"] == 64 * 128
+    assert 1024 + max_d // 64 * v["TW_PB"] + stages * v["TW_KB"] + 8 * stages <= 232448
+    assert 32 * (max_d // 256) * 8 >= max_d and 256 * v["TW_NV_NARROW"] == 1024
     # and the FMA kernel's 16 fp32 rows
     assert 16 * FT.MAX_WIDTH * 4 <= 232448

@@ -51,13 +51,18 @@ class VisionConfig:
         positional embedding) or "eva02" (EVA-CLIP's EVA02 block: 2D rotary
         embedding on q and k of the grid tokens, a key projection without
         bias, LayerNorms on the attention output and over the MLP's hidden
-        width inside the residual branches, a SwiGLU MLP; no ln_pre),
+        width inside the residual branches, a SwiGLU MLP; no ln_pre) or
+        "eva_e" (EVA-CLIP's post-norm block of EVA02-CLIP-E/14: no LayerNorm
+        before a product, a LayerNorm on each branch's output before its
+        residual add, a key projection without bias, an exact-GELU MLP, no
+        RoPE; heads of width // n_heads, 112 there; no ln_pre),
       * mlp_hidden: the MLP's hidden width (None: 4 x width; EVA02-L
-        int(1024 x 2.6667) = 2730),
+        int(1024 x 2.6667) = 2730, EVA02-E int(1792 x 8.571428571428571) =
+        15360),
       * rope_grid: the pretraining grid (rope_grid x rope_grid) EVA02's
         rotary embedding is interpolated from,
-      * ln_eps: every LayerNorm's epsilon (EVA02: 1e-6; the CLIP block takes
-        1e-5 only).
+      * ln_eps: every LayerNorm's epsilon (EVA02, EVA02-E: 1e-6; the CLIP
+        block takes 1e-5 only).
     """
 
     layers: int = 12
@@ -75,8 +80,8 @@ class VisionConfig:
     ln_eps: float = 1e-5
 
     def __post_init__(self):
-        if self.block not in ("clip", "eva02"):
-            raise ValueError(f"vision block must be clip or eva02: {self.block!r}")
+        if self.block not in ("clip", "eva02", "eva_e"):
+            raise ValueError(f"vision block must be clip, eva02 or eva_e: {self.block!r}")
         if self.block == "clip" and self.ln_eps != 1e-5:
             raise ValueError("the CLIP block takes LayerNorm epsilon 1e-5")
 
@@ -178,6 +183,29 @@ def eva02_l14_reid(
         ),
         text=TextConfig(layers=12, width=768, heads=12, output_dim=768, design=design),
         embed_dim=768,
+    )
+
+
+def eva02_e14_reid(
+    image_hw: Tuple[int, int] = (256, 128),
+    design: PromptDesign = PromptDesign(),
+) -> CLIPConfig:
+    """EVA-CLIP's EVA02-CLIP-E/14 (BAAI, arXiv:2303.15389; model config
+    EVA02-CLIP-bigE-14.json, the "postnorm" tower) at a ReID resolution: the
+    vision tower 1792 x 64, 16 heads of 112 (head_width 112), post-norm
+    residual branches, an exact-GELU MLP of int(1792 x 8.571428571428571) =
+    15360, LayerNorm epsilon 1e-6, no RoPE and no ln_pre, patches of 14 at
+    stride 14 (18 x 9 at 256 x 128), a head 1792 -> 1024 with a bias; the
+    text tower 1024 x 24 with 16 heads; embeddings of 1024."""
+    hg, wg = VisionConfig.grid_for(image_hw, 14, 14)
+    return CLIPConfig(
+        vision=VisionConfig(
+            layers=64, width=1792, patch_size=14, stride=14, h_grid=hg, w_grid=wg,
+            output_dim=1024, design=design, n_heads=16, block="eva_e",
+            mlp_hidden=int(1792 * 8.571428571428571), ln_eps=1e-6,
+        ),
+        text=TextConfig(layers=24, width=1024, heads=16, output_dim=1024, design=design),
+        embed_dim=1024,
     )
 
 

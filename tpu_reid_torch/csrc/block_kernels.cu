@@ -17,7 +17,8 @@
 //                       without pre-LN).
 //   mha_core            softmax attention for any S, dh = 64 (bf16: whole score
 //                       rows for S <= 256, a loop over key tiles beyond; fp32:
-//                       key tiles for every S) on
+//                       key tiles for every S), and dh = 112 in bf16 for
+//                       S <= 256 (whole score rows), on
 //                       q, k and v given as three base pointers and one row
 //                       stride (elements between consecutive tokens): views
 //                       into a packed (B, S, 3D) qkv buffer (stride 3D) and
@@ -99,6 +100,22 @@
 //   * ln_rows: LN_1, LN_2, the attention output's sub-LN and the MLP's
 //     sub-LN as passes of their own; its notes stand above it.
 //
+// EVA02-CLIP-E/14's post-norm block (ops/fused_eva_e.py; bf16) adds one GEMM
+// mode, a mode of ln_rows and a head width:
+//
+//   * EPI_GELU_ERF (fc1): the exact GELU, erff on the 8 values a thread holds
+//     after the column exchange, before the one cast.
+//   * ln_rows' residual mode (ln_residual): out = res + LN(y), the post-norm
+//     residual. Each row's statistics need all of its D columns, which no
+//     128-column output tile of the product holds, so the products before
+//     it (out-projection, fc2) write y with the bias alone and this pass
+//     reads y and the residual once; the next block's deep-prompt rows are
+//     stored in place of the sum (the splice on store: the post-norm block
+//     has no pass before its qkv product to splice on load).
+//   * attention_bf16_kernel<112> and attention_long_bf16_kernel<112> (S >
+//     256: EVA-CLIP's own 224x224 input has 257 tokens): heads of 112 as two
+//     64-column blocks; their notes stand above them.
+//
 // The fp32 route (the training CLIs' default dtype: every forward and every
 // backward of every training step) runs two kernels of its own, both 3xTF32
 // on wgmma: each operand split once into hi = tf32(x) and lo = tf32(x - hi),
@@ -164,6 +181,11 @@ constexpr int EPI_DGRAD = 3, EPI_DGELU = 4, EPI_WGRAD = 5, EPI_PRODUCT = 6;
 //              below rope_cols (q and k of a packed qkv), from a (S, 2, 64)
 //              cos / sin table
 constexpr int EPI_SWIGLU = 7, EPI_ROPE = 8;
+// EVA02-CLIP-E/14's MLP (bf16, without the LayerNorm prologue):
+// EPI_GELU_ERF out = GELU(a @ w + bias), the exact form x Phi(x) =
+//              x (1 + erf(x / sqrt 2)) / 2 in fp32 (nn.GELU()), not the tanh
+//              approximation nor QuickGELU
+constexpr int EPI_GELU_ERF = 9;
 
 struct GemmArgs {
   const void* a;       // (M, K) row-major, T; EPI_WGRAD: (K, M)
@@ -385,6 +407,15 @@ __device__ __forceinline__ void gemm_epilogue(const GemmArgs& g, const float (&a
           for (int i = 0; i < 8; ++i) e[i] = rcp_approx(1.f + e[i]);
 #pragma unroll
           for (int i = 0; i < 8; ++i) x[i] *= e[i];
+        }
+        if (EPI == EPI_GELU_ERF) {
+          // erff a stage at a time over the 8 values, so that their chains
+          // overlap
+          float e[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) e[i] = erff(x[i] * 0.70710678118654752f);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) x[i] = 0.5f * x[i] * (1.f + e[i]);
         }
         if (EPI == EPI_ROPE && n < g.rope_cols && m < g.M) rope8(g, tok, n, x);
         if (m < g.M && n < g.N)
@@ -1125,12 +1156,14 @@ int launch_gemm(const GemmArgs& g, bool is_bf16, cudaStream_t stream) {
   if (is_bf16) {
     if (LN) return (int)cudaErrorInvalidValue;
     if (g.epi == EPI_ROPE) return launch_gemm_bf16<EPI_ROPE>(g, stream);
+    if (g.epi == EPI_GELU_ERF) return launch_gemm_bf16<EPI_GELU_ERF>(g, stream);
     if (g.epi == EPI_SWIGLU) return launch_gemm_bf16<EPI_SWIGLU>(g, stream);
     if (g.epi == EPI_RESIDUAL) return launch_gemm_bf16<EPI_RESIDUAL>(g, stream);
     if (g.epi == EPI_GELU) return launch_gemm_bf16<EPI_GELU>(g, stream);
     return launch_gemm_bf16<EPI_BIAS>(g, stream);
   }
-  if (g.epi == EPI_ROPE || g.epi == EPI_SWIGLU || (LN && g.epi == EPI_RESIDUAL))
+  if (g.epi == EPI_ROPE || g.epi == EPI_SWIGLU || g.epi == EPI_GELU_ERF ||
+      (LN && g.epi == EPI_RESIDUAL))
     return (int)cudaErrorInvalidValue;  // the EVA02 modes run in bf16 only
   if (g.epi == EPI_GELU) return launch_gemm_tf32x3<LN, EPI_GELU>(g, stream);
   if constexpr (!LN) {
@@ -1147,8 +1180,10 @@ int launch_gemm(const GemmArgs& g, bool is_bf16, cudaStream_t stream) {
 // into the caller's scratch and then the GEMM without LayerNorm
 // (launch_ln_rows_then_gemm); EVA02's block also calls it for LN_1 and LN_2
 // and for the MLP's sub-LN over its hidden width F, stored F_pad = F rounded
-// up to 64 wide. bf16 in and out, statistics two-pass in fp32 over the first
-// n_real columns only, the fp32 affine, the normalised row rounded to bf16;
+// up to 64 wide; and, in its residual mode (RES), EVA02-CLIP-E/14's post-norm
+// residual res + LN(y) (ln_residual), the sum rounded once. bf16 in and out,
+// statistics two-pass in fp32 over the first n_real columns only, the fp32
+// affine, the normalised row rounded to bf16;
 // the padded columns come out as their (zero) gamma and beta make them. One
 // warp per row, 8 rows per block: a lane loads its 16-byte chunks lane, lane
 // + 32, ... of the row at once (NV of them, all in flight), so the row is
@@ -1166,26 +1201,39 @@ int launch_gemm(const GemmArgs& g, bool is_bf16, cudaStream_t stream) {
 
 constexpr int LNR_THREADS = 256, LNR_ROWS = LNR_THREADS / 32;
 
-template <int NV>
+template <int NV, bool RES>
 __global__ void __launch_bounds__(LNR_THREADS)
-ln_rows_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ plane,
-                    const float* __restrict__ pmask, const float* __restrict__ ln_g,
-                    const float* __restrict__ ln_b, bf16* __restrict__ out, int M, int K, int S,
-                    int n_real, float eps) {
+ln_rows_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
+                    const bf16* __restrict__ plane, const float* __restrict__ pmask,
+                    const float* __restrict__ ln_g, const float* __restrict__ ln_b,
+                    bf16* __restrict__ out, int M, int K, int S, int n_real, float eps) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long row = (long long)blockIdx.x * LNR_ROWS + warp;
   if (row >= M) return;
   const int nchunks = K / 8;
   const bf16* xr = x + row * K;
+  bf16* orow = out + row * K;
   if (plane != nullptr) {
     const int s = (int)(row % S);
-    if (pmask[s] > 0.f) xr = plane + (size_t)s * K;
+    if (pmask[s] > 0.f) {
+      const bf16* pr = plane + (size_t)s * K;
+      if constexpr (RES) {
+        // the splice on store: the plane's row in place of res + LN(x)
+        for (int c = lane; c < nchunks; c += 32)
+          *reinterpret_cast<uint4*>(orow + 8 * c) = *reinterpret_cast<const uint4*>(pr + 8 * c);
+        return;
+      }
+      xr = pr;
+    }
   }
-  uint4 u[NV];
+  uint4 u[NV], r[RES ? NV : 1];
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int c = lane + 32 * i;
     u[i] = c < nchunks ? *reinterpret_cast<const uint4*>(xr + 8 * c) : make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (RES)
+      r[i] = c < nchunks ? *reinterpret_cast<const uint4*>(res + row * K + 8 * c)
+                         : make_uint4(0u, 0u, 0u, 0u);
   }
   float s = 0.f;
 #pragma unroll
@@ -1209,7 +1257,6 @@ ln_rows_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ plane,
       if (c0 + e < n_real) v += (f[e] - mean) * (f[e] - mean);
   }
   const float rstd = rsqrtf(warp_sum(v) / n_real + eps);
-  bf16* orow = out + row * K;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int c = lane + 32 * i;
@@ -1224,32 +1271,48 @@ ln_rows_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ plane,
     const float bt[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
     for (int e = 0; e < 8; ++e) f[e] = (f[e] - mean) * rstd * gm[e] + bt[e];
+    if constexpr (RES) {
+      float rr[8];
+      unpack_vec<bf16>(r[i], rr);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[e] += rr[e];
+    }
     store_vec<bf16>(orow + 8 * c, f);
   }
 }
 
 constexpr int LNR_MAX_K = 4096;  // 16 chunks of 16 bytes per lane
 
-int launch_ln_rows(const void* x, const void* plane, const float* pmask, const float* ln_g,
-                   const float* ln_b, void* out, int M, int K, int S, int n_real, float eps,
-                   cudaStream_t stream) {
+// res null: LN(splice(x)), the plane's rows read in place of x's; res
+// given (n_real == K): res + LN(x), the plane's rows stored in place of it
+int launch_ln_rows(const void* x, const void* res, const void* plane, const float* pmask,
+                   const float* ln_g, const float* ln_b, void* out, int M, int K, int S,
+                   int n_real, float eps, cudaStream_t stream) {
   if (M == 0) return 0;
   if (K <= 0 || K % 8 || K > LNR_MAX_K || n_real < 1 || n_real > K || S < 1 ||
-      (plane == nullptr) != (pmask == nullptr))
+      (plane == nullptr) != (pmask == nullptr) || (res != nullptr && n_real != K))
     return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((M + LNR_ROWS - 1) / LNR_ROWS);
   auto xs = static_cast<const bf16*>(x);
+  auto rs = static_cast<const bf16*>(res);
   auto ps = static_cast<const bf16*>(plane);
   auto o = static_cast<bf16*>(out);
   const int per_lane = (K / 8 + 31) / 32;
   auto launch = [&](auto kernel) {
-    kernel<<<blocks, LNR_THREADS, 0, stream>>>(xs, ps, pmask, ln_g, ln_b, o, M, K, S, n_real,
-                                               eps);
+    kernel<<<blocks, LNR_THREADS, 0, stream>>>(xs, rs, ps, pmask, ln_g, ln_b, o, M, K, S,
+                                               n_real, eps);
   };
-  if (per_lane <= 4) launch(ln_rows_bf16_kernel<4>);
-  else if (per_lane <= 8) launch(ln_rows_bf16_kernel<8>);
-  else if (per_lane <= 12) launch(ln_rows_bf16_kernel<12>);
-  else launch(ln_rows_bf16_kernel<16>);
+  if (res != nullptr) {
+    if (per_lane <= 4) launch(ln_rows_bf16_kernel<4, true>);
+    else if (per_lane <= 8) launch(ln_rows_bf16_kernel<8, true>);
+    else if (per_lane <= 12) launch(ln_rows_bf16_kernel<12, true>);
+    else launch(ln_rows_bf16_kernel<16, true>);
+  } else {
+    if (per_lane <= 4) launch(ln_rows_bf16_kernel<4, false>);
+    else if (per_lane <= 8) launch(ln_rows_bf16_kernel<8, false>);
+    else if (per_lane <= 12) launch(ln_rows_bf16_kernel<12, false>);
+    else launch(ln_rows_bf16_kernel<16, false>);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1259,8 +1322,8 @@ int launch_ln_rows(const void* x, const void* plane, const float* pmask, const f
 // residual's (gemm_bias_residual).
 int launch_ln_rows_then_gemm(GemmArgs g, void* scratch, bool splice, cudaStream_t stream) {
   if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-  int rc = launch_ln_rows(g.a, splice ? g.plane : nullptr, splice ? g.pmask : nullptr, g.ln_g,
-                          g.ln_b, scratch, g.M, g.K, g.S, g.K, g.eps, stream);
+  int rc = launch_ln_rows(g.a, nullptr, splice ? g.plane : nullptr, splice ? g.pmask : nullptr,
+                          g.ln_g, g.ln_b, scratch, g.M, g.K, g.S, g.K, g.eps, stream);
   if (rc != 0) return rc;
   g.a = scratch;
   g.ln_g = g.ln_b = nullptr;
@@ -1295,26 +1358,44 @@ __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / 
 // rows in up to 128 registers; the softmax there (reduced across the quad);
 // then O = P V (wgmma m64n64k16, P from registers in bf16, V as the
 // transposed B operand). Two waits on the tensor cores per tile.
+//
+// The head width HD is a template parameter: 64 (every CLIP and EVA02-L
+// head) or 112 (EVA02-CLIP-E/14). A head of 112 is 224 bytes a row, wider
+// than one 128-byte swizzle row, so each of Q, K and V arrives as two column
+// blocks of 64 (boxes at columns h*112 and h*112 + 64, each its own tile); the
+// second box's last 16 columns belong to the next head (zeros past the last
+// one) and are never read by Q K^T, whose 7 k-steps of 16 take 4 from the
+// first block and 3 from the second. P V runs over one column block at a
+// time (m64n64k16 per 16 keys, one 32-float accumulator beside P: two would
+// spill), and the second block's last 16 output columns are not stored: 128
+// columns of P V work for 112 (+14% of P V, ~1% of the block). Two buffers of
+// a 112-wide head pass an SM's shared memory beyond S = 128 (12 tiles of 24
+// KB at S = 165), so there the kernel keeps one buffer and thread 0 asks for
+// a head once both warpgroups have left the one before (`nbuf`).
 
 constexpr int ATT_THREADS_BF16 = 256, ATT_PIECE = 64;
 constexpr int ATT_MASK_SMEM = 32 * 1024;  // the largest mask staged beside the two buffers
 
 __host__ __device__ inline int attention_bf16_tile_bytes(int S) { return round_up(S, 64) * 128; }
 
+template <int HD>
 __global__ void __launch_bounds__(ATT_THREADS_BF16, 1)
 attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v,
                       const float* __restrict__ mask, bf16* __restrict__ out, int B, int S,
-                      int H, float scale, int fast, int stage_mask) {
+                      int H, float scale, int fast, int stage_mask, int nbuf) {
+  constexpr int NCB = (HD + 63) / 64;  // 64-column blocks of a head
+  constexpr int KSTEPS = HD / 16;      // k-steps of Q K^T
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023u) & ~1023u;
   const int tile_bytes = attention_bf16_tile_bytes(S);
+  const int op_bytes = NCB * tile_bytes;  // one of Q, K, V of a head
   const int mask_bytes = stage_mask ? round_up(S * S * 4, 16) : 0;
-  float* smask = reinterpret_cast<float*>(smem_raw + (base - raw) + 6 * tile_bytes);
+  float* smask = reinterpret_cast<float*>(smem_raw + (base - raw) + nbuf * 3 * op_bytes);
   // barriers of buffer u: bars + 8u (Q, K), + 16 + 8u (V), + 32 + 8u (drained)
-  const uint32_t bars = base + 6 * tile_bytes + mask_bytes;
-  const int D = H * DH, n_items = B * H;
+  const uint32_t bars = base + nbuf * 3 * op_bytes + mask_bytes;
+  const int D = H * HD, n_items = B * H;
 
   if (threadIdx.x == 0) {
     for (int u = 0; u < 2; ++u) {
@@ -1333,27 +1414,36 @@ attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   // thread 0 asks for the block's head number i (pair w) once both warpgroups
   // have left the buffer it goes into
   auto request = [&](int i, int w) {
-    const int u = i & 1, h = w % H, b = w / H;
-    const uint32_t buf = base + u * 3 * tile_bytes;
-    mbar_wait(bars + 32 + 8 * u, ((i >> 1) & 1) ^ 1);
-    mbar_arrive_expect_tx(bars + 8 * u, 2 * tile_bytes);
-    tma_load_3d(buf, &map_q, bars + 8 * u, h * DH, 0, b);
-    tma_load_3d(buf + tile_bytes, &map_k, bars + 8 * u, h * DH, 0, b);
-    mbar_arrive_expect_tx(bars + 16 + 8 * u, tile_bytes);
-    tma_load_3d(buf + 2 * tile_bytes, &map_v, bars + 16 + 8 * u, h * DH, 0, b);
+    const int u = i % nbuf, h = w % H, b = w / H;
+    const uint32_t buf = base + u * 3 * op_bytes;
+    mbar_wait(bars + 32 + 8 * u, ((i / nbuf) & 1) ^ 1);
+    mbar_arrive_expect_tx(bars + 8 * u, 2 * op_bytes);
+#pragma unroll
+    for (int c = 0; c < NCB; ++c) {
+      tma_load_3d(buf + c * tile_bytes, &map_q, bars + 8 * u, h * HD + 64 * c, 0, b);
+      tma_load_3d(buf + op_bytes + c * tile_bytes, &map_k, bars + 8 * u, h * HD + 64 * c, 0, b);
+    }
+    mbar_arrive_expect_tx(bars + 16 + 8 * u, op_bytes);
+#pragma unroll
+    for (int c = 0; c < NCB; ++c)
+      tma_load_3d(buf + 2 * op_bytes + c * tile_bytes, &map_v, bars + 16 + 8 * u,
+                  h * HD + 64 * c, 0, b);
   };
-  if (threadIdx.x == 0) request(0, blockIdx.x);
+  // with two buffers the first head is asked for here, each next one under
+  // the work on the one before; with one, each head as its turn comes
+  const int ahead = nbuf - 1;
+  if (threadIdx.x == 0 && ahead > 0) request(0, blockIdx.x);
 
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, q = lane & 3;
   const int n_pieces = (S + ATT_PIECE - 1) / ATT_PIECE;
 
   for (int it = 0, w = blockIdx.x; w < n_items; ++it, w += gridDim.x) {
-    const int u = it & 1, h = w % H, b = w / H;
-    const uint32_t phase = (it >> 1) & 1;
-    const uint32_t sQ = base + u * 3 * tile_bytes, sK = sQ + tile_bytes, sV = sK + tile_bytes;
-    // the next head loads under the work on this one
-    if (threadIdx.x == 0 && w + gridDim.x < n_items) request(it + 1, w + gridDim.x);
+    const int u = it % nbuf, h = w % H, b = w / H;
+    const uint32_t phase = (it / nbuf) & 1;
+    const uint32_t sQ = base + u * 3 * op_bytes, sK = sQ + op_bytes, sV = sK + op_bytes;
+    if (threadIdx.x == 0 && w + ahead * gridDim.x < n_items)
+      request(it + ahead, w + ahead * gridDim.x);
     mbar_wait(bars + 8 * u, phase);
     bool v_ready = false;
 
@@ -1365,16 +1455,19 @@ attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int hr = 0; hr < 2; ++hr) mrow[hr] = mask + (size_t)min(row[hr], S - 1) * S;
       }
 
-      // raw scores: key 64p + 8j + 2q + (e & 1) of row[e >> 1] in sc[p][4j + e]
+      // raw scores: key 64p + 8j + 2q + (e & 1) of row[e >> 1] in sc[p][4j + e];
+      // k-step ks reads column block ks / 4 at 32-byte step ks % 4
       float sc[4][32];
       wgmma_fence();
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
         if (p >= n_pieces) continue;
 #pragma unroll
-        for (int ks = 0; ks < DH / 16; ++ks)
-          wgmma_m64n64k16(sc[p], wgmma_desc(sQ + qt * 8192 + 32 * ks, 16, 1024),
-                          wgmma_desc(sK + p * 8192 + 32 * ks, 16, 1024), ks != 0);
+        for (int ks = 0; ks < KSTEPS; ++ks) {
+          const uint32_t col = (ks / 4) * tile_bytes + 32 * (ks % 4);
+          wgmma_m64n64k16(sc[p], wgmma_desc(sQ + col + qt * 8192, 16, 1024),
+                          wgmma_desc(sK + col + p * 8192, 16, 1024), ks != 0);
+        }
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -1452,47 +1545,62 @@ attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       }
       float denom[2] = {d2[0][0] + d2[0][1], d2[1][0] + d2[1][1]};
 
-      // O = P V: 16 keys per step; step ks of piece p takes pk[p][4ks .. 4ks + 3]
+      // O = P V: 16 keys per step; step ks of piece p takes pk[p][4ks .. 4ks + 3];
+      // one column block of V at a time, so that one 32-float accumulator
+      // lives beside pk (two would spill at heads of 112)
       if (!v_ready) {
         mbar_wait(bars + 16 + 8 * u, phase);
         v_ready = true;
       }
-      float o[32];
-      wgmma_fence();
+      float rc[2];
 #pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        if (p >= n_pieces) continue;
+      for (int c = 0; c < NCB; ++c) {
+        float o[32];
+        wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
-          const uint32_t pa[4] = {pk[p][4 * ks], pk[p][4 * ks + 1], pk[p][4 * ks + 2],
-                                  pk[p][4 * ks + 3]};
-          wgmma_m64n64k16_ra_tb(o, pa, wgmma_desc(sV + (ATT_PIECE * p + 16 * ks) * 128, 16, 1024),
-                                (p | ks) != 0);
+        for (int p = 0; p < 4; ++p) {
+          if (p >= n_pieces) continue;
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) {
+            const uint32_t pa[4] = {pk[p][4 * ks], pk[p][4 * ks + 1], pk[p][4 * ks + 2],
+                                    pk[p][4 * ks + 3]};
+            wgmma_m64n64k16_ra_tb(
+                o, pa,
+                wgmma_desc(sV + c * tile_bytes + (ATT_PIECE * p + 16 * ks) * 128, 16, 1024),
+                (p | ks) != 0);
+          }
         }
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      wgmma_settle(o);
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_settle(o);
+        if (c == NCB - 1) {
 #pragma unroll
-      for (int p = 0; p < 4; ++p) wgmma_settle(pk[p]);
+          for (int p = 0; p < 4; ++p) wgmma_settle(pk[p]);
+        }
 
-      // scale by the row reciprocal, cast, 16-byte stores into (B, S, D)
+        // scale by the row reciprocal, cast, 16-byte stores into (B, S, D): the
+        // columns of the head alone
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        denom[hr] += __shfl_xor_sync(0xffffffffu, denom[hr], 1);
-        denom[hr] += __shfl_xor_sync(0xffffffffu, denom[hr], 2);
-        if (fast) denom[hr] = fmaxf(denom[hr], 1e-30f);
-        const float rc = 1.f / denom[hr];
+        for (int hr = 0; hr < 2; ++hr) {
+          if (c == 0) {
+            denom[hr] += __shfl_xor_sync(0xffffffffu, denom[hr], 1);
+            denom[hr] += __shfl_xor_sync(0xffffffffu, denom[hr], 2);
+            if (fast) denom[hr] = fmaxf(denom[hr], 1e-30f);
+            rc[hr] = 1.f / denom[hr];
+          }
 #pragma unroll
-        for (int j0 = 0; j0 < DH / 8; j0 += 4) {
-          uint32_t v[4];
+          for (int j0 = 0; j0 < 8; j0 += 4) {
+            uint32_t v[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-            v[i] = pack_bf16(o[4 * (j0 + i) + 2 * hr] * rc, o[4 * (j0 + i) + 2 * hr + 1] * rc);
-          quad_transpose(v, q);
-          if (row[hr] < S)
-            *reinterpret_cast<uint4*>(out + ((size_t)b * S + row[hr]) * D + h * DH +
-                                      8 * (j0 + q)) = make_uint4(v[0], v[1], v[2], v[3]);
+            for (int i = 0; i < 4; ++i)
+              v[i] = pack_bf16(o[4 * (j0 + i) + 2 * hr] * rc[hr],
+                               o[4 * (j0 + i) + 2 * hr + 1] * rc[hr]);
+            quad_transpose(v, q);
+            const int col = 64 * c + 8 * (j0 + q);
+            if (row[hr] < S && col < HD)
+              *reinterpret_cast<uint4*>(out + ((size_t)b * S + row[hr]) * D + h * HD + col) =
+                  make_uint4(v[0], v[1], v[2], v[3]);
+          }
         }
       }
     }
@@ -1502,10 +1610,12 @@ attention_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // 3-D map of one of q, k, v: element (b, s, column) at base + (b*S + s)*ld +
-// column, H*64 columns; a box is one head (64 columns) of `rows` tokens of
-// one image, tokens past S read as zeros
-int head_map(CUtensorMap* map, const void* p, int B, int S, int H, int ld, int rows) {
-  const uint64_t dims[3] = {(uint64_t)H * DH, (uint64_t)S, (uint64_t)B};
+// column, H*hd columns; a box is 64 columns (one head of 64, a column block of
+// a wider head) of `rows` tokens of one image, tokens past S and columns past
+// H*hd read as zeros
+int head_map(CUtensorMap* map, const void* p, int B, int S, int H, int ld, int rows,
+             int hd = DH) {
+  const uint64_t dims[3] = {(uint64_t)H * hd, (uint64_t)S, (uint64_t)B};
   const uint64_t strides[2] = {(uint64_t)ld * sizeof(bf16), (uint64_t)S * ld * sizeof(bf16)};
   const uint32_t box[3] = {(uint32_t)DH, (uint32_t)rows, 1u};
   return encode_bf16_map(map, p, 3, dims, strides, box);
@@ -1549,25 +1659,38 @@ int head_map(CUtensorMap* map, const void* p, int B, int S, int H, int ld, int r
 // 83 KB of shared memory and 127 registers (ptxas, under a launch bound that
 // asks for one block per SM), so two blocks share an SM and one block's waits
 // hide under the other's work.
+//
+// The head width HD is a template parameter, as in the whole-row kernel: at
+// 112 each Q tile and each K and V tile of a stage is two 64-column blocks
+// (boxes at columns h*112 and h*112 + 64), Q K^T takes 4 k-steps from the
+// first block and 3 from the second, and P V runs both column blocks on one
+// tile's P, into two 32-float accumulators (P is 16 registers here, not a
+// whole row); the second block's last 16 output columns (the next head's) are
+// not stored. A stage is then 32 KB and the shared memory ~161 KB: one block
+// per SM.
 
 constexpr int ATL_THREADS = 256, ATL_STAGES = 4, ATL_TILE = 64 * 128;
 
-__host__ __device__ constexpr int attention_long_bf16_smem() {
-  return 1024 + 2 * ATL_TILE + ATL_STAGES * 2 * ATL_TILE + 8 * (1 + 2 * ATL_STAGES);
+__host__ __device__ constexpr int attention_long_bf16_smem(int ncb) {
+  return 1024 + 2 * ncb * ATL_TILE + ATL_STAGES * 2 * ncb * ATL_TILE + 8 * (1 + 2 * ATL_STAGES);
 }
 
+template <int HD>
 __global__ void __launch_bounds__(ATL_THREADS, 1)
 attention_long_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                            const __grid_constant__ CUtensorMap map_k,
                            const __grid_constant__ CUtensorMap map_v,
                            const float* __restrict__ mask, bf16* __restrict__ out, int B,
                            int S, int H, float scale, int fast) {
+  constexpr int NCB = (HD + 63) / 64;  // 64-column blocks of a head
+  constexpr int KSTEPS = HD / 16;      // k-steps of Q K^T
+  constexpr int STAGE = 2 * NCB * ATL_TILE;  // a K tile and a V tile, NCB blocks each
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023u) & ~1023u;
-  const uint32_t sQ = base, ring = base + 2 * ATL_TILE;
-  const uint32_t qbar = ring + ATL_STAGES * 2 * ATL_TILE, full = qbar + 8,
+  const uint32_t sQ = base, ring = base + 2 * NCB * ATL_TILE;
+  const uint32_t qbar = ring + ATL_STAGES * STAGE, full = qbar + 8,
                  empty = full + 8 * ATL_STAGES;
-  const int nq = (S + 127) / 128, D = H * DH;
+  const int nq = (S + 127) / 128, D = H * HD;
   const int q0 = (int)(blockIdx.x % nq) * 128, h = (int)(blockIdx.x / nq) % H,
             b = (int)(blockIdx.x / nq) / H;
   const int n_tiles = (S + 63) / 64;
@@ -1586,15 +1709,21 @@ attention_long_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
   // thread 0: key tile t (keys 64t ..; rows past S arrive as zeros) into its stage
   auto fill = [&](int t) {
     const int st = t % ATL_STAGES;
-    const uint32_t dst = ring + st * 2 * ATL_TILE;
-    mbar_arrive_expect_tx(full + 8 * st, 2 * ATL_TILE);
-    tma_load_3d(dst, &map_k, full + 8 * st, h * DH, 64 * t, b);
-    tma_load_3d(dst + ATL_TILE, &map_v, full + 8 * st, h * DH, 64 * t, b);
+    const uint32_t dst = ring + st * STAGE;
+    mbar_arrive_expect_tx(full + 8 * st, STAGE);
+#pragma unroll
+    for (int c = 0; c < NCB; ++c) {
+      tma_load_3d(dst + c * ATL_TILE, &map_k, full + 8 * st, h * HD + 64 * c, 64 * t, b);
+      tma_load_3d(dst + (NCB + c) * ATL_TILE, &map_v, full + 8 * st, h * HD + 64 * c, 64 * t,
+                  b);
+    }
   };
   if (threadIdx.x == 0) {
-    mbar_arrive_expect_tx(qbar, active * ATL_TILE);
+    mbar_arrive_expect_tx(qbar, active * NCB * ATL_TILE);
     for (int w = 0; w < active; ++w)
-      tma_load_3d(sQ + w * ATL_TILE, &map_q, qbar, h * DH, q0 + 64 * w, b);
+      for (int c = 0; c < NCB; ++c)
+        tma_load_3d(sQ + (w * NCB + c) * ATL_TILE, &map_q, qbar, h * HD + 64 * c, q0 + 64 * w,
+                    b);
     for (int t = 0; t < n_tiles && t < ATL_STAGES; ++t) fill(t);
   }
 
@@ -1607,27 +1736,32 @@ attention_long_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) mrow[hr] = mask + (size_t)min(row[hr], S - 1) * S;
   }
-  const uint32_t sQw = sQ + wg * ATL_TILE;
+  const uint32_t sQw = sQ + wg * NCB * ATL_TILE;
 
-  float o[32];
+  float o[NCB][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int c = 0; c < NCB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
   float m_run[2] = {-3.402823466e38f, -3.402823466e38f}, denom[2] = {0.f, 0.f};
 
   mbar_wait(qbar, 0);
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t % ATL_STAGES;
     const uint32_t phase = (t / ATL_STAGES) & 1;
-    const uint32_t sK = ring + st * 2 * ATL_TILE, sV = sK + ATL_TILE;
+    const uint32_t sK = ring + st * STAGE, sV = sK + NCB * ATL_TILE;
     mbar_wait(full + 8 * st, phase);
 
-    // raw scores: key 64t + 8j + 2q + (e & 1) of row[e >> 1] in sc[4j + e]
+    // raw scores: key 64t + 8j + 2q + (e & 1) of row[e >> 1] in sc[4j + e];
+    // k-step ks reads column block ks / 4 of Q and K
     float sc[32];
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < DH / 16; ++ks)
-      wgmma_m64n64k16(sc, wgmma_desc(sQw + 32 * ks, 16, 1024),
-                      wgmma_desc(sK + 32 * ks, 16, 1024), ks != 0);
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const uint32_t off = (ks / 4) * ATL_TILE + 32 * (ks % 4);
+      wgmma_m64n64k16(sc, wgmma_desc(sQw + off, 16, 1024), wgmma_desc(sK + off, 16, 1024),
+                      ks != 0);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     wgmma_settle(sc);
@@ -1676,10 +1810,12 @@ attention_long_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
         denom[hr] *= alpha[hr];
       }
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        o[i] *= alpha[(i >> 1) & 1];
+      for (int c = 0; c < NCB; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
         sc[i] = ex2_approx((sc[i] - m_run[(i >> 1) & 1]) * 1.4426950408889634f);
-      }
     }
     // fp32 row sums (two partial sums per row) and the bf16 pairs that are the
     // A operand of P V
@@ -1692,16 +1828,21 @@ attention_long_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     denom[0] += d2[0][0] + d2[0][1];
     denom[1] += d2[1][0] + d2[1][1];
 
-    // O += P V: 16 keys per step, step ks takes pk[4ks .. 4ks + 3]
+    // O += P V: 16 keys per step, step ks takes pk[4ks .. 4ks + 3]; column
+    // block c of V into o[c]
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const uint32_t pa[4] = {pk[4 * ks], pk[4 * ks + 1], pk[4 * ks + 2], pk[4 * ks + 3]};
-      wgmma_m64n64k16_ra_tb(o, pa, wgmma_desc(sV + 16 * ks * 128, 16, 1024), 1);
-    }
+    for (int c = 0; c < NCB; ++c)
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const uint32_t pa[4] = {pk[4 * ks], pk[4 * ks + 1], pk[4 * ks + 2], pk[4 * ks + 3]};
+        wgmma_m64n64k16_ra_tb(o[c], pa,
+                              wgmma_desc(sV + c * ATL_TILE + 16 * ks * 128, 16, 1024), 1);
+      }
     wgmma_commit();
     wgmma_wait<0>();
-    wgmma_settle(o);
+#pragma unroll
+    for (int c = 0; c < NCB; ++c) wgmma_settle(o[c]);
     wgmma_settle(pk);
 
     // this warpgroup has left the stage; thread 0 refills it once all have
@@ -1720,16 +1861,20 @@ attention_long_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     if (fast) denom[hr] = fmaxf(denom[hr], 1e-30f);
     const float rc = 1.f / denom[hr];
 #pragma unroll
-    for (int j0 = 0; j0 < DH / 8; j0 += 4) {
-      uint32_t v[4];
+    for (int c = 0; c < NCB; ++c)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        v[i] = pack_bf16(o[4 * (j0 + i) + 2 * hr] * rc, o[4 * (j0 + i) + 2 * hr + 1] * rc);
-      quad_transpose(v, q);
-      if (row[hr] < S)
-        *reinterpret_cast<uint4*>(out + ((size_t)b * S + row[hr]) * D + h * DH +
-                                  8 * (j0 + q)) = make_uint4(v[0], v[1], v[2], v[3]);
-    }
+      for (int j0 = 0; j0 < 8; j0 += 4) {
+        uint32_t v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          v[i] = pack_bf16(o[c][4 * (j0 + i) + 2 * hr] * rc,
+                           o[c][4 * (j0 + i) + 2 * hr + 1] * rc);
+        quad_transpose(v, q);
+        const int col = 64 * c + 8 * (j0 + q);  // the head's columns alone
+        if (row[hr] < S && col < HD)
+          *reinterpret_cast<uint4*>(out + ((size_t)b * S + row[hr]) * D + h * HD + col) =
+              make_uint4(v[0], v[1], v[2], v[3]);
+      }
   }
 }
 
@@ -2011,6 +2156,7 @@ int launch_attention_tf32x3(const void* q, const void* k, const void* v, int ld,
   return (int)cudaGetLastError();
 }
 
+template <int HD>
 int launch_attention_long(const void* q, const void* k, const void* v, int ld,
                           const float* mask, void* out, int B, int S, int H, float scale,
                           int fast, cudaStream_t stream) {
@@ -2020,16 +2166,16 @@ int launch_attention_long(const void* q, const void* k, const void* v, int ld,
   if (blocks >= (1ll << 31)) return (int)cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv;
   int rc;
-  if ((rc = head_map(&mq, q, B, S, H, ld, 64)) != 0) return rc;
-  if ((rc = head_map(&mk, k, B, S, H, ld, 64)) != 0) return rc;
-  if ((rc = head_map(&mv, v, B, S, H, ld, 64)) != 0) return rc;
-  e = cudaFuncSetAttribute(attention_long_bf16_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           attention_long_bf16_smem());
+  if ((rc = head_map(&mq, q, B, S, H, ld, 64, HD)) != 0) return rc;
+  if ((rc = head_map(&mk, k, B, S, H, ld, 64, HD)) != 0) return rc;
+  if ((rc = head_map(&mv, v, B, S, H, ld, 64, HD)) != 0) return rc;
+  const int smem = attention_long_bf16_smem((HD + 63) / 64);
+  auto kernel = attention_long_bf16_kernel<HD>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  attention_long_bf16_kernel<<<(unsigned)blocks, ATL_THREADS, attention_long_bf16_smem(),
-                               stream>>>(mq, mk, mv, mask, static_cast<bf16*>(out), B, S, H,
-                                         scale, fast);
+  kernel<<<(unsigned)blocks, ATL_THREADS, smem, stream>>>(mq, mk, mv, mask,
+                                                          static_cast<bf16*>(out), B, S, H,
+                                                          scale, fast);
   return (int)cudaGetLastError();
 }
 
@@ -2038,31 +2184,54 @@ int launch_attention_long(const void* q, const void* k, const void* v, int ld,
 // key-tile kernel for every S (with the rows' log-sum-exp where lse is
 // given).
 constexpr int ATT_WHOLE_ROW_MAX_S = 256;
+constexpr int ATT_WIDE_DH = 112;  // the one head width past 64: bf16 only
 
-int launch_attention(const void* q, const void* k, const void* v, int ld, const float* mask,
-                     void* out, float* lse, int B, int S, int H, float scale, int fast,
-                     int is_bf16, cudaStream_t stream) {
-  cudaError_t e;
-  if (!is_bf16)
-    return launch_attention_tf32x3(q, k, v, ld, mask, out, lse, B, S, H, scale, fast, stream);
-  if (S > ATT_WHOLE_ROW_MAX_S)
-    return launch_attention_long(q, k, v, ld, mask, out, B, S, H, scale, fast, stream);
-  if (B == 0 || S == 0) return 0;
+// the whole-row kernel for heads of HD: two buffers where they fit beside
+// the staged mask, else one
+template <int HD>
+int launch_attention_whole_row(const void* q, const void* k, const void* v, int ld,
+                               const float* mask, void* out, int B, int S, int H, float scale,
+                               int fast, cudaStream_t stream) {
   const int tile_bytes = attention_bf16_tile_bytes(S), rows = tile_bytes / 128;
   CUtensorMap mq, mk, mv;
   int rc;
-  if ((rc = head_map(&mq, q, B, S, H, ld, rows)) != 0) return rc;
-  if ((rc = head_map(&mk, k, B, S, H, ld, rows)) != 0) return rc;
-  if ((rc = head_map(&mv, v, B, S, H, ld, rows)) != 0) return rc;
+  if ((rc = head_map(&mq, q, B, S, H, ld, rows, HD)) != 0) return rc;
+  if ((rc = head_map(&mk, k, B, S, H, ld, rows, HD)) != 0) return rc;
+  if ((rc = head_map(&mv, v, B, S, H, ld, rows, HD)) != 0) return rc;
   const int mask_bytes = round_up(S * S * 4, 16);
   const int stage_mask = mask != nullptr && mask_bytes <= ATT_MASK_SMEM;
-  const int bytes = 1024 + 6 * tile_bytes + (stage_mask ? mask_bytes : 0) + 48;
-  e = cudaFuncSetAttribute(attention_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           bytes);
+  const int op_bytes = (HD + 63) / 64 * tile_bytes;
+  const int fixed = 1024 + (stage_mask ? mask_bytes : 0) + 48;
+  const int nbuf = fixed + 6 * op_bytes <= SMEM_MAX ? 2 : 1;
+  const int bytes = fixed + 3 * nbuf * op_bytes;
+  if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  auto kernel = attention_bf16_kernel<HD>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       bytes);
   if (e != cudaSuccess) return (int)e;
-  attention_bf16_kernel<<<min(B * H, sm_count()), ATT_THREADS_BF16, bytes, stream>>>(
-      mq, mk, mv, mask, static_cast<bf16*>(out), B, S, H, scale, fast, stage_mask);
+  kernel<<<min(B * H, sm_count()), ATT_THREADS_BF16, bytes, stream>>>(
+      mq, mk, mv, mask, static_cast<bf16*>(out), B, S, H, scale, fast, stage_mask, nbuf);
   return (int)cudaGetLastError();
+}
+
+int launch_attention(const void* q, const void* k, const void* v, int ld, const float* mask,
+                     void* out, float* lse, int B, int S, int H, int hd, float scale, int fast,
+                     int is_bf16, cudaStream_t stream) {
+  if (hd != DH) {
+    if (hd != ATT_WIDE_DH || !is_bf16 || lse != nullptr) return (int)cudaErrorInvalidValue;
+    if (B == 0 || S == 0) return 0;
+    if (S > ATT_WHOLE_ROW_MAX_S)
+      return launch_attention_long<ATT_WIDE_DH>(q, k, v, ld, mask, out, B, S, H, scale, fast,
+                                                stream);
+    return launch_attention_whole_row<ATT_WIDE_DH>(q, k, v, ld, mask, out, B, S, H, scale, fast,
+                                                   stream);
+  }
+  if (!is_bf16)
+    return launch_attention_tf32x3(q, k, v, ld, mask, out, lse, B, S, H, scale, fast, stream);
+  if (S > ATT_WHOLE_ROW_MAX_S)
+    return launch_attention_long<DH>(q, k, v, ld, mask, out, B, S, H, scale, fast, stream);
+  if (B == 0 || S == 0) return 0;
+  return launch_attention_whole_row<DH>(q, k, v, ld, mask, out, B, S, H, scale, fast, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -2607,7 +2776,8 @@ extern "C" {
 
 // out = act(LN(splice(x)) @ w + bias); act 0: none, 1: QuickGELU, 2: SwiGLU
 // (out (M, N / 2) = SiLU(gate) * up, each 128-column tile of w and bias 64
-// gate columns then their 64 up columns; bf16 without LN, N % 128 == 0).
+// gate columns then their 64 up columns; bf16 without LN, N % 128 == 0), 3:
+// the exact (erf) GELU (bf16 without LN).
 // rope (S, 2, 64) fp32 or null: the rotary embedding on output columns below
 // rope_cols (bf16 without LN, act 0). x (M = B*S, K), w (K, N), bias (N,), out
 // (M, N) in the working type; ln_g/ln_b (K,) fp32, or both null: no LN, the
@@ -2618,8 +2788,8 @@ int ln_gemm(const void* x, const void* plane, const void* pmask, const void* ln_
             const void* ln_b, const void* w, const void* bias, const void* rope, void* out,
             void* scratch, int M, int N, int K, int S, int act, int rope_cols, float eps,
             int dtype, void* stream) {
-  const int epi = rope != nullptr ? EPI_ROPE : act == 2 ? EPI_SWIGLU : act == 1 ? EPI_GELU
-                                                                                : EPI_BIAS;
+  const int epi = rope != nullptr ? EPI_ROPE : act == 3 ? EPI_GELU_ERF : act == 2 ? EPI_SWIGLU
+                : act == 1 ? EPI_GELU : EPI_BIAS;
   GemmArgs g{x, w, bias, nullptr, plane, static_cast<const float*>(pmask),
              static_cast<const float*>(ln_g), static_cast<const float*>(ln_b), out,
              M, N, K, S, epi};
@@ -2627,8 +2797,8 @@ int ln_gemm(const void* x, const void* plane, const void* pmask, const void* ln_
   g.rope = static_cast<const float*>(rope);
   g.rope_cols = rope_cols;
   if (dtype != DTYPE_BF16 && dtype != DTYPE_F32) return (int)cudaErrorInvalidValue;
-  if ((ln_g == nullptr) != (ln_b == nullptr) || act < 0 || act > 2) return (int)cudaErrorInvalidValue;
-  const bool eva = epi == EPI_ROPE || epi == EPI_SWIGLU;
+  if ((ln_g == nullptr) != (ln_b == nullptr) || act < 0 || act > 3) return (int)cudaErrorInvalidValue;
+  const bool eva = epi == EPI_ROPE || epi == EPI_SWIGLU || epi == EPI_GELU_ERF;
   if (eva && (ln_g != nullptr || dtype != DTYPE_BF16 || (rope != nullptr && act != 0) ||
               (epi == EPI_SWIGLU && N % 128) || (epi == EPI_ROPE && (rope_cols < 0 ||
                                                                     rope_cols > N))))
@@ -2674,9 +2844,24 @@ int gemm_bias_residual(const void* a, const void* ln_g, const void* ln_b, const 
 int ln_rows(const void* x, const void* plane, const void* pmask, const void* ln_g,
             const void* ln_b, void* out, int M, int K, int S, int n_real, float eps,
             void* stream) {
-  return launch_ln_rows(x, plane, static_cast<const float*>(pmask),
+  return launch_ln_rows(x, nullptr, plane, static_cast<const float*>(pmask),
                         static_cast<const float*>(ln_g), static_cast<const float*>(ln_b), out, M,
                         K, S, n_real, eps, static_cast<cudaStream_t>(stream));
+}
+
+// out (M, K) = res + LN(y), the post-norm block's residual pass: y, res and
+// out bf16, statistics two-pass in fp32 over all K columns, the fp32 affine
+// and the residual add in fp32, one cast; ln_g / ln_b (K,) fp32. plane (S, K)
+// and pmask (S,) fp32, or both null: row m of out is plane[m % S] where
+// pmask[m % S] > 0 (the next block's prompt rows, spliced on store). K % 8 ==
+// 0, K <= 4096.
+int ln_residual(const void* y, const void* res, const void* plane, const void* pmask,
+                const void* ln_g, const void* ln_b, void* out, int M, int K, int S, float eps,
+                void* stream) {
+  if (res == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_ln_rows(y, res, plane, static_cast<const float*>(pmask),
+                        static_cast<const float*>(ln_g), static_cast<const float*>(ln_b), out, M,
+                        K, S, K, eps, static_cast<cudaStream_t>(stream));
 }
 
 // The fp32 block backward's products, 3xTF32 on wgmma, each stage's sum
@@ -2711,21 +2896,22 @@ int gemm_tf32x3_backward(const void* a, const void* w, const void* bias, const v
   return launch_gemm_tf32x3<false, EPI_PRODUCT>(g, st);
 }
 
-// q, k, v: (B, S, H, 64) with row stride ld (elements between consecutive
-// tokens; batch stride S*ld) -> out (B, S, H*64) contiguous. mask: (S, S)
+// q, k, v: (B, S, H, hd) with row stride ld (elements between consecutive
+// tokens; batch stride S*ld) -> out (B, S, H*hd) contiguous; hd 64, or 112
+// in bf16 for S <= 256 (the whole-row kernel). mask: (S, S)
 // fp32 additive mask (clamped to >= -1e30; in log2e units when fast) or null.
 // bf16: S <= 256 runs the whole-row kernel, a longer sequence the key-tile
 // kernel; fp32 runs its key-tile kernel for every S. lse: (B, H, S) fp32 or
 // null; where given (fp32 and exact only), each row's log-sum-exp of its
 // scaled, masked scores, what mha_core_backward reads.
 int mha_core(const void* q, const void* k, const void* v, int ld, const void* mask,
-             void* out, void* lse, int B, int S, int H, float scale, int fast, int dtype,
-             void* stream) {
+             void* out, void* lse, int B, int S, int H, int hd, float scale, int fast,
+             int dtype, void* stream) {
   if (dtype != DTYPE_BF16 && dtype != DTYPE_F32) return (int)cudaErrorInvalidValue;
   if (lse != nullptr && (dtype != DTYPE_F32 || fast)) return (int)cudaErrorInvalidValue;
   return launch_attention(q, k, v, ld, static_cast<const float*>(mask), out,
-                          static_cast<float*>(lse), B, S, H, scale, fast, dtype == DTYPE_BF16,
-                          static_cast<cudaStream_t>(stream));
+                          static_cast<float*>(lse), B, S, H, hd, scale, fast,
+                          dtype == DTYPE_BF16, static_cast<cudaStream_t>(stream));
 }
 
 // The gradient of mha_core's exact fp32 softmax attention for q, k and v:

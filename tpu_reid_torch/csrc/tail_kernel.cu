@@ -21,9 +21,16 @@
 // a wider D refills a stage once the wgmmas that read it are done). Meanwhile
 // the eight warps normalise four rows each, all four in flight together,
 // round to bf16 and write the row panel in the swizzled layout wgmma reads;
-// the blocks of the first column tile also store y. A wgmma tile has 64 rows:
-// the panel's upper 32 are left as they are, since a row of the product
-// depends on no other row, and their sums are never stored. Then the
+// the blocks of the first column tile also store y. The panel holds the
+// block's 32 rows per K block of 64 ([32 rows][128 bytes], 4 KB), so D up to
+// 2048 (EVA02-CLIP-E/14's 1792) fits beside the ring. A wgmma tile has 64
+// rows: its upper 32 read whatever lies 4 KB further on (the next K block's
+// rows, or the ring's first stage after the last one), which is harmless,
+// since a row of the product depends on no other row and those rows' sums
+// are never stored. A lane holds NV 16-byte chunks of each row in flight
+// (NV = 4 up to D = 1024, four rows at once; NV = 8 up to 2048, two rows at
+// once, with gamma and beta read in the last pass instead of held in
+// registers beside the rows, so neither instance spills). Then the
 // warpgroups split the K blocks of 64 between them (even and odd), each a
 // chain of wgmma m64n64k16 steps with A and B from shared memory, and add
 // their two fp32 partial sums through shared memory (over the panel, which
@@ -55,7 +62,7 @@
 //
 // ln_proj_tail_kernel, the FMA kernel (both types, outside the wgmma kernels'
 // domains: bf16 D not a multiple of 64 or E not of 8, fp32 D not a multiple of
-// 32 or E not of 4, a base off 16 bytes): one block per (16 rows, 128 output
+// 32 or past 1024 or E not of 4, a base off 16 bytes): one block per (16 rows, 128 output
 // columns); the 16 normalised rows stay in shared memory as fp32 copies of
 // the rounded values, each thread owns one output column and walks proj's
 // rows with plain FMA. It was the route of both types before the wgmma
@@ -145,26 +152,32 @@ int launch_tail(const void* x, const float* ln_g, const float* ln_b, const void*
 
 constexpr int TW_ROWS = 32;       // rows of x per block: the lower half of the wgmma tile
 constexpr int TW_COLS = 64, TW_THREADS = 256;
-constexpr int TW_KB = 64 * 128;   // one K block: [64 rows][128 bytes], panel or proj slice
+constexpr int TW_KB = 64 * 128;   // one K block of the proj slice: [64 rows][128 bytes]
+constexpr int TW_PB = TW_ROWS * 128;  // one K block of the panel: [32 rows][128 bytes]
 constexpr int TW_STAGES = 12;     // proj K blocks in flight: all of D = 768
-constexpr int TW_MAX_D = 1024;    // 16 panel blocks and the ring fill the SM's shared memory
-constexpr int TW_NV = TW_MAX_D / 256;  // 16-byte chunks of a row per lane
+constexpr int TW_MAX_D = 2048;    // 32 panel blocks and the ring fill the SM's shared memory
+constexpr int TW_NV_NARROW = 4;   // 16-byte chunks of a row per lane up to D = 1024
 
 __host__ __device__ constexpr int tail_bf16_smem(int D) {
   // 1024 for the alignment of the base; the panel; the ring; its barriers
-  return 1024 + D / 64 * TW_KB + TW_STAGES * TW_KB + 8 * TW_STAGES;
+  return 1024 + D / 64 * TW_PB + TW_STAGES * TW_KB + 8 * TW_STAGES;
 }
+static_assert(tail_bf16_smem(TW_MAX_D) <= 232448, "the widest row's panel fits a block");
 
+// NV: 16-byte chunks of a row per lane (D <= 256 NV); RG: rows of a warp in
+// flight at once (of its TW_ROWS / 8)
+template <int NV, int RG>
 __global__ void __launch_bounds__(TW_THREADS, 1)
 ln_proj_tail_bf16_kernel(const __grid_constant__ CUtensorMap map_w, const bf16* __restrict__ x,
                          const float* __restrict__ ln_g, const float* __restrict__ ln_b,
                          const float* __restrict__ bias, bf16* __restrict__ y,
                          bf16* __restrict__ p, int B, int D, int E, float eps) {
+  constexpr bool GB_REGS = NV <= TW_NV_NARROW;  // gamma and beta held in registers
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw), base = (raw + 1023u) & ~1023u;
   unsigned char* panel = smem_raw + (base - raw);
   const int nkb = D / 64, nchunks = D / 8;
-  const uint32_t ring = base + nkb * TW_KB, full = ring + TW_STAGES * TW_KB;
+  const uint32_t ring = base + nkb * TW_PB, full = ring + TW_STAGES * TW_KB;
   const int n0 = blockIdx.x * TW_COLS, m0 = blockIdx.y * TW_ROWS;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
 
@@ -185,41 +198,35 @@ ln_proj_tail_bf16_kernel(const __grid_constant__ CUtensorMap map_w, const bf16* 
   if (tid == 0)
     for (int kb = wg; kb < nkb && kb < TW_STAGES; kb += 2) fetch(kb);
 
-  // ---- LayerNorm: warp w of 8 takes rows 4w .. 4w + 3, all four in flight at
-  // once and each step of their chains (loads, the two reductions, the
-  // affine) taken for the four together, since a block has too few warps to
-  // hide one row's latencies under another warp's work. A lane owns the
-  // 16-byte chunks lane, lane + 32, ... of every row, so its gamma and beta
-  // stay in registers. Two-pass fp32 statistics; rows past B are zero.
+  // ---- LayerNorm: warp w of 8 takes rows 4w .. 4w + 3, RG of them in flight at
+  // once (all four up to D = 1024; two and two past it, where four rows of
+  // NV = 8 chunks would not fit the registers) and each step of their chains
+  // (loads, the two reductions, the affine) taken for those together, since a
+  // block has too few warps to hide one row's latencies under another warp's
+  // work. A lane owns the 16-byte chunks lane, lane + 32, ... of every row, so
+  // its gamma and beta stay in registers (up to D = 1024). Two-pass fp32
+  // statistics; rows past B are zero.
   {
-    constexpr int RG = TW_ROWS / 8;
-    const int r0 = (wg * 4 + warp) * RG;
-    uint4 u[RG][TW_NV];
-#pragma unroll
-    for (int rr = 0; rr < RG; ++rr) {
-      const int m = m0 + r0 + rr;
-#pragma unroll
-      for (int i = 0; i < TW_NV; ++i) {
-        const int c = lane + 32 * i;
-        u[rr][i] = (m < B && c < nchunks)
-                       ? *reinterpret_cast<const uint4*>(x + (size_t)m * D + 8 * c)
-                       : make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-    float gm[TW_NV][8], bt[TW_NV][8];
-#pragma unroll
-    for (int i = 0; i < TW_NV; ++i) {
+    constexpr int RW = TW_ROWS / 8;  // rows of a warp
+    static_assert(RW % RG == 0, "a warp's rows in whole groups");
+    // gamma and beta of chunk i, 8 values each
+    auto load_gb = [&](int i, float (&g)[8], float (&b)[8]) {
       const int c = lane + 32 * i;
 #pragma unroll
       for (int e = 0; e < 8; e += 4) {
-        float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f), bb = a;
         if (c < nchunks) {
           a = *reinterpret_cast<const float4*>(ln_g + 8 * c + e);
-          b = *reinterpret_cast<const float4*>(ln_b + 8 * c + e);
+          bb = *reinterpret_cast<const float4*>(ln_b + 8 * c + e);
         }
-        gm[i][e] = a.x, gm[i][e + 1] = a.y, gm[i][e + 2] = a.z, gm[i][e + 3] = a.w;
-        bt[i][e] = b.x, bt[i][e + 1] = b.y, bt[i][e + 2] = b.z, bt[i][e + 3] = b.w;
+        g[e] = a.x, g[e + 1] = a.y, g[e + 2] = a.z, g[e + 3] = a.w;
+        b[e] = bb.x, b[e + 1] = bb.y, b[e + 2] = bb.z, b[e + 3] = bb.w;
       }
+    };
+    float gm[GB_REGS ? NV : 1][8], bt[GB_REGS ? NV : 1][8];
+    if constexpr (GB_REGS) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i) load_gb(i, gm[i], bt[i]);
     }
     auto sum4 = [](float (&t)[RG]) {
 #pragma unroll
@@ -227,53 +234,75 @@ ln_proj_tail_bf16_kernel(const __grid_constant__ CUtensorMap map_w, const bf16* 
 #pragma unroll
         for (int rr = 0; rr < RG; ++rr) t[rr] += __shfl_xor_sync(0xffffffffu, t[rr], o);
     };
-    float mean[RG], rstd[RG];
 #pragma unroll
-    for (int rr = 0; rr < RG; ++rr) {
-      mean[rr] = 0.f;
+    for (int rh = 0; rh < RW; rh += RG) {
+      const int r0 = (wg * 4 + warp) * RW + rh;
+      uint4 u[RG][NV];
 #pragma unroll
-      for (int i = 0; i < TW_NV; ++i) {
-        float f[8];
-        unpack_vec<bf16>(u[rr][i], f);
+      for (int rr = 0; rr < RG; ++rr) {
+        const int m = m0 + r0 + rr;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) mean[rr] += f[e];
+        for (int i = 0; i < NV; ++i) {
+          const int c = lane + 32 * i;
+          u[rr][i] = (m < B && c < nchunks)
+                         ? *reinterpret_cast<const uint4*>(x + (size_t)m * D + 8 * c)
+                         : make_uint4(0u, 0u, 0u, 0u);
+        }
       }
-    }
-    sum4(mean);
+      float mean[RG], rstd[RG];
 #pragma unroll
-    for (int rr = 0; rr < RG; ++rr) {
-      mean[rr] /= D;
-      rstd[rr] = 0.f;
+      for (int rr = 0; rr < RG; ++rr) {
+        mean[rr] = 0.f;
 #pragma unroll
-      for (int i = 0; i < TW_NV; ++i) {
-        if (lane + 32 * i >= nchunks) continue;
-        float f[8];
-        unpack_vec<bf16>(u[rr][i], f);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) rstd[rr] += (f[e] - mean[rr]) * (f[e] - mean[rr]);
-      }
-    }
-    sum4(rstd);
-#pragma unroll
-    for (int rr = 0; rr < RG; ++rr) {
-      rstd[rr] = rsqrtf(rstd[rr] / D + eps);
-      const int r = r0 + rr, m = m0 + r;
-#pragma unroll
-      for (int i = 0; i < TW_NV; ++i) {
-        const int c = lane + 32 * i;
-        if (c >= nchunks) continue;
-        uint4 packed = make_uint4(0u, 0u, 0u, 0u);
-        if (m < B) {
+        for (int i = 0; i < NV; ++i) {
           float f[8];
           unpack_vec<bf16>(u[rr][i], f);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) f[e] = (f[e] - mean[rr]) * rstd[rr] * gm[i][e] + bt[i][e];
-          packed = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
-                              pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
-          if (blockIdx.x == 0) *reinterpret_cast<uint4*>(y + (size_t)m * D + 8 * c) = packed;
+          for (int e = 0; e < 8; ++e) mean[rr] += f[e];
         }
-        *reinterpret_cast<uint4*>(panel + (size_t)(c >> 3) * TW_KB + r * 128 +
-                                  (((c & 7) ^ (r & 7)) << 4)) = packed;
+      }
+      sum4(mean);
+#pragma unroll
+      for (int rr = 0; rr < RG; ++rr) {
+        mean[rr] /= D;
+        rstd[rr] = 0.f;
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+          if (lane + 32 * i >= nchunks) continue;
+          float f[8];
+          unpack_vec<bf16>(u[rr][i], f);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) rstd[rr] += (f[e] - mean[rr]) * (f[e] - mean[rr]);
+        }
+      }
+      sum4(rstd);
+#pragma unroll
+      for (int rr = 0; rr < RG; ++rr) {
+        rstd[rr] = rsqrtf(rstd[rr] / D + eps);
+        const int r = r0 + rr, m = m0 + r;
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+          const int c = lane + 32 * i;
+          if (c >= nchunks) continue;
+          uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+          if (m < B) {
+            float f[8], g[8], b[8];
+            if constexpr (GB_REGS) {
+#pragma unroll
+              for (int e = 0; e < 8; ++e) g[e] = gm[i][e], b[e] = bt[i][e];
+            } else {
+              load_gb(i, g, b);
+            }
+            unpack_vec<bf16>(u[rr][i], f);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) f[e] = (f[e] - mean[rr]) * rstd[rr] * g[e] + b[e];
+            packed = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                                pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+            if (blockIdx.x == 0) *reinterpret_cast<uint4*>(y + (size_t)m * D + 8 * c) = packed;
+          }
+          *reinterpret_cast<uint4*>(panel + (size_t)(c >> 3) * TW_PB + r * 128 +
+                                    (((c & 7) ^ (r & 7)) << 4)) = packed;
+        }
       }
     }
   }
@@ -290,7 +319,7 @@ ln_proj_tail_bf16_kernel(const __grid_constant__ CUtensorMap map_w, const bf16* 
     mbar_wait(full + 8 * s, (kb / TW_STAGES) & 1);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      wgmma_m64n64k16_tb(acc, wgmma_desc(base + kb * TW_KB + 32 * j, 16, 1024),
+      wgmma_m64n64k16_tb(acc, wgmma_desc(base + kb * TW_PB + 32 * j, 16, 1024),
                          wgmma_desc(ring + s * TW_KB + 2048 * j, 16, 1024), 1);
     wgmma_commit();
     if (nkb > TW_STAGES && kb >= 2) {
@@ -351,13 +380,15 @@ int launch_tail_bf16(const void* x, const float* ln_g, const float* ln_b, const 
   int rc = encode_bf16_map(&map_w, proj, 2, dims, strides, box);
   if (rc != 0) return rc;
   const int smem = tail_bf16_smem(D);
-  cudaError_t err = cudaFuncSetAttribute(ln_proj_tail_bf16_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = D <= 256 * TW_NV_NARROW ? ln_proj_tail_bf16_kernel<TW_NV_NARROW, TW_ROWS / 8>
+                                        : ln_proj_tail_bf16_kernel<TW_MAX_D / 256, TW_ROWS / 16>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((E + TW_COLS - 1) / TW_COLS, (B + TW_ROWS - 1) / TW_ROWS);
-  ln_proj_tail_bf16_kernel<<<grid, TW_THREADS, smem, stream>>>(
-      map_w, static_cast<const bf16*>(x), ln_g, ln_b, bias, static_cast<bf16*>(y),
-      static_cast<bf16*>(p), B, D, E, eps);
+  kernel<<<grid, TW_THREADS, smem, stream>>>(map_w, static_cast<const bf16*>(x), ln_g, ln_b,
+                                             bias, static_cast<bf16*>(y), static_cast<bf16*>(p),
+                                             B, D, E, eps);
   return (int)cudaGetLastError();
 }
 
@@ -368,7 +399,8 @@ constexpr int TF_ROWS = 64;      // rows of x per block: the wgmma's N
 constexpr int TF_COLS = 64;      // columns of p per block: the wgmma's M (rows of proj^T)
 constexpr int TF_THREADS = 256;  // two warpgroups: each takes half of the rank's k8 steps
 constexpr int TF_KB = 32;        // one K block: 32 fp32 = one 128-byte swizzle row
-constexpr int TF_MAX_KB = (TW_MAX_D / TF_KB + TF_RANKS - 1) / TF_RANKS;  // K blocks of a rank
+constexpr int TF_MAX_D = 1024;   // a lane of a rank owns one 16-byte chunk of its columns
+constexpr int TF_MAX_KB = (TF_MAX_D / TF_KB + TF_RANKS - 1) / TF_RANKS;  // K blocks of a rank
 constexpr int TF_PROJ_TILE = TF_KB * 128;  // 4 KB: 32 K rows x 32 columns of proj, as stored
 constexpr int TF_TILE = TF_ROWS * 128;     // 8 KB: 64 rows x 32 K of y, K-major, hi or lo
 constexpr int TF_KB_BYTES = 2 * TF_PROJ_TILE + 2 * TF_TILE;  // per K block: proj; y split
@@ -640,7 +672,7 @@ int launch_tail_tf32x3(const void* x, const float* ln_g, const float* ln_b, cons
                        const float* bias, void* y, void* p, int B, int D, int E, float eps,
                        cudaStream_t stream) {
   if (B == 0) return 0;
-  if (D <= 0 || D % TF_KB != 0 || D > TW_MAX_D || E <= 0 || E % 4 != 0)
+  if (D <= 0 || D % TF_KB != 0 || D > TF_MAX_D || E <= 0 || E % 4 != 0)
     return (int)cudaErrorInvalidValue;
   CUtensorMap map_p;  // proj (D, E) row-major fp32, box of 32 K rows x 32 columns
   const uint64_t dims[2] = {(uint64_t)E, (uint64_t)D};

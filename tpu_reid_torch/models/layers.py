@@ -27,6 +27,7 @@ import torch
 from tpu_reid_torch.ops import attention as A
 from tpu_reid_torch.ops import fused_attention as FA
 from tpu_reid_torch.ops import fused_eva as FE
+from tpu_reid_torch.ops import fused_eva_e as FEE
 from tpu_reid_torch.ops._build import use_kernels
 from tpu_reid_torch.ops.fused_attention import (  # noqa: F401  (quick_gelu: for the models)
     layer_norm, linear, mlp, quick_gelu, splice_plane)
@@ -166,6 +167,54 @@ def eva_block_cls(p: dict, x: Tensor, n_heads: int, *, rope: Tensor, eps: float 
     return x0 + _eva_mlp(p["mlp"], layer_norm(p["ln_2"], x0, eps), eps, f_real)
 
 
+# ---------------------------------------------------------------------------
+# EVA02-CLIP-E/14's post-norm block (its parameters, plain block and kernels:
+# ops/fused_eva_e.py)
+# ---------------------------------------------------------------------------
+
+
+def eva_e_block(p: dict, x: Tensor, n_heads: int, mask: Optional[Tensor] = None,
+                prompt_plane: Optional[Tensor] = None, prompt_mask: Optional[Tensor] = None, *,
+                eps: float = 1e-6) -> Tensor:
+    """The post-norm block, called as `residual_block` is, except that the
+    deep-prompt plane and mask are the NEXT block's, spliced into this
+    block's output (`transformer_stack(splice_after=True)`): the block has no
+    pass before its first product to splice on load. Under `use_kernels(x)`
+    it goes through `fused_eva_e.eva_e_block_autograd`: in bf16 the
+    hand-written kernels (seven launches), with the plain block recomputed
+    under autograd for the backward; fp32, or shapes outside the kernels'
+    domains, the plain block on CPU tensors (counted in
+    `fused_eva_e_block.plain`), ValueError on CUDA tensors. Otherwise the
+    plain block, then the splice."""
+    if mask is not None:
+        raise ValueError("eva_e_block: the EVA02-E vision block takes no attention mask")
+    if use_kernels(x):
+        return FEE.eva_e_block_autograd(x, FEE.eva_e_tensors(p, x.dtype), n_heads, eps,
+                                        prompt_plane, prompt_mask,
+                                        fast=A.fast_softmax_enabled())
+    return FEE.eva_e_block_plain(p, x, n_heads, eps, prompt_plane, prompt_mask)
+
+
+def eva_e_block_cls(p: dict, x: Tensor, n_heads: int, *, eps: float = 1e-6) -> Tensor:
+    """`residual_block_cls` of the post-norm block: its output at position 0
+    only, (B, 1, D): the CLS query against every token's key and value, the
+    branch LayerNorms and the MLP on the one row. Plain math throughout."""
+    b, s, d = x.shape
+    dh = d // n_heads
+    w_in = p["attn"]["in_proj"]["w"].to(x.dtype)
+    b_in = _qkv_bias(p["attn"]["in_proj"]["b"], d).to(x.dtype)
+    wq, wk, wv = w_in.split(d, dim=1)
+    bq, bk, bv = b_in.split(d)
+    q = (x[:, :1] @ wq + bq).reshape(b, 1, n_heads, dh)
+    k = (x @ wk + bk).reshape(b, s, n_heads, dh)
+    v = (x @ wv + bv).reshape(b, s, n_heads, dh)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float()
+    probs = torch.softmax(scores * (dh ** -0.5), dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, 1, d)
+    x0 = x[:, :1] + layer_norm(p["ln_1"], linear(p["attn"]["out_proj"], out), eps)
+    return x0 + layer_norm(p["ln_2"], FEE.eva_e_mlp(p["mlp"], x0), eps)
+
+
 def splice_prompt_tokens(x: Tensor, prompt: Tensor, text_side: bool) -> Tensor:
     """Replace the prompt-token positions of a sequence with new tokens.
 
@@ -206,6 +255,7 @@ def transformer_stack(
     prompt_flags: Optional[Sequence[bool]] = None,
     text_side: bool = False,
     block_fn=None,
+    splice_after: bool = False,
 ) -> Tensor:
     """Run a stack of residual blocks whose params have a leading layer axis.
 
@@ -213,7 +263,11 @@ def transformer_stack(
     bools — layer i splices its tokens before the block iff flags[i]. The
     splice is a (S, D) plane plus an (S, 1) row mask, fused into the block
     kernels on the kernel path. block_fn: the block, called as
-    `residual_block` (the default) is, e.g. a bound `eva_block`."""
+    `residual_block` (the default) is, e.g. a bound `eva_block`.
+    splice_after: block_fn splices the plane it is given into its output
+    (`eva_e_block`): block i gets layer i + 1's plane, layer 0's is spliced
+    before the first block, and the stack's last block gets none, so the
+    result is the same sequence as with a splice before each block."""
     block_fn = block_fn or residual_block
     n_layers = num_layers(stacked)
     if deep_prompts is None:
@@ -228,6 +282,17 @@ def transformer_stack(
     planes[:, row0: row0 + n_ctx] = deep_prompts
     rowmask = torch.zeros(s, 1, dtype=torch.float32, device=x.device)
     rowmask[row0: row0 + n_ctx] = 1.0
+    if splice_after:
+        if prompt_flags[0]:
+            x = splice_plane(x, planes[0], rowmask)
+        for i in range(n_layers):
+            nxt = i + 1 < n_layers
+            x = block_fn(
+                slice_layer(stacked, i), x, n_heads, mask,
+                prompt_plane=planes[i + 1] if nxt else None,
+                prompt_mask=rowmask * float(bool(prompt_flags[i + 1])) if nxt else None,
+            )
+        return x
     for i in range(n_layers):
         x = block_fn(
             slice_layer(stacked, i), x, n_heads, mask,

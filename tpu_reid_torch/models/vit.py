@@ -12,7 +12,10 @@
     group-shuffled,
   * EVA02 towers (cfg.block "eva02", EVA-CLIP): the patch embedding with a
     bias, no ln_pre, EVA02 blocks (2D RoPE on the grid tokens, SwiGLU,
-    sub-LNs; models/layers.eva_block) and a head with a bias.
+    sub-LNs; models/layers.eva_block) and a head with a bias; EVA02-CLIP-E
+    (cfg.block "eva_e"): the same stem and head around post-norm blocks
+    (models/layers.eva_e_block: heads of 112, an exact-GELU MLP, the
+    deep-prompt splice on each block's store).
 
 Layout is batch-first (B, S, D); images are NHWC and the conv weight HWIO,
 as in the JAX package.
@@ -98,6 +101,9 @@ def _blocks(cfg: VisionConfig, device):
     """The tower's block and its CLS-only form, bound to the config."""
     if cfg.block == "clip":
         return L.residual_block, L.residual_block_cls
+    if cfg.block == "eva_e":
+        return (functools.partial(L.eva_e_block, eps=cfg.ln_eps),
+                functools.partial(L.eva_e_block_cls, eps=cfg.ln_eps))
     kw = dict(rope=rope_table(cfg, device), eps=cfg.ln_eps, f_real=cfg.hidden)
     return functools.partial(L.eva_block, **kw), functools.partial(L.eva_block_cls, **kw)
 
@@ -194,6 +200,7 @@ def apply_vit(
         prompt_flags=None if flags is None else flags[: n_layers - 1],
         text_side=False,
         block_fn=block,
+        splice_after=cfg.block == "eva_e",
     )
     x_last = x11
     if dp is not None and flags[n_layers - 1]:

@@ -56,8 +56,10 @@ SIGNATURES = {
         "gemm_bias_residual": [_P] * 10 + [_I] * 4 + [_F, _I, _P],
         # x, plane, pmask, ln_g, ln_b, out, M, K, S, n_real, eps, stream
         "ln_rows": [_P] * 6 + [_I] * 4 + [_F, _P],
-        # q, k, v, ld, mask, out, lse, B, S, H, scale, fast, dtype, stream
-        "mha_core": [_P] * 3 + [_I] + [_P] * 3 + [_I] * 3 + [_F] + [_I] * 2 + [_P],
+        # y, res, plane, pmask, ln_g, ln_b, out, M, K, S, eps, stream
+        "ln_residual": [_P] * 7 + [_I] * 3 + [_F, _P],
+        # q, k, v, ld, mask, out, lse, B, S, H, hd, scale, fast, dtype, stream
+        "mha_core": [_P] * 3 + [_I] + [_P] * 3 + [_I] * 4 + [_F] + [_I] * 2 + [_P],
         # q, k, v, ld, o, dout, ld_o, lse, mask, delta, dq, dk, dv, ld_out, B, S, H, scale,
         # stream
         "mha_core_backward": [_P] * 3 + [_I] + [_P] * 2 + [_I] + [_P] * 6 + [_I] * 4 + [_F, _P],

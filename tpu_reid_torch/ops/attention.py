@@ -3,7 +3,10 @@ softmax-profile switch and the plain core of the plain block.
 
 `mha_core` replaces tpu_reid/ops/attention.py::mha_core (the Pallas
 `_attn_kernel`): softmax attention over (B, S, H, dh) q, k and v for any
-S and dh = 64 (csrc/block_kernels.cu::mha_core). The kernel takes q, k
+S and dh = 64, and for any S and dh = 112 in bf16 (EVA02-CLIP-E/14's
+heads; csrc/block_kernels.cu::mha_core). The head width
+is read from the operands' shape; `kernel_takes_heads` says which widths a
+call's dtype has a kernel for. The kernel takes q, k
 and v as three base pointers and one row stride, so contiguous
 (B, S, H, 64) tensors and the strided views into a packed (B, S, 3D) qkv
 buffer that fused_mha hands it both run without a copy. What bounds it on
@@ -68,10 +71,25 @@ _LOG2E = 1.4426950408889634
 # package runs the same clamp at 448 padded columns, and both compute one
 # function.
 _FAST_CLAMP = 120.0
+# the head width of every attention kernel (and the only one of the fp32, the
+# key-tile and the backward kernels)
 HEAD_DIM = 64
+# the head widths of the bf16 whole-row kernel: 112 is EVA02-CLIP-E/14's
+# (csrc/block_kernels.cu, ATT_WIDE_DH)
+HEAD_DIMS = (64, 112)
 # the longest sequence of the whole-row kernels (csrc/block_kernels.cu,
 # ATT_WHOLE_ROW_MAX_S); a longer one runs the key-tile kernels
 WHOLE_ROW_MAX_SEQ = 256
+
+
+def kernel_takes_heads(dh: int, dtype: torch.dtype) -> bool:
+    """Whether `mha_core` has a kernel for heads of dh in dtype, at any
+    sequence length: dh 64 everywhere; dh 112 in bf16 (the whole-row kernel
+    up to WHOLE_ROW_MAX_SEQ, the key-tile kernel beyond), not in fp32 (the
+    3xTF32 kernels take heads of 64)."""
+    if dh == HEAD_DIM:
+        return True
+    return dh in HEAD_DIMS and dtype == torch.bfloat16
 
 
 def set_fast_softmax(enabled: bool) -> None:
@@ -172,36 +190,39 @@ def mha_core_reference(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor] =
 
 
 def head_row_stride(shape, strides, address: int, itemsize: int) -> int:
-    """Elements between consecutive tokens (ld) of one (B, S, H, 64) operand
+    """Elements between consecutive tokens (ld) of one (B, S, H, dh) operand
     of the kernel, from its shape, strides (in elements) and base address
     alone, or ValueError. The kernel reads element (b, s, h, d) at
-    base + (b*S + s)*ld + h*64 + d, through TMA tensor maps over (B, S, ld)
-    with a box of one head (and q by 16-byte vectors in fp32), so it needs:
-    head width 64 (the box, and the wgmma shapes); S >= 1, and B, S and H
-    below 2^31 (the kernels' 32-bit sizes and a tensor map's extents; a
-    sequence longer than 256 runs the key-tile kernel, whose grid of
-    ceil(S / 64) * H * B blocks at most must stay below 2^31 too); unit
-    element stride and heads packed 64 apart; ld >= H*64; batch stride S*ld;
-    ld a multiple of 16 bytes and a 16-byte aligned base (vector loads, and
-    TMA's rule for base address and strides); every stride below 2^40 bytes
-    (TMA's). No copy is made: what does not fit raises."""
+    base + (b*S + s)*ld + h*dh + d, through TMA tensor maps over (B, S, ld)
+    with boxes of 64 columns (and q by 16-byte vectors in fp32), so it needs:
+    a head width of HEAD_DIMS (the boxes, and the wgmma shapes: 64, or 112 as
+    two column blocks; which dtype and length take 112 is
+    `kernel_takes_heads`'); S >= 1, and B, S and H below 2^31 (the kernels'
+    32-bit sizes and a tensor map's extents; a sequence longer than 256 runs
+    the key-tile kernel, whose grid of ceil(S / 64) * H * B blocks at most
+    must stay below 2^31 too); unit element stride and heads packed dh apart;
+    ld >= H*dh; batch stride S*ld; ld a multiple of 16 bytes and a 16-byte
+    aligned base (vector loads, and TMA's rule for base address and
+    strides); every stride below 2^40 bytes (TMA's). No copy is made: what
+    does not fit raises."""
     b, s, h, dh = shape
-    if dh != HEAD_DIM or s < 1 or max(b, s, h) >= 2 ** 31 or -(-s // 64) * h * b >= 2 ** 31:
+    if (dh not in HEAD_DIMS or s < 1 or max(b, s, h) >= 2 ** 31
+            or -(-s // 64) * h * b >= 2 ** 31):
         raise ValueError(f"mha_core kernel: (B, S, H, dh) = {tuple(shape)}; needs S >= 1, "
-                         f"head width {HEAD_DIM} and B, S, H and ceil(S / 64) * H * B "
+                         f"a head width of {HEAD_DIMS} and B, S, H and ceil(S / 64) * H * B "
                          "below 2^31")
     sb, ss, sh, sd = strides
     # the stride of a dimension of size 1 says nothing
-    ld = ss if s > 1 else (sb if b > 1 else h * HEAD_DIM)
+    ld = ss if s > 1 else (sb if b > 1 else h * dh)
     vec = 16 // itemsize
-    ok = (sd == 1 and (h == 1 or sh == HEAD_DIM) and ld >= h * HEAD_DIM
+    ok = (sd == 1 and (h == 1 or sh == dh) and ld >= h * dh
           and (b == 1 or sb == s * ld) and ld % vec == 0 and address % 16 == 0
           and b * s * ld * itemsize < 2 ** 40)
     if not ok:
         raise ValueError(
-            f"mha_core: a (B, S, H, 64) operand {tuple(shape)} with strides {tuple(strides)} "
-            f"at address {address:#x} is not a layout the kernel reads (unit element and "
-            "head strides, batch stride S*ld, 16-byte aligned base and rows)"
+            f"mha_core: a (B, S, H, {dh}) operand {tuple(shape)} with strides "
+            f"{tuple(strides)} at address {address:#x} is not a layout the kernel reads (unit "
+            "element and head strides, batch stride S*ld, 16-byte aligned base and rows)"
         )
     return ld
 
@@ -215,7 +236,8 @@ def mha_core(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor] = None, *,
     """(B, S, H, dh) q, k, v -> (B, S, H, dh) softmax attention; `mask` an
     optional additive (S, S) mask. CUDA: csrc/block_kernels.cu::mha_core, for
     any S and dh = 64 (bf16: whole score rows for S <= 256, key tiles beyond;
-    fp32: key tiles, 3xTF32), q, k
+    fp32: key tiles, 3xTF32) and dh = 112 in bf16 for any S
+    (`kernel_takes_heads`), q, k
     and v of one dtype sharing one row stride (contiguous tensors, or views
     into one packed qkv buffer); anything else raises. CPU tensors take
     `mha_core_reference`."""
@@ -241,6 +263,9 @@ def _launch_mha_core(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor], fa
         raise ValueError("mha_core kernel: q, k and v must share one row stride")
     if k.device != q.device or v.device != q.device:
         raise ValueError("mha_core kernel: q, k and v must be on one device")
+    if not kernel_takes_heads(dh, q.dtype):
+        raise ValueError(f"mha_core kernel: heads of {dh} at S = {s} in {q.dtype}; heads of "
+                         f"{HEAD_DIMS[1]} run in bf16 only")
     m = attention_mask(mask, fast)
     if m is not None:
         m = m.to(q.device).contiguous()
@@ -249,19 +274,23 @@ def _launch_mha_core(q: Tensor, k: Tensor, v: Tensor, mask: Optional[Tensor], fa
     out = torch.empty(b, s, h, dh, dtype=q.dtype, device=q.device)
     lib = _build.library("block")
     ptr = _build.ptr
-    rc = lib.mha_core(ptr(q), ptr(k), ptr(v), ld, ptr(m), ptr(out), ptr(lse), b, s, h,
-                      attention_scale(HEAD_DIM, fast), int(fast), _build.DTYPE_CODES[q.dtype],
+    rc = lib.mha_core(ptr(q), ptr(k), ptr(v), ld, ptr(m), ptr(out), ptr(lse), b, s, h, dh,
+                      attention_scale(dh, fast), int(fast), _build.DTYPE_CODES[q.dtype],
                       _build.stream(q))
     _build.check(lib, rc, "mha_core")
     mha_core.launches += 1
     if q.dtype != torch.float32 and s > WHOLE_ROW_MAX_SEQ:
         mha_core_long.launches += 1
+    if dh != HEAD_DIM:
+        mha_core_wide.launches += 1
     return out
 
 
 mha_core.launches = 0
 # the launches among them that ran the bf16 key-tile kernel (S > WHOLE_ROW_MAX_SEQ)
 mha_core_long = SimpleNamespace(launches=0)
+# the launches among them on heads wider than HEAD_DIM (EVA02-CLIP-E/14's 112)
+mha_core_wide = SimpleNamespace(launches=0)
 
 
 # ---------------------------------------------------------------------------
@@ -332,9 +361,9 @@ def mha_core_backward(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, ls
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         if t.dtype != torch.float32 or t.device != q.device:
             raise TypeError(f"mha_core_backward kernel: {name} {t.dtype} on {t.device}")
-    if k.shape != q.shape or v.shape != q.shape:
+    if k.shape != q.shape or v.shape != q.shape or dh != HEAD_DIM:
         raise ValueError(f"mha_core_backward kernel: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}; needs equal shapes")
+                         f"v {tuple(v.shape)}; needs equal shapes and heads of {HEAD_DIM}")
     ld = _row_stride(q)
     if _row_stride(k) != ld or _row_stride(v) != ld:
         raise ValueError("mha_core_backward kernel: q, k and v must share one row stride")

@@ -50,7 +50,9 @@ normalised and split there. PERF.md holds the measured times.
 
 EVA02's block (ops/fused_eva.py) runs the same kernels in modes of its own
 (RoPE and SwiGLU epilogues, an LN prologue with the residual epilogue) and
-`ln_rows`, a LayerNorm pass over rows.
+`ln_rows`, a LayerNorm pass over rows; EVA02-CLIP-E/14's post-norm block
+(ops/fused_eva_e.py) an exact-GELU epilogue and `ln_residual`, the post-norm
+residual pass res + LN(y).
 
 Each kernel has a wrapper that launches it for CUDA tensors (or raises) and
 takes the plain PyTorch version beside it for CPU tensors; the plain versions
@@ -117,6 +119,12 @@ def quick_gelu(x: Tensor) -> Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+def gelu_erf(x: Tensor) -> Tensor:
+    """The exact GELU, x Phi(x) = x (1 + erf(x / sqrt 2)) / 2 (nn.GELU()), in
+    fp32, cast back."""
+    return torch.nn.functional.gelu(x.float(), approximate="none").to(x.dtype)
+
+
 def linear(p: dict, x: Tensor) -> Tensor:
     y = x @ p["w"].to(x.dtype)
     if "b" in p:
@@ -156,12 +164,13 @@ def _qkv_views(qkv: Tensor, n_heads: int) -> tuple[Tensor, Tensor, Tensor]:
 FP32_SCALAR_OPERANDS = frozenset({"b", "pmask", "ln_scale", "ln_bias", "residual"})
 
 
-# the EVA02 block's modes of the bf16 GEMM kernel (csrc/block_kernels.cu):
+# the EVA02 blocks' modes of the bf16 GEMM kernel (csrc/block_kernels.cu):
 # "rope" (ln_gemm without LN, on rows `ln_rows` normalised, with the rotary
 # embedding on q and k), "swiglu" (the same, writing SiLU(gate) * up of a
-# packed gate | up weight) and "ln_residual" (gemm_bias_residual with a
-# LayerNorm prologue: the attention output's sub-LN)
-EVA_MODES = ("rope", "swiglu", "ln_residual")
+# packed gate | up weight), "ln_residual" (gemm_bias_residual with a
+# LayerNorm prologue: the attention output's sub-LN) and "gelu_erf" (ln_gemm
+# without LN, the exact GELU: EVA02-CLIP-E/14's fc1)
+EVA_MODES = ("rope", "swiglu", "ln_residual", "gelu_erf")
 
 
 def check_gemm_operands(what: str, m: int, k: int, n: int, has_ln: bool,
@@ -179,9 +188,9 @@ def check_gemm_operands(what: str, m: int, k: int, n: int, has_ln: bool,
     plane by 16-byte vectors, so the bases in FP32_SCALAR_OPERANDS are free
     there. M is free: the ragged last row tile is zero-filled on load and
     masked on store. `mode`, one of EVA_MODES: bf16 only; "ln_residual" with
-    the LayerNorm prologue, "rope" and "swiglu" without it, and "swiglu" with
-    N a multiple of 128 (each 128-column tile is 64 gate columns and their
-    64 up columns)."""
+    the LayerNorm prologue, "rope", "swiglu" and "gelu_erf" without it, and
+    "swiglu" with N a multiple of 128 (each 128-column tile is 64 gate
+    columns and their 64 up columns)."""
     if mode is not None:
         if mode not in EVA_MODES:
             raise ValueError(f"{what}: mode {mode!r} is not one of {EVA_MODES}")
@@ -232,11 +241,11 @@ def ln_gemm_reference(x: Tensor, ln_scale: Optional[Tensor], ln_bias: Optional[T
                       plane: Optional[Tensor] = None,
                       pmask: Optional[Tensor] = None, *, swiglu: bool = False,
                       rope: Optional[Tensor] = None, rope_cols: int = 0,
-                      eps: float = 1e-5) -> Tensor:
+                      eps: float = 1e-5, gelu_erf: bool = False) -> Tensor:
     """act(LN(splice(x)) @ w + b): LN output cast to x.dtype, fp32 product,
-    bias and QuickGELU (or SwiGLU of the packed gate | up, or the rotary
-    embedding of the columns below rope_cols) in fp32, then the cast.
-    ln_scale None: no LN (and no splice), the rows as they are."""
+    bias and QuickGELU (or the exact GELU, or SwiGLU of the packed gate | up,
+    or the rotary embedding of the columns below rope_cols) in fp32, then the
+    cast. ln_scale None: no LN (and no splice), the rows as they are."""
     if ln_scale is None:
         if plane is not None:
             raise ValueError("ln_gemm: the deep-prompt splice needs the LayerNorm prologue")
@@ -246,6 +255,8 @@ def ln_gemm_reference(x: Tensor, ln_scale: Optional[Tensor], ln_bias: Optional[T
     acc = h.float() @ w.float() + b.float()
     if gelu:
         acc = quick_gelu(acc)
+    if gelu_erf:
+        acc = torch.nn.functional.gelu(acc, approximate="none")
     if swiglu:
         acc = _swiglu_packed(acc)
     if rope is not None and rope_cols:
@@ -257,7 +268,8 @@ def ln_gemm_reference(x: Tensor, ln_scale: Optional[Tensor], ln_bias: Optional[T
 def ln_gemm(x: Tensor, ln_scale: Optional[Tensor], ln_bias: Optional[Tensor], w: Tensor,
             b: Tensor, gelu: bool = False, plane: Optional[Tensor] = None,
             pmask: Optional[Tensor] = None, *, swiglu: bool = False,
-            rope: Optional[Tensor] = None, rope_cols: int = 0, eps: float = 1e-5) -> Tensor:
+            rope: Optional[Tensor] = None, rope_cols: int = 0, eps: float = 1e-5,
+            gelu_erf: bool = False) -> Tensor:
     """(B, S, K) -> (B, S, N), or (B, S, N / 2) with swiglu. CUDA:
     csrc/block_kernels.cu::ln_gemm (with ln_scale None: the same kernel
     without its LayerNorm prologue; in bf16 the LayerNorm is `ln_rows`' kernel
@@ -265,20 +277,21 @@ def ln_gemm(x: Tensor, ln_scale: Optional[Tensor], ln_bias: Optional[Tensor], w:
     modes, bf16 without LayerNorm (on rows `ln_rows` normalised): swiglu (w
     and b packed gate | up by
     64-column groups) and rope (a (S, 2, 64) fp32 cos / sin table, applied to
-    the columns below rope_cols, a multiple of 64). eps: the LayerNorm's
-    epsilon."""
+    the columns below rope_cols, a multiple of 64) and, for EVA02-CLIP-E/14's
+    fc1, gelu_erf (the exact GELU). eps: the LayerNorm's epsilon."""
     _build.check_forward_only(x, ln_scale, ln_bias, w, b, plane)
     if x.device.type == "cpu":
         return ln_gemm_reference(x, ln_scale, ln_bias, w, b, gelu, plane, pmask, swiglu=swiglu,
-                                 rope=rope, rope_cols=rope_cols, eps=eps)
+                                 rope=rope, rope_cols=rope_cols, eps=eps, gelu_erf=gelu_erf)
     bsz, s, k = x.shape
     n = w.shape[1]
     has_ln = ln_scale is not None
-    mode = "swiglu" if swiglu else "rope" if rope is not None else None
-    if (swiglu and (gelu or rope is not None)) or (rope is not None and (
+    mode = ("swiglu" if swiglu else "rope" if rope is not None else "gelu_erf" if gelu_erf
+            else None)
+    if gelu_erf + gelu + swiglu + (rope is not None) > 1 or (rope is not None and (
             rope.shape != (s, 2, 64) or rope.dtype != torch.float32 or rope_cols % 64
             or not 0 < rope_cols <= n)):
-        raise ValueError(f"ln_gemm: swiglu takes no other activation; the rope table must be "
+        raise ValueError(f"ln_gemm: one activation at most; the rope table must be "
                          f"({s}, 2, 64) fp32 and rope_cols a multiple of 64 in (0, N]")
     if (w.shape != (k, n) or b.shape != (n,) or (has_ln != (ln_bias is not None))
             or (plane is not None and not has_ln)):
@@ -299,7 +312,8 @@ def ln_gemm(x: Tensor, ln_scale: Optional[Tensor], ln_bias: Optional[Tensor], w:
     scratch = _ln_scratch(x, has_ln)
     lib = _build.library("block")
     rc = lib.ln_gemm(ptr(x), ptr(plane), ptr(pmask), ptr(g), ptr(gb), ptr(w), ptr(b), ptr(rope),
-                     ptr(out), ptr(scratch), bsz * s, n, k, s, 2 if swiglu else int(gelu),
+                     ptr(out), ptr(scratch), bsz * s, n, k, s,
+                     3 if gelu_erf else 2 if swiglu else int(gelu),
                      rope_cols if rope is not None else 0, eps, _build.DTYPE_CODES[x.dtype],
                      _build.stream(x))
     _build.check(lib, rc, "ln_gemm")
@@ -486,6 +500,57 @@ def ln_rows(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, n_real: int,
 
 
 ln_rows.launches = 0
+
+
+def ln_residual_reference(y: Tensor, res: Tensor, ln_scale: Tensor, ln_bias: Tensor,
+                          eps: float = 1e-5, plane: Optional[Tensor] = None,
+                          pmask: Optional[Tensor] = None) -> Tensor:
+    """splice(res + LN(y)): the statistics and the affine of y in fp32, the
+    residual added in fp32, one cast; rows s where pmask[s] > 0 are plane[s]
+    (the next block's prompt rows, spliced on store)."""
+    y32 = y.float()
+    mean = y32.mean(dim=-1, keepdim=True)
+    var = (y32 - mean).square().mean(dim=-1, keepdim=True)
+    out = (y32 - mean) * torch.rsqrt(var + eps) * ln_scale.float() + ln_bias.float()
+    return splice_plane((res.float() + out).to(y.dtype), plane, pmask)
+
+
+def ln_residual(y: Tensor, res: Tensor, ln_scale: Tensor, ln_bias: Tensor,
+                eps: float = 1e-5, plane: Optional[Tensor] = None,
+                pmask: Optional[Tensor] = None) -> Tensor:
+    """(B, S, K) y and res -> (B, S, K) res + LN(y): the post-norm block's
+    residual pass (EVA02-CLIP-E/14), a mode of `ln_rows`' kernel, with the
+    deep-prompt splice on store (plane, pmask). bf16. CUDA:
+    csrc/block_kernels.cu::ln_residual; CPU tensors take the plain
+    version."""
+    _build.check_forward_only(y, res, ln_scale, ln_bias, plane)
+    if y.device.type == "cpu":
+        return ln_residual_reference(y, res, ln_scale, ln_bias, eps, plane, pmask)
+    bsz, s, k = y.shape
+    if (y.dtype != torch.bfloat16 or res.dtype != y.dtype or res.shape != y.shape
+            or ln_scale.shape != (k,) or ln_bias.shape != (k,)):
+        raise ValueError(f"ln_residual: y {tuple(y.shape)} {y.dtype}, res {tuple(res.shape)} "
+                         f"{res.dtype}, gamma {tuple(ln_scale.shape)}; bf16 rows of one shape "
+                         "and (K,) parameters")
+    plane, pmask = _splice_args(plane, pmask, s, k, y.dtype)
+    res = res.contiguous()
+    g = ln_scale.float().contiguous()
+    gb = ln_bias.float().contiguous()
+    _build.require_cuda(y.dtype, y.device, y=y, res=res, plane=plane)
+    ptr = _build.ptr
+    out = torch.empty_like(y)
+    check_ln_rows_operands("ln_residual", bsz * s, k, k,
+                           dict(y=ptr(y), res=ptr(res), out=ptr(out), ln_scale=ptr(g),
+                                ln_bias=ptr(gb), plane=ptr(plane)))
+    lib = _build.library("block")
+    rc = lib.ln_residual(ptr(y), ptr(res), ptr(plane), ptr(pmask), ptr(g), ptr(gb), ptr(out),
+                         bsz * s, k, s, eps, _build.stream(y))
+    _build.check(lib, rc, "ln_residual")
+    ln_residual.launches += 1
+    return out
+
+
+ln_residual.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -5,12 +5,13 @@ for (B, D) CLS rows, y = LN(x) with fp32 statistics and an fp32 affine, cast
 to x.dtype, and p = y @ proj with fp32 accumulation from the rounded y — both
 from one load of x (csrc/tail_kernel.cu). What bounds it on the H100 is
 latency, not bytes or operations (0.1 GFLOP over 1.3 MB at the main path's
-shape), so the bf16 kernel is built to be short: blocks of (64 rows, 64
+shape), so the bf16 kernel is built to be short: blocks of (32 rows, 64
 columns) normalise their rows into a swizzled bf16 panel in shared memory
 while TMA brings their (D, 64) slice of proj in bulk, and two warpgroups run
-the product on wgmma, splitting K. The fp32 kernel (the training CLIs'
-default dtype) runs 3xTF32 on wgmma in clusters of 8 blocks that split K,
-reduced in a fixed order through distributed shared memory. Shapes and
+the product on wgmma, splitting K; rows up to D = 2048 (EVA02-CLIP-E/14's
+1792). The fp32 kernel (the training CLIs' default dtype) runs 3xTF32 on
+wgmma in clusters of 8 blocks that split K, reduced in a fixed order through
+distributed shared memory, up to D = 1024. Shapes and
 addresses neither takes run an FMA kernel; `tail_kernel_route` holds the
 domains as a plain function of sizes and addresses. The plain version
 `ln_proj_tail_reference` mirrors the JAX package's `_tail_xla`, the plain
@@ -31,7 +32,8 @@ from tpu_reid_torch.ops.fused_attention import layer_norm, recompute_grads
 
 Tensor = torch.Tensor
 
-MAX_WIDTH = 1024  # the kernels keep a block's rows of D values (fp32: its share) in shared memory
+MAX_WIDTH = 2048  # the bf16 and FMA kernels keep a block's rows of D values in shared memory
+TF32_MAX_WIDTH = 1024  # the 3xTF32 kernel: a lane of each of 8 ranks owns 16 bytes of a row
 
 
 def ln_proj_tail_reference(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, proj: Tensor,
@@ -50,13 +52,14 @@ def tail_kernel_route(b: int, d: int, e: int, bf16: bool, addresses: dict) -> st
     """Which kernel of csrc/tail_kernel.cu takes x (B, D) and proj (D, E), from
     sizes and base addresses (`addresses`: name -> address) alone: "wgmma"
     (bf16), "tf32x3" (fp32) or "fma", or ValueError where none does. All need
-    1 <= D <= MAX_WIDTH (a block keeps its rows over the whole of D, or its
-    share of them, in shared memory) and sizes within 32 bits. The two
-    tensor-core kernels move every operand as 16-byte vectors or by TMA, so
-    every base must be 16-byte aligned, and they read proj and store p in
-    16-byte rows: E a multiple of 8 in bf16, of 4 in fp32. D must fill whole
-    128-byte swizzled rows of a K block: a multiple of 64 in bf16, of 32 in
-    fp32. The FMA kernel reads and writes element by element and takes what
+    1 <= D <= MAX_WIDTH (a block keeps its rows over the whole of D in shared
+    memory) and sizes within 32 bits. The two tensor-core kernels move every
+    operand as 16-byte vectors or by TMA, so every base must be 16-byte
+    aligned, and they read proj and store p in 16-byte rows: E a multiple of
+    8 in bf16, of 4 in fp32. D must fill whole 128-byte swizzled rows of a K
+    block: a multiple of 64 in bf16, of 32 in fp32, and in fp32 at most
+    TF32_MAX_WIDTH (each rank's lane owns one 16-byte chunk of the rank's
+    share). The FMA kernel reads and writes element by element and takes what
     lies outside those domains."""
     if not 1 <= d <= MAX_WIDTH or e < 1 or max(b, d, e) >= 2 ** 31:
         raise ValueError(f"ln_proj_tail: x ({b}, {d}), proj ({d}, {e}); needs "
@@ -65,7 +68,7 @@ def tail_kernel_route(b: int, d: int, e: int, bf16: bool, addresses: dict) -> st
         return "fma"
     if bf16:
         return "wgmma" if d % 64 == 0 and e % 8 == 0 else "fma"
-    return "tf32x3" if d % 32 == 0 and e % 4 == 0 else "fma"
+    return "tf32x3" if d % 32 == 0 and d <= TF32_MAX_WIDTH and e % 4 == 0 else "fma"
 
 
 def _launch_tail(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, proj: Tensor,

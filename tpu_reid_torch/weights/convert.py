@@ -650,3 +650,95 @@ def eva02_visual_params(nat: dict) -> dict:
         if key in nat:
             out[key] = nat[key].clone()
     return out
+
+
+# ---------------------------------------------------------------------------
+# EVA02-CLIP-E/14's post-norm vision tower (EVA-CLIP, EVA02-CLIP-bigE-14)
+# ---------------------------------------------------------------------------
+
+
+def eva_e_params(nat: dict) -> dict:
+    """The post-norm tower with its blocks stacked on a leading layer axis and
+    linear weights (in, out) -> the port's parameter dict (models/layers.py's
+    `eva_e_block` layout, ops/fused_eva_e.py; models/vit.py's tower).
+
+    nat: conv {w (p, p, 3, D) HWIO, b}; class_embedding (D,);
+    positional_embedding (T, D); blocks {norm1, norm2 {scale, bias} (L, D);
+    attn {qkv {w (L, D, 3D)}, q_bias, v_bias (L, D), proj {w (L, D, D), b}};
+    mlp {fc1 {w (L, D, F), b}, fc2 {w (L, F, D), b}}}; norm {scale, bias};
+    head {w (D, E), b}; optionally vpt_shallow, vpt_deep. Copies: the result
+    shares no storage with `nat`."""
+    bl = nat["blocks"]
+    a, m = bl["attn"], bl["mlp"]
+    q_b, v_b = a["q_bias"], a["v_bias"]
+    copy = lambda node: {k: v.clone() for k, v in node.items()}  # noqa: E731
+    out = {
+        "conv": {"w": nat["conv"]["w"].clone(), "bias": nat["conv"]["b"].clone()},
+        "class_embedding": nat["class_embedding"].clone(),
+        "positional_embedding": nat["positional_embedding"].clone(),
+        "blocks": {
+            "attn": {"in_proj": {"w": a["qkv"]["w"].clone(),
+                                 "b": torch.cat([q_b, torch.zeros_like(q_b), v_b], dim=-1)},
+                     "out_proj": copy(a["proj"])},
+            "ln_1": copy(bl["norm1"]),
+            "mlp": {"fc1": copy(m["fc1"]), "fc2": copy(m["fc2"])},
+            "ln_2": copy(bl["norm2"]),
+        },
+        "ln_post": copy(nat["norm"]),
+        "proj": nat["head"]["w"].clone(),
+        "proj_bias": nat["head"]["b"].clone(),
+    }
+    for key in ("vpt_shallow", "vpt_deep"):
+        if key in nat:
+            out[key] = nat[key].clone()
+    return out
+
+
+def eva_e_visual_params(sd: dict, prefix: str = "visual.") -> dict:
+    """An EVA-CLIP EVA02-CLIP-E/14 state dict (its own names under `prefix`,
+    PyTorch's (out, in) linear weights, the patch embedding OIHW) -> the
+    port's parameter dict of the image tower (`eva_e_params`). Names read:
+    cls_token, pos_embed, patch_embed.proj.{weight, bias}, blocks.{i}.{norm1,
+    norm2}.{weight, bias}, blocks.{i}.attn.{qkv.weight, q_bias, v_bias,
+    proj.weight, proj.bias}, blocks.{i}.mlp.{fc1, fc2}.{weight, bias},
+    norm.{weight, bias}, head.{weight, bias}; the layers are counted from the
+    blocks present. The positional embedding is taken at the checkpoint's
+    grid. A missing name raises KeyError naming it."""
+
+    def get(name: str) -> torch.Tensor:
+        key = prefix + name
+        if key not in sd:
+            raise KeyError(f"EVA-CLIP state dict: no {key!r}")
+        return torch.as_tensor(sd[key]).float()
+
+    head = prefix + "blocks."
+    n_layers = 1 + max((int(k[len(head):].split(".")[0]) for k in sd if k.startswith(head)),
+                       default=-1)
+    if n_layers < 1:
+        raise KeyError(f"EVA-CLIP state dict: no {head + '0'!r} block")
+
+    def stack(name: str, transpose: bool = False) -> torch.Tensor:
+        ts = [get(f"blocks.{i}.{name}") for i in range(n_layers)]
+        return torch.stack([t.t() if transpose else t for t in ts])
+
+    def ln(name: str) -> dict:
+        return {"scale": stack(f"{name}.weight"), "bias": stack(f"{name}.bias")}
+
+    nat = {
+        "conv": {"w": get("patch_embed.proj.weight").permute(2, 3, 1, 0),
+                 "b": get("patch_embed.proj.bias")},
+        "class_embedding": get("cls_token").reshape(-1),
+        "positional_embedding": get("pos_embed").reshape(-1, get("cls_token").numel()),
+        "blocks": {
+            "norm1": ln("norm1"), "norm2": ln("norm2"),
+            "attn": {"qkv": {"w": stack("attn.qkv.weight", True)},
+                     "q_bias": stack("attn.q_bias"), "v_bias": stack("attn.v_bias"),
+                     "proj": {"w": stack("attn.proj.weight", True),
+                              "b": stack("attn.proj.bias")}},
+            "mlp": {"fc1": {"w": stack("mlp.fc1.weight", True), "b": stack("mlp.fc1.bias")},
+                    "fc2": {"w": stack("mlp.fc2.weight", True), "b": stack("mlp.fc2.bias")}},
+        },
+        "norm": {"scale": get("norm.weight"), "bias": get("norm.bias")},
+        "head": {"w": get("head.weight").t(), "b": get("head.bias")},
+    }
+    return eva_e_params(nat)
